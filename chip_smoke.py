@@ -8,25 +8,38 @@ phases, any failure of which exits non-zero:
 1. build: every kernel of ``risingwave_tpu_torch/csrc`` with nvcc for
    sm_90a (one nvcc per source, all started together) into build/kernels;
 2. the card's name and power limit, as nvidia-smi prints them;
-3. each kernel against its plain PyTorch version on the card, at the q7
-   slice's shapes (table capacity 2^18, 2^15 rows per step, 3 key lanes,
-   q7's MAX(price) + COUNT(*) plan, plus a SUM(int) / SUM(float) / MIN /
-   COUNT plan over ~20K groups): integers exact, K1 (probe_insert) by the
-   table invariants, float SUM's hi and lo rows each within rel 1e-6 of
-   the group's summed magnitudes in that row;
-   then each kernel's time and its plain version's (CUDA events, median
-   of 21 samples of 10 calls queued behind a device sleep) and its bound;
-4. Nexmark q7-core end to end through ``build_q7`` + ``drive_to_completion``
-   at 10M events (bench.py's q7 shape: 8192-row chunks, 32 chunks per
-   epoch, watermark retirement on), with every kernel's launch count
-   reset just before and read just after; the MV must equal a vectorized
-   oracle exactly;
-5. where the time goes: q7-core again at 2M events under torch.profiler
-   (the device's busy time and idle share) and cProfile (host self-time by
-   module), after the main path's launch counts were read.
+3. each kernel against its plain PyTorch version on the card, then its
+   time and its plain version's (CUDA events, median of 21 samples of 10
+   calls queued behind a device sleep) and its bound:
+   - the hash-agg kernels at the q7 slice's shapes (table capacity 2^18,
+     2^15 rows per step, 3 key lanes, q7's MAX(price) + COUNT(*) plan,
+     plus a SUM(int) / SUM(float) / MIN / COUNT plan over ~20K groups):
+     integers exact, K1 (probe_insert) by the table invariants, float
+     SUM's hi and lo rows each within rel 1e-6 of the group's summed
+     magnitudes in that row;
+   - the join kernels at q8's shapes (6 key lanes, 6 payload lanes,
+     2^16 rows per side-epoch, ~2M stored rows built through the growth
+     ladder 2^20 → 2^22 slots, a 2^16-row pair buffer): K5 (join_apply)
+     exact per key (each key's chain of refs, ins/del sequences, payload),
+     K6 (join_probe) exact, with and without degrees, including a forced
+     overflow (a 2^10-row buffer) that must re-dispatch to the same pairs,
+     K7 and the head remap on K4 exact;
+4. the main paths end to end, each with every launch count reset just
+   before and read just after, each MV equal to a vectorized oracle:
+   - Nexmark q7-core through ``build_q7`` + ``drive_to_completion`` at
+     10M events (bench.py's q7 shape: 8192-row chunks, 32 chunks per
+     epoch, watermark retirement on);
+   - Nexmark q8 through ``build_q8`` + ``drive_to_completion`` at 100M
+     events (bench.py's q8 shape: 4096-row chunks, 16 chunks per epoch,
+     two barriers in flight, no strings): 2M persons and 6M auctions;
+5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
+   events under torch.profiler (the device's busy time and idle share)
+   and cProfile (host self-time by module), after the main paths' counts
+   were read.
 
 The last two lines of standard output are one JSON object per kernel
-(``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
+(``{"kernels": [...]}``; ``launches`` is the sum of both main paths'
+counts) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,6 +65,17 @@ FLOAT_SUM_RTOL = 1e-6         # of Σ|terms| per group: atomic order varies
 SAMPLES = 21                  # timing: median of 21 samples ...
 PER_SAMPLE = 10               # ... of 10 back-to-back calls each
 SLEEP_CYCLES = 20_000_000     # ~10 ms device sleep ahead of each sample
+L2_FLUSH_BYTES = 128 << 20    # > the H100's 50 MB L2
+Q8_EVENTS = 100_000_000       # nexmark-flink's nexmark.events.num
+Q8_TRACE_EVENTS = (2_000_000,   # bench.py's q8 size
+                   20_000_000)  # a tenth of the main run: bigger state
+JKW = 6                       # q8 join key: two int64 columns
+JP = 6                        # q8 payload: two device-typed columns
+J_N = 1 << 16                 # rows per side-epoch: 16 chunks x 4096
+J_EPOCHS = 31                 # ~2M stored rows: q8's persons at 100M
+J_CAP0 = 1 << 20              # build_q8's presized key/row capacity
+OUT_CAP = 1 << 16             # build_q8's probe_capacity
+OVERFLOW_CAP = 1 << 10
 
 KERNELS = {
     # name: (source, reference program it replaces)
@@ -67,34 +91,63 @@ KERNELS = {
                   "risingwave_tpu/ops/hash_agg.py:676"),
     "remap": ("risingwave_tpu_torch/csrc/rebuild.cu",
               "risingwave_tpu/ops/hash_agg.py:795"),
+    "join_apply": ("risingwave_tpu_torch/csrc/join_apply.cu",
+                   "risingwave_tpu/ops/hash_join.py:68"),
+    "join_probe": ("risingwave_tpu_torch/csrc/join_probe.cu",
+                   "risingwave_tpu/ops/hash_join.py:237"),
+    "join_probe_deg": ("risingwave_tpu_torch/csrc/join_probe.cu",
+                       "risingwave_tpu/ops/hash_join.py:237"),
+    "masked_scatter": ("risingwave_tpu_torch/csrc/join_maint.cu",
+                       "risingwave_tpu/ops/hash_join.py:361"),
+    "rebase": ("risingwave_tpu_torch/csrc/join_maint.cu",
+               "risingwave_tpu/ops/hash_join.py:457"),
 }
+# the kernels each main path must have launched (the others run off
+# these paths: degrees serve outer/semi/anti joins, masked_scatter the
+# compaction q8's insert-only join never reaches, rebase past 2^30
+# messages)
+Q7_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+           "live_mask", "remap")
+Q8_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+           "join_apply", "join_probe", "remap")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, samples: int = SAMPLES, per: int = PER_SAMPLE) -> float:
+def time_ms(fn, samples: int = SAMPLES, per: int = PER_SAMPLE,
+            cold: bool = False) -> float:
     """Device time of one fn call: the median over `samples` of CUDA-event
     time around `per` back-to-back calls, divided by `per`. Each sample
     first queues a device sleep, so the calls are enqueued while the card
     is busy and run back to back: a µs-scale kernel is then timed, not
     the host's launch rate. Plain versions that wait on the device inside
-    still include those waits, as they do on the main path."""
+    still include those waits, as they do on the main path. With
+    ``cold``, each call is timed alone right after a write of
+    L2_FLUSH_BYTES has evicted the 50 MB L2 cache, for work the main
+    path meets cold (growth, compaction, the sequence rebase)."""
     for _ in range(3):
         fn()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda") if cold else None
     torch.cuda.synchronize()
     times = []
     for _ in range(samples):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)
-        a.record()
-        for _ in range(per):
+        pairs = []
+        for i in range(per):
+            if cold:
+                flush.zero_()
+            if cold or i == 0:
+                pairs.append((torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True)))
+                pairs[-1][0].record()
             fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per)
+            if cold or i == per - 1:
+                pairs[-1][1].record()
+        pairs[-1][1].synchronize()
+        times.append(sum(a.elapsed_time(b) for a, b in pairs) / per)
     return statistics.median(times)
 
 
@@ -462,6 +515,376 @@ def launch_floor_ms(dev) -> float:
     return time_ms(lambda: H.advance(st))
 
 
+# -- phase 3, join kernels at q8's shapes -------------------------------------
+
+W_US = 10_000_000                       # q8's tumbling window
+BASE_US = 1_436_918_400_000_000         # Nexmark's event-time origin
+
+
+def _join_up(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """[key lanes | payload lanes] of rows keyed (a, b), both int64
+    columns also stored as payload, as q8's join sides store them."""
+    from risingwave_tpu_torch.ops import lanes
+    keys = np.concatenate([_key_lanes(a), _key_lanes(b)], axis=1)
+    pay = lanes.payload_lanes([(a, None), (b, None)])
+    return np.ascontiguousarray(np.concatenate([keys, pay], axis=1))
+
+
+def _person(i: np.ndarray):
+    """q8's persons-side keys for stored row i: (id, window)."""
+    i = i.astype(np.int64)
+    return 1000 + i, BASE_US + (i // 2000) * W_US
+
+
+def _aux(n, ins_ref, flags, seq0):
+    aux = np.zeros((n, 4), np.int32)
+    aux[:, 0] = ins_ref
+    aux[:, 2] = flags
+    aux[:, 3] = seq0 + np.arange(n) // 4096        # one seq per chunk
+    return aux
+
+
+def join_epochs(n_stored_epochs: int, n: int, seed: int = 21):
+    """q8-shaped epochs of one join side (the persons side):
+
+    - stored: persons-like epochs, every row a new key;
+    - mixed: runs of rows on 8 hot stored keys (chains of ~400 refs),
+      new keys, deletes of stored refs and probe-only rows — K5's check;
+    - fresh: one more persons-like epoch (K5 timed at q8's shape);
+    - probe: auctions-like, 30% of rows on stored keys (q8's chains hold
+      one ref), with insert and negative flags for the degree adds;
+    - probe_hot: the same with 2% of rows on the hot keys."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    rng = np.random.default_rng(seed)
+    stored = []
+    for e in range(n_stored_epochs):
+        i = np.arange(e * n, (e + 1) * n)
+        stored.append((_join_up(*_person(i)),
+                       _aux(n, i, J.FLAG_PROBE | J.FLAG_INS, 1 + e * 16)))
+    n_st = n_stored_epochs * n
+    u = rng.random(n)
+    hot = rng.choice(n_st, 8, replace=False)
+    src = np.where(u < 0.05, hot[rng.integers(0, 8, n)],
+                   np.where(u < 0.60, n_st + np.arange(n),
+                            rng.integers(0, n_st, n)))
+    dels = (u >= 0.60) & (u < 0.70)
+    # deleted rows carry their own stored row's key, one delete per ref
+    del_refs = rng.choice(np.setdiff1d(np.arange(n_st), hot),
+                          int(dels.sum()), replace=False)
+    src[dels] = del_refs
+    ins = u < 0.60
+    flags = (J.FLAG_PROBE + ins * J.FLAG_INS + dels * (J.FLAG_DEL
+                                                        | J.FLAG_NEG))
+    ins_ref = np.zeros(n, np.int64)
+    ins_ref[ins] = n_st + np.arange(int(ins.sum()))
+    m_aux = _aux(n, ins_ref, flags, 10_000)
+    m_aux[dels, 1] = del_refs
+    mixed = (_join_up(*_person(src)), m_aux)
+    i = 2 * n_st + np.arange(n)
+    fresh = (_join_up(*_person(i)),
+             _aux(n, n_st + n + np.arange(n), J.FLAG_PROBE | J.FLAG_INS,
+                  15_000))
+
+    def probe_epoch(hot_share):
+        v = rng.random(n)
+        src = np.where(v < hot_share, hot[rng.integers(0, 8, n)],
+                       np.where(v < 0.30, rng.integers(0, n_st, n),
+                                3 * n_st + rng.integers(0, 10**7, n)))
+        flags = J.FLAG_PROBE + J.FLAG_INS + (rng.random(n) < 0.1) \
+            * J.FLAG_NEG
+        return _join_up(*_person(src)), _aux(n, np.arange(n), flags,
+                                             20_000)
+    return stored, mixed, fresh, probe_epoch(0.0), probe_epoch(0.02)
+
+
+def build_join_states(dev, n_stored_epochs: int = J_EPOCHS, n: int = J_N,
+                      cap0: int = J_CAP0) -> dict:
+    """The kernel side: a JoinSideKernel on the card fed the stored
+    epochs through its own apply_epoch (K1 + K5; the key table grows
+    from build_q8's presized 2^20 through K1 rehashes and K4 head remaps,
+    the row arrays grow too). The plain side: the plain versions on a
+    table and row arrays sized to the kernel side's final capacity. Both
+    then take the mixed epoch, which is K5's check."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    stored, mixed, fresh, probe, probe_hot = join_epochs(n_stored_epochs, n)
+    ks = J.JoinSideKernel(JKW, key_capacity=cap0, row_capacity=cap0,
+                          probe_capacity=OUT_CAP, payload_width=JP,
+                          device=dev)
+    caps = [ks.table.capacity]
+    for up, aux in stored:
+        mr = int(aux[:, 0].max())
+        ks.apply_epoch(*ks.stage_epoch(up, aux, n, mr), n, mr)
+        caps.append(ks.table.capacity)
+    cap, rows = ks.table.capacity, ks.row_capacity
+    pt = ht.make_state(cap, JKW, dev)
+    pc = J.make_chains(cap, rows, dev)
+    ppay = torch.zeros((rows, JP), dtype=torch.int32, device=dev)
+    for up, aux in stored:
+        J.epoch_apply_plain(pt, pc, ppay, torch.from_numpy(up).to(dev),
+                            torch.from_numpy(aux).to(dev), JKW)
+    mu, ma = (torch.from_numpy(x).to(dev) for x in mixed)
+    mr = int(mixed[1][:, 0].max())
+    def dev_pair(e):
+        return tuple(torch.from_numpy(x).to(dev) for x in e)
+    return dict(ks=ks, plain=(pt, pc, ppay), mixed=(mu, ma, mr),
+                fresh=dev_pair(fresh), probe=dev_pair(probe),
+                probe_hot=dev_pair(probe_hot), caps=caps, n=n)
+
+
+def _clone_side(table, chains, pay):
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    return (ht.TableState(table.keys.clone(), table.occ.clone()),
+            J.ChainState(*(t.clone() for t in chains)), pay.clone())
+
+
+def _by_key(table, chains) -> tuple:
+    """(keys, head) of the occupied slots, sorted by key: the per-key
+    view of the slot-indexed arrays, free of slot numbering."""
+    occ = table.occ.cpu().numpy() != 0
+    keys = table.keys.cpu().numpy()[occ]
+    head = chains.head.cpu().numpy()[occ]
+    order = np.lexsort(keys.T[::-1])
+    return keys[order], head[order]
+
+
+def _k5_times(js, up, aux) -> tuple:
+    """(K1 ms, K5 ms, plain K5 ms) of one epoch's apply on copies of
+    both sides (K5 repeated on the slots K1 gave: it never walks the
+    chains it rewrites)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    ks = js["ks"]
+    ins = aux[:, J.AUX_FLAGS] & J.FLAG_INS
+    kt, kc, kp = _clone_side(ks.table.state, ks.chains, ks.pay)
+    _t, kslots, _s = ht.probe_insert(kt, up[:, :JKW], ins)
+    k1_ms = time_ms(lambda: ht.probe_insert(kt, up[:, :JKW], ins))
+    ms = time_ms(lambda: J.join_apply(kc, kp, kslots, up, aux, JKW,
+                                      scratch=ks._link_scratch))
+    qt, qc, qp = _clone_side(*js["plain"])
+    qslots, _s = ht.probe_insert_plain(qt, up[:, :JKW], ins != 0)
+    plain_ms = time_ms(lambda: J.join_apply_plain(qc, qp, qslots, up, aux,
+                                                  JKW))
+    f = aux[:, J.AUX_FLAGS].cpu().numpy()
+    insm = (f & J.FLAG_INS) != 0
+    n_ins, n_del = int(insm.sum()), int(((f & J.FLAG_DEL) != 0).sum())
+    n_slots = len(np.unique(kslots.cpu().numpy()[insm]))
+    nbytes = (len(f) * 16 + n_ins * (4 + JP * 4) + n_slots * 4
+              + n_ins * (8 + JP * 4) + n_slots * 4 + n_del * 4)
+    return k1_ms, ms, plain_ms, nbytes
+
+
+def check_join_apply(dev, js: dict) -> dict:
+    """K5, exact per key: after the stored epochs and the mixed epoch,
+    each occupied key's head and the ref-indexed next (so each key's
+    chain of refs), ins/del sequences and payload. Timed on the fresh
+    epoch (q8's shape: every row a new key); the mixed epoch's time (hot
+    keys: ~400 rows of one key in one epoch) is logged."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    ks = js["ks"]
+    pt, pc, ppay = js["plain"]
+    mu, ma, mr = js["mixed"]
+    _k1, hot_ms, hot_plain_ms, _b = _k5_times(js, mu, ma)
+    ks.apply_epoch(mu, ma, js["n"], mr)
+    J.epoch_apply_plain(pt, pc, ppay, mu, ma, JKW)
+    ks.table.sync_count()
+    err = 0.0
+    for a, b in zip(_by_key(ks.table.state, ks.chains), _by_key(pt, pc)):
+        err = max(err, abs_err(a, b))
+    for a, b in zip((*ks.chains[1:], ks.pay), (*pc[1:], ppay)):
+        err = max(err, abs_err(a.cpu().numpy(), b.cpu().numpy()))
+    assert err == 0, f"join_apply differs from the plain chains: {err}"
+    k1_ms, ms, plain_ms, nbytes = _k5_times(js, *js["fresh"])
+    b, by = bound_ms(nbytes, js["n"] * 16)
+    log(f"join_apply, mixed epoch with hot keys: {hot_ms} ms (plain "
+        f"{hot_plain_ms} ms); probe_insert at q8's apply shape "
+        f"({js['n']} rows, {ks.table.capacity} slots, 6 lanes, keys "
+        f"already placed): {k1_ms} ms; key table capacities while "
+        f"building: {sorted(set(js['caps']))}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
+
+
+def _probe_bytes(js, mat, with_degrees, rows) -> float:
+    n = js["n"]
+    _pu, pa = js["probe"]
+    vis = int(((pa[:, 2] & 1) != 0).sum())
+    total = int(mat[0, 0])
+    w = 2 + JP + int(with_degrees)
+    nbytes = (n * (JKW * 4 + 16) + vis * (JKW * 4 + 4 + 4)
+              + total * (12 + JP * 4) + (1 + OUT_CAP) * w * 4)
+    if with_degrees:
+        nbytes += n * w * 4 + total * 4 + 4 * rows * 4 + n * 4
+    return nbytes
+
+
+def _probe_fns(js, which, out_cap, with_degrees, degs=None):
+    """(kernel call, plain call) of one probe epoch."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    ks = js["ks"]
+    pt, pc, ppay = js["plain"]
+    pu, pa = js[which]
+    ds0, dk0 = degs if degs is not None else (ks.deg, ks.deg)
+
+    def k(cap=out_cap):
+        return J.epoch_probe(ks.table.state, ks.chains, ks.pay, ds0, dk0,
+                             pu, pa, JKW, cap, with_degrees)
+
+    def p():
+        return J.epoch_probe_plain(pt, pc, ppay, ds0, dk0, pu, pa, JKW,
+                                   out_cap, with_degrees)
+    return k, p
+
+
+def _same(k, p) -> float:
+    err = 0.0
+    for a, b in zip(k[:3], p[:3]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            err = max(err, abs_err(a.cpu().numpy(), b.cpu().numpy()))
+    return err
+
+
+def check_join_probe(dev, js: dict) -> dict:
+    """K6 without degrees, exact, on the q8-like and the hot-key probe
+    epochs; then a 2^10-row pair buffer that must re-dispatch
+    (PendingEpochProbe) to the same pairs. Timed on the q8-like epoch;
+    the hot-key epoch's time is logged."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    err = 0.0
+    times = {}
+    for which in ("probe", "probe_hot"):
+        k, p = _probe_fns(js, which, OUT_CAP, False)
+        km, pm = k(), p()
+        assert km[3].tolist() == [0, 0], km[3]
+        err = max(err, _same(km, pm))
+        assert err == 0, f"join_probe differs on {which}: {err}"
+        times[which] = (time_ms(k), time_ms(p), km[0])
+    k, p = _probe_fns(js, "probe", OUT_CAP, False)
+    total = int(times["probe"][2][0, 0])
+    assert OVERFLOW_CAP < total <= OUT_CAP, total
+    pend = J.PendingEpochProbe(k(OVERFLOW_CAP)[0], js["n"], OVERFLOW_CAP,
+                               lambda cap: k(cap)[0], JP, False, None, None)
+    got = pend.collect()
+    assert pend.cap > OVERFLOW_CAP, "the small buffer did not overflow"
+    want = J.PendingEpochProbe(p()[0], js["n"], OUT_CAP, None, JP, False,
+                               None, None).collect()
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            err = max(err, abs_err(a, b))
+    assert err == 0, f"the re-dispatched probe differs: {err}"
+    ms, plain_ms, mat = times["probe"]
+    b, by = bound_ms(_probe_bytes(js, mat, False, js["ks"].row_capacity),
+                     js["n"] * 64)
+    log(f"join_probe: {total} pairs of {js['n']} probe rows; overflow at "
+        f"{OVERFLOW_CAP} re-dispatched at {pend.cap}; hot-key epoch "
+        f"({int(times['probe_hot'][2][0, 0])} pairs): "
+        f"{times['probe_hot'][0]} ms (plain {times['probe_hot'][1]} ms)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
+
+
+def check_join_probe_deg(dev, js: dict) -> dict:
+    """K6 with degrees (outer/semi/anti; no ported join type reaches it):
+    matrix, deg_self' and deg_sink' exact on both probe epochs."""
+    rng = np.random.default_rng(5)
+    rows = js["ks"].row_capacity
+    degs = tuple(torch.from_numpy(rng.integers(0, 4, rows).astype(np.int32))
+                 .to(dev) for _ in range(2))
+    err = 0.0
+    for which in ("probe_hot", "probe"):
+        k, p = _probe_fns(js, which, OUT_CAP, True, degs)
+        km = k()
+        err = max(err, _same(km, p()))
+        assert err == 0, f"join_probe (degrees) differs on {which}: {err}"
+    b, by = bound_ms(_probe_bytes(js, km[0], True, rows), js["n"] * 64)
+    return dict(max_abs_err=err, ms=time_ms(k), plain_ms=time_ms(p),
+                bound_ms=b, bound_by=by)
+
+
+def check_masked_scatter(dev, js: dict) -> dict:
+    """K7 masked_scatter at a q8-sized compaction: the payload lanes of
+    2^20 live rows into a fresh [row_cap, 6] store."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    rows = js["ks"].row_capacity
+    n = min(1 << 20, rows)
+    rng = np.random.default_rng(9)
+    refs = torch.arange(n, dtype=torch.int32, device=dev)
+    vis = torch.ones(n, dtype=torch.int32, device=dev)
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31, (n, JP))
+                            .astype(np.int32)).to(dev)
+    arr = torch.zeros((rows, JP), dtype=torch.int32, device=dev)
+    k = J._masked_scatter(arr.clone(), refs, vis, vals)
+    p = J._masked_scatter_plain(arr.clone(), refs, vis, vals)
+    err = abs_err(k.cpu().numpy(), p.cpu().numpy())
+    assert err == 0, f"masked_scatter differs: {err}"
+    ms = time_ms(lambda: J._masked_scatter(arr, refs, vis, vals),
+                 cold=True)
+    plain_ms = time_ms(lambda: J._masked_scatter_plain(arr, refs, vis,
+                                                       vals), cold=True)
+    b, by = bound_ms(n * (8 + JP * 4) + n * JP * 4, n * JP)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
+
+
+def check_rebase(dev, js: dict) -> dict:
+    from risingwave_tpu_torch.ops import hash_join as J
+    c = js["ks"].chains
+    k = J._rebase(J.ChainState(*(t.clone() for t in c)))
+    p = J._rebase_plain(J.ChainState(*(t.clone() for t in c)))
+    err = max(abs_err(a.cpu().numpy(), b.cpu().numpy())
+              for a, b in zip(k, p))
+    assert err == 0, f"rebase differs: {err}"
+    ms = time_ms(lambda: J._rebase(k), cold=True)
+    plain_ms = time_ms(lambda: J._rebase_plain(p), cold=True)
+    rows = int(c.ins_seq.shape[0])
+    b, by = bound_ms(rows * 4 * 4, rows * 4)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
+
+
+def check_remap_head(dev, js: dict, old_cap: int = 1 << 21) -> dict:
+    """The head remap of q8's last key-table growth (2^21 → 2^22 slots,
+    ~1.4M keys) on K4's remap: exact against the plain _remap_head, and
+    per key the same head. Logged beside K4's q7-shaped row."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    n = int(old_cap * ht.MAX_LOAD)
+    keys = torch.from_numpy(_join_up(*_person(np.arange(n)))[:, :JKW]) \
+        .to(dev)
+    old = ht.make_state(old_cap, JKW, dev)
+    ht.probe_insert(old, keys, torch.ones(n, dtype=torch.int32, device=dev))
+    rng = np.random.default_rng(4)
+    head = torch.from_numpy(np.where(old.occ.cpu().numpy() != 0,
+                                     rng.integers(0, n, old_cap), -1)
+                            .astype(np.int32)).to(dev)
+    new = ht.make_state(2 * old_cap, JKW, dev)
+    _n, o2n, _s = ht.probe_insert(new, old.keys, old.occ)
+    k = J._remap_head(head, o2n, 2 * old_cap, new.occ)
+    p = J._remap_head_plain(head, o2n, 2 * old_cap)
+    err = abs_err(k.cpu().numpy(), p.cpu().numpy())
+    c0 = J.ChainState(head, head, head, head)
+    for a, b in zip(_by_key(new, c0._replace(head=k)), _by_key(old, c0)):
+        err = max(err, abs_err(a, b))
+    assert err == 0, f"head remap differs: {err}"
+    ms = time_ms(lambda: J._remap_head(head, o2n, 2 * old_cap, new.occ),
+                 cold=True)
+    plain_ms = time_ms(lambda: J._remap_head_plain(head, o2n, 2 * old_cap),
+                       cold=True)
+    b, by = bound_ms(old_cap * 8 + 2 * old_cap * 4 * 2 + 4, old_cap)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
+
+
+JOIN_CHECKS = {
+    "join_apply": check_join_apply, "join_probe": check_join_probe,
+    "join_probe_deg": check_join_probe_deg,
+    "masked_scatter": check_masked_scatter, "rebase": check_rebase,
+}
+
+
 CHECKS = {
     "probe_insert": check_probe_insert, "agg_apply": check_agg_apply,
     "flush_gather": check_flush_gather, "advance": check_advance,
@@ -508,27 +931,16 @@ def host_split(stats, top: int = 8) -> dict:
     return dict(ranked[:top])
 
 
-def run_q7(dev, events: int, trace: bool = False) -> dict:
-    """q7-core through build_q7 + drive_to_completion; the MV must equal
-    the oracle. With ``trace``, the drive runs under torch.profiler (device
-    busy time: the kernels' and copies' self device time) and cProfile
-    (host self-time by source)."""
-    from risingwave_tpu_torch.common.types import Interval
-    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
-    from risingwave_tpu_torch.models.nexmark import (
-        build_q7, drive_to_completion,
-    )
-    from risingwave_tpu_torch.state.store import MemoryStateStore
+def drive(p, targets: dict, dev, trace: bool) -> dict:
+    """drive_to_completion with every launch count reset just before and
+    read just after. With ``trace``, the drive runs under torch.profiler
+    (device busy time: the kernels' and copies' self device time) and
+    cProfile (host self-time by source)."""
+    from risingwave_tpu_torch.models.nexmark import drive_to_completion
     from risingwave_tpu_torch.utils.device import LAUNCHES
 
-    cfg = NexmarkConfig(event_num=events, max_chunk_size=8192,
-                        generate_strings=False)
-    p = build_q7(MemoryStateStore(), cfg, rate_limit=32, min_chunks=32,
-                 watermark_delay=Interval(usecs=0), device=dev)
-    n_bids = events * 46 // 50
-
-    def drive():
-        out = asyncio.run(drive_to_completion(p, {1: n_bids}, in_flight=2))
+    def run():
+        out = asyncio.run(drive_to_completion(p, targets, in_flight=2))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return out
@@ -545,7 +957,7 @@ def run_q7(dev, events: int, trace: bool = False) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             host.enable()
-            elapsed, rows = drive()
+            elapsed, rows = run()
             host.disable()
             wall = time.perf_counter() - t0     # not the trace's teardown
         # the rule of the profiler's own table: device events' self time
@@ -557,18 +969,93 @@ def run_q7(dev, events: int, trace: bool = False) -> dict:
                       host_self_s=host_split(pstats.Stats(host)))
     else:
         t0 = time.perf_counter()
-        elapsed, rows = drive()
+        elapsed, rows = run()
         wall = time.perf_counter() - t0
-    launches = LAUNCHES.snapshot()
+    lat = np.asarray(p.loop.stats.latencies_s)
+    return dict(events=rows, elapsed_s=elapsed, wall_s=wall,
+                events_per_s=rows / elapsed,
+                p99_barrier_latency_s=p.loop.stats.p99_latency_s(),
+                barrier_latency_s={
+                    "p50": float(np.percentile(lat, 50)),
+                    "p90": float(np.percentile(lat, 90)),
+                    "max": float(lat.max())},
+                barriers=len(lat), launches=LAUNCHES.snapshot(), **traced)
+
+
+def run_q7(dev, events: int, trace: bool = False) -> dict:
+    """q7-core through build_q7 + drive_to_completion; the MV must equal
+    the oracle."""
+    from risingwave_tpu_torch.common.types import Interval
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.models.nexmark import build_q7
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=8192,
+                        generate_strings=False)
+    p = build_q7(MemoryStateStore(), cfg, rate_limit=32, min_chunks=32,
+                 watermark_delay=Interval(usecs=0), device=dev)
+    n_bids = events * 46 // 50
+    out = drive(p, {1: n_bids}, dev, trace)
     got = {r[0]: (r[1], r[2]) for _pk, r in p.mv_table.iter_rows()}
     want = q7_oracle(cfg, n_bids)
     assert got == want, "q7 MV differs from the oracle"
     assert p.reader.offset == n_bids
-    return dict(events=rows, elapsed_s=elapsed, wall_s=wall,
-                events_per_s=rows / elapsed,
-                p99_barrier_latency_s=p.loop.stats.p99_latency_s(),
-                barriers=len(p.loop.stats.latencies_s), windows=len(got),
-                launches=launches, **traced)
+    return dict(out, windows=len(got))
+
+
+def q8_oracle(cfg, n_persons: int, n_auctions: int,
+              block: int = 1 << 21) -> set:
+    """persons ⋈ distinct (seller, window) of auctions on id = seller and
+    the same window, vectorized per block: (id, name, window) rows."""
+    from risingwave_tpu_torch.connectors.nexmark import (
+        gen_auctions, gen_persons,
+    )
+    from risingwave_tpu_torch.models.nexmark import DEFAULT_WINDOW
+    w = DEFAULT_WINDOW.usecs
+    sellers = []
+    for lo in range(0, n_auctions, block):
+        a = gen_auctions(np.arange(lo, min(lo + block, n_auctions),
+                                   dtype=np.int64), cfg)
+        sellers.append(np.unique((a["seller"] << 32)
+                                 | (a["date_time"] // w)))
+    sellers = np.unique(np.concatenate(sellers))
+    out = set()
+    for lo in range(0, n_persons, block):
+        ps = gen_persons(np.arange(lo, min(lo + block, n_persons),
+                                   dtype=np.int64), cfg)
+        m = np.isin((ps["id"] << 32) | (ps["date_time"] // w), sellers)
+        win = (ps["date_time"][m] // w) * w
+        out.update(zip(ps["id"][m].tolist(), ps["name"][m].tolist(),
+                       win.tolist()))
+    return out
+
+
+def run_q8(dev, events: int, trace: bool = False) -> dict:
+    """q8 through build_q8 + drive_to_completion at bench.py's q8 shape;
+    the MV must equal the oracle exactly."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.models.nexmark import build_q8
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+
+    base = NexmarkConfig(event_num=events, max_chunk_size=4096,
+                         generate_strings=False)
+    cfg_p = NexmarkConfig(**{**base.__dict__, "table_type": "person"})
+    cfg_a = NexmarkConfig(**{**base.__dict__, "table_type": "auction"})
+    p = build_q8(MemoryStateStore(), cfg_p, cfg_a, rate_limit=16,
+                 min_chunks=16, device=dev)
+    n_p, n_a = events // 50, events * 3 // 50
+    out = drive(p, {1: n_p, 2: n_a}, dev, trace)
+    rows = [tuple(r) for _pk, r in p.mv_table.iter_rows()]
+    want = q8_oracle(base, n_p, n_a)
+    assert len(rows) == len(want) and set(rows) == want, \
+        "q8 MV differs from the oracle"
+    assert p.readers[1].offset == n_p and p.readers[2].offset == n_a
+    join = p.actor.consumer.input.input
+    return dict(out, mv_rows=len(rows),
+                key_capacity=[s.kernel.table.capacity for s in join.sides],
+                row_capacity=[s.kernel.row_capacity for s in join.sides],
+                stored_rows=[s.next_ref for s in join.sides],
+                dead_refs=[len(s.free) for s in join.sides])
 
 
 def main() -> int:
@@ -601,23 +1088,44 @@ def main() -> int:
     for name, check in CHECKS.items():
         results[name] = check(dev, CAP, N)
         log(f"kernel {name}: " + json.dumps(results[name]))
+    t0 = time.perf_counter()
+    js = build_join_states(dev)
+    log(f"join state at q8's shape: {js['ks'].table.capacity} slots, "
+        f"{js['ks'].row_capacity} rows, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for name, check in JOIN_CHECKS.items():
+        results[name] = check(dev, js)
+        log(f"kernel {name}: " + json.dumps(results[name]))
+    log("remap (head, q8's growth 2^21 -> 2^22 slots): "
+        + json.dumps(check_remap_head(dev, js)))
+    del js
+    torch.cuda.empty_cache()
 
     floor = launch_floor_ms(dev)
     log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
 
-    # 4. q7-core end to end
-    q7 = run_q7(dev, Q7_EVENTS)
-    missing = [k for k in KERNELS if q7["launches"].get(k, 0) == 0]
-    assert not missing, f"main path never launched {missing}"
-    busy_ms = sum(q7["launches"][k] * results[k]["ms"] for k in KERNELS)
-    log("q7: " + json.dumps(q7))
-    log(f"q7: kernel busy estimate (launches x phase-3 medians) "
-        f"{busy_ms:.3f} ms of {q7['elapsed_s'] * 1e3:.3f} ms timed wall")
+    # 4. the main paths end to end
+    paths = {}
+    for label, run, events, path in (("q7", run_q7, Q7_EVENTS, Q7_PATH),
+                                     ("q8", run_q8, Q8_EVENTS, Q8_PATH)):
+        out = run(dev, events)
+        paths[label] = out
+        missing = [k for k in path if out["launches"].get(k, 0) == 0]
+        assert not missing, f"{label} never launched {missing}"
+        busy_ms = sum(n * results[k]["ms"]
+                      for k, n in out["launches"].items() if k in results)
+        log(f"{label}: " + json.dumps(out))
+        log(f"{label}: kernel busy estimate (launches x phase-3 medians) "
+            f"{busy_ms:.3f} ms of {out['elapsed_s'] * 1e3:.3f} ms timed "
+            f"wall")
 
-    # 5. where the time goes: a shorter traced run (its launches are not
-    # the main path's and are not reported)
-    traced = run_q7(dev, Q7_TRACE_EVENTS, trace=True)
-    log("q7 traced: " + json.dumps(traced))
+    # 5. where the time goes: shorter traced runs (their launches are not
+    # the main paths' and are not reported)
+    log("q7 traced: " + json.dumps(run_q7(dev, Q7_TRACE_EVENTS,
+                                          trace=True)))
+    for events in Q8_TRACE_EVENTS:
+        log(f"q8 traced at {events} events: "
+            + json.dumps(run_q8(dev, events, trace=True)))
 
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 
@@ -627,7 +1135,8 @@ def main() -> int:
         rows.append({"name": name, "status": "ported, matches plain",
                      "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": q7["launches"][name],
+                     "launches": sum(p["launches"].get(name, 0)
+                                     for p in paths.values()),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})

@@ -32,6 +32,20 @@ def next_pow2(n: int, floor: int = 8) -> int:
     return c
 
 
+def presize_cap(n: int, floor: int = 1 << 16, ceil: int = 1 << 20) -> int:
+    """Kernel table capacity for a KNOWN cardinality: pow2 with 2x load
+    headroom, clamped. Every growth doubling costs a device rehash, so a
+    caller that knows its scale should skip the ladder."""
+    return min(next_pow2(max(2 * n, floor)), ceil)
+
+
+def presize_flush_cap(n: int, floor: int = 1 << 14,
+                      ceil: int = 1 << 17) -> int:
+    """Flush gather-buffer rows for a KNOWN dirty-group bound (the
+    gather cost scales with the buffer, hence the lower ceiling)."""
+    return min(next_pow2(max(n, floor)), ceil)
+
+
 class Op(enum.IntEnum):
     """Row operation in a stream chunk (stream_chunk.rs semantics)."""
 

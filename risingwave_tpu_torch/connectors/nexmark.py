@@ -1,10 +1,10 @@
 """Nexmark in-process event generator, fully vectorized.
 
-Port of the bid half of ``risingwave_tpu/connectors/nexmark.py``:
-``NexmarkConfig`` (:86), ``gen_bids`` (:216) and ``NexmarkSplitReader``
-(:370), with the same counter-based RNG, so both packages generate the
-same stream bit for bit. The person and auction generators are not
-ported yet (q7 reads bids only).
+Port of ``risingwave_tpu/connectors/nexmark.py``: ``NexmarkConfig``
+(:86), ``gen_bids`` (:216), ``gen_auctions`` (:266), ``gen_persons``
+(:333) and ``NexmarkSplitReader`` (:370), with the same counter-based
+RNG and the same VARCHAR pools, so both packages generate the same
+stream bit for bit.
 
 Reference parity: src/connector/src/source/nexmark/mod.rs:31 (properties:
 event.num, table.type, max.chunk.size, min.event.gap.in.ns, hot ratios,
@@ -40,6 +40,7 @@ PROPORTION_DENOMINATOR = 50
 
 FIRST_PERSON_ID = 1000
 FIRST_AUCTION_ID = 1000
+FIRST_CATEGORY_ID = 10
 
 # Event-time origin: 2015-07-15 00:00:00 UTC in ms, like the nexmark crate.
 BASE_TIME_MS = 1_436_918_400_000
@@ -54,6 +55,37 @@ BID_SCHEMA = Schema([
     Field("date_time", DataType.TIMESTAMP),  # µs
     Field("extra", DataType.VARCHAR),
 ])
+
+AUCTION_SCHEMA = Schema([
+    Field("id", DataType.INT64),
+    Field("item_name", DataType.VARCHAR),
+    Field("description", DataType.VARCHAR),
+    Field("initial_bid", DataType.INT64),
+    Field("reserve", DataType.INT64),
+    Field("date_time", DataType.TIMESTAMP),
+    Field("expires", DataType.TIMESTAMP),
+    Field("seller", DataType.INT64),
+    Field("category", DataType.INT64),
+    Field("extra", DataType.VARCHAR),
+])
+
+PERSON_SCHEMA = Schema([
+    Field("id", DataType.INT64),
+    Field("name", DataType.VARCHAR),
+    Field("email_address", DataType.VARCHAR),
+    Field("credit_card", DataType.VARCHAR),
+    Field("city", DataType.VARCHAR),
+    Field("state", DataType.VARCHAR),
+    Field("date_time", DataType.TIMESTAMP),
+    Field("extra", DataType.VARCHAR),
+])
+
+TABLE_SCHEMAS = {
+    "bid": BID_SCHEMA,
+    "auction": AUCTION_SCHEMA,
+    "person": PERSON_SCHEMA,
+}
+
 
 @dataclass
 class NexmarkConfig:
@@ -131,6 +163,16 @@ def _event_timestamp_us(event_idx: np.ndarray,
 # nth event of a type → global event index (closed forms, no filtering)
 
 
+def person_event_index(k: np.ndarray) -> np.ndarray:
+    return (k // PERSON_PROPORTION) * PROPORTION_DENOMINATOR \
+        + k % PERSON_PROPORTION
+
+
+def auction_event_index(k: np.ndarray) -> np.ndarray:
+    return (k // AUCTION_PROPORTION) * PROPORTION_DENOMINATOR \
+        + PERSON_PROPORTION + k % AUCTION_PROPORTION
+
+
 def bid_event_index(k: np.ndarray) -> np.ndarray:
     return (k // BID_PROPORTION) * PROPORTION_DENOMINATOR \
         + PERSON_PROPORTION + AUCTION_PROPORTION + k % BID_PROPORTION
@@ -139,9 +181,19 @@ def bid_event_index(k: np.ndarray) -> np.ndarray:
 # -- string pools (fancy-indexed: vectorized varchar generation) ------------
 
 _CHANNELS = np.asarray(["Google", "Facebook", "Baidu", "Apple"], dtype=object)
+_FIRST_NAMES = np.asarray(
+    ["Peter", "Paul", "Luke", "John", "Saul", "Vicky", "Kate", "Julie",
+     "Sarah", "Deiter", "Walter"], dtype=object)
+_LAST_NAMES = np.asarray(
+    ["Shultz", "Abrams", "Spencer", "White", "Bartels", "Walton", "Smith",
+     "Jones", "Noris"], dtype=object)
 _CITIES = np.asarray(
     ["Phoenix", "Los Angeles", "San Francisco", "Boise", "Portland",
      "Bend", "Redmond", "Seattle", "Kent", "Cheyenne"], dtype=object)
+_STATES = np.asarray(["AZ", "CA", "ID", "OR", "WA", "WY"], dtype=object)
+_ITEMS = np.asarray(
+    ["toaster", "chair", "sofa", "bicycle", "kettle", "lamp", "drill",
+     "camera", "guitar", "skates"], dtype=object)
 
 
 def _pool_pick(pool: np.ndarray, u: np.ndarray) -> np.ndarray:
@@ -216,6 +268,110 @@ def gen_bids(k: np.ndarray, cfg: NexmarkConfig) -> Dict[str, np.ndarray]:
     return out
 
 
+def gen_auctions(k: np.ndarray, cfg: NexmarkConfig) -> Dict[str, np.ndarray]:
+    idx = auction_event_index(k)
+    s = cfg.seed
+    auction_id = k + FIRST_AUCTION_ID
+    max_person = _max_person_base0(idx)
+
+    # seller: hot seller (recent person) with prob 1-1/ratio else uniform
+    hot = _uniform(idx, 11, s) < 1.0 - 1.0 / max(cfg.hot_seller_ratio, 1)
+    hot_seller = (max_person // cfg.active_people) * cfg.active_people + 1
+    window_p = np.minimum(max_person + 1, cfg.active_people)
+    cold_seller = max_person - (
+        _rng_u64(idx, 12, s) % window_p.astype(np.uint64)).astype(np.int64)
+    seller = np.where(hot, np.minimum(hot_seller, max_person),
+                      cold_seller) + FIRST_PERSON_ID
+
+    initial_bid = np.maximum(
+        1, (np.power(10.0, _uniform(idx, 13, s) * 6.0) * 100.0)).astype(
+        np.int64)
+    reserve = initial_bid + np.maximum(
+        1, (np.power(10.0, _uniform(idx, 14, s) * 6.0) * 100.0)).astype(
+        np.int64)
+    date_time = _event_timestamp_us(idx, cfg)
+    # expires: 1..12s of event time later (scaled by the event gap so a
+    # window of auctions is always open, like NEXT_AUCTION_LENGTH)
+    lifetime_us = ((_rng_u64(idx, 15, s) % np.uint64(11) + np.uint64(1))
+                   .astype(np.int64)
+                   * np.int64(max(cfg.min_event_gap_in_ns, 1))
+                   * PROPORTION_DENOMINATOR // 1000 * 20)
+    expires = date_time + np.maximum(lifetime_us, 1_000_000)
+    category = FIRST_CATEGORY_ID + (
+        _rng_u64(idx, 16, s) % np.uint64(cfg.num_categories)).astype(np.int64)
+
+    out: Dict[str, np.ndarray] = {
+        "id": auction_id,
+        "initial_bid": initial_bid,
+        "reserve": reserve,
+        "date_time": date_time,
+        "expires": expires,
+        "seller": seller,
+        "category": category,
+    }
+    item = _pool_pick(_ITEMS, _rng_u64(idx, 17, s))
+    out["item_name"] = item
+    if cfg.generate_strings:
+        # pool-to-pool map: "Nice <item>" exists once per pool entry
+        nice = np.array(["Nice " + str(i) for i in _ITEMS.tolist()],
+                        dtype=object)
+        out["description"] = _pool_pick(nice, _rng_u64(idx, 17, s))
+        out["extra"] = _pool_pick(_CITIES, _rng_u64(idx, 18, s))
+    else:
+        const = np.full(len(k), "", dtype=object)
+        out["description"] = const
+        out["extra"] = const
+    return out
+
+
+# first×last cross pools: every "First Last" / "First.Last@nexmark.com"
+# combination exists exactly once (99 entries); rows fancy-index into
+# them — zero per-row string work for names/emails
+_NAME_POOL = np.array(
+    [f + " " + l for f in _FIRST_NAMES.tolist()
+     for l in _LAST_NAMES.tolist()], dtype=object)
+_EMAIL_POOL = np.array(
+    [f + "." + l + "@nexmark.com" for f in _FIRST_NAMES.tolist()
+     for l in _LAST_NAMES.tolist()], dtype=object)
+
+
+def gen_persons(k: np.ndarray, cfg: NexmarkConfig) -> Dict[str, np.ndarray]:
+    idx = person_event_index(k)
+    s = cfg.seed
+    person_id = k + FIRST_PERSON_ID
+    # same (first, last) draws as the per-part pools, combined into
+    # one cross-pool index
+    fi = _rng_u64(idx, 21, s) % np.uint64(len(_FIRST_NAMES))
+    li = _rng_u64(idx, 22, s) % np.uint64(len(_LAST_NAMES))
+    combo = fi * np.uint64(len(_LAST_NAMES)) + li
+    out: Dict[str, np.ndarray] = {
+        "id": person_id,
+        "date_time": _event_timestamp_us(idx, cfg),
+        "city": _pool_pick(_CITIES, _rng_u64(idx, 23, s)),
+        "state": _pool_pick(_STATES, _rng_u64(idx, 24, s)),
+    }
+    out["name"] = _NAME_POOL[combo]
+    if cfg.generate_strings:
+        out["email_address"] = _EMAIL_POOL[combo]
+        cc = _rng_u64(idx, 25, s) % np.uint64(10 ** 16)
+        out["credit_card"] = np.char.mod(
+            "%016d", cc.astype(np.int64)).astype(object)
+        out["extra"] = _pool_pick(_CITIES, _rng_u64(idx, 26, s))
+    else:
+        const = np.full(len(k), "", dtype=object)
+        out["email_address"] = const
+        out["credit_card"] = const
+        out["extra"] = const
+    return out
+
+
+_GENERATORS = {"bid": gen_bids, "auction": gen_auctions,
+               "person": gen_persons}
+
+_TYPE_PROPORTION = {"bid": BID_PROPORTION, "auction": AUCTION_PROPORTION,
+                    "person": PERSON_PROPORTION}
+
+
 class NexmarkSplitReader:
     """One split of the nexmark event stream (SplitReader analog,
     src/connector/src/source/base.rs:282; nexmark reader
@@ -229,18 +385,16 @@ class NexmarkSplitReader:
 
     def __init__(self, cfg: NexmarkConfig, split_index: int = 0,
                  split_num: int = 1, offset: int = 0):
-        if cfg.table_type != "bid":
-            raise NotImplementedError(
-                f"nexmark {cfg.table_type} generator is not ported")
+        assert cfg.table_type in _GENERATORS, cfg.table_type
         assert 0 <= split_index < split_num
         self.cfg = cfg
         self.split_index = split_index
         self.split_num = split_num
         self.offset = int(offset)   # ordinals consumed within this split
-        self.schema = BID_SCHEMA
-        self._gen = gen_bids
+        self.schema = TABLE_SCHEMAS[cfg.table_type]
+        self._gen = _GENERATORS[cfg.table_type]
         # total ordinals of this type available to this split
-        share = cfg.event_num * BID_PROPORTION \
+        share = cfg.event_num * _TYPE_PROPORTION[cfg.table_type] \
             // PROPORTION_DENOMINATOR
         self._split_total = share // split_num \
             + (1 if split_index < share % split_num else 0)

@@ -1,14 +1,20 @@
-"""Hand-built Nexmark pipelines: q7-core (hash agg on the device).
+"""Hand-built Nexmark pipelines: q7-core (hash agg on the device) and q8
+(windowed join on the device).
 
-Port of ``build_q7`` (:134) and ``drive_to_completion`` (:283) of
-``risingwave_tpu/models/nexmark.py``:
+Port of ``build_q7`` (:134), ``build_q8`` (:208) and
+``drive_to_completion`` (:283) of ``risingwave_tpu/models/nexmark.py``:
 
-    Nexmark bid source → [WatermarkFilter] → project(tumble_start(
-    date_time, window), price) → HashAggExecutor(MAX(price), COUNT(*),
-    append-only, device kernels) → materialize
+    q7  Nexmark bid source → [WatermarkFilter] → project(tumble_start(
+        date_time, window), price) → HashAggExecutor(MAX(price),
+        COUNT(*), append-only, device kernels) → materialize
+    q8  person source → project(id, name, tumble_start) ─┐
+        auction source → project(seller, tumble_start) →  ├→ inner
+        HashAggExecutor COUNT dedup → project(seller,     │  HashJoin
+        starttime) ───────────────────────────────────────┘  → project
+        → materialize
 
 driven by a ``BarrierLoop`` over ``MemoryStateStore``. With
-``watermark_delay`` the agg retires closed windows on the device.
+``watermark_delay`` q7's agg retires closed windows on the device.
 ``device=None`` means the card; ``device="cpu"`` runs the kernels' plain
 PyTorch versions. The reference's monitoring, fusion, mesh, coalescing
 and tiering options are not ported and raise NotImplementedError.
@@ -26,6 +32,7 @@ import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+from risingwave_tpu_torch.common.chunk import presize_cap, presize_flush_cap
 from risingwave_tpu_torch.common.types import DataType, Field, Interval, Schema
 from risingwave_tpu_torch.connectors.nexmark import (
     NexmarkConfig, NexmarkSplitReader,
@@ -42,6 +49,7 @@ from risingwave_tpu_torch.stream.exchange import channel_for_test
 from risingwave_tpu_torch.stream.executors.hash_agg import (
     AggCall, HashAggExecutor, agg_state_schema,
 )
+from risingwave_tpu_torch.stream.executors.hash_join import HashJoinExecutor
 from risingwave_tpu_torch.stream.executors.materialize import (
     MaterializeExecutor,
 )
@@ -142,6 +150,83 @@ def build_q7(store, cfg: NexmarkConfig,
     actor = Actor(1, mat, barrier_manager=local, fragment="nexmark-q7")
     return Pipeline(actor, BarrierLoop(local, store), mv_table,
                     {1: source.reader})
+
+
+def build_q8(store, cfg_p: NexmarkConfig, cfg_a: NexmarkConfig,
+             rate_limit: Optional[int] = 4,
+             window: Interval = DEFAULT_WINDOW,
+             min_chunks: Optional[int] = None, mesh=None,
+             fusion: bool = False, device=None) -> Pipeline:
+    """q8: persons who created an auction in the same tumbling window.
+
+    Two sources → projects → auction-side hash-agg dedup → inner
+    HashJoin (device matcher) → project → materialize. Capacities are
+    presized from the known Nexmark cardinalities, as the reference
+    does."""
+    for what, given in (("mesh", mesh), ("fusion", fusion)):
+        if given:
+            raise NotImplementedError(f"build_q8 {what} is not ported")
+    if not isinstance(store, MemoryStateStore):
+        raise NotImplementedError(
+            "only MemoryStateStore is ported (no hummock store yet)")
+    device = resolve_device(device)
+    local = LocalBarrierManager()
+    persons = _source(local, store, 1, cfg_p, 1, rate_limit, min_chunks)
+    ps = persons.schema
+    p_proj = ProjectExecutor(
+        persons,
+        exprs=[InputRef(ps.index_of("id"), DataType.INT64),
+               InputRef(ps.index_of("name"), DataType.VARCHAR),
+               tumble_start(InputRef(ps.index_of("date_time"),
+                                     DataType.TIMESTAMP), window)],
+        names=["id", "name", "starttime"])
+    auctions = _source(local, store, 2, cfg_a, 2, rate_limit, min_chunks)
+    asch = auctions.schema
+    a_proj = ProjectExecutor(
+        auctions,
+        exprs=[InputRef(asch.index_of("seller"), DataType.INT64),
+               tumble_start(InputRef(asch.index_of("date_time"),
+                                     DataType.TIMESTAMP), window)],
+        names=["seller", "starttime"])
+    calls = [AggCall(AggKind.COUNT)]
+    agg_sch, agg_pk = agg_state_schema(a_proj.schema, [0, 1], calls)
+    n_p = max(cfg_p.event_num // 50, 1)
+    n_a = max(cfg_a.event_num * 3 // 50, 1)
+    a_dedup = HashAggExecutor(
+        a_proj, [0, 1], calls,
+        StateTable(3, agg_sch, agg_pk, store, dist_key_indices=[0]),
+        append_only=True, output_names=["seller", "starttime", "_cnt"],
+        kernel_capacity=presize_cap(n_a, 1 << 18),
+        flush_capacity=presize_flush_cap(n_a), device=device)
+    a_dedup_proj = ProjectExecutor(
+        a_dedup,
+        exprs=[InputRef(0, DataType.INT64),
+               InputRef(1, DataType.TIMESTAMP)],
+        names=["seller", "starttime"])
+    lt = StateTable(4, p_proj.schema, [0, 2], store, dist_key_indices=[0])
+    rt = StateTable(5, a_dedup_proj.schema, [0, 1], store,
+                    dist_key_indices=[0])
+    join_opts = {
+        "key_capacity": presize_cap(max(n_p, n_a)),
+        "row_capacity": presize_cap(max(n_p, n_a)),
+        "probe_capacity": 1 << 16,
+    }
+    join = HashJoinExecutor(p_proj, a_dedup_proj,
+                            left_keys=[0, 2], right_keys=[0, 1],
+                            left_table=lt, right_table=rt,
+                            shard_opts=join_opts, device=device)
+    out = ProjectExecutor(
+        join,
+        exprs=[InputRef(0, DataType.INT64),
+               InputRef(1, DataType.VARCHAR),
+               InputRef(2, DataType.TIMESTAMP)],
+        names=["id", "name", "starttime"])
+    mv = StateTable(6, out.schema, [0, 2], store)
+    mat = MaterializeExecutor(out, mv)
+    local.set_expected_actors([7])
+    actor = Actor(7, mat, barrier_manager=local, fragment="nexmark-q8")
+    return Pipeline(actor, BarrierLoop(local, store), mv,
+                    {1: persons.reader, 2: auctions.reader})
 
 
 def drive_to_completion(pipeline: Pipeline, targets: Dict[int, int],

@@ -54,6 +54,20 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
         "rw_live_mask": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
         "rw_remap": [_P, _L, _P, _P, _L, _P, _I, _P, _P],
     },
+    "join_apply": {
+        "rw_join_apply": [_P, _P, _L, _I, _P, _L, _P, _L, _P, _L, _I, _P,
+                          _L, _P, _L, _I, _I, _P, _L, _P, _P, _P, _L, _P,
+                          _P, _P, _P],
+    },
+    "join_probe": {
+        "rw_join_probe": [_P, _L, _I, _P, _L, _I, _P, _L, _P, _I, _P, _P,
+                          _L, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I,
+                          _I, _I, _P, _L, _I, _P, _P, _P],
+    },
+    "join_maint": {
+        "rw_masked_scatter": [_P, _L, _I, _P, _P, _P, _I, _P],
+        "rw_rebase": [_P, _P, _L, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,867 @@
+"""Device-resident join-side state (the q8 kernel's matcher).
+
+Port of the single-device half of ``risingwave_tpu/ops/hash_join.py``
+(reference parity: JoinHashMap, src/stream/src/executor/managed_state/
+join/mod.rs:228, and the probe loop of hash_join.rs:990). The device owns
+the MATCH structure; row payloads of host-typed columns stay in host
+arenas (stream/executors/hash_join.py):
+
+    table    DeviceHashTable   join-key lanes → key slot
+    head     int32[cap]        key slot → first row ref (-1 end)
+    next     int32[row_cap]    row ref → next row ref in its key chain
+    ins_seq  int32[row_cap]    message sequence that inserted the row
+    del_seq  int32[row_cap]    message sequence that deleted it (MAX=∞)
+    pay      int32[row_cap,P]  payload lanes of the stored rows
+    deg      int32[row_cap]    per-ref match degree (outer/semi/anti)
+
+SEQUENCE-VERSIONED state: every message carries a monotone sequence
+number, and a probe at sequence s sees exactly the rows with
+``ins_seq < s <= del_seq``, so a whole epoch's inserts, tombstones and
+probes each run as one batched dispatch, and a probe whose pair buffer
+overflowed is re-dispatched to the same result.
+
+Kernels (each wrapper launches its CUDA kernel on a CUDA tensor and runs
+the plain PyTorch version beside it on a CPU tensor; nothing falls back):
+
+    K5 join_apply   csrc/join_apply.cu   link_rows (B11), tombstone_rows
+                                         (B12), epoch_apply's rest (B14)
+    K6 join_probe   csrc/join_probe.cu   epoch_probe (B15) with lookup
+                                         (B3) inside, probe_pairs (B13)
+    K7 join_maint   csrc/join_maint.cu   _masked_scatter, _rebase (B17)
+    K4 remap        csrc/rebuild.cu      _remap_head (B17) on growth
+
+Where the reference donates state to a pure function, the port updates
+it in place. The degree arrays of ``epoch_probe`` are NOT updated in
+place (the reference does not donate them either): an overflow
+redispatch recomputes from the originals. The apply, probe and
+growth-time entry points (``apply_and_probe``, ``probe_submit``) of the
+mesh path are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from risingwave_tpu_torch.common.chunk import next_pow2
+from risingwave_tpu_torch.ops import cuda
+from risingwave_tpu_torch.ops import hash_table as ht
+from risingwave_tpu_torch.ops.hash_agg import remap
+from risingwave_tpu_torch.utils.device import (
+    LAUNCHES, fetch, resolve_device, start_fetch, upload,
+)
+
+I32_MAX = (1 << 31) - 1
+
+# aux int32[n, 4] columns and flag bits (one aux matrix per side per
+# epoch feeds both the apply and the probe)
+AUX_INS_REF, AUX_DEL_REF, AUX_FLAGS, AUX_SEQ = 0, 1, 2, 3
+FLAG_PROBE, FLAG_INS, FLAG_DEL = 1, 2, 4
+# probe row's op sign is negative (DELETE / UPDATE_DELETE): the
+# device-side degree scatter needs it
+FLAG_NEG = 8
+
+
+class ChainState(NamedTuple):
+    """Chain arrays (the non-key half of a join side), device tensors."""
+
+    head: torch.Tensor     # int32[cap]
+    next: torch.Tensor     # int32[row_cap]
+    ins_seq: torch.Tensor  # int32[row_cap] (I32_MAX = never inserted)
+    del_seq: torch.Tensor  # int32[row_cap] (I32_MAX = live)
+
+
+def make_chains(cap: int, row_cap: int, device) -> ChainState:
+    def full(n, v):
+        return torch.full((n,), v, dtype=torch.int32, device=device)
+    return ChainState(full(cap, -1), full(row_cap, -1),
+                      full(row_cap, I32_MAX), full(row_cap, I32_MAX))
+
+
+def _seq_rows(seq, n: int, device) -> torch.Tensor:
+    """A per-row int32 sequence vector from None (0), a scalar or a
+    vector."""
+    if seq is None:
+        seq = 0
+    if isinstance(seq, torch.Tensor) and seq.dim() == 1:
+        return seq.to(torch.int32)
+    return torch.full((n,), int(seq), dtype=torch.int32, device=device)
+
+
+# -- plain PyTorch versions (the reference functions written out) ----------
+
+def link_rows_plain(chains: ChainState, slots: torch.Tensor,
+                    row_refs: torch.Tensor, vis: torch.Tensor, cap: int,
+                    seq=None) -> ChainState:
+    """``link_rows`` (``hash_join.py:68``): front-insert a batch of rows
+    into their key chains; rows sharing a slot keep BATCH ORDER (stable
+    sort by slot), the last one pointing at the old head."""
+    n = int(slots.shape[0])
+    if n == 0:
+        return chains
+    row_cap = int(chains.next.shape[0])
+    s64 = slots.to(torch.int64)
+    skey = torch.where(vis.to(torch.bool) & (s64 >= 0), s64, cap)
+    order = torch.argsort(skey, stable=True)
+    s = skey[order]
+    r = row_refs.to(torch.int64)[order]
+    valid = s < cap
+    diff = s[1:] != s[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=s.device)
+    first = torch.cat([one, diff])
+    last = torch.cat([diff, one])
+    succ = torch.roll(r, -1)
+    old_head = chains.head[torch.clamp(s, max=cap - 1)].to(torch.int64)
+    nxt_val = torch.where(last, old_head, succ).to(torch.int32)
+    sv = _seq_rows(seq, n, s.device)[order]
+    w = valid & (r >= 0) & (r < row_cap)        # mode="drop"
+    chains.next[r[w]] = nxt_val[w]
+    hw = valid & first
+    chains.head[s[hw]] = r[hw].to(torch.int32)
+    chains.ins_seq[r[w]] = sv[w]
+    return chains
+
+
+def tombstone_rows_plain(chains: ChainState, row_refs: torch.Tensor,
+                         vis: torch.Tensor, seq=None) -> ChainState:
+    """``tombstone_rows`` (:106): del_seq[ref] := seq."""
+    n = int(row_refs.shape[0])
+    row_cap = int(chains.del_seq.shape[0])
+    r = row_refs.to(torch.int64)
+    m = vis.to(torch.bool) & (r >= 0) & (r < row_cap)
+    chains.del_seq[r[m]] = _seq_rows(seq, n, r.device)[m]
+    return chains
+
+
+def _probe_walk(table: ht.TableState, chains: ChainState,
+                key_lanes: torch.Tensor, vis: torch.Tensor, seq):
+    """Lookup + degree-count walk: (cur0, deg, lookup stats)."""
+    n = int(key_lanes.shape[0])
+    slots, stats = ht.lookup_plain(table, key_lanes, vis)
+    s = slots.to(torch.int64)
+    cur0 = torch.where(s >= 0, chains.head[torch.clamp(s, min=0)]
+                       .to(torch.int64), -1)
+    seq = _seq_rows(seq, n, s.device)
+    deg = torch.zeros(n, dtype=torch.int32, device=s.device)
+    cur = cur0
+    while bool((cur >= 0).any()):
+        safe = torch.clamp(cur, min=0)
+        m = (cur >= 0) & (chains.ins_seq[safe] < seq) & \
+            (chains.del_seq[safe] >= seq)
+        deg += m.to(torch.int32)
+        cur = torch.where(cur >= 0, chains.next[safe].to(torch.int64), -1)
+    return cur0, deg, seq, stats
+
+
+def _emit_walk(chains: ChainState, cur0, deg, seq, out_cap: int,
+               pay: Optional[torch.Tensor], old_src: Optional[torch.Tensor]):
+    """Emit walk at the exclusive-cumsum offsets of ``deg``: pair rows
+    [probe_row, ref, pay lanes..., old] (drop past ``out_cap``)."""
+    n = int(cur0.shape[0])
+    dev = cur0.device
+    P = 0 if pay is None else int(pay.shape[1])
+    w = 2 + P + (old_src is not None)
+    out = torch.zeros((out_cap, w), dtype=torch.int32, device=dev)
+    out[:, :2] = -1
+    wp = (torch.cumsum(deg, 0) - deg).to(torch.int64)
+    row_ids = torch.arange(n, dtype=torch.int32, device=dev)
+    cur = cur0
+    while bool((cur >= 0).any()):
+        safe = torch.clamp(cur, min=0)
+        m = (cur >= 0) & (chains.ins_seq[safe] < seq) & \
+            (chains.del_seq[safe] >= seq)
+        sel = m & (wp < out_cap)
+        dest = wp[sel]
+        out[dest, 0] = row_ids[sel]
+        out[dest, 1] = cur[sel].to(torch.int32)
+        if P:
+            out[dest, 2:2 + P] = pay[safe[sel]]
+        if old_src is not None:
+            out[dest, 2 + P] = old_src[safe[sel]]
+        wp = wp + m.to(torch.int64)
+        cur = torch.where(cur >= 0, chains.next[safe].to(torch.int64), -1)
+    return out
+
+
+def probe_pairs_plain(table: ht.TableState, chains: ChainState,
+                      key_lanes: torch.Tensor, vis: torch.Tensor, seq,
+                      out_cap: int, with_degrees: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``probe_pairs`` (:116): int32[1 (+ n) + out_cap, 2] — header
+    [total, 0], (degree rows), then (probe_row, ref) pairs at cumsum
+    offsets. Returns (matrix, lookup stats)."""
+    n = int(key_lanes.shape[0])
+    cur0, deg, seq_v, stats = _probe_walk(table, chains, key_lanes, vis,
+                                          seq)
+    pairs = _emit_walk(chains, cur0, deg, seq_v, out_cap, None, None)
+    header = torch.zeros((1, 2), dtype=torch.int32, device=pairs.device)
+    header[0, 0] = int(deg.sum())
+    if not with_degrees:
+        return torch.cat([header, pairs]), stats
+    degs = torch.zeros((n, 2), dtype=torch.int32, device=pairs.device)
+    degs[:, 0] = deg
+    return torch.cat([header, degs, pairs]), stats
+
+
+def epoch_probe_plain(table: ht.TableState, chains: ChainState,
+                      pay: torch.Tensor, deg_self: torch.Tensor,
+                      deg_sink: torch.Tensor, up: torch.Tensor,
+                      aux: torch.Tensor, key_width: int, out_cap: int,
+                      with_degrees: bool):
+    """``epoch_probe`` (:237): probe a whole epoch's rows, each at its
+    own sequence. Returns (matrix, deg_self', deg_sink', lookup stats);
+    the degree outputs are None without degrees. Matrix layout: header
+    [total, 0, ...], (n degree rows [deg, 0, ...]), out_cap pair rows
+    [probe_row, ref, pay lanes..., (old degree)]."""
+    key_lanes = up[:, :key_width]
+    flags = aux[:, AUX_FLAGS]
+    vis = (flags & FLAG_PROBE) != 0
+    n = int(key_lanes.shape[0])
+    P = int(pay.shape[1])
+    cur0, deg, seq_v, stats = _probe_walk(table, chains, key_lanes, vis,
+                                          aux[:, AUX_SEQ])
+    pairs = _emit_walk(chains, cur0, deg, seq_v, out_cap,
+                       pay if P else None,
+                       deg_self if with_degrees else None)
+    W = int(pairs.shape[1])
+    header = torch.zeros((1, W), dtype=torch.int32, device=pairs.device)
+    header[0, 0] = int(deg.sum())
+    if not with_degrees:
+        return torch.cat([header, pairs]), None, None, stats
+    out_probe, out_ref = pairs[:, 0].to(torch.int64), pairs[:, 1]
+    pm = out_ref >= 0
+    sgn_row = torch.where((flags & FLAG_NEG) != 0, -1, 1).to(torch.int32)
+    ds = deg_self.clone()
+    ds.index_add_(0, out_ref[pm].to(torch.int64),
+                  sgn_row[out_probe[pm]])
+    ins_ref = aux[:, AUX_INS_REF].to(torch.int64)
+    im = ((flags & FLAG_INS) != 0) & (ins_ref >= 0) & \
+        (ins_ref < deg_sink.shape[0])
+    dk = deg_sink.clone()
+    dk.index_add_(0, ins_ref[im], deg[im])
+    degs = torch.zeros((n, W), dtype=torch.int32, device=pairs.device)
+    degs[:, 0] = deg
+    return torch.cat([header, degs, pairs]), ds, dk, stats
+
+
+def join_apply_plain(chains: ChainState, pay: torch.Tensor,
+                     slots: torch.Tensor, up: torch.Tensor, aux: torch.Tensor,
+                     key_width: int) -> None:
+    """The rest of ``epoch_apply`` (:203) after the key probe-insert:
+    link the insert rows, tombstone the delete rows, scatter the insert
+    rows' payload lanes (in place)."""
+    flags = aux[:, AUX_FLAGS]
+    ins_mask = (flags & FLAG_INS) != 0
+    seq = aux[:, AUX_SEQ]
+    link_rows_plain(chains, slots, aux[:, AUX_INS_REF], ins_mask,
+                    int(chains.head.shape[0]), seq)
+    tombstone_rows_plain(chains, aux[:, AUX_DEL_REF],
+                         (flags & FLAG_DEL) != 0, seq)
+    if pay.shape[1]:
+        _masked_scatter_plain(pay, aux[:, AUX_INS_REF], ins_mask,
+                              up[:, key_width:])
+
+
+def epoch_apply_plain(table: ht.TableState, chains: ChainState,
+                      pay: torch.Tensor, up: torch.Tensor, aux: torch.Tensor,
+                      key_width: int):
+    """``epoch_apply`` (:203): probe-insert the insert rows' keys, then
+    join_apply_plain. Returns (table, chains, pay, K1 stats)."""
+    slots, stats = ht.probe_insert_plain(
+        table, up[:, :key_width], (aux[:, AUX_FLAGS] & FLAG_INS) != 0)
+    join_apply_plain(chains, pay, slots, up, aux, key_width)
+    return table, chains, pay, stats
+
+
+def _masked_scatter_plain(arr: torch.Tensor, refs: torch.Tensor,
+                          vis: torch.Tensor, vals: torch.Tensor
+                          ) -> torch.Tensor:
+    """``_masked_scatter`` (:361): arr[ref] := val for visible rows (in
+    place; out-of-range refs dropped)."""
+    r = refs.to(torch.int64)
+    m = vis.to(torch.bool) & (r >= 0) & (r < arr.shape[0])
+    arr[r[m]] = vals[m].to(arr.dtype)
+    return arr
+
+
+def _remap_head_plain(head: torch.Tensor, old_to_new: torch.Tensor,
+                      new_cap: int) -> torch.Tensor:
+    """``_remap_head`` (:446): a fresh -1 head with
+    head'[old_to_new[i]] := head[i]."""
+    out = torch.full((new_cap,), -1, dtype=torch.int32, device=head.device)
+    o = old_to_new.to(torch.int64)
+    m = (o >= 0) & (o < new_cap)
+    out[o[m]] = head[m]
+    return out
+
+
+def _rebase_plain(chains: ChainState) -> ChainState:
+    """``_rebase_jit`` (:457): every finite ins/del sequence becomes 0
+    (in place)."""
+    for a in (chains.ins_seq, chains.del_seq):
+        a.copy_(torch.where(a == I32_MAX, I32_MAX, 0).to(torch.int32))
+    return chains
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.int32 else t.to(torch.int32)
+
+
+def _check_dev(*ts: torch.Tensor) -> None:
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"join kernel tensors must share one device: {devs}")
+    for t in ts:
+        if t.dtype != torch.int32:
+            raise TypeError(f"join kernels take int32 tensors, got {t.dtype}")
+
+
+def _seq_arg(seq, n: int, device) -> Tuple[torch.Tensor, int]:
+    """(tensor, stride) for the kernels' per-row sequence: a vector with
+    stride 1, or a one-element tensor with stride 0."""
+    if isinstance(seq, torch.Tensor) and seq.dim() == 1:
+        if seq.shape[0] != n:
+            raise ValueError("seq vector length differs from the batch")
+        return seq, seq.stride(0)
+    return torch.tensor([0 if seq is None else int(seq)], dtype=torch.int32,
+                        device=device), 0
+
+
+def _slot_scratch(scratch: Optional[torch.Tensor], cap: int,
+                  device) -> torch.Tensor:
+    """K5's per-slot bucket heads: -1 on entry, restored by the kernel."""
+    if scratch is None:
+        return torch.full((cap,), -1, dtype=torch.int32, device=device)
+    if scratch.shape != (cap,) or scratch.device != device:
+        raise ValueError("link scratch must be int32[cap] on the device")
+    return scratch
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _stride(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.stride(0)
+
+
+def _join_apply_launch(chains: ChainState, pay: Optional[torch.Tensor],
+                       n: int, *, slots=None, ins_ok=None, ins_bits=-1,
+                       ins_ref=None, seq=None, seq_stride=0, del_ok=None,
+                       del_bits=-1, del_ref=None, pay_src=None,
+                       scratch=None) -> None:
+    """One K5 launch sequence; every part optional (None → skipped).
+    ``ins_ok``/``del_ok``/``ins_ref``/``del_ref``/``pay_src`` are int32
+    views with any row stride (aux columns or plain vectors)."""
+    head, nxt, ins_seq, del_seq = chains
+    dev = head.device
+    cap = int(head.shape[0])
+    row_cap = int(nxt.shape[0])
+    if n == 0:
+        return
+    for t in (head, nxt, ins_seq, del_seq):
+        if not t.is_contiguous():
+            raise ValueError("chain arrays must be contiguous")
+    P = 0 if pay_src is None else int(pay_src.shape[1])
+    if P:
+        if pay is None or pay.shape != (row_cap, P) or \
+                not pay.is_contiguous() or pay_src.stride(1) != 1:
+            raise ValueError("payload store must be int32[row_cap, P] "
+                             "with contiguous source lanes")
+    sl = _slot_scratch(scratch, cap, dev) if slots is not None else None
+    rows = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    cuda.call("join_apply", "rw_join_apply",
+              _ptr(slots), _ptr(ins_ok), _stride(ins_ok), ins_bits,
+              _ptr(ins_ref), _stride(ins_ref), seq.data_ptr(), seq_stride,
+              _ptr(del_ok), _stride(del_ok), del_bits, _ptr(del_ref),
+              _stride(del_ref), _ptr(pay_src), _stride(pay_src), P, n,
+              head.data_ptr(), cap, nxt.data_ptr(), ins_seq.data_ptr(),
+              del_seq.data_ptr(), row_cap, _ptr(pay if P else None),
+              _ptr(sl), rows.data_ptr())
+    LAUNCHES.add("join_apply")
+
+
+def link_rows(chains: ChainState, slots: torch.Tensor,
+              row_refs: torch.Tensor, vis: torch.Tensor, cap: int,
+              seq=None, scratch: Optional[torch.Tensor] = None
+              ) -> ChainState:
+    """Link a batch of rows into their key chains (K5, link only).
+    ``scratch``: the side's int32[cap] bucket heads (all -1), or None to
+    allocate them."""
+    if slots.device.type != "cuda":
+        return link_rows_plain(chains, slots, row_refs, vis, cap, seq)
+    n = int(slots.shape[0])
+    vis = _i32(vis)
+    row_refs = _i32(row_refs)
+    _check_dev(slots, row_refs, vis, *chains)
+    if cap != chains.head.shape[0]:
+        raise ValueError("cap differs from the head array")
+    sq, ss = _seq_arg(seq, n, slots.device)
+    _join_apply_launch(chains, None, n, slots=slots, ins_ok=vis,
+                       ins_ref=row_refs, seq=sq, seq_stride=ss,
+                       scratch=scratch)
+    return chains
+
+
+def tombstone_rows(chains: ChainState, row_refs: torch.Tensor,
+                   vis: torch.Tensor, seq=None) -> ChainState:
+    """Tombstone deletes (K5, tombstone only)."""
+    if row_refs.device.type != "cuda":
+        return tombstone_rows_plain(chains, row_refs, vis, seq)
+    n = int(row_refs.shape[0])
+    vis = _i32(vis)
+    row_refs = _i32(row_refs)
+    _check_dev(row_refs, vis, *chains)
+    sq, ss = _seq_arg(seq, n, row_refs.device)
+    _join_apply_launch(chains, None, n, del_ok=vis, del_ref=row_refs,
+                       seq=sq, seq_stride=ss)
+    return chains
+
+
+def join_apply(chains: ChainState, pay: torch.Tensor, slots: torch.Tensor,
+               up: torch.Tensor, aux: torch.Tensor, key_width: int,
+               scratch: Optional[torch.Tensor] = None) -> None:
+    """K5 over one epoch, after K1 gave the insert rows' ``slots``: link,
+    tombstone and payload scatter, in place. ``up`` is [key lanes |
+    payload lanes] int32[n, key_width + P], ``aux`` int32[n, 4]
+    (AUX_*)."""
+    if up.device.type != "cuda":
+        return join_apply_plain(chains, pay, slots, up, aux, key_width)
+    n = int(up.shape[0])
+    _check_dev(up, aux, pay, slots, *chains)
+    if aux.shape != (n, 4) or not aux.is_contiguous() or \
+            up.stride(1) != 1 or slots.shape != (n,):
+        raise ValueError("join_apply takes aux int32[n, 4], slots "
+                         "int32[n] and contiguous upload lanes")
+    P = int(up.shape[1]) - key_width
+    if P != pay.shape[1]:
+        raise ValueError("payload width differs from the upload's")
+    _join_apply_launch(
+        chains, pay, n, slots=slots, ins_ok=aux[:, AUX_FLAGS],
+        ins_bits=FLAG_INS, ins_ref=aux[:, AUX_INS_REF],
+        seq=aux[:, AUX_SEQ], seq_stride=aux.stride(0),
+        del_ok=aux[:, AUX_FLAGS], del_bits=FLAG_DEL,
+        del_ref=aux[:, AUX_DEL_REF],
+        pay_src=up[:, key_width:] if P else None, scratch=scratch)
+
+
+def epoch_apply(table: ht.TableState, chains: ChainState,
+                pay: torch.Tensor, up: torch.Tensor, aux: torch.Tensor,
+                key_width: int, scratch: Optional[torch.Tensor] = None):
+    """Apply a whole epoch's inserts and tombstones (K1 + K5). Returns
+    (table, chains, pay, K1 stats)."""
+    if up.device.type != "cuda":
+        return epoch_apply_plain(table, chains, pay, up, aux, key_width)
+    table, slots, stats = ht.probe_insert(table, up[:, :key_width],
+                                          aux[:, AUX_FLAGS] & FLAG_INS)
+    join_apply(chains, pay, slots, up, aux, key_width, scratch)
+    return table, chains, pay, stats
+
+
+def _join_probe_launch(table: ht.TableState, chains: ChainState, *,
+                       keys, vis, vis_bits, seq, seq_stride, aux, n,
+                       pay, deg_self, deg_self_out, deg_sink_out,
+                       out_cap: int, deg_rows: bool, old_col: bool,
+                       scatter: bool, name: str):
+    tkeys, occ = table
+    head, nxt, ins_seq, del_seq = chains
+    dev = head.device
+    k = int(keys.shape[1])
+    if k != tkeys.shape[1] or keys.stride(1) != 1:
+        raise ValueError("probe key lanes must match the table's width "
+                         "and be contiguous")
+    if not all(t.is_contiguous() for t in (tkeys, occ, *chains)):
+        raise ValueError("table and chain arrays must be contiguous")
+    P = 0 if pay is None else int(pay.shape[1])
+    if P and not pay.is_contiguous():
+        raise ValueError("payload store must be contiguous")
+    W = 2 + P + int(old_col)
+    rows = 1 + (n if deg_rows else 0) + out_cap
+    out = torch.empty((rows, W), dtype=torch.int32, device=dev)
+    tiles = max(1, -(-n // 1024))
+    scratch = torch.empty(2 * n + tiles, dtype=torch.int32, device=dev)
+    stats = torch.empty(2, dtype=torch.int32, device=dev)
+    cuda.call("join_probe", "rw_join_probe",
+              keys.data_ptr(), keys.stride(0), k,
+              vis.data_ptr(), vis.stride(0), vis_bits,
+              seq.data_ptr(), seq_stride, _ptr(aux), n,
+              tkeys.data_ptr(), occ.data_ptr(), int(tkeys.shape[0]),
+              head.data_ptr(), nxt.data_ptr(), ins_seq.data_ptr(),
+              del_seq.data_ptr(), _ptr(pay if P else None), P,
+              _ptr(deg_self), _ptr(deg_self_out), _ptr(deg_sink_out),
+              0 if deg_sink_out is None else int(deg_sink_out.shape[0]),
+              int(deg_rows), int(old_col), int(scatter),
+              out.data_ptr(), out_cap, W, scratch.data_ptr(),
+              stats.data_ptr())
+    LAUNCHES.add(name)
+    return out, stats
+
+
+def probe_pairs(table: ht.TableState, chains: ChainState,
+                key_lanes: torch.Tensor, vis: torch.Tensor, seq,
+                out_cap: int, with_degrees: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Degrees + cumsum + emit in one launch sequence (K6 with no
+    payload). Returns (matrix, lookup stats); see probe_pairs_plain."""
+    if key_lanes.device.type != "cuda":
+        return probe_pairs_plain(table, chains, key_lanes, vis, seq,
+                                 out_cap, with_degrees)
+    n = int(key_lanes.shape[0])
+    vis = _i32(vis)
+    _check_dev(key_lanes, vis, *table, *chains)
+    sq, ss = _seq_arg(seq, n, key_lanes.device)
+    return _join_probe_launch(
+        table, chains, keys=key_lanes, vis=vis, vis_bits=-1, seq=sq,
+        seq_stride=ss, aux=None, n=n, pay=None, deg_self=None,
+        deg_self_out=None, deg_sink_out=None, out_cap=out_cap,
+        deg_rows=with_degrees, old_col=False, scatter=False,
+        name="join_probe_deg" if with_degrees else "join_probe")
+
+
+def epoch_probe(table: ht.TableState, chains: ChainState,
+                pay: torch.Tensor, deg_self: torch.Tensor,
+                deg_sink: torch.Tensor, up: torch.Tensor, aux: torch.Tensor,
+                key_width: int, out_cap: int, with_degrees: bool):
+    """Probe a whole epoch's rows, each at its own sequence (K6).
+    Returns (matrix, deg_self', deg_sink', lookup stats); see
+    epoch_probe_plain for the layout."""
+    if up.device.type != "cuda":
+        return epoch_probe_plain(table, chains, pay, deg_self, deg_sink,
+                                 up, aux, key_width, out_cap, with_degrees)
+    n = int(up.shape[0])
+    _check_dev(up, aux, pay, deg_self, deg_sink, *table, *chains)
+    if aux.shape != (n, 4) or not aux.is_contiguous():
+        raise ValueError("epoch_probe takes aux int32[n, 4]")
+    ds = dk = None
+    if with_degrees:
+        if not (deg_self.is_contiguous() and deg_sink.is_contiguous()):
+            raise ValueError("degree arrays must be contiguous")
+        ds, dk = deg_self.clone(), deg_sink.clone()
+    mat, stats = _join_probe_launch(
+        table, chains, keys=up[:, :key_width], vis=aux[:, AUX_FLAGS],
+        vis_bits=FLAG_PROBE, seq=aux[:, AUX_SEQ], seq_stride=aux.stride(0),
+        aux=aux, n=n, pay=pay if pay.shape[1] else None,
+        deg_self=deg_self if with_degrees else None, deg_self_out=ds,
+        deg_sink_out=dk, out_cap=out_cap, deg_rows=with_degrees,
+        old_col=with_degrees, scatter=with_degrees,
+        name="join_probe_deg" if with_degrees else "join_probe")
+    return mat, ds, dk, stats
+
+
+def _masked_scatter(arr: torch.Tensor, refs: torch.Tensor,
+                    vis: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Masked write by ref into ``arr`` [cap] or [cap, P], in place (K7
+    masked_scatter): payload rows and degree values share it."""
+    if arr.device.type != "cuda":
+        return _masked_scatter_plain(arr, refs, vis, vals)
+    n = int(refs.shape[0])
+    refs, vis, vals = _i32(refs), _i32(vis), _i32(vals)
+    _check_dev(arr, refs, vis, vals)
+    width = 1 if arr.dim() == 1 else int(arr.shape[1])
+    if vals.shape[0] != n or (vals.numel() != n * width) or \
+            vis.shape != (n,):
+        raise ValueError("masked_scatter shape mismatch")
+    if not all(t.is_contiguous() for t in (arr, refs, vis, vals)):
+        raise ValueError("masked_scatter needs contiguous tensors")
+    if n:
+        cuda.call("join_maint", "rw_masked_scatter", arr.data_ptr(),
+                  int(arr.shape[0]), width, refs.data_ptr(),
+                  vis.data_ptr(), vals.data_ptr(), n)
+        LAUNCHES.add("masked_scatter")
+    return arr
+
+
+def _remap_head(head: torch.Tensor, old_to_new: torch.Tensor,
+                new_cap: int, occ_new: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Re-scatter ``head`` through a table growth's old→new slots.
+
+    On the card this is K4 ``remap`` (``csrc/rebuild.cu``) over the one
+    row ``head`` with fill -1: it writes each old slot's head to its new
+    slot and -1 into every slot ``occ_new`` left empty. That equals the
+    reference's fresh -1 array exactly when every occupied slot of the
+    new table came from an old slot, which holds on growth (the new
+    table holds only the re-inserted old keys), so ``occ_new`` is
+    required there. The plain version does not read it."""
+    if head.device.type != "cuda":
+        return _remap_head_plain(head, old_to_new, new_cap)
+    if occ_new is None:
+        raise ValueError("_remap_head on the card takes the new table's "
+                         "occupancy (K4 remap writes the fill there)")
+    fill = torch.tensor([-1], dtype=torch.int32, device=head.device)
+    return remap(head.view(1, -1), _i32(old_to_new), _i32(occ_new), fill,
+                 new_cap)[0]
+
+
+def _rebase(chains: ChainState) -> ChainState:
+    """Every finite ins/del sequence becomes 0, in place (K7 rebase)."""
+    if chains.ins_seq.device.type != "cuda":
+        return _rebase_plain(chains)
+    _check_dev(*chains)
+    n = int(chains.ins_seq.shape[0])
+    cuda.call("join_maint", "rw_rebase", chains.ins_seq.data_ptr(),
+              chains.del_seq.data_ptr(), n)
+    LAUNCHES.add("rebase")
+    return chains
+
+
+# -- host side ----------------------------------------------------------------
+
+class PendingEpochProbe:
+    """An in-flight epoch probe: dispatched, its device→host copy
+    started, not yet read.
+
+    ``collect`` re-dispatches with a doubled pair buffer while the
+    header's true total exceeds it (sequence versioning makes the retry
+    exact) and installs the updated degree arrays into their owners only
+    once the collect succeeds, so a retry never double-counts."""
+
+    def __init__(self, mat: torch.Tensor, n: int, cap: int,
+                 redispatch: Callable[[int], torch.Tensor],
+                 pay_width: int, with_degrees: bool, install, bump):
+        self.mat = mat
+        self._fetch = start_fetch(mat)
+        self.n = n
+        self.cap = cap
+        self.redispatch = redispatch
+        self.pay_width = pay_width
+        self.with_degrees = with_degrees
+        self.install = install        # (deg_self, deg_sink) -> None
+        self.bump = bump
+        self._degs = None             # latest (deg_self, deg_sink)
+
+    def set_degs(self, deg_self, deg_sink) -> None:
+        self._degs = (deg_self, deg_sink)
+
+    def collect(self):
+        """(degrees | None, probe_idx, refs, pay_rows | None,
+        old_deg | None); pairs sorted by probe row index."""
+        n = self.n
+        while True:
+            mat = self._fetch.result()
+            total = int(mat[0, 0])
+            if total <= self.cap:
+                break
+            self.cap = max(self.cap * 2, next_pow2(total))
+            if self.bump is not None:
+                self.bump(self.cap)
+            self.mat = self.redispatch(self.cap)
+            self._fetch = start_fetch(self.mat)
+        if self.with_degrees and self._degs is not None:
+            self.install(*self._degs)
+        if self.with_degrees:
+            deg = np.ascontiguousarray(mat[1:1 + n, 0])
+            pairs = mat[1 + n:1 + n + total]
+        else:
+            deg = None
+            pairs = mat[1:1 + total]
+        P = self.pay_width
+        pay = np.ascontiguousarray(pairs[:, 2:2 + P]) if P else None
+        old = np.ascontiguousarray(pairs[:, 2 + P]) \
+            if self.with_degrees else None
+        return (deg, np.ascontiguousarray(pairs[:, 0]),
+                np.ascontiguousarray(pairs[:, 1]), pay, old)
+
+
+class JoinSideKernel:
+    """Host wrapper: key table + chain arrays + payload/degree stores.
+
+    The key table is a DeviceHashTable (growth, load factor and the
+    sync-free occupancy bound live there); on rehash its on_grow hook
+    remaps ``head``. The executor assigns row refs; tombstoned refs are
+    NOT recycled (a dead ref stays linked in its chain) and are
+    reclaimed wholesale by ``rebuild``. On the card every call runs on
+    K1, K4, K5, K6 and K7."""
+
+    DEFAULT_CAPACITY = 1 << 16
+
+    def __init__(self, key_width: int,
+                 key_capacity: int = DEFAULT_CAPACITY,
+                 row_capacity: int = DEFAULT_CAPACITY,
+                 probe_capacity: int = 1 << 14,
+                 payload_width: int = 0, device=None):
+        self.device = resolve_device(device)
+        self.key_width = key_width
+        # payload lanes per stored row (3 int32 lanes per device-typed
+        # column, ops/lanes.py payload_lanes)
+        self.payload_width = payload_width
+        self._probe_cap = probe_capacity
+        self._init_state(key_capacity, row_capacity)
+
+    def _init_state(self, key_capacity: int, row_capacity: int) -> None:
+        self.table = ht.DeviceHashTable(self.key_width, key_capacity,
+                                        device=self.device)
+        self.table.on_grow(self._on_table_grow)
+        self.chains = make_chains(self.table.capacity, row_capacity,
+                                  self.device)
+        self.pay = torch.zeros((row_capacity, self.payload_width),
+                               dtype=torch.int32, device=self.device)
+        # device-resident per-ref match degrees (outer/semi/anti
+        # bookkeeping); unallocated refs are 0 by bump allocation
+        self.deg = torch.zeros(row_capacity, dtype=torch.int32,
+                               device=self.device)
+        self._link_scratch = self._new_scratch()
+
+    def _new_scratch(self) -> Optional[torch.Tensor]:
+        """K5's per-slot bucket heads (kept at -1 between launches)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.full((self.table.capacity,), -1, dtype=torch.int32,
+                          device=self.device)
+
+    @property
+    def row_capacity(self) -> int:
+        return int(self.chains.next.shape[0])
+
+    # -- growth ----------------------------------------------------------
+    def _on_table_grow(self, old_to_new: torch.Tensor,
+                       old_capacity: int) -> None:
+        cap = self.table.capacity
+        self.chains = self.chains._replace(
+            head=_remap_head(self.chains.head, old_to_new, cap,
+                             self.table.state.occ))
+        self._link_scratch = self._new_scratch()
+
+    def reserve_rows(self, max_ref: int) -> None:
+        row_cap = self.row_capacity
+        if max_ref < row_cap:
+            return
+        new_cap = row_cap
+        while new_cap <= max_ref:
+            new_cap *= 4
+        pad = new_cap - row_cap
+
+        def grown(a, v):
+            return torch.cat([a, torch.full((pad,) + tuple(a.shape[1:]), v,
+                                            dtype=torch.int32,
+                                            device=self.device)])
+        c = self.chains
+        self.chains = c._replace(next=grown(c.next, -1),
+                                 ins_seq=grown(c.ins_seq, I32_MAX),
+                                 del_seq=grown(c.del_seq, I32_MAX))
+        self.pay = grown(self.pay, 0)
+        self.deg = grown(self.deg, 0)
+
+    # -- ops --------------------------------------------------------------
+    def insert(self, key_lanes: torch.Tensor, row_refs: np.ndarray,
+               vis: torch.Tensor, seq: int = 0) -> None:
+        if len(row_refs):
+            self.reserve_rows(int(np.max(row_refs)))
+        slots = self.table.probe_insert(key_lanes, vis)
+        self.chains = link_rows(self.chains, slots,
+                                upload(np.asarray(row_refs, np.int32),
+                                       self.device),
+                                vis, self.table.capacity, seq,
+                                scratch=self._link_scratch)
+
+    def delete(self, row_refs: np.ndarray, vis, seq: int = 0) -> None:
+        self.chains = tombstone_rows(
+            self.chains, upload(np.asarray(row_refs, np.int32), self.device),
+            upload(np.asarray(vis, np.int32), self.device), seq)
+
+    # -- epoch batching ---------------------------------------------------
+    def stage_epoch(self, up: np.ndarray, aux: np.ndarray, total: int,
+                    max_ins_ref: int) -> tuple:
+        """Host→device staging of one side's epoch matrices."""
+        del total, max_ins_ref
+        return upload(up, self.device), upload(aux, self.device)
+
+    def apply_epoch(self, up_dev: torch.Tensor, aux_dev: torch.Tensor,
+                    n_rows: int, max_ins_ref: int) -> None:
+        """Apply a whole epoch's concatenated inserts/tombstones (and
+        their payload lanes) in one dispatch (K1 + K5)."""
+        if max_ins_ref >= 0:
+            self.reserve_rows(max_ins_ref)
+        self.table.reserve(n_rows)
+        self.table.state, self.chains, self.pay, stats = epoch_apply(
+            self.table.state, self.chains, self.pay, up_dev, aux_dev,
+            self.key_width, scratch=self._link_scratch)
+        self.table._counters.push(stats, n_rows)
+
+    def probe_epoch(self, up_dev: torch.Tensor, aux_dev: torch.Tensor,
+                    with_degrees: bool,
+                    sink: Optional["JoinSideKernel"] = None
+                    ) -> PendingEpochProbe:
+        """Probe a whole epoch's rows against THIS side, each at its aux
+        sequence; call after both sides' apply_epoch. With degrees,
+        ``sink`` is the PROBING side's kernel (see epoch_probe)."""
+        sink = sink if sink is not None else self
+        # the degree arrays at ENTRY: a redispatch recomputes from them
+        deg0_self, deg0_sink = self.deg, sink.deg
+
+        def dispatch(cap):
+            mat, ds, dk, stats = epoch_probe(
+                self.table.state, self.chains, self.pay, deg0_self,
+                deg0_sink, up_dev, aux_dev, self.key_width, cap,
+                with_degrees)
+            self.table._counters.watch(stats)
+            return mat, ds, dk
+
+        def install(d_self, d_sink):
+            self.deg = d_self
+            sink.deg = d_sink
+
+        def bump(cap):
+            self._probe_cap = max(self._probe_cap, cap)
+
+        def redispatch(cap):
+            m, ds, dk = dispatch(cap)
+            pending.set_degs(ds, dk)
+            return m
+
+        mat, d_self, d_sink = dispatch(self._probe_cap)
+        pending = PendingEpochProbe(
+            mat, int(up_dev.shape[0]), self._probe_cap, redispatch,
+            pay_width=self.payload_width, with_degrees=with_degrees,
+            install=install, bump=bump)
+        if with_degrees:
+            pending.set_degs(d_self, d_sink)
+        return pending
+
+    # -- degrees (device-resident; recovery/reload writes) ---------------
+    def write_degrees(self, refs: np.ndarray, vals: np.ndarray) -> None:
+        """Scatter exact degree values by ref."""
+        if len(refs) == 0:
+            return
+        n = len(refs)
+        self.deg = _masked_scatter(
+            self.deg, upload(np.asarray(refs, np.int32), self.device),
+            torch.ones(n, dtype=torch.int32, device=self.device),
+            upload(np.asarray(vals, np.int32), self.device))
+
+    def read_degrees(self, refs: np.ndarray) -> np.ndarray:
+        """Degree values by ref (host fetch; compaction-only path)."""
+        return fetch(self.deg)[refs].astype(np.int64)
+
+    def rebase_seq(self) -> None:
+        """Reset every finite ins/del sequence to 0 (a safe point with
+        no probes in flight) so the int32 message counter can restart
+        instead of wrapping."""
+        self.chains = _rebase(self.chains)
+
+    # -- recovery / compaction ---------------------------------------------
+    def rebuild(self, key_lanes: np.ndarray, row_refs: np.ndarray,
+                payload: Optional[np.ndarray] = None) -> None:
+        """Reload all live rows: one batched insert (K1 + K5 link), and
+        the payload lanes by ref (K7). Degrees reset to zero."""
+        n = len(row_refs)
+        key_cap = max(self.table.capacity,
+                      ht.MIN_CAPACITY if n == 0 else
+                      1 << int(np.ceil(np.log2(max(n / ht.MAX_LOAD, 1)))))
+        row_cap = max(self.row_capacity,
+                      1 << int(np.ceil(np.log2(max(n + 1, 2)))))
+        self._init_state(key_cap, row_cap)
+        if n == 0:
+            return
+        ones = torch.ones(n, dtype=torch.int32, device=self.device)
+        self.insert(upload(np.asarray(key_lanes, np.int32), self.device),
+                    row_refs, ones, seq=0)
+        if payload is not None and self.payload_width:
+            self.pay = _masked_scatter(
+                self.pay, upload(np.asarray(row_refs, np.int32),
+                                 self.device),
+                ones, upload(np.asarray(payload, np.int32), self.device))

@@ -7,7 +7,9 @@ with ``atomicCAS``). Capacity is a power of two; probing is linear with
 stride 1; deletion is logical (slots are reclaimed by a rebuild).
 
 ``probe_insert`` is kernel K1 (``csrc/probe_insert.cu``) on a CUDA tensor
-and its plain PyTorch version on a CPU tensor. Where the reference
+and its plain PyTorch version on a CPU tensor. ``lookup`` (the read-only
+probe) has only its plain version here: on the card it runs inside K6
+(``csrc/join_probe.cu``), the one kernel that needs it. Where the reference
 donates the state to a pure function (``donate_argnums=(0,)``), the port
 updates ``keys`` and ``occ`` in place.
 
@@ -148,6 +150,48 @@ def probe_insert(state: TableState, batch_keys: torch.Tensor,
     if n:
         LAUNCHES.add("probe_insert")
     return state, slots, stats
+
+
+def lookup_plain(state: TableState, batch_keys: torch.Tensor,
+                 valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``lookup`` (``hash_table.py:137``): the
+    reference's loop, step for step. Returns (slots int32[N], stats
+    int32[2] = [0, overflow]): -1 for absent or invalid rows; overflow
+    is set when a row ran ``cap`` steps without meeting its key or an
+    empty slot (a full table: the load-factor contract was broken)."""
+    keys, occ = state
+    cap = keys.shape[0]
+    mask = cap - 1
+    bk = batch_keys.to(torch.int32)
+    slot = hash_lanes_plain(bk) & mask
+    valid_b = valid.to(torch.bool)
+    done = ~valid_b
+    found = torch.zeros_like(valid_b)
+    occ_b = occ != 0
+    steps = 0
+    while not bool(done.all()) and steps < cap:
+        m = occ_b[slot] & (keys[slot] == bk).all(dim=1)
+        empty = ~occ_b[slot]
+        found = found | (~done & m)
+        done = done | m | empty
+        slot = torch.where(done, slot, (slot + 1) & mask)
+        steps += 1
+    overflow = int(not bool(done.all()))
+    slots = torch.where(valid_b & found, slot, -1).to(torch.int32)
+    stats = torch.tensor([0, overflow], dtype=torch.int32,
+                         device=batch_keys.device)
+    return slots, stats
+
+
+def lookup(state: TableState, batch_keys: torch.Tensor,
+           valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slots of existing keys, -1 for absent or invalid rows; read-only
+    (B3). Returns (slots int32[N], stats int32[2] = [0, overflow])."""
+    if batch_keys.device.type == "cuda":
+        raise NotImplementedError(
+            "on the card lookup runs inside join_probe (kernel K6); "
+            "lookup takes CPU tensors")
+    return lookup_plain(state, batch_keys, valid)
 
 
 class DeviceHashTable:

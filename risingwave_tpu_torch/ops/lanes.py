@@ -13,6 +13,9 @@ device state carries across the two packages unchanged:
 - **order lanes** (``order_lanes``): order-preserving (hi, lo) int32 pair —
   lexicographic (hi, lo) order equals value order — so MIN/MAX run as
   int32 max/min passes. Floats use the IEEE total-order bit trick.
+- **payload lanes** (``payload_lanes``): a bit-preserving (hi, lo, valid)
+  int32 triple per stored column of a join side (unlike key lanes, -0.0
+  and NaN payloads survive the round trip).
 """
 
 from __future__ import annotations
@@ -66,6 +69,54 @@ def merge_limbs(*limbs: np.ndarray) -> np.ndarray:
     for i, l in enumerate(limbs):
         acc += l.astype(np.int64) << np.int64(LIMB_BITS * i)
     return acc
+
+
+# -- payload lanes: bit-preserving i64 image for stored row columns ---------
+# The join's device-resident payload store (ops/hash_join.py) keeps one
+# (hi, lo, valid) int32 lane triple per device-typed column, indexed by
+# row ref. Unlike key lanes (to_i64 normalizes -0.0 so it GROUPS with
+# 0.0), payload values must round-trip bit-exactly — the device-emit
+# path has to be indistinguishable from a host arena gather.
+
+
+def payload_i64(v: np.ndarray) -> np.ndarray:
+    """Column values → int64, bit-preserving."""
+    dt = np.dtype(v.dtype)
+    if dt == np.float64:
+        return v.view(np.int64)
+    if dt == np.float32:
+        return v.astype(np.float64).view(np.int64)
+    return v.astype(np.int64)
+
+
+def payload_lanes(pairs) -> np.ndarray:
+    """[(values, validity | None)] → int32[N, 3p] payload lanes —
+    (hi, lo, valid) per column, NULL values zeroed. The device scatter
+    and the emit decode both depend on this exact layout."""
+    out = []
+    for vals, ok in pairs:
+        n = vals.shape[0]
+        okm = np.ones(n, dtype=bool) if ok is None else ok
+        v64 = np.where(okm, payload_i64(vals), np.int64(0))
+        hi, lo = split_i64(v64)
+        out.append(hi)
+        out.append(lo)
+        out.append(okm.astype(np.int32))
+    if not out:
+        return np.zeros((0, 0), dtype=np.int32)
+    return np.stack(out, axis=1)
+
+
+def decode_payload_i64(v64: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    """Inverse of payload_i64 (runs on the fetched probe matrix)."""
+    dtype = np.dtype(dtype)
+    if dtype == np.float64:
+        return v64.view(np.float64)
+    if dtype == np.float32:
+        return v64.view(np.float64).astype(np.float32)
+    if dtype == np.bool_:
+        return v64 != 0
+    return v64.astype(dtype)
 
 
 # -- order-preserving lanes for MIN/MAX -------------------------------------

@@ -133,6 +133,16 @@ class KeyCodec:
                          else np.asarray(c.validity)))
         return self.build_arrays(cols)
 
+    def build_with_mask(self, chunk: StreamChunk, indices: Sequence[int]
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """(lanes, all-keys-nonnull mask) in ONE pass — the mask falls
+        out of the valid lanes the build already computes."""
+        lanes_ = self.build(chunk, indices)
+        nonnull = np.ones(lanes_.shape[0], dtype=bool)
+        for j in range(len(self.types)):
+            nonnull &= lanes_[:, LANES_PER_KEY * j + 2] != 0
+        return lanes_, nonnull
+
     def build_arrays(self, cols: Sequence[Tuple[np.ndarray, np.ndarray]]
                      ) -> np.ndarray:
         n = len(cols[0][0])

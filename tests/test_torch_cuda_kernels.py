@@ -7,7 +7,10 @@ machine (which need not have JAX) run them with
 Integers must match exactly; K1 (probe_insert) is held to the table
 invariants, since its slot rule differs from the plain version's; float
 SUM's hi and lo rows are each held to rel 1e-6 of the group's summed
-magnitudes in that row (atomic order).
+magnitudes in that row (atomic order). The join kernels (K5, K6, K7) are
+held exactly to their plain versions: row-indexed arrays (next, ins/del
+sequences, payload, degrees) and probe matrices bit for bit, and the
+slot-indexed head per key (K1 numbers slots its own way).
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from risingwave_tpu_torch.ops import hash_agg as H
+from risingwave_tpu_torch.ops import hash_join as J
 from risingwave_tpu_torch.ops import hash_table as ht
 from risingwave_tpu_torch.ops import lanes
 
@@ -152,3 +156,156 @@ def test_live_mask_and_remap_match_plain(dev):
     np.testing.assert_array_equal(
         H.remap(st.st, o2n, table.occ, fill, 2 * CAP).cpu().numpy(),
         H.remap_plain(st.st, o2n, table.occ, fill, 2 * CAP).cpu().numpy())
+
+
+# -- join kernels (K5, K6, K7) -------------------------------------------------
+
+JKW = 6           # two int64 keys: (hi, lo, valid) each
+JP = 6            # two payload columns
+ROWS = 1 << 14
+
+
+def _join_epoch(rng, n, next_ref, live, key_range):
+    """[key lanes | payload] and aux of one epoch: inserts (with many
+    same-key rows), deletes of live refs, probe and negative rows."""
+    g = rng.integers(0, key_range, n)
+    keys = np.concatenate([_lanes(g), _lanes(g % 7)], axis=1)
+    up = np.concatenate(
+        [keys, rng.integers(-2**31, 2**31, (n, JP)).astype(np.int32)], 1)
+    aux = np.zeros((n, 4), np.int32)
+    ins = rng.random(n) < 0.6
+    cand = np.asarray(sorted(live), np.int32)
+    rng.shuffle(cand)
+    dels = np.zeros(n, bool)
+    drows = np.flatnonzero(~ins & (rng.random(n) < 0.5))[:len(cand)]
+    dels[drows] = True
+    aux[drows, J.AUX_DEL_REF] = cand[:len(drows)]
+    irows = np.flatnonzero(ins)
+    aux[irows, J.AUX_INS_REF] = np.arange(next_ref, next_ref + len(irows))
+    probe = rng.random(n) < 0.9
+    neg = dels | (rng.random(n) < 0.1)
+    aux[:, J.AUX_FLAGS] = (probe * J.FLAG_PROBE + ins * J.FLAG_INS
+                           + dels * J.FLAG_DEL + neg * J.FLAG_NEG)
+    aux[:, J.AUX_SEQ] = np.sort(rng.integers(1, 10**6, n)).astype(np.int32)
+    live = (live - set(cand[:len(drows)].tolist())) | set(
+        aux[irows, J.AUX_INS_REF].tolist())
+    return up, aux, next_ref + len(irows), live
+
+
+def _join_states(dev, epochs=3, n=N, key_range=1500, seed=0):
+    """The same epochs applied by the kernels (K1 + K5) and by the plain
+    versions, on the card. Returns both (table, chains, pay)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        out.append([ht.make_state(CAP, JKW, dev),
+                    J.make_chains(CAP, ROWS, dev),
+                    torch.zeros((ROWS, JP), dtype=torch.int32, device=dev)])
+    next_ref, live = 0, set()
+    for _ in range(epochs):
+        up, aux, next_ref, live = _join_epoch(rng, n, next_ref, live,
+                                              key_range)
+        u, a = torch.from_numpy(up).to(dev), torch.from_numpy(aux).to(dev)
+        k, p = out
+        k[0], k[1], k[2], ks = J.epoch_apply(*k, u, a, JKW)
+        p[0], p[1], p[2], ps = J.epoch_apply_plain(*p, u, a, JKW)
+        assert ks.tolist() == ps.tolist()
+    return out
+
+
+def _head_by_key(table, chains):
+    occ = table.occ.cpu().numpy() != 0
+    keys = table.keys.cpu().numpy()[occ]
+    head = chains.head.cpu().numpy()[occ]
+    order = np.lexsort(keys.T[::-1])
+    return keys[order], head[order]
+
+
+def test_join_apply_builds_the_plain_chains_per_key(dev):
+    k, p = _join_states(dev)
+    for a, b in zip(_head_by_key(k[0], k[1]), _head_by_key(p[0], p[1])):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(k[1][1:], p[1][1:]):           # next, ins/del seqs
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    np.testing.assert_array_equal(k[2].cpu().numpy(), p[2].cpu().numpy())
+    assert int((k[1].head >= 0).sum()) > 0
+
+
+def test_join_apply_hot_key_chain_order(dev):
+    """Every row of the batch on one key: the chain must list them in
+    batch order, then the old chain."""
+    k, p = _join_states(dev, epochs=2, key_range=1)
+    for a, b in zip(_head_by_key(k[0], k[1]), _head_by_key(p[0], p[1])):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(k[1].next.cpu().numpy(),
+                                  p[1].next.cpu().numpy())
+
+
+@pytest.mark.parametrize("with_degrees", [False, True])
+@pytest.mark.parametrize("out_cap", [1 << 6, 1 << 16])
+def test_join_probe_matches_plain(dev, with_degrees, out_cap):
+    k, p = _join_states(dev)
+    rng = np.random.default_rng(5)
+    up, aux, _n, _l = _join_epoch(rng, N, ROWS - N, set(), 1500)
+    u, a = torch.from_numpy(up).to(dev), torch.from_numpy(aux).to(dev)
+    ds0 = torch.from_numpy(rng.integers(0, 9, ROWS).astype(np.int32)).to(dev)
+    dk0 = torch.from_numpy(rng.integers(0, 9, ROWS).astype(np.int32)).to(dev)
+    km = J.epoch_probe(*k, ds0, dk0, u, a, JKW, out_cap, with_degrees)
+    pm = J.epoch_probe_plain(*p, ds0, dk0, u, a, JKW, out_cap,
+                             with_degrees)
+    for x, y in zip(km, pm):
+        if x is None:
+            assert y is None
+        else:
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    total = int(km[0][0, 0])
+    assert total > 0 and (total > out_cap) == (out_cap == 1 << 6)
+
+
+def test_probe_pairs_matches_plain(dev):
+    k, p = _join_states(dev)
+    rng = np.random.default_rng(6)
+    g = rng.integers(0, 3000, N)
+    q = torch.from_numpy(np.concatenate([_lanes(g), _lanes(g % 7)],
+                                        1)).to(dev)
+    vis = torch.from_numpy((rng.random(N) < 0.9).astype(np.int32)).to(dev)
+    for with_degrees in (False, True):
+        km, ks = J.probe_pairs(k[0], k[1], q, vis, 500_000, 1 << 14,
+                               with_degrees)
+        pm, ps = J.probe_pairs_plain(p[0], p[1], q, vis, 500_000, 1 << 14,
+                                     with_degrees)
+        np.testing.assert_array_equal(km.cpu().numpy(), pm.cpu().numpy())
+        assert ks.tolist() == ps.tolist() == [0, 0]
+
+
+def test_join_maint_matches_plain(dev):
+    rng = np.random.default_rng(7)
+    for shape in ((ROWS,), (ROWS, JP)):
+        arr = torch.from_numpy(rng.integers(-9, 9, shape)
+                               .astype(np.int32)).to(dev)
+        refs = torch.from_numpy(rng.permutation(ROWS)[:N]
+                                .astype(np.int32)).to(dev)
+        vis = torch.from_numpy((rng.random(N) < 0.8)
+                               .astype(np.int32)).to(dev)
+        vals = torch.from_numpy(rng.integers(-2**31, 2**31, (N,) + shape[1:])
+                                .astype(np.int32)).to(dev)
+        a = J._masked_scatter(arr.clone(), refs, vis, vals)
+        b = J._masked_scatter_plain(arr.clone(), refs, vis, vals)
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    k, _p = _join_states(dev)
+    c1 = J.ChainState(*(t.clone() for t in k[1]))
+    c2 = J.ChainState(*(t.clone() for t in k[1]))
+    J._rebase(c1)
+    J._rebase_plain(c2)
+    for x, y in zip(c1, c2):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    # head remap on growth (K4 remap): per key, the same head
+    new = ht.make_state(2 * CAP, JKW, dev)
+    _t, o2n, _s = ht.probe_insert(new, k[0].keys, k[0].occ)
+    head2 = J._remap_head(k[1].head, o2n, 2 * CAP, new.occ)
+    np.testing.assert_array_equal(
+        head2.cpu().numpy(),
+        J._remap_head_plain(k[1].head, o2n, 2 * CAP).cpu().numpy())
+    for a, b in zip(_head_by_key(new, k[1]._replace(head=head2)),
+                    _head_by_key(k[0], k[1])):
+        np.testing.assert_array_equal(a, b)

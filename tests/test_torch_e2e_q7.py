@@ -13,6 +13,7 @@ from collections import defaultdict
 
 import numpy as np
 import pytest
+import torch
 
 from risingwave_tpu.common.types import Interval as RefInterval
 from risingwave_tpu.connectors.nexmark import NexmarkConfig as RefConfig
@@ -24,6 +25,11 @@ from risingwave_tpu_torch.models.nexmark import (
     DEFAULT_WINDOW, build_q7, drive_to_completion,
 )
 from risingwave_tpu_torch.state.store import MemoryStateStore
+
+# Under pytest-xdist these tests share the host's cores with timing-bound
+# tests on other workers (tests/test_chaos.py's 8 s barrier timeouts), so
+# torch's intra-op pool stays small.
+torch.set_num_threads(2)
 
 
 def q7_oracle(cfg, n_bids):

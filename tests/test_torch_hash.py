@@ -15,6 +15,11 @@ import torch
 from risingwave_tpu.common import hash as ref_hash
 from risingwave_tpu_torch.common import hash as port_hash
 
+# Under pytest-xdist these tests share the host's cores with timing-bound
+# tests on other workers (tests/test_chaos.py's 8 s barrier timeouts), so
+# torch's intra-op pool stays small.
+torch.set_num_threads(2)
+
 N = 2048
 
 

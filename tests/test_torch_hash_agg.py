@@ -45,6 +45,11 @@ from risingwave_tpu_torch.stream import message as port_msg
 from risingwave_tpu_torch.stream.executors import hash_agg as port_exec
 from risingwave_tpu_torch.stream.executors import test_utils as port_utils
 
+# Under pytest-xdist these tests share the host's cores with timing-bound
+# tests on other workers (tests/test_chaos.py's 8 s barrier timeouts), so
+# torch's intra-op pool stays small.
+torch.set_num_threads(2)
+
 CPU = torch.device("cpu")
 KW = 3                   # one int64 group column: (hi, lo, valid) lanes
 FLOAT_SUM_RTOL = 1e-6    # f32 pair sums: atomic/scatter order differs

@@ -16,6 +16,11 @@ import torch
 from risingwave_tpu.ops import hash_table as ref_ht
 from risingwave_tpu_torch.ops import hash_table as port_ht
 
+# Under pytest-xdist these tests share the host's cores with timing-bound
+# tests on other workers (tests/test_chaos.py's 8 s barrier timeouts), so
+# torch's intra-op pool stays small.
+torch.set_num_threads(2)
+
 
 def _both(cap, k, batches):
     """Run the same batches through both tables; return both states and

@@ -15,6 +15,9 @@ _PROBE = """
 import sys
 import risingwave_tpu_torch.models.nexmark
 import risingwave_tpu_torch.ops.cuda
+import risingwave_tpu_torch.ops.hash_join
+import risingwave_tpu_torch.stream.executors.hash_join
+import risingwave_tpu_torch.stream.merge
 import risingwave_tpu_torch.stream.executors.test_utils
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
