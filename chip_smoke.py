@@ -32,13 +32,35 @@ phases, any failure of which exits non-zero:
    - Nexmark q8 through ``build_q8`` + ``drive_to_completion`` at 100M
      events (bench.py's q8 shape: 4096-row chunks, 16 chunks per epoch,
      two barriers in flight, no strings): 2M persons and 6M auctions;
+   - the fused preludes (fused_chain, agg_prelude, join_prelude of
+     csrc/fused.cu) bit for bit against the plain program on random
+     expression trees that cover every opcode, with edge values (a NaN
+     equal to a NaN), and on q1's, q7's and q8's own programs at the
+     path's shapes (a 2^15-row agg backlog, 2^16-row join side-epochs,
+     q1's 4096-row chunks); then timed;
+4. the main paths end to end, each with every launch count reset just
+   before and read just after, each MV equal to a vectorized oracle,
+   with the plan checker strict (a rewrite that breaks an invariant
+   raises instead of falling back):
+   - Nexmark q7-core through ``build_q7`` + ``drive_to_completion`` at
+     10M events (bench.py's q7 shape: 8192-row chunks, 32 chunks per
+     epoch, watermark retirement on), unfused and with ``fusion=True``
+     (the agg absorbs the tumble projection: agg_prelude); the fused MV
+     equals the unfused one;
+   - Nexmark q8 at 100M events, unfused and fused (both join sides
+     absorb their projections: join_prelude; the dedup agg its tumble
+     projection: agg_prelude); the fused MV equals the unfused one;
+   - Nexmark q1 at 4M events (bench.py's bench_q1 shape: 4096-row
+     chunks, 16 per epoch, strings on), unfused and fused (row-id
+     generation and the DECIMAL projection as one block: fused_chain),
+     the MVs compared without ``_row_id``;
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
-   events under torch.profiler (the device's busy time and idle share)
-   and cProfile (host self-time by module), after the main paths' counts
-   were read.
+   events, and fused q7 and q8 at 2M, under torch.profiler (the
+   device's busy time and idle share) and cProfile (host self-time by
+   module), after the main paths' counts were read.
 
 The last two lines of standard output are one JSON object per kernel
-(``{"kernels": [...]}``; ``launches`` is the sum of both main paths'
+(``{"kernels": [...]}``; ``launches`` is the sum of the main paths'
 counts) and ``{"ok": true, "device": {...}}``.
 """
 
@@ -76,6 +98,9 @@ J_EPOCHS = 31                 # ~2M stored rows: q8's persons at 100M
 J_CAP0 = 1 << 20              # build_q8's presized key/row capacity
 OUT_CAP = 1 << 16             # build_q8's probe_capacity
 OVERFLOW_CAP = 1 << 10
+Q1_EVENTS = 4_000_000         # 3.68M bids; bench.py's bench_q1 shape
+FUSED_SEEDS = 12              # random programs: every opcode appears
+FUSED_ROWS = 1 << 15
 
 KERNELS = {
     # name: (source, reference program it replaces)
@@ -101,6 +126,12 @@ KERNELS = {
                        "risingwave_tpu/ops/hash_join.py:361"),
     "rebase": ("risingwave_tpu_torch/csrc/join_maint.cu",
                "risingwave_tpu/ops/hash_join.py:457"),
+    "fused_chain": ("risingwave_tpu_torch/csrc/fused.cu",
+                    "risingwave_tpu/ops/fused.py:839"),
+    "agg_prelude": ("risingwave_tpu_torch/csrc/fused.cu",
+                    "risingwave_tpu/ops/fused.py:877"),
+    "join_prelude": ("risingwave_tpu_torch/csrc/fused.cu",
+                     "risingwave_tpu/ops/fused.py:930"),
 }
 # the kernels each main path must have launched (the others run off
 # these paths: degrees serve outer/semi/anti joins, masked_scatter the
@@ -110,6 +141,9 @@ Q7_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
            "live_mask", "remap")
 Q8_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
            "join_apply", "join_probe", "remap")
+Q7_FUSED_PATH = Q7_PATH + ("agg_prelude",)
+Q8_FUSED_PATH = Q8_PATH + ("agg_prelude", "join_prelude")
+Q1_FUSED_PATH = ("fused_chain",)
 
 
 def log(msg: str) -> None:
@@ -982,9 +1016,21 @@ def drive(p, targets: dict, dev, trace: bool) -> dict:
                 barriers=len(lat), launches=LAUNCHES.snapshot(), **traced)
 
 
-def run_q7(dev, events: int, trace: bool = False) -> dict:
+def mv_digest(rows) -> str:
+    """Order-free digest of MV rows (fused and unfused runs compare by
+    it)."""
+    import hashlib
+    h = hashlib.sha256()
+    for r in sorted(rows):
+        h.update(repr(r).encode())
+    return h.hexdigest()[:16]
+
+
+def run_q7(dev, events: int, trace: bool = False,
+           fusion: bool = False) -> dict:
     """q7-core through build_q7 + drive_to_completion; the MV must equal
-    the oracle."""
+    the oracle. With ``fusion`` the agg must have absorbed the tumble
+    projection."""
     from risingwave_tpu_torch.common.types import Interval
     from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
     from risingwave_tpu_torch.models.nexmark import build_q7
@@ -993,14 +1039,17 @@ def run_q7(dev, events: int, trace: bool = False) -> dict:
     cfg = NexmarkConfig(event_num=events, max_chunk_size=8192,
                         generate_strings=False)
     p = build_q7(MemoryStateStore(), cfg, rate_limit=32, min_chunks=32,
-                 watermark_delay=Interval(usecs=0), device=dev)
+                 watermark_delay=Interval(usecs=0), device=dev,
+                 fusion=fusion)
+    agg = p.actor.consumer.input
+    assert (agg.fused_stages is not None) == fusion, "fusion did not fire"
     n_bids = events * 46 // 50
     out = drive(p, {1: n_bids}, dev, trace)
     got = {r[0]: (r[1], r[2]) for _pk, r in p.mv_table.iter_rows()}
     want = q7_oracle(cfg, n_bids)
     assert got == want, "q7 MV differs from the oracle"
     assert p.reader.offset == n_bids
-    return dict(out, windows=len(got))
+    return dict(out, windows=len(got), mv_digest=mv_digest(got.items()))
 
 
 def q8_oracle(cfg, n_persons: int, n_auctions: int,
@@ -1030,9 +1079,11 @@ def q8_oracle(cfg, n_persons: int, n_auctions: int,
     return out
 
 
-def run_q8(dev, events: int, trace: bool = False) -> dict:
+def run_q8(dev, events: int, trace: bool = False,
+           fusion: bool = False) -> dict:
     """q8 through build_q8 + drive_to_completion at bench.py's q8 shape;
-    the MV must equal the oracle exactly."""
+    the MV must equal the oracle exactly. With ``fusion`` both join sides
+    and the dedup agg must have absorbed their projections."""
     from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
     from risingwave_tpu_torch.models.nexmark import build_q8
     from risingwave_tpu_torch.state.store import MemoryStateStore
@@ -1042,7 +1093,11 @@ def run_q8(dev, events: int, trace: bool = False) -> dict:
     cfg_p = NexmarkConfig(**{**base.__dict__, "table_type": "person"})
     cfg_a = NexmarkConfig(**{**base.__dict__, "table_type": "auction"})
     p = build_q8(MemoryStateStore(), cfg_p, cfg_a, rate_limit=16,
-                 min_chunks=16, device=dev)
+                 min_chunks=16, device=dev, fusion=fusion)
+    join = p.actor.consumer.input.input
+    fired = [s.fused_input is not None for s in join.sides] + \
+        [getattr(join.right_in, "fused_stages", None) is not None]
+    assert fired == [fusion] * 3, f"fusion fired as {fired}"
     n_p, n_a = events // 50, events * 3 // 50
     out = drive(p, {1: n_p, 2: n_a}, dev, trace)
     rows = [tuple(r) for _pk, r in p.mv_table.iter_rows()]
@@ -1050,12 +1105,219 @@ def run_q8(dev, events: int, trace: bool = False) -> dict:
     assert len(rows) == len(want) and set(rows) == want, \
         "q8 MV differs from the oracle"
     assert p.readers[1].offset == n_p and p.readers[2].offset == n_a
-    join = p.actor.consumer.input.input
-    return dict(out, mv_rows=len(rows),
+    return dict(out, mv_rows=len(rows), mv_digest=mv_digest(rows),
                 key_capacity=[s.kernel.table.capacity for s in join.sides],
                 row_capacity=[s.kernel.row_capacity for s in join.sides],
                 stored_rows=[s.next_ref for s in join.sides],
                 dead_refs=[len(s.free) for s in join.sides])
+
+
+def run_q1(dev, events: int, fusion: bool) -> dict:
+    """q1 through build_q1 + drive_to_completion at bench.py's bench_q1
+    shape (strings on); the MV, read without ``_row_id``, must equal the
+    oracle (0.908 * price as DECIMAL: price * 9080 scaled), and the row
+    ids must be unique. With ``fusion`` the row-id generation and the
+    projection must be one FusedFragmentExecutor."""
+    from risingwave_tpu_torch.connectors.nexmark import (
+        NexmarkConfig, gen_bids,
+    )
+    from risingwave_tpu_torch.models.nexmark import build_q1
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    from risingwave_tpu_torch.stream.executors.fused import (
+        FusedFragmentExecutor,
+    )
+
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=4096)
+    p = build_q1(MemoryStateStore(), cfg, rate_limit=16, min_chunks=16,
+                 device=dev, fusion=fusion)
+    assert isinstance(p.actor.consumer.input, FusedFragmentExecutor) \
+        == fusion, "fusion did not fire"
+    n_bids = events * 46 // 50
+    out = drive(p, {1: n_bids}, dev, trace=False)
+    t0 = time.perf_counter()
+    rows = np.asarray([r for _pk, r in p.mv_table.iter_rows()],
+                      dtype=np.int64)
+    got = rows[np.lexsort(rows[:, :4].T[::-1]), :4]
+    b = gen_bids(np.arange(n_bids, dtype=np.int64), cfg)
+    want = np.stack([b["auction"], b["bidder"], b["price"] * 9080,
+                     b["date_time"]], axis=1)
+    want = want[np.lexsort(want.T[::-1])]
+    assert got.shape == want.shape and (got == want).all(), \
+        "q1 MV differs from the oracle"
+    assert len(np.unique(rows[:, 4])) == n_bids, "row ids not unique"
+    h = __import__("hashlib").sha256(got.tobytes()).hexdigest()[:16]
+    return dict(out, mv_rows=len(rows), mv_digest=h,
+                mv_check_s=time.perf_counter() - t0)
+
+
+# -- phase 3, the fused preludes ----------------------------------------------
+
+def _fused_time(fn, plain, prog, n_rows) -> dict:
+    from risingwave_tpu_torch.ops import fused as F
+    b, by = bound_ms(F.bound_bytes(prog, n_rows), 0)
+    return dict(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=b,
+                bound_by=by)
+
+
+def check_fused_random(dev) -> dict:
+    """Each entry point on random expression trees over every device type
+    (every opcode appears across the seeds), edge values included, 2^15
+    rows with U-/U+ pairs and separator rows: the kernel against the
+    plain program on the same card tensors, exact (a NaN equal to a
+    NaN), the stage counts exact."""
+    from risingwave_tpu_torch.ops import fused as F
+    from risingwave_tpu_torch.ops import fused_cases as FC
+    err = {"fused_chain": 0.0, "agg_prelude": 0.0, "join_prelude": 0.0}
+    ops = set()
+    for seed in range(FUSED_SEEDS):
+        fs, chunk = FC.port_case(seed, FUSED_ROWS, True, separators=64)
+        raw = torch.from_numpy(F.encode_raw_chunk(chunk, fs.ref_cols)) \
+            .to(dev)
+        hs = fs.host_noop_eq(chunk)
+        hs = torch.from_numpy(hs.astype(np.int8)).to(dev)
+        nan_rows = FC.nan_rows_of(fs, chunk)
+        progs = {"fused_chain": F.compile_program(fs, F.MODE_CHAIN)}
+        g, calls, specs = FC.agg_plan(fs, seed)
+        progs["agg_prelude"] = F.compile_program(
+            fs, F.MODE_AGG, group_indices=g, agg_calls=calls, specs=specs)
+        keys, pays = FC.join_plan(fs, seed)
+        progs["join_prelude"] = F.compile_program(
+            fs, F.MODE_JOIN, key_indices=keys, pay_indices=pays)
+        for name, prog in progs.items():
+            ops |= prog.opcodes()
+            ck = torch.zeros(prog.n_counts, dtype=torch.int64,
+                             device=dev)
+            cp = ck.clone()
+            if name == "fused_chain":
+                got = F.fused_chain(prog, raw, hs, ck)
+            elif name == "agg_prelude":
+                got = F.agg_prelude(prog, raw, ck)
+            else:
+                got = F.join_prelude(prog, raw)
+            want = F.run_program_plain(
+                prog, raw, hs if name == "fused_chain" else None, cp)
+            e = FC.mismatch(prog, got.cpu().numpy(), want.cpu().numpy(),
+                            nan_rows)
+            e = max(e, abs_err(ck.cpu().numpy(), cp.cpu().numpy()))
+            assert e == 0, f"{name} differs from its plain version " \
+                f"on seed {seed}: {e}"
+            err[name] = max(err[name], e)
+    assert ops == set(range(F.OP_EXTRACT_EPOCH + 1)), \
+        f"opcodes not covered: {set(range(F.OP_EXTRACT_EPOCH + 1)) - ops}"
+    return err
+
+
+def _source_chunks(cfg, n_chunks: int) -> list:
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkSplitReader
+    reader = NexmarkSplitReader(cfg)
+    return [reader.next_chunk() for _ in range(n_chunks)]
+
+
+def path_programs(dev) -> dict:
+    """The fused path's own programs, each with a raw input at the
+    path's shape: q7's agg prelude over a 2^15-row backlog (three
+    8192-row bid chunks, separator rows, zero padding), q8's dedup agg
+    prelude over a 2^15-row auction backlog, q8's two join preludes over
+    2^16-row side-epochs, q1's block over one 4096-row bid chunk."""
+    from risingwave_tpu_torch.common.chunk import (
+        Column, StreamChunk, next_pow2,
+    )
+    from risingwave_tpu_torch.common.types import Interval
+    from risingwave_tpu_torch.connectors.nexmark import (
+        NexmarkConfig, gen_auctions,
+    )
+    from risingwave_tpu_torch.models.nexmark import (
+        DEFAULT_WINDOW, build_q1, build_q7, build_q8,
+    )
+    from risingwave_tpu_torch.ops import fused as F
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+
+    def backlog(chunks, fs, rows):
+        mats = []
+        for c in chunks:
+            mats.append(F.encode_raw_chunk(c, fs.ref_cols))
+            mats.append(np.zeros((1, mats[-1].shape[1]), np.int64))
+        m = np.concatenate(mats)
+        out = np.zeros((rows, m.shape[1]), np.int64)
+        out[:min(rows, len(m))] = m[:rows]
+        return torch.from_numpy(out).to(dev)
+
+    def agg_prog(agg):
+        return F.compile_program(agg.fused_stages, F.MODE_AGG,
+                                 group_indices=agg.group_indices,
+                                 agg_calls=agg.agg_calls, specs=agg.specs)
+
+    bid = NexmarkConfig(event_num=1 << 40, max_chunk_size=8192,
+                        generate_strings=False)
+    q7 = build_q7(MemoryStateStore(), bid, watermark_delay=Interval(usecs=0),
+                  device=dev, fusion=True).actor.consumer.input
+    out = {"q7 agg_prelude": (agg_prog(q7), backlog(
+        _source_chunks(bid, 3), q7.fused_stages, N))}
+    base = NexmarkConfig(event_num=1 << 40, max_chunk_size=4096,
+                         generate_strings=False)
+    cfg_p = NexmarkConfig(**{**base.__dict__, "table_type": "person"})
+    cfg_a = NexmarkConfig(**{**base.__dict__, "table_type": "auction"})
+    join = build_q8(MemoryStateStore(), cfg_p, cfg_a, device=dev,
+                    fusion=True).actor.consumer.input.input
+    dedup = join.right_in
+    out["q8 dedup agg_prelude"] = (agg_prog(dedup), backlog(
+        _source_chunks(cfg_a, 7), dedup.fused_stages, N))
+    left, right = join.sides
+    p_chunks = _source_chunks(cfg_p, J_N // 4096)
+    out["q8 persons join_prelude"] = (left.prelude, torch.from_numpy(
+        np.concatenate([F.encode_raw_chunk(c, left.fused_input.ref_cols)
+                        for c in p_chunks])).to(dev))
+    a = gen_auctions(np.arange(J_N, dtype=np.int64), cfg_a)
+    w = DEFAULT_WINDOW.usecs
+    sch = right.fused_input.in_schema
+    agg_out = StreamChunk(sch, [
+        Column(sch[0].data_type, a["seller"]),
+        Column(sch[1].data_type, a["date_time"] - a["date_time"] % w),
+        Column(sch[2].data_type, np.ones(J_N, np.int64))],
+        np.ones(J_N, bool), np.ones(J_N, np.int8))
+    out["q8 auctions join_prelude"] = (right.prelude, torch.from_numpy(
+        F.encode_raw_chunk(agg_out, right.fused_input.ref_cols)).to(dev))
+    q1cfg = NexmarkConfig(event_num=1 << 40, max_chunk_size=4096)
+    block = build_q1(MemoryStateStore(), q1cfg, device=dev,
+                     fusion=True).actor.consumer.input
+    fs = block.fused_stages
+    for st in fs.stages:
+        if st.kind == "row_id_gen":
+            st.runtime._rebase(1 << 32)
+    aug = fs.augment(_source_chunks(q1cfg, 1)[0])
+    assert next_pow2(aug.capacity) == 4096
+    out["q1 fused_chain"] = (F.compile_program(fs, F.MODE_CHAIN),
+                             torch.from_numpy(F.encode_raw_chunk(
+                                 aug, fs.ref_cols)).to(dev))
+    return out
+
+
+def check_fused_paths(dev, err: dict) -> dict:
+    """q1's, q7's and q8's programs at the path's shapes: exact against
+    the plain program, then timed (the kernel and its plain version on
+    the card) beside the byte bound. The entry point's reported time is
+    the main path's: q7's agg prelude, q8's persons-side join prelude,
+    q1's block; the others are logged."""
+    from risingwave_tpu_torch.ops import fused as F
+    results = {}
+    for label, (prog, raw) in path_programs(dev).items():
+        name = label.split()[-1]
+        fn = {"fused_chain": F.fused_chain, "agg_prelude": F.agg_prelude,
+              "join_prelude": F.join_prelude}[name]
+        got = fn(prog, raw)
+        want = F.run_program_plain(prog, raw)
+        e = abs_err(got.cpu().numpy(), want.cpu().numpy())
+        assert e == 0, f"{label} differs from its plain version: {e}"
+        t = _fused_time(lambda: fn(prog, raw),
+                        lambda: F.run_program_plain(prog, raw), prog,
+                        int(raw.shape[0]))
+        log(f"{label}: {int(raw.shape[0])} raw rows of width "
+            f"{int(raw.shape[1])} -> {prog.out_width} lanes: "
+            + json.dumps(t))
+        if label in ("q7 agg_prelude", "q8 persons join_prelude",
+                     "q1 fused_chain"):
+            results[name] = dict(max_abs_err=max(err[name], e), **t)
+    return results
 
 
 def main() -> int:
@@ -1101,13 +1363,33 @@ def main() -> int:
     del js
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    fused_err = check_fused_random(dev)
+    log(f"fused preludes on {FUSED_SEEDS} random programs x {FUSED_ROWS} "
+        f"rows (every opcode, edge values): max_abs_err "
+        f"{json.dumps(fused_err)} in {time.perf_counter() - t0:.3f} s")
+    results.update(check_fused_paths(dev, fused_err))
+    for name in ("fused_chain", "agg_prelude", "join_prelude"):
+        log(f"kernel {name}: " + json.dumps(results[name]))
+    torch.cuda.empty_cache()
+
     floor = launch_floor_ms(dev)
     log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
 
-    # 4. the main paths end to end
+    # 4. the main paths end to end, the plan checker strict
+    from risingwave_tpu_torch.frontend.opt import set_strict_checker
+    set_strict_checker(True)
     paths = {}
-    for label, run, events, path in (("q7", run_q7, Q7_EVENTS, Q7_PATH),
-                                     ("q8", run_q8, Q8_EVENTS, Q8_PATH)):
+    for label, run, events, path in (
+            ("q7", run_q7, Q7_EVENTS, Q7_PATH),
+            ("q8", run_q8, Q8_EVENTS, Q8_PATH),
+            ("q7 fused", lambda d, e: run_q7(d, e, fusion=True), Q7_EVENTS,
+             Q7_FUSED_PATH),
+            ("q8 fused", lambda d, e: run_q8(d, e, fusion=True), Q8_EVENTS,
+             Q8_FUSED_PATH),
+            ("q1", lambda d, e: run_q1(d, e, fusion=False), Q1_EVENTS, ()),
+            ("q1 fused", lambda d, e: run_q1(d, e, fusion=True), Q1_EVENTS,
+             Q1_FUSED_PATH)):
         out = run(dev, events)
         paths[label] = out
         missing = [k for k in path if out["launches"].get(k, 0) == 0]
@@ -1118,14 +1400,26 @@ def main() -> int:
         log(f"{label}: kernel busy estimate (launches x phase-3 medians) "
             f"{busy_ms:.3f} ms of {out['elapsed_s'] * 1e3:.3f} ms timed "
             f"wall")
+    for q in ("q7", "q8", "q1"):
+        assert paths[q]["mv_digest"] == paths[f"{q} fused"]["mv_digest"], \
+            f"{q}: the fused MV differs from the unfused one"
+        a, b = paths[q], paths[f"{q} fused"]
+        log(f"{q} fused vs unfused: events/s {b['events_per_s']} vs "
+            f"{a['events_per_s']}, p99 barrier latency "
+            f"{b['p99_barrier_latency_s']} vs {a['p99_barrier_latency_s']}")
 
     # 5. where the time goes: shorter traced runs (their launches are not
     # the main paths' and are not reported)
     log("q7 traced: " + json.dumps(run_q7(dev, Q7_TRACE_EVENTS,
                                           trace=True)))
+    log("q7 fused traced: " + json.dumps(run_q7(dev, Q7_TRACE_EVENTS,
+                                                trace=True, fusion=True)))
     for events in Q8_TRACE_EVENTS:
         log(f"q8 traced at {events} events: "
             + json.dumps(run_q8(dev, events, trace=True)))
+    log(f"q8 fused traced at {Q8_TRACE_EVENTS[0]} events: "
+        + json.dumps(run_q8(dev, Q8_TRACE_EVENTS[0], trace=True,
+                            fusion=True)))
 
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 

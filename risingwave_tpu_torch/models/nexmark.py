@@ -1,9 +1,12 @@
-"""Hand-built Nexmark pipelines: q7-core (hash agg on the device) and q8
-(windowed join on the device).
+"""Hand-built Nexmark pipelines: q1 (a stateless projection), q7-core
+(hash agg on the device) and q8 (windowed join on the device).
 
-Port of ``build_q7`` (:134), ``build_q8`` (:208) and
-``drive_to_completion`` (:283) of ``risingwave_tpu/models/nexmark.py``:
+Port of ``build_q1`` (:109), ``build_q7`` (:134), ``build_q8`` (:208),
+``_finish``'s fusion (:87) and ``drive_to_completion`` (:283) of
+``risingwave_tpu/models/nexmark.py``:
 
+    q1  Nexmark bid source → RowIdGen → project(auction, bidder,
+        0.908 * price as DECIMAL, date_time, _row_id) → materialize
     q7  Nexmark bid source → [WatermarkFilter] → project(tumble_start(
         date_time, window), price) → HashAggExecutor(MAX(price),
         COUNT(*), append-only, device kernels) → materialize
@@ -16,8 +19,13 @@ Port of ``build_q7`` (:134), ``build_q8`` (:208) and
 driven by a ``BarrierLoop`` over ``MemoryStateStore``. With
 ``watermark_delay`` q7's agg retires closed windows on the device.
 ``device=None`` means the card; ``device="cpu"`` runs the kernels' plain
-PyTorch versions. The reference's monitoring, fusion, mesh, coalescing
-and tiering options are not ported and raise NotImplementedError.
+PyTorch versions. ``fusion=True`` rewrites the plan with the fragment
+fusion rule (``frontend/opt``), as the reference's ``_finish`` does:
+q1's row-id generation and projection become one FusedFragmentExecutor
+(``fused_chain``), q7's and q8's aggs absorb their tumble projections
+(``agg_prelude``), and q8's join sides absorb theirs (``join_prelude``).
+The reference's monitoring, mesh, coalescing and tiering options are not
+ported and raise NotImplementedError.
 
 ``from_jax_state`` / ``to_numpy_state`` (from ``ops/hash_agg.py``) carry
 grouped-agg device state across the two packages as numpy arrays:
@@ -37,7 +45,7 @@ from risingwave_tpu_torch.common.types import DataType, Field, Interval, Schema
 from risingwave_tpu_torch.connectors.nexmark import (
     NexmarkConfig, NexmarkSplitReader,
 )
-from risingwave_tpu_torch.expr.expr import InputRef, tumble_start
+from risingwave_tpu_torch.expr.expr import InputRef, lit, tumble_start
 from risingwave_tpu_torch.meta.barrier import BarrierLoop
 from risingwave_tpu_torch.ops.hash_agg import (  # noqa: F401 (re-export)
     AggKind, from_jax_state, to_numpy_state,
@@ -53,6 +61,7 @@ from risingwave_tpu_torch.stream.executors.hash_join import HashJoinExecutor
 from risingwave_tpu_torch.stream.executors.materialize import (
     MaterializeExecutor,
 )
+from risingwave_tpu_torch.stream.executors.row_id_gen import RowIdGenExecutor
 from risingwave_tpu_torch.stream.executors.simple import ProjectExecutor
 from risingwave_tpu_torch.stream.executors.source import SourceExecutor
 from risingwave_tpu_torch.stream.executors.watermark_filter import (
@@ -94,6 +103,54 @@ def _source(local: LocalBarrierManager, store, actor_id: int,
                           min_chunks_per_barrier=min_chunks)
 
 
+def _finish(local: LocalBarrierManager, store, mat: MaterializeExecutor,
+            mv_table: StateTable, actor_id: int,
+            readers: Dict[int, NexmarkSplitReader], fragment: str,
+            fusion: bool, device) -> Pipeline:
+    if fusion:
+        # the same rule and checker the reference's SQL sessions apply
+        # under SET stream_fusion
+        from risingwave_tpu_torch.frontend.opt import rewrite_stream_plan
+        mat, _report = rewrite_stream_plan(mat, "none", fusion=True,
+                                           device=device)
+    local.set_expected_actors([actor_id])
+    actor = Actor(actor_id, mat, barrier_manager=local, fragment=fragment)
+    return Pipeline(actor, BarrierLoop(local, store), mv_table, readers)
+
+
+def _check_store(store) -> None:
+    if not isinstance(store, MemoryStateStore):
+        raise NotImplementedError(
+            "only MemoryStateStore is ported (no hummock store yet)")
+
+
+def build_q1(store, cfg: NexmarkConfig,
+             rate_limit: Optional[int] = 3,
+             min_chunks: Optional[int] = None,
+             fusion: bool = False, device=None) -> Pipeline:
+    """q1: SELECT auction, bidder, 0.908 * price, date_time FROM bid, with
+    a generated ``_row_id`` as the MV's pk."""
+    _check_store(store)
+    device = resolve_device(device)
+    local = LocalBarrierManager()
+    source = _source(local, store, 1, cfg, 1, rate_limit, min_chunks)
+    row_id = RowIdGenExecutor(source)
+    s = row_id.schema
+    project = ProjectExecutor(
+        row_id,
+        exprs=[InputRef(s.index_of("auction"), DataType.INT64),
+               InputRef(s.index_of("bidder"), DataType.INT64),
+               lit("0.908", DataType.DECIMAL)
+               * InputRef(s.index_of("price"), DataType.INT64),
+               InputRef(s.index_of("date_time"), DataType.TIMESTAMP),
+               InputRef(s.index_of("_row_id"), DataType.SERIAL)],
+        names=["auction", "bidder", "price", "date_time", "_row_id"])
+    mv_table = StateTable(2, project.schema, [4], store)  # pk = _row_id
+    mat = MaterializeExecutor(project, mv_table)
+    return _finish(local, store, mat, mv_table, 1, {1: source.reader},
+                   "nexmark-q1", fusion, device)
+
+
 def build_q7(store, cfg: NexmarkConfig,
              rate_limit: Optional[int] = 4,
              window: Interval = DEFAULT_WINDOW,
@@ -111,12 +168,10 @@ def build_q7(store, cfg: NexmarkConfig,
     watermark through tumble_start, and the agg retires closed windows
     (bounded state)."""
     for what, given in (("mesh", mesh), ("coalesce_rows", coalesce_rows),
-                        ("tier_cap", tier_cap), ("fusion", fusion)):
+                        ("tier_cap", tier_cap)):
         if given:
             raise NotImplementedError(f"build_q7 {what} is not ported")
-    if not isinstance(store, MemoryStateStore):
-        raise NotImplementedError(
-            "only MemoryStateStore is ported (no hummock store yet)")
+    _check_store(store)
     device = resolve_device(device)
     local = LocalBarrierManager()
     source = _source(local, store, 1, cfg, 1, rate_limit, min_chunks)
@@ -146,10 +201,8 @@ def build_q7(store, cfg: NexmarkConfig,
                           device=device)
     mv_table = StateTable(3, agg.schema, [0], store)  # pk = window_start
     mat = MaterializeExecutor(agg, mv_table)
-    local.set_expected_actors([1])
-    actor = Actor(1, mat, barrier_manager=local, fragment="nexmark-q7")
-    return Pipeline(actor, BarrierLoop(local, store), mv_table,
-                    {1: source.reader})
+    return _finish(local, store, mat, mv_table, 1, {1: source.reader},
+                   "nexmark-q7", fusion, device)
 
 
 def build_q8(store, cfg_p: NexmarkConfig, cfg_a: NexmarkConfig,
@@ -163,12 +216,9 @@ def build_q8(store, cfg_p: NexmarkConfig, cfg_a: NexmarkConfig,
     HashJoin (device matcher) → project → materialize. Capacities are
     presized from the known Nexmark cardinalities, as the reference
     does."""
-    for what, given in (("mesh", mesh), ("fusion", fusion)):
-        if given:
-            raise NotImplementedError(f"build_q8 {what} is not ported")
-    if not isinstance(store, MemoryStateStore):
-        raise NotImplementedError(
-            "only MemoryStateStore is ported (no hummock store yet)")
+    if mesh is not None:
+        raise NotImplementedError("build_q8 mesh is not ported")
+    _check_store(store)
     device = resolve_device(device)
     local = LocalBarrierManager()
     persons = _source(local, store, 1, cfg_p, 1, rate_limit, min_chunks)
@@ -223,10 +273,9 @@ def build_q8(store, cfg_p: NexmarkConfig, cfg_a: NexmarkConfig,
         names=["id", "name", "starttime"])
     mv = StateTable(6, out.schema, [0, 2], store)
     mat = MaterializeExecutor(out, mv)
-    local.set_expected_actors([7])
-    actor = Actor(7, mat, barrier_manager=local, fragment="nexmark-q8")
-    return Pipeline(actor, BarrierLoop(local, store), mv,
-                    {1: persons.reader, 2: auctions.reader})
+    return _finish(local, store, mat, mv, 7,
+                   {1: persons.reader, 2: auctions.reader}, "nexmark-q8",
+                   fusion, device)
 
 
 def drive_to_completion(pipeline: Pipeline, targets: Dict[int, int],

@@ -33,6 +33,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# per-library flags beside NVCC_FLAGS: the expression interpreter must not
+# contract a*b+c into an FMA, which would change float results against
+# numpy and XLA
+EXTRA_FLAGS: Dict[str, List[str]] = {"fused": ["-fmad=false"]}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -68,6 +73,11 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
         "rw_masked_scatter": [_P, _L, _I, _P, _P, _P, _I, _P],
         "rw_rebase": [_P, _P, _L, _P],
     },
+    "fused": {
+        "rw_fused_chain": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
+        "rw_agg_prelude": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
+        "rw_join_prelude": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -91,7 +101,8 @@ def _sources(name: str) -> List[str]:
 
 
 def lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS
+                                + EXTRA_FLAGS.get(name, [])).encode())
     for p in _sources(name):
         with open(p, "rb") as f:
             h.update(f.read())
@@ -107,7 +118,8 @@ def _start_build(name: str) -> Optional[tuple]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     log = f"{out}.log"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+    cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-I", CSRC,
+           "-o", tmp,
            os.path.join(CSRC, f"{name}.cu")]
     with open(log, "w") as lf:
         proc = subprocess.Popen(cmd, stdout=lf, stderr=subprocess.STDOUT)

@@ -866,6 +866,12 @@ class GroupedAggKernel:
     barrier (one K3 gather, one device→host read), ``advance`` after it,
     ``retire_below`` for watermark cleaning and ``rebuild`` on recovery.
 
+    With ``prelude`` (an ``ops/fused.py`` program of MODE_AGG) the kernel
+    runs in raw mode: ``apply_raw`` backlogs raw int64 chunk matrices, a
+    dispatch uploads them once and ``agg_prelude`` (B19) computes the
+    packed matrix on the card ahead of K1 + K2; the prelude's stage row
+    counts accumulate on the card and are read with the flush.
+
     Occupancy accounting is sync-free (``PendingCounters``): each step's
     insert count is copied back asynchronously and folded in once it
     lands; growth decisions use count + rows of undrained steps.
@@ -881,7 +887,8 @@ class GroupedAggKernel:
 
     def __init__(self, key_width: int, specs: Sequence[AggSpec],
                  capacity: Optional[int] = None,
-                 flush_capacity: int = 1 << 10, device=None):
+                 flush_capacity: int = 1 << 10, device=None,
+                 prelude=None):
         self.device = resolve_device(device)
         if capacity is None:
             capacity = self.DEFAULT_CAPACITY
@@ -898,6 +905,9 @@ class GroupedAggKernel:
         self._backlog: List[np.ndarray] = []
         self._backlog_rows = 0
         self._flush_idx: Optional[np.ndarray] = None
+        self._prelude = prelude
+        self._stage_counts = None if prelude is None else torch.zeros(
+            prelude.n_counts, dtype=torch.int64, device=self.device)
 
     @property
     def capacity(self) -> int:
@@ -906,6 +916,7 @@ class GroupedAggKernel:
     # -- hot path -------------------------------------------------------
     def apply(self, key_lanes: np.ndarray, signs: np.ndarray,
               vis: np.ndarray, inputs: Sequence) -> None:
+        assert self._prelude is None, "a fused kernel takes apply_raw"
         packed = pack_chunk(self.key_width, self.specs,
                             np.asarray(key_lanes), np.asarray(signs),
                             np.asarray(vis), inputs)
@@ -926,23 +937,54 @@ class GroupedAggKernel:
             if self._backlog_rows >= self.BATCH_ROWS:
                 self._dispatch_backlog()
 
+    def apply_raw(self, raw: np.ndarray) -> None:
+        """Fused hot path: backlog one RAW chunk matrix
+        (ops/fused.encode_raw_chunk) plus an always-invisible separator
+        row, so the prelude's shifted compares never pair rows of two
+        chunks. A chunk never straddles two dispatches."""
+        assert self._prelude is not None, "apply_raw needs a prelude"
+        n = raw.shape[0] + 1
+        if self._backlog_rows + n > self.BATCH_ROWS:
+            self._dispatch_backlog()
+        self._backlog.append(raw)
+        self._backlog.append(np.zeros((1, raw.shape[1]), dtype=np.int64))
+        self._backlog_rows += n
+        if self._backlog_rows >= self.BATCH_ROWS:
+            self._dispatch_backlog()
+
     def _dispatch_backlog(self) -> None:
         if not self._backlog:
             return
         mats, n = self._backlog, self._backlog_rows
         self._backlog, self._backlog_rows = [], 0
-        self._reserve(n)
+        raw_mode = self._prelude is not None
+        units = self._prelude.units if raw_mode else 1
+        self._reserve(n * units)
         w = mats[0].shape[1]
         cap_rows = self.BATCH_ROWS if n <= self.BATCH_ROWS \
             else next_pow2(n)
-        packed = np.zeros((cap_rows, w), dtype=np.int32)   # pad: vis=0
+        packed = np.zeros((cap_rows, w),     # pad rows: vis=0
+                          dtype=np.int64 if raw_mode else np.int32)
         at = 0
         for m in mats:
             packed[at:at + m.shape[0]] = m
             at += m.shape[0]
-        stats = apply_batch(self.state, upload(packed, self.device),
-                            self._plan)
-        self._counters.push(stats, n)
+        dev = upload(packed, self.device)
+        if raw_mode:
+            from risingwave_tpu_torch.ops.fused import agg_prelude
+            dev = agg_prelude(self._prelude, dev, self._stage_counts)
+        stats = apply_batch(self.state, dev, self._plan)
+        self._counters.push(stats, n * units)
+
+    def drain_stage_counts(self) -> Optional[np.ndarray]:
+        """The prelude's cumulative mask counts since the last drain
+        (raw mode; call after flush, whose gather already waited for
+        every queued step)."""
+        if self._stage_counts is None:
+            return None
+        out = fetch(self._stage_counts)
+        self._stage_counts.zero_()
+        return out
 
     # -- growth ---------------------------------------------------------
     def _reserve(self, n: int) -> None:

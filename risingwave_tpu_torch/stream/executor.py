@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import abc
 from dataclasses import dataclass, field
-from typing import AsyncIterator, List
+from typing import AsyncIterator, List, Optional, Tuple
 
 from risingwave_tpu_torch.common.types import Schema
 from risingwave_tpu_torch.stream.message import Message
@@ -56,3 +56,26 @@ class Executor(abc.ABC):
     def __repr__(self) -> str:
         return f"{self.identity}({self.schema!r})"
 
+
+
+# attributes under which executors hold their input executors, in plan
+# order (the conventional names every executor in stream/executors uses)
+_CHILD_ATTRS = ("input", "upstream", "left_in", "right_in")
+_CHILD_LIST_ATTRS = ("inputs",)
+
+
+def executor_children(ex) -> List[Tuple[str, Optional[int], "Executor"]]:
+    """(attr, list-index-or-None, child) per input executor of `ex`: the
+    one shared tree walk of the plan rewrite (frontend/opt)."""
+    out: List[Tuple[str, Optional[int], Executor]] = []
+    for attr in _CHILD_ATTRS:
+        c = getattr(ex, attr, None)
+        if isinstance(c, Executor):
+            out.append((attr, None, c))
+    for attr in _CHILD_LIST_ATTRS:
+        cs = getattr(ex, attr, None)
+        if isinstance(cs, list):
+            for i, c in enumerate(cs):
+                if isinstance(c, Executor):
+                    out.append((attr, i, c))
+    return out

@@ -20,10 +20,16 @@ emitted snapshot, so no-op touches emit nothing.
 Value-state row layout (physical): group keys | group_rows | per call
 (value [+ non-null count]); recovery reloads it into the kernel.
 
+Fragment fusion (``frontend/opt/fusion.py``): with ``fused_stages`` the
+executor's input is the RAW upstream, each chunk ships as one raw int64
+matrix (``ops/fused.encode_raw_chunk``) and the absorbed filter/project
+run becomes the kernel's prelude (``agg_prelude``, B19) ahead of K1 + K2;
+watermarks derive through the absorbed stages.
+
 Not ported yet, and refused at construction with NotImplementedError:
 retractable MIN/MAX (the materialized-input tables), DISTINCT,
-approx_count_distinct, string_agg/array_agg, the cold tier (``tier_cap``),
-fused stages and injected (sharded) kernels.
+approx_count_distinct, string_agg/array_agg, the cold tier (``tier_cap``)
+and injected (sharded) kernels.
 """
 
 from __future__ import annotations
@@ -135,8 +141,7 @@ class HashAggExecutor(Executor):
         for what, given in (("minput_tables", minput_tables),
                             ("distinct_tables", distinct_tables),
                             ("kernel injection (mesh)", kernel),
-                            ("tier_cap", tier_cap),
-                            ("fused_stages", fused_stages)):
+                            ("tier_cap", tier_cap)):
             if given:
                 raise NotImplementedError(f"{what} is not ported")
         for c in agg_calls:
@@ -151,7 +156,11 @@ class HashAggExecutor(Executor):
         self.agg_calls = list(agg_calls)
         self.table = table
         self.append_only = append_only
-        in_schema = input_.schema
+        # with fused_stages, `input_` is the RAW upstream and the absorbed
+        # run's output schema is the space this agg is planned on
+        self.fused_stages = fused_stages
+        in_schema = input_.schema if fused_stages is None \
+            else fused_stages.out_schema
         self.group_types = [in_schema[i].data_type
                             for i in self.group_indices]
         self.key_codec = KeyCodec(self.group_types)
@@ -162,9 +171,17 @@ class HashAggExecutor(Executor):
             kw["capacity"] = kernel_capacity
         if flush_capacity is not None:
             kw["flush_capacity"] = flush_capacity
-        self.kernel = GroupedAggKernel(
-            key_width=LANES_PER_KEY * len(self.group_indices),
-            specs=self.specs, **kw)
+        # the kernel is built on first touch: the fusion rule absorbs a
+        # run into a copy of this executor before any data flows
+        self._kern_kw = kw
+        self._kernel: Optional[GroupedAggKernel] = None
+        if fused_stages is not None:
+            from risingwave_tpu_torch.frontend.opt.fusion import (
+                agg_ineligible_reason,
+            )
+            r = agg_ineligible_reason(self)
+            if r is not None:
+                raise ValueError(f"agg is not fusion-eligible: {r}")
         # watermark-driven state cleaning (state_table.rs:894 analog):
         # latest watermark on the FIRST group column, and the last value
         # already applied to the kernel/table
@@ -175,6 +192,48 @@ class HashAggExecutor(Executor):
                               output_names),
             list(range(len(group_indices))),
             f"HashAggExecutor(actor={actor_id})"))
+
+    @property
+    def kernel(self) -> GroupedAggKernel:
+        """The device kernel, built on first touch (raw mode when the agg
+        absorbed a fused run)."""
+        if self._kernel is None:
+            kw = dict(self._kern_kw)
+            if self.fused_stages is not None:
+                from risingwave_tpu_torch.ops.fused import (
+                    MODE_AGG, compile_program,
+                )
+                kw["prelude"] = compile_program(
+                    self.fused_stages, MODE_AGG,
+                    group_indices=self.group_indices,
+                    agg_calls=self.agg_calls, specs=self.specs)
+            self._kernel = GroupedAggKernel(
+                key_width=LANES_PER_KEY * len(self.group_indices),
+                specs=self.specs, **kw)
+        return self._kernel
+
+    # -- fragment fusion (frontend/opt/fusion.py adopts on a copy) --------
+    def adopt_fused_stages(self, fs, raw_input: Executor) -> None:
+        """Absorb a filter/project run: `raw_input` becomes the direct
+        input and `fs` (whose out_schema must equal the input schema this
+        executor was planned on) runs as the kernel's prelude. Only valid
+        before the kernel is built."""
+        from risingwave_tpu_torch.frontend.opt.fusion import (
+            agg_fusable_reason,
+        )
+        r = agg_fusable_reason(self)
+        if r is not None:
+            raise ValueError(f"agg is not fusion-eligible: {r}")
+        if self._kernel is not None:
+            raise ValueError("agg kernel already built: adopt a run "
+                             "before any data flows")
+        got = [f.data_type for f in fs.out_schema]
+        want = [f.data_type for f in self.input.schema]
+        if got != want:
+            raise ValueError(
+                f"fused stage chain emits {got}, agg planned on {want}")
+        self.fused_stages = fs
+        self.input = raw_input
 
     # -- chunk path ------------------------------------------------------
     def _inputs(self, chunk: StreamChunk) -> Tuple:
@@ -192,6 +251,13 @@ class HashAggExecutor(Executor):
         return tuple(out)
 
     def _apply_chunk(self, chunk: StreamChunk) -> None:
+        if self.fused_stages is not None:
+            # the RAW chunk ships as one int64 matrix; filter, project
+            # and the key/lane encode run in the kernel's prelude
+            from risingwave_tpu_torch.ops.fused import encode_raw_chunk
+            self.kernel.apply_raw(
+                encode_raw_chunk(chunk, self.fused_stages.ref_cols))
+            return
         key_lanes = self.key_codec.build(chunk, self.group_indices)
         self.kernel.apply(key_lanes, chunk.signs(), chunk.visibility,
                           self._inputs(chunk))
@@ -244,6 +310,10 @@ class HashAggExecutor(Executor):
     # -- barrier path ----------------------------------------------------
     def _flush(self) -> Optional[StreamChunk]:
         fr = self.kernel.flush()
+        if self.fused_stages is not None:
+            counts = self.kernel.drain_stage_counts()
+            self.fused_stages.note_stage_rows(
+                self.fused_stages.stage_rows_of(counts), 0)
         if fr.n == 0:
             self.kernel.advance()
             return None
@@ -368,9 +438,14 @@ class HashAggExecutor(Executor):
                     yield out
                 yield msg
             elif is_watermark(msg):
+                # a fused agg first maps the watermark through the
+                # absorbed projects' derivations
+                wms = [msg] if self.fused_stages is None \
+                    else self.fused_stages.derive_watermarks(msg)
                 # forward only group-key watermarks, re-indexed
-                if msg.col_idx in self.group_indices:
-                    pos = self.group_indices.index(msg.col_idx)
-                    if pos == 0 and self._cleanable_type():
-                        self._clean_wm = msg.value
-                    yield msg.with_idx(pos)
+                for m in wms:
+                    if m.col_idx in self.group_indices:
+                        pos = self.group_indices.index(m.col_idx)
+                        if pos == 0 and self._cleanable_type():
+                            self._clean_wm = m.value
+                        yield m.with_idx(pos)

@@ -24,10 +24,18 @@ Chunk lifecycle on side S (probing side O):
 Inner-join NULL semantics: rows whose join key contains NULL never match
 and are not stored.
 
+Fused input sides (``frontend/opt/fusion.py``): a side that absorbed its
+filter/project/row_id_gen run receives RAW chunks. The composed chain
+runs once on numpy for the host bookkeeping (visibility, pk→ref, arena,
+state rows), the raw int64 matrix is buffered for the epoch, and at the
+barrier one ``join_prelude`` launch (B20) builds the side's [key lanes |
+payload lanes] on the card from it; that one matrix feeds both the
+side's apply (K1 + K5) and its probe of the other side (K6).
+
 Not ported, refused at construction with NotImplementedError: the outer,
 semi and anti join types (device degrees), ``mesh`` (the sharded
 matcher), ``epoch_batch=False``, ``device_payload=False`` (the
-host-gather emit path), fused inputs and the cold tier (``state_cap``).
+host-gather emit path) and the cold tier (``state_cap``).
 Join-key watermarks (state expiry) raise NotImplementedError when one
 arrives; a watermark on any other column is dropped, as the reference
 drops it. Metrics, hot-key sketches and dispatch spans are left out.
@@ -157,6 +165,32 @@ class _JoinSide:
         self.pk_to_ref: Dict[tuple, int] = {}
         self.free: List[int] = []
         self.next_ref = 0
+        # fused input run: `schema` is the run's OUTPUT space; the
+        # prelude program is compiled on first use
+        self.fused_input = None
+        self._prog = None
+
+    @property
+    def prelude(self):
+        """The fused input run's join_prelude program (MODE_JOIN)."""
+        if self._prog is None:
+            from risingwave_tpu_torch.ops.fused import (
+                MODE_JOIN, compile_program,
+            )
+            self._prog = compile_program(
+                self.fused_input, MODE_JOIN, key_indices=self.key_indices,
+                pay_indices=self.pay_indices)
+        return self._prog
+
+    def key_nonnull_mask(self, chunk: StreamChunk) -> np.ndarray:
+        """Rows whose join key has no NULL (keys are device-typed on a
+        fused side)."""
+        m = np.ones(chunk.capacity, dtype=bool)
+        for i in self.key_indices:
+            c = chunk.columns[i]
+            if c.validity is not None:
+                m &= np.asarray(c.validity)
+        return m
 
     # -- device payload lanes (ops/lanes.py payload codecs) ---------------
     def payload_rows(self, chunk: StreamChunk) -> np.ndarray:
@@ -449,11 +483,65 @@ class HashJoinExecutor(Executor):
             side_idx, self._chunk_cols(me.schema, chunk, probe_idx, cap),
             other_cols, self._ops_of(chunk, probe_idx), t, cap)
 
+    # -- fragment fusion (frontend/opt/fusion.py adopts on a copy) --------
+    def adopt_fused_input(self, side_idx: int, fs, base: Executor) -> None:
+        """Absorb a filter/project/row_id_gen run on one input side:
+        ``base`` becomes the direct input and ``fs`` (whose out_schema
+        must equal the side schema this join was planned on) runs as a
+        numpy pass for host bookkeeping plus ``join_prelude`` on the card
+        at each epoch dispatch. Only valid before any data flows."""
+        from risingwave_tpu_torch.frontend.opt.fusion import (
+            join_side_fusable_reason,
+        )
+        r = join_side_fusable_reason(self, side_idx)
+        if r is not None:
+            raise ValueError(f"join side is not fusion-eligible: {r}")
+        side = self.sides[side_idx]
+        got = [f.data_type for f in fs.out_schema]
+        want = [f.data_type for f in side.schema]
+        if got != want:
+            raise ValueError(f"fused input run emits {got}, join side "
+                             f"planned on {want}")
+        side.fused_input = fs
+        side._prog = None
+        if side_idx == 0:
+            self.left_in = base
+        else:
+            self.right_in = base
+
+    def _run_fused_input(self, side_idx: int, chunk: StreamChunk):
+        """The host half of a fused input side: augment (runtime
+        columns), run the composed chain ONCE on numpy, reattach host
+        passthrough columns, and encode the raw matrix the epoch
+        dispatch uploads. Returns (post_chunk, raw) or None when every
+        row filtered out."""
+        from risingwave_tpu_torch.ops.fused import encode_raw_chunk
+        fs = self.sides[side_idx].fused_input
+        aug = fs.augment(chunk)
+        out_cols, vis2, ops2, stage_rows = fs.chain_body(
+            list(aug.columns), np.asarray(aug.visibility),
+            np.asarray(aug.ops), host_same=fs.host_noop_eq(aug))
+        fs.note_stage_rows(stage_rows, 1)
+        if not vis2.any():
+            return None
+        cols: List[Column] = []
+        for j, f in enumerate(fs.out_schema):
+            host_src = fs.host_out.get(j)
+            if host_src is not None:
+                src = aug.columns[host_src]
+                cols.append(Column(f.data_type, src.values, src.validity))
+            else:
+                cols.append(out_cols[j])
+        post = StreamChunk(fs.out_schema, cols, vis2, ops2)
+        return post, encode_raw_chunk(aug, fs.ref_cols)
+
     def _ingest_chunk(self, side_idx: int, chunk: StreamChunk,
-                      key_lanes: np.ndarray, nonnull: np.ndarray) -> None:
+                      key_lanes: Optional[np.ndarray], nonnull: np.ndarray,
+                      raw: Optional[np.ndarray] = None) -> None:
         """Host bookkeeping per chunk; the device work buffers for the
         ONE epoch dispatch at the barrier (sequence versioning keeps the
-        batched probes exact per row)."""
+        batched probes exact per row). A fused side buffers its raw
+        matrix instead of lanes."""
         me = self.sides[side_idx]
         seq = self._seq
         self._seq += 1
@@ -472,10 +560,17 @@ class HashJoinExecutor(Executor):
         aux[:, 3] = seq
         off = self._epoch_rows[side_idx]
         self._pending.append((side_idx, chunk, off, dn))
-        # [key lanes | payload lanes]: ONE upload matrix per side per
-        # epoch carries both
-        up = np.concatenate([key_lanes[:dn], me.payload_rows(chunk)[:dn]],
-                            axis=1) if me.pay_indices else key_lanes[:dn]
+        if raw is not None:
+            # fused side: the RAW int64 matrix is the upload; the side's
+            # join_prelude builds [key | payload] lanes on the card
+            up = raw[:dn]
+        elif me.pay_indices:
+            # [key lanes | payload lanes]: ONE upload matrix per side per
+            # epoch carries both
+            up = np.concatenate([key_lanes[:dn],
+                                 me.payload_rows(chunk)[:dn]], axis=1)
+        else:
+            up = key_lanes[:dn]
         self._epoch_buf[side_idx].append(
             (up, aux, int(ins_refs.max()) if len(ins_refs) else -1))
         self._epoch_rows[side_idx] = off + dn
@@ -492,7 +587,8 @@ class HashJoinExecutor(Executor):
                 continue
             total = self._epoch_rows[s]
             cap = next_pow2(total)
-            up = np.zeros((cap, buf[0][0].shape[1]), dtype=np.int32)
+            # fused sides buffer int64 raw matrices, others int32 lanes
+            up = np.zeros((cap, buf[0][0].shape[1]), dtype=buf[0][0].dtype)
             aux = np.zeros((cap, 4), dtype=np.int32)
             at = 0
             max_ref = -1
@@ -501,8 +597,14 @@ class HashJoinExecutor(Executor):
                 aux[at:at + a.shape[0]] = a
                 at += lan.shape[0]
                 max_ref = max(max_ref, mr)
-            up_dev, aux_dev = self.sides[s].kernel.stage_epoch(
-                up, aux, total, max_ref)
+            side = self.sides[s]
+            up_dev, aux_dev = side.kernel.stage_epoch(up, aux, total,
+                                                      max_ref)
+            if side.fused_input is not None:
+                # one prelude launch per side-epoch: its lanes feed both
+                # this side's apply and its probe of the other side
+                from risingwave_tpu_torch.ops.fused import join_prelude
+                up_dev = join_prelude(side.prelude, up_dev)
             devs[s] = (up_dev, aux_dev, total, max_ref)
         # both applies land before either probe dispatches: a probe at
         # seq s must see the other side's same-epoch rows with seq < s
@@ -606,6 +708,10 @@ class HashJoinExecutor(Executor):
                 for side in self.sides:
                     side.table.commit(msg.epoch)
                     side.maybe_compact()
+                    if side.fused_input is not None:
+                        # absorbed-runtime barrier work (row-id counters
+                        # rebase to the epoch floor)
+                        side.fused_input.on_barrier(msg)
                 self._maybe_gc_interner()
                 if self._seq > (1 << 30):
                     # int32 sequence headroom: with no probes in flight,
@@ -618,8 +724,21 @@ class HashJoinExecutor(Executor):
                 i = 0 if tag == "left" else 1
                 side = self.sides[i]
                 if isinstance(msg, StreamChunk):
+                    if side.fused_input is not None:
+                        r = self._run_fused_input(i, msg)
+                        if r is not None:
+                            post, raw = r
+                            self._ingest_chunk(
+                                i, post, None,
+                                side.key_nonnull_mask(post), raw=raw)
+                        continue
                     lanes_np, nonnull = side.key_codec.build_with_mask(
                         msg, side.key_indices)
                     self._ingest_chunk(i, msg, lanes_np, nonnull)
                 elif isinstance(msg, Watermark):
-                    self._on_watermark(i, msg)
+                    # a fused side receives watermarks in the run's input
+                    # space: derive them through the absorbed stages
+                    derived = [msg] if side.fused_input is None \
+                        else side.fused_input.derive_watermarks(msg)
+                    for one in derived:
+                        self._on_watermark(i, one)

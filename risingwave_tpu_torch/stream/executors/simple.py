@@ -1,10 +1,13 @@
-"""ProjectExecutor: stateless vectorized projection.
+"""ProjectExecutor and FilterExecutor: stateless vectorized operators.
 
-Port of ``ProjectExecutor`` of ``risingwave_tpu/stream/executors/
-simple.py`` (reference parity: src/stream/src/executor/project.rs): eval
-expressions over the chunk on the host, emit the new columns; watermarks
-pass through monotone derivations (e.g. tumble_start maps a date_time
-watermark to a window_start watermark); no-op U-/U+ pairs drop.
+Port of ``ProjectExecutor`` and ``FilterExecutor`` of
+``risingwave_tpu/stream/executors/simple.py`` (reference parity:
+src/stream/src/executor/project.rs, filter.rs): a projection evals
+expressions over the chunk on the host and emits the new columns;
+watermarks pass through monotone derivations (e.g. tumble_start maps a
+date_time watermark to a window_start watermark); no-op U-/U+ pairs
+drop. A filter narrows the visibility mask and degrades update pairs
+whose halves the predicate splits.
 """
 
 from __future__ import annotations
@@ -87,3 +90,51 @@ class ProjectExecutor(Executor):
                 # underivable watermarks are dropped (reference behavior)
             else:
                 yield msg
+
+
+class FilterExecutor(Executor):
+    """Visibility-mask filter with update-pair degradation (filter.rs)."""
+
+    def __init__(self, input_: Executor, predicate: Expression):
+        self.input = input_
+        self.predicate = predicate
+        super().__init__(ExecutorInfo(input_.schema,
+                                      list(input_.pk_indices),
+                                      "FilterExecutor"))
+
+    async def execute(self) -> AsyncIterator[Message]:
+        async for msg in self.input.execute():
+            if is_chunk(msg):
+                out = self.apply_predicate(msg, self.predicate)
+                # a fully-filtered chunk is dead weight downstream
+                if np.asarray(out.visibility).any():
+                    yield out
+            else:
+                yield msg
+
+    @staticmethod
+    def apply_predicate(chunk: StreamChunk,
+                        predicate: Expression) -> StreamChunk:
+        """THE filter transform: visibility mask plus U-/U+ pair
+        degradation by shifted compares (rolled with wrap-around, as the
+        fused chain of ops/fused.py does it on the card)."""
+        pcol = predicate.eval(chunk)
+        pred = np.asarray(pcol.values).astype(bool)
+        if pcol.validity is not None:  # NULL predicate = not satisfied
+            pred = pred & pcol.validity
+        ops = np.asarray(chunk.ops)
+        is_ud = ops == np.int8(int(Op.UPDATE_DELETE))
+        is_ui = ops == np.int8(int(Op.UPDATE_INSERT))
+        # pair (i, i+1): U- at i, U+ at i+1
+        next_is_ui = np.roll(is_ui, -1)
+        prev_is_ud = np.roll(is_ud, 1)
+        next_pred = np.roll(pred, -1)
+        prev_pred = np.roll(pred, 1)
+        # U- whose U+ half fails the predicate → plain DELETE
+        degrade_del = is_ud & next_is_ui & pred & ~next_pred
+        # U+ whose U- half fails the predicate → plain INSERT
+        degrade_ins = is_ui & prev_is_ud & pred & ~prev_pred
+        new_ops = np.where(degrade_del, np.int8(int(Op.DELETE)), ops)
+        new_ops = np.where(degrade_ins, np.int8(int(Op.INSERT)), new_ops)
+        return StreamChunk(chunk.schema, chunk.columns,
+                           np.asarray(chunk.visibility) & pred, new_ops)

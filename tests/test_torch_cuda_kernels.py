@@ -10,13 +10,18 @@ SUM's hi and lo rows are each held to rel 1e-6 of the group's summed
 magnitudes in that row (atomic order). The join kernels (K5, K6, K7) are
 held exactly to their plain versions: row-indexed arrays (next, ins/del
 sequences, payload, degrees) and probe matrices bit for bit, and the
-slot-indexed head per key (K1 numbers slots its own way).
+slot-indexed head per key (K1 numbers slots its own way). The fused
+preludes (fused_chain, agg_prelude, join_prelude) are held bit for bit to
+the plain program on random expression trees over every device type,
+with edge values; a NaN compares equal to a NaN whatever its bits.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from risingwave_tpu_torch.ops import fused as F
+from risingwave_tpu_torch.ops import fused_cases as FC
 from risingwave_tpu_torch.ops import hash_agg as H
 from risingwave_tpu_torch.ops import hash_join as J
 from risingwave_tpu_torch.ops import hash_table as ht
@@ -309,3 +314,52 @@ def test_join_maint_matches_plain(dev):
     for a, b in zip(_head_by_key(new, k[1]._replace(head=head2)),
                     _head_by_key(k[0], k[1])):
         np.testing.assert_array_equal(a, b)
+
+
+# -- the fused preludes (csrc/fused.cu) ----------------------------------------
+
+
+def _fused_case(dev, seed, edges, n=1 << 12):
+    fs, chunk = FC.port_case(seed, n, edges, separators=8)
+    raw = torch.from_numpy(F.encode_raw_chunk(chunk, fs.ref_cols))
+    hs = fs.host_noop_eq(chunk)
+    hs = None if hs is None else torch.from_numpy(hs.astype(np.int8))
+    return fs, chunk, raw, hs
+
+
+@pytest.mark.parametrize("edges", [False, True])
+def test_fused_chain_matches_plain(dev, edges):
+    for seed in range(12):
+        fs, chunk, raw, hs = _fused_case(dev, seed, edges)
+        prog = F.compile_program(fs, F.MODE_CHAIN)
+        ck = torch.zeros(prog.n_counts, dtype=torch.int64, device=dev)
+        cp = torch.zeros(prog.n_counts, dtype=torch.int64)
+        got = F.fused_chain(prog, raw.to(dev), None if hs is None
+                            else hs.to(dev), ck)
+        want = F.run_program_plain(prog, raw, hs, cp)
+        assert FC.mismatch(prog, got.cpu().numpy(), want.numpy(),
+                           None) == 0, seed
+        np.testing.assert_array_equal(ck.cpu().numpy(), cp.numpy())
+
+
+def test_agg_and_join_preludes_match_plain(dev):
+    for seed in range(12):
+        fs, chunk, raw, _hs = _fused_case(dev, seed, edges=True)
+        nan_rows = FC.nan_rows_of(fs, chunk)
+        g, calls, specs = FC.agg_plan(fs, seed)
+        prog = F.compile_program(fs, F.MODE_AGG, group_indices=g,
+                                 agg_calls=calls, specs=specs)
+        ck = torch.zeros(prog.n_counts, dtype=torch.int64, device=dev)
+        cp = torch.zeros(prog.n_counts, dtype=torch.int64)
+        got = F.agg_prelude(prog, raw.to(dev), ck)
+        want = F.run_program_plain(prog, raw, None, cp)
+        assert FC.mismatch(prog, got.cpu().numpy(), want.numpy(),
+                           nan_rows) == 0, seed
+        np.testing.assert_array_equal(ck.cpu().numpy(), cp.numpy())
+        keys, pays = FC.join_plan(fs, seed)
+        jp = F.compile_program(fs, F.MODE_JOIN, key_indices=keys,
+                               pay_indices=pays)
+        got = F.join_prelude(jp, raw.to(dev))
+        want = F.run_program_plain(jp, raw)
+        assert FC.mismatch(jp, got.cpu().numpy(), want.numpy(),
+                           nan_rows) == 0, seed

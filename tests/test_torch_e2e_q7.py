@@ -32,6 +32,17 @@ from risingwave_tpu_torch.state.store import MemoryStateStore
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def _strict_port_checker():
+    """The port's plan checker in assert-don't-fallback mode: a fused
+    path that breaks a plan invariant fails instead of falling back to
+    the unfused plan."""
+    from risingwave_tpu_torch.frontend.opt import set_strict_checker
+    set_strict_checker(True)
+    yield
+    set_strict_checker(False)
+
+
 def q7_oracle(cfg, n_bids):
     """The reference test's oracle, on the port's generator."""
     bids = gen_bids(np.arange(n_bids, dtype=np.int64), cfg)
@@ -93,9 +104,39 @@ def test_q7_port_matches_oracle_and_reference(scenario):
         assert occ <= len(state_rows) + 1
 
 
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_q7_fused_matches_reference_and_unfused(scenario):
+    """build_q7(fusion=True): the agg absorbs the tumble projection (its
+    prelude is agg_prelude), and the MV and value-state rows equal the
+    reference's fused run, the port's unfused run and the oracle."""
+    sc = SCENARIOS[scenario]
+    cfg = NexmarkConfig(**sc["cfg"])
+    _p, mv, state_rows, agg = _run(
+        build_q7, drive_to_completion, MemoryStateStore(), cfg,
+        sc["n_bids"], sc["kw"], Interval, device="cpu", fusion=True)
+    assert agg.fused_stages is not None
+    assert agg.fused_stages.describe() == "ProjectExecutor"
+    _u, mv_off, state_off, _a = _run(
+        build_q7, drive_to_completion, MemoryStateStore(), cfg,
+        sc["n_bids"], sc["kw"], Interval, device="cpu")
+    _rp, ref_mv, ref_state_rows, _ra = _run(
+        ref_models.build_q7, ref_models.drive_to_completion, RefStore(),
+        RefConfig(**sc["cfg"]), sc["n_bids"], sc["kw"], RefInterval,
+        fusion=True)
+    assert mv == q7_oracle(cfg, sc["n_bids"])
+    assert mv == ref_mv == mv_off
+    assert state_rows == ref_state_rows == state_off
+    rows = dict((name, n) for name, n, _c in
+                agg.fused_stages.drain_stage_metrics())
+    assert rows["ProjectExecutor"] == sc["n_bids"]
+    if scenario == "watermark":
+        # window watermarks still derive through the absorbed project
+        assert agg._cleaned_wm is not None
+
+
 def test_q7_port_refuses_unported_options():
     cfg = NexmarkConfig(event_num=1000)
-    for kw in (dict(fusion=True), dict(tier_cap=8), dict(mesh=object()),
+    for kw in (dict(tier_cap=8), dict(mesh=object()),
                dict(coalesce_rows=64)):
         with pytest.raises(NotImplementedError):
             build_q7(MemoryStateStore(), cfg, device="cpu", **kw)

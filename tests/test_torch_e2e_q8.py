@@ -37,6 +37,17 @@ from risingwave_tpu_torch.stream.executors import hash_join as port_hj
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def _strict_port_checker():
+    """The port's plan checker in assert-don't-fallback mode: a fused
+    path that breaks a plan invariant fails instead of falling back to
+    the unfused plan."""
+    from risingwave_tpu_torch.frontend.opt import set_strict_checker
+    set_strict_checker(True)
+    yield
+    set_strict_checker(False)
+
+
 def q8_oracle(cfg, n_persons, n_auctions):
     """The reference test's oracle, on the port's generators."""
     persons = gen_persons(np.arange(n_persons, dtype=np.int64), cfg)
@@ -118,9 +129,45 @@ def test_q8_port_growth_and_compaction_match_reference(monkeypatch):
     assert join.sides[0].kernel.table.capacity > 1 << 10
 
 
+def _fused_run(build, drive, store, config, fusion, **extra):
+    """tests/test_fusion.py:354's q8 arm: 40K events, 256-row chunks."""
+    base = config(event_num=40_000, max_chunk_size=256,
+                  generate_strings=False)
+    cfg_p = config(**{**base.__dict__, "table_type": "person"})
+    cfg_a = config(**{**base.__dict__, "table_type": "auction"})
+    p = build(store, cfg_p, cfg_a, rate_limit=16, min_chunks=16,
+              fusion=fusion, **extra)
+    asyncio.run(drive(p, {1: 40_000 // 50, 2: 40_000 * 3 // 50},
+                      in_flight=1))
+    join = p.actor.consumer.input.input
+    return (sorted(tuple(r) for _pk, r in p.mv_table.iter_rows()),
+            [list(s.table.iter_rows()) for s in join.sides], join)
+
+
+def test_q8_fused_matches_reference_and_unfused():
+    """build_q8(fusion=True): both join sides absorb their projections
+    (join_prelude builds their lanes) and the dedup agg its tumble
+    projection (agg_prelude); MV rows and both join state tables equal
+    the reference's fused run and the port's unfused run."""
+    mv, state, join = _fused_run(build_q8, drive_to_completion,
+                                 MemoryStateStore(), NexmarkConfig, True,
+                                 device="cpu")
+    assert all(s.fused_input is not None for s in join.sides)
+    assert join.right_in.fused_stages is not None
+    mv_off, state_off, _j = _fused_run(build_q8, drive_to_completion,
+                                       MemoryStateStore(), NexmarkConfig,
+                                       False, device="cpu")
+    ref_mv, ref_state, _rj = _fused_run(
+        ref_models.build_q8, ref_models.drive_to_completion, RefStore(),
+        RefConfig, True)
+    assert len(mv) > 10
+    assert mv == ref_mv == mv_off
+    assert state == ref_state == state_off
+
+
 def test_q8_port_refuses_unported_options():
     cfg = NexmarkConfig(event_num=1000)
-    for kw in (dict(mesh=object()), dict(fusion=True)):
+    for kw in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError):
             build_q8(MemoryStateStore(), cfg, cfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError):

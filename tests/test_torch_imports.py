@@ -19,6 +19,14 @@ import risingwave_tpu_torch.ops.hash_join
 import risingwave_tpu_torch.stream.executors.hash_join
 import risingwave_tpu_torch.stream.merge
 import risingwave_tpu_torch.stream.executors.test_utils
+import risingwave_tpu_torch.expr.expr
+import risingwave_tpu_torch.frontend.opt
+import risingwave_tpu_torch.frontend.opt.fusion
+import risingwave_tpu_torch.ops.fused
+import risingwave_tpu_torch.ops.fused_cases
+import risingwave_tpu_torch.stream.executors.fused
+import risingwave_tpu_torch.stream.executors.row_id_gen
+import risingwave_tpu_torch.stream.executors.simple
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "risingwave_tpu" or m.startswith("risingwave_tpu."))
