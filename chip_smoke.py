@@ -24,20 +24,21 @@ phases, any failure of which exits non-zero:
      K6 (join_probe) exact, with and without degrees, including a forced
      overflow (a 2^10-row buffer) that must re-dispatch to the same pairs,
      K7 and the head remap on K4 exact;
-4. the main paths end to end, each with every launch count reset just
-   before and read just after, each MV equal to a vectorized oracle:
-   - Nexmark q7-core through ``build_q7`` + ``drive_to_completion`` at
-     10M events (bench.py's q7 shape: 8192-row chunks, 32 chunks per
-     epoch, watermark retirement on);
-   - Nexmark q8 through ``build_q8`` + ``drive_to_completion`` at 100M
-     events (bench.py's q8 shape: 4096-row chunks, 16 chunks per epoch,
-     two barriers in flight, no strings): 2M persons and 6M auctions;
    - the fused preludes (fused_chain, agg_prelude, join_prelude of
      csrc/fused.cu) bit for bit against the plain program on random
      expression trees that cover every opcode, with edge values (a NaN
      equal to a NaN), and on q1's, q7's and q8's own programs at the
      path's shapes (a 2^15-row agg backlog, 2^16-row join side-epochs,
-     q1's 4096-row chunks); then timed;
+     q1's 4096-row chunks); q7's agg prelude also in the 8 segments of
+     the q7-mesh fused step, with U-/U+ pairs across every block edge;
+   - the sharded path at q7-mesh's shapes: route (csrc/route.cu) bit for
+     bit against route_plain on a 2^15-row step in 8 blocks (bucket =
+     the block), and with a forced overflow; the shard axis of K1-K4 at
+     8 shards x 2^15 slots on q7's step and on the mixed plan over ~120K
+     groups (K1 by the table invariants shard by shard, K2-K4 exact on
+     the same slots, q7's whole step against its plain twin as
+     key-sorted flushes), then a reshard to a rotated owner map with
+     equal snapshots before and after;
 4. the main paths end to end, each with every launch count reset just
    before and read just after, each MV equal to a vectorized oracle,
    with the plan checker strict (a rewrite that breaks an invariant
@@ -54,10 +55,18 @@ phases, any failure of which exits non-zero:
      chunks, 16 per epoch, strings on), unfused and fused (row-id
      generation and the DECIMAL projection as one block: fused_chain),
      the MVs compared without ``_row_id``;
+   - q7-core over 8 logical shards (``build_q7(mesh=ShardMesh(8))``,
+     bench.py's bench_q7_mesh shape: 4096-row chunks, 16 per epoch, no
+     strings, watermark retirement on) at 10M events, unfused and fused
+     (the prelude on the sharded kernel), each MV equal to the oracle and
+     to the single-device q7's; then q7-mesh at 2M events killed halfway
+     and rebuilt on the same store, equal to the oracle;
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
-   events, and fused q7 and q8 at 2M, under torch.profiler (the
-   device's busy time and idle share) and cProfile (host self-time by
-   module), after the main paths' counts were read.
+   events, fused q7 and q8 at 2M, and q7-mesh at 2M unfused and fused,
+   under torch.profiler (the device's busy time and idle share) and
+   cProfile (host self-time by module; the sharded path's own host
+   functions by cumulative time), after the main paths' counts were
+   read.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``; ``launches`` is the sum of the main paths'
@@ -101,6 +110,13 @@ OVERFLOW_CAP = 1 << 10
 Q1_EVENTS = 4_000_000         # 3.68M bids; bench.py's bench_q1 shape
 FUSED_SEEDS = 12              # random programs: every opcode appears
 FUSED_ROWS = 1 << 15
+MESH_SHARDS = 8               # bench.py's bench_q7_mesh parallelism
+MESH_CAP = 1 << 15            # slots per shard in the kernel checks
+MESH_GROUPS = 120_000         # the mixed plan's groups: ~15K per shard
+MESH_ROWS = 1 << 18           # its batch: ~106K distinct groups
+Q7_MESH_EVENTS = 10_000_000
+Q7_MESH_RECOVERY_EVENTS = 2_000_000
+Q7_MESH_TRACE_EVENTS = 2_000_000
 
 KERNELS = {
     # name: (source, reference program it replaces)
@@ -132,6 +148,8 @@ KERNELS = {
                     "risingwave_tpu/ops/fused.py:877"),
     "join_prelude": ("risingwave_tpu_torch/csrc/fused.cu",
                      "risingwave_tpu/ops/fused.py:930"),
+    "route": ("risingwave_tpu_torch/csrc/route.cu",
+              "risingwave_tpu/parallel/exchange.py:72"),
 }
 # the kernels each main path must have launched (the others run off
 # these paths: degrees serve outer/semi/anti joins, masked_scatter the
@@ -144,6 +162,9 @@ Q8_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
 Q7_FUSED_PATH = Q7_PATH + ("agg_prelude",)
 Q8_FUSED_PATH = Q8_PATH + ("agg_prelude", "join_prelude")
 Q1_FUSED_PATH = ("fused_chain",)
+Q7_MESH_PATH = ("route", "probe_insert", "agg_apply", "flush_gather",
+                "advance", "live_mask", "remap")
+Q7_MESH_FUSED_PATH = Q7_MESH_PATH + ("agg_prelude",)
 
 
 def log(msg: str) -> None:
@@ -997,10 +1018,14 @@ def drive(p, targets: dict, dev, trace: bool) -> dict:
         # the rule of the profiler's own table: device events' self time
         busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA)
+        stats = pstats.Stats(host)
         traced = dict(device_busy_ms=busy_us / 1e3 if busy_us else None,
                       device_idle_share=(1 - busy_us / 1e6 / wall
                                          if busy_us else None),
-                      host_self_s=host_split(pstats.Stats(host)))
+                      host_self_s=host_split(stats))
+        parallel = mesh_host_fns(stats)
+        if parallel:
+            traced["parallel_cum_s"] = parallel
     else:
         t0 = time.perf_counter()
         elapsed, rows = run()
@@ -1164,7 +1189,9 @@ def check_fused_random(dev) -> dict:
     (every opcode appears across the seeds), edge values included, 2^15
     rows with U-/U+ pairs and separator rows: the kernel against the
     plain program on the same card tensors, exact (a NaN equal to a
-    NaN), the stage counts exact."""
+    NaN), the stage counts exact; agg_prelude also in MESH_SHARDS
+    segments (a pair may start at every fifth row, so some seeds put one
+    across a block edge; check_prelude_segments puts one on each)."""
     from risingwave_tpu_torch.ops import fused as F
     from risingwave_tpu_torch.ops import fused_cases as FC
     err = {"fused_chain": 0.0, "agg_prelude": 0.0, "join_prelude": 0.0}
@@ -1201,6 +1228,18 @@ def check_fused_random(dev) -> dict:
             e = max(e, abs_err(ck.cpu().numpy(), cp.cpu().numpy()))
             assert e == 0, f"{name} differs from its plain version " \
                 f"on seed {seed}: {e}"
+            if name == "agg_prelude":
+                # the q7-mesh fused step's form: each shard block a ring
+                seg = FUSED_ROWS // MESH_SHARDS
+                ck.zero_()
+                cp.zero_()
+                got = F.agg_prelude(prog, raw, ck, seg=seg)
+                want = F.run_program_plain(prog, raw, None, cp, seg=seg)
+                e = max(e, FC.mismatch(prog, got.cpu().numpy(),
+                                       want.cpu().numpy(), nan_rows),
+                        abs_err(ck.cpu().numpy(), cp.cpu().numpy()))
+                assert e == 0, f"segmented agg_prelude differs from its " \
+                    f"plain version on seed {seed}: {e}"
             err[name] = max(err[name], e)
     assert ops == set(range(F.OP_EXTRACT_EPOCH + 1)), \
         f"opcodes not covered: {set(range(F.OP_EXTRACT_EPOCH + 1)) - ops}"
@@ -1314,10 +1353,376 @@ def check_fused_paths(dev, err: dict) -> dict:
         log(f"{label}: {int(raw.shape[0])} raw rows of width "
             f"{int(raw.shape[1])} -> {prog.out_width} lanes: "
             + json.dumps(t))
+        if label == "q7 agg_prelude":
+            e = max(e, check_prelude_segments(prog, raw))
         if label in ("q7 agg_prelude", "q8 persons join_prelude",
                      "q1 fused_chain"):
             results[name] = dict(max_abs_err=max(err[name], e), **t)
     return results
+
+
+def check_prelude_segments(prog, raw) -> float:
+    """q7's agg prelude as the q7-mesh fused step launches it: the 2^15-row
+    backlog as MESH_SHARDS rings of N / MESH_SHARDS rows (each shard
+    block's ±1 neighbour rolls wrap inside the block), exact against the
+    plain program with the same segments, outputs and stage counts. Twice:
+    on the backlog as it is (insert-only), and with visible U-/U+ pairs
+    straddling every block edge and the batch's wrap (half of them equal
+    in every column, noop pairs) plus one inside each block. Then timed."""
+    from risingwave_tpu_torch.ops import fused as F
+    seg = N // MESH_SHARDS
+    paired = raw.cpu().numpy().copy()
+    edges = [k * seg for k in range(MESH_SHARDS)]
+    for j, e in enumerate(edges):
+        for a in (e - 1, e + seg // 2):
+            b = (a + 1) % N
+            paired[a, 0], paired[b, 0] = 3, 4
+            paired[a, 1] = paired[b, 1] = 1
+            if j % 2:
+                paired[b, 2:] = paired[a, 2:]
+    err = 0.0
+    for x in (raw, torch.from_numpy(paired).to(raw.device)):
+        ck = torch.zeros(prog.n_counts, dtype=torch.int64, device=x.device)
+        cp = ck.clone()
+        got = F.agg_prelude(prog, x, ck, seg=seg)
+        want = F.run_program_plain(prog, x, None, cp, seg=seg)
+        err = max(err, abs_err(got.cpu().numpy(), want.cpu().numpy()),
+                  abs_err(ck.cpu().numpy(), cp.cpu().numpy()))
+        assert err == 0, f"q7's segmented agg_prelude differs: {err}"
+    t = _fused_time(lambda: F.agg_prelude(prog, raw, seg=seg),
+                    lambda: F.run_program_plain(prog, raw, seg=seg), prog,
+                    int(raw.shape[0]))
+    log(f"q7 agg_prelude in {MESH_SHARDS} segments of {seg} rows, "
+        f"U-/U+ pairs across every block edge: exact; " + json.dumps(t))
+    return err
+
+
+# -- phase 3, the sharded path: route and the shard axis of K1-K4 ----------------
+
+def _mesh_step(dev, specs, packed_np, kernels: bool):
+    """One routed step of the sharded agg at MESH_SHARDS shards of
+    MESH_CAP slots, all through the kernels or all through the plain
+    versions: (state, recv, rvalid, slots)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.parallel import exchange as X
+    from risingwave_tpu_torch.parallel.mesh import contiguous_owner_map
+    s = MESH_SHARDS
+    packed = torch.from_numpy(packed_np).to(dev)
+    omap = torch.from_numpy(contiguous_owner_map(s)).to(dev)
+    route = X.route if kernels else X.route_plain
+    recv, rvalid, ovf = route(packed, packed[:, KW + 1], omap, s,
+                              packed.shape[0] // s, KW)
+    assert not bool(ovf.any())
+    st = H.make_sharded_agg_state(s, MESH_CAP, KW, specs, dev)
+    probe = H.ht.probe_insert_sharded if kernels \
+        else H.ht.probe_insert_sharded_plain
+    slots, stats = probe(st.table, recv[:, :, :KW], rvalid)
+    assert not bool(stats[:, 1].any()), "probe overflow"
+    plan = H.ApplyPlan(KW, specs, dev)
+    (H.agg_apply_sharded if kernels else H.agg_apply_sharded_plain)(
+        st, recv, slots, plan)
+    return st, recv, rvalid, slots
+
+
+def _flush_rows(H, st, fc) -> np.ndarray:
+    """Every shard's flushed dirty rows, without the slot column, sorted
+    by key: the kernels' slots differ from the plain rule's (K1)."""
+    mats = H.flush_gather_sharded(st, fc).cpu().numpy()
+    out = []
+    for d in range(mats.shape[0]):
+        assert mats[d, 0, 0] <= fc
+        out.append(mats[d, 1:1 + mats[d, 0, 0], 1:])
+    st_rows = np.concatenate(out)
+    return st_rows[np.lexsort(st_rows[:, :KW].T[::-1])]
+
+
+def check_route(dev) -> dict:
+    """route against route_plain bit for bit on a q7-mesh step (a 2^15-row
+    packed batch in 8 blocks, bucket = local), on the mixed plan's batch
+    and with a forced overflow (bucket 64); timed on the q7 step."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.parallel import exchange as X
+    from risingwave_tpu_torch.parallel.mesh import contiguous_owner_map
+    s = MESH_SHARDS
+    omap = torch.from_numpy(contiguous_owner_map(s)).to(dev)
+    q7 = make_specs(H, [("max", np.int64), ("count", None)])
+    mixed = make_specs(H, [("sum", np.int64), ("sum", np.float64),
+                           ("min", np.int64), ("count", None)])
+    err = 0.0
+    for packed_np, bucket in ((q7_batch(N, q7), N // s),
+                              (mixed_batch(N, mixed, groups=MESH_GROUPS),
+                               N // s),
+                              (mixed_batch(N, mixed, groups=MESH_GROUPS),
+                               64)):
+        packed = torch.from_numpy(packed_np).to(dev)
+        got = X.route(packed, packed[:, KW + 1], omap, s, bucket, KW)
+        want = X.route_plain(packed, packed[:, KW + 1], omap, s, bucket, KW)
+        for g, w in zip(got, want):
+            err = max(err, abs_err(g.cpu().numpy(), w.cpu().numpy()))
+        assert err == 0, f"route differs from route_plain: {err}"
+        assert bool(got[2].any()) == (bucket == 64), "overflow flag"
+    packed = torch.from_numpy(q7_batch(N, q7)).to(dev)
+    valid = packed[:, KW + 1]
+    ms = time_ms(lambda: X.route(packed, valid, omap, s, N // s, KW))
+    plain_ms = time_ms(lambda: X.route_plain(packed, valid, omap, s,
+                                             N // s, KW))
+    b, by = bound_ms(X.bound_bytes(N, packed.shape[1], s, N // s), N * 16)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
+
+
+def check_sharded(dev) -> dict:
+    """The shard axis of K1-K4 at MESH_SHARDS x MESH_CAP slots: on q7's
+    step and on the mixed plan over MESH_GROUPS groups. K1 by the table
+    invariants shard by shard; K2-K4 exact against their plain versions
+    on the same slots (float SUM within rel FLOAT_SUM_RTOL of Σ|terms|);
+    the whole q7 step through the kernels against it through the plain
+    versions as key-sorted flushes; then a reshard to a rotated owner
+    map, snapshots equal before and after. Returns per-kernel timings at
+    q7's step (logged beside the single-device rows)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.parallel import ShardedAggKernel, ShardMesh
+    s, cap = MESH_SHARDS, MESH_CAP
+    mixed = make_specs(H, [("sum", np.int64), ("sum", np.float64),
+                           ("min", np.int64), ("count", None)])
+    mixed_np = mixed_batch(MESH_ROWS, mixed, groups=MESH_GROUPS)
+    st, recv, rvalid, slots = _mesh_step(dev, mixed, mixed_np, True)
+    ref, _r, _v, _sl = _mesh_step(dev, mixed, mixed_np, False)
+    occ = (st.table.occ != 0).sum(dim=1).cpu().numpy()
+    assert (occ == (ref.table.occ != 0).sum(dim=1).cpu().numpy()).all()
+    err = 0.0
+    for d in range(s):
+        sl = slots[d].cpu().numpy()
+        v = rvalid[d].cpu().numpy() != 0
+        keys = recv[d, :, :KW].cpu().numpy()
+        tk = st.table.keys[d].cpu().numpy()
+        assert (sl[~v] == -1).all() and (sl[v] >= 0).all()
+        err = max(err, abs_err(tk[sl[v]], keys[v]))
+
+        def keyset(t):
+            x = t.keys[d].cpu().numpy()[t.occ[d].cpu().numpy() != 0]
+            return x[np.lexsort(x.T[::-1])]
+        err = max(err, abs_err(keyset(st.table), keyset(ref.table)))
+    assert err == 0, "a shard's table differs from the plain version's"
+    log(f"sharded state: {int(occ.sum())} groups over {s} shards of {cap} "
+        f"slots (fullest {int(occ.max())})")
+    # K2 again on the kernel's slots: exact integers, float SUM bounded
+    plan = H.ApplyPlan(KW, mixed, dev)
+    fresh = H.make_sharded_agg_state(s, cap, KW, mixed, dev).st
+    a = H.ShardedAggState(st.table, fresh.clone())
+    b = H.ShardedAggState(st.table, fresh.clone())
+    H.agg_apply_sharded(a, recv, slots, plan)
+    H.agg_apply_sharded_plain(b, recv, slots, plan)
+    x, y = a.st.cpu().numpy(), b.st.cpu().numpy()
+    frows = [H.ROW_ACC0 + 4 + 1, H.ROW_ACC0 + 4 + 1 + 1]
+    ints = [r for r in range(x.shape[1]) if r not in frows]
+    err = max(err, abs_err(x[:, ints], y[:, ints]))
+    assert err == 0, "sharded agg_apply integers differ"
+    fe = 0.0
+    for d in range(s):
+        fe = max(fe, float_sum_err(H, x[d], y[d], recv[d].cpu().numpy(),
+                                   slots[d].cpu().numpy(), mixed, 1, frows,
+                                   cap))
+    for fc in (1 << 14, 1 << 10):      # the second one overflows
+        err = max(err, abs_err(H.flush_gather_sharded(b, fc).cpu().numpy(),
+                               H.flush_gather_sharded_plain(b, fc)
+                               .cpu().numpy()))
+    c = H.ShardedAggState(b.table, b.st.clone())
+    H.advance_sharded(c)
+    for d in range(s):
+        H.advance_plain(b.shard(d))
+    err = max(err, abs_err(c.st.cpu().numpy(), b.st.cpu().numpy()))
+    hi, lo = lanes_split(10_000 * 7_919)
+    fill = torch.tensor(H.state_fills(mixed), dtype=torch.int32, device=dev)
+    for mode in (H.LIVE_GROW, H.LIVE_RETIRE):
+        live = H.live_mask_sharded(b, mode, 0, hi, lo)
+        want = torch.stack([H.live_mask_plain(b.shard(d), mode, 0, hi, lo)
+                            for d in range(s)])
+        err = max(err, abs_err(live.cpu().numpy(), want.cpu().numpy()))
+    table = H.ht.TableState(
+        torch.zeros((s, 2 * cap, KW), dtype=torch.int32, device=dev),
+        torch.zeros((s, 2 * cap), dtype=torch.int32, device=dev))
+    o2n, _st = H.ht.probe_insert_sharded(table, b.table.keys, live)
+    err = max(err, abs_err(
+        H.remap_sharded(b.st, o2n, table.occ, fill, 2 * cap).cpu().numpy(),
+        torch.stack([H.remap_plain(b.st[d], o2n[d], table.occ[d], fill,
+                                   2 * cap) for d in range(s)])
+        .cpu().numpy()))
+    assert err == 0, f"sharded K3/K4 differ from their plain versions: {err}"
+    # q7's step, kernels end to end against plain versions end to end
+    q7 = make_specs(H, [("max", np.int64), ("count", None)])
+    q7_np = q7_batch(N, q7)
+    qk, qrecv, qvalid, qslots = _mesh_step(dev, q7, q7_np, True)
+    qp, _r, _v, _s = _mesh_step(dev, q7, q7_np, False)
+    err = max(err, abs_err(_flush_rows(H, qk, 1 << 10),
+                           _flush_rows(H, qp, 1 << 10)))
+    assert err == 0, "q7's sharded step differs from the plain versions'"
+    # reshard of the mixed state to a rotated owner map: every group's
+    # whole state row moves, bit for bit
+    kern = ShardedAggKernel(ShardMesh(s, dev), KW, mixed, capacity=cap)
+    kern.state = H.ShardedAggState(a.table, a.st.clone())
+    before = _groups(kern.state)
+    t0 = time.perf_counter()
+    kern.reshard(np.roll(kern.mesh.owner_map(), 37))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    reshard_s = time.perf_counter() - t0
+    after = _groups(kern.state)
+    err = max(err, abs_err(before, after))
+    assert err == 0, "reshard changed the groups"
+    log(f"reshard of {len(before)} groups to a rotated owner map: "
+        f"{reshard_s:.6f} s wall; snapshots equal")
+    # timings at q7's step (8 shards: each shard receives the whole
+    # 2^15-row batch, most of it rows routed elsewhere)
+    # The byte bounds charge every received row its valid flag (K1) or
+    # its slot (K2) and its slot write (K1), and only the valid rows
+    # their key lanes (K1) or their whole packed row (K2): with bucket =
+    # local, about 7/8 of each shard's m received rows are empty.
+    qplan = H.ApplyPlan(KW, q7, dev)
+    w = qrecv.shape[2]
+    m = qrecv.shape[1]
+    valid = int(qvalid.sum())
+    qsl = qslots.cpu().numpy()
+    distinct = sum(len(np.unique(qsl[d][qsl[d] >= 0])) for d in range(s))
+    t = {}
+
+    def timed(name, fn, plain, nbytes, ops):
+        bd, by = bound_ms(nbytes, ops)
+        t[name] = dict(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=bd,
+                       bound_by=by)
+    timed("probe_insert",
+          lambda: H.ht.probe_insert_sharded(qk.table, qrecv[:, :, :KW],
+                                            qvalid),
+          lambda: H.ht.probe_insert_sharded_plain(qk.table, qrecv[:, :, :KW],
+                                                  qvalid),
+          s * m * 4 + valid * KW * 4 + s * m * 4 + s * 8
+          + distinct * (KW + 1) * 4, valid * 14 * KW)
+    qa = H.ShardedAggState(qk.table, qk.st.clone())
+    timed("agg_apply",
+          lambda: H.agg_apply_sharded(qa, qrecv, qslots, qplan),
+          lambda: H.agg_apply_sharded_plain(qa, qrecv, qslots, qplan),
+          s * m * 4 + valid * w * 4 + distinct * (2 + 4) * 4 * 2,
+          valid * 12)
+    r = qk.st.shape[1]
+    wout = H.flush_width(KW, qk.n_acc)
+    timed("flush_gather", lambda: H.flush_gather_sharded(qk, 1 << 10),
+          lambda: H.flush_gather_sharded_plain(qk, 1 << 10),
+          s * cap * 8 + s * (1 + (1 << 10)) * wout * 4, s * cap * 4)
+    timed("advance", lambda: H.advance_sharded(qa),
+          lambda: [H.advance_plain(qa.shard(d)) for d in range(s)],
+          s * cap * 4, s * cap)
+    timed("live_mask", lambda: H.live_mask_sharded(qk, H.LIVE_RETIRE, 0),
+          lambda: torch.stack([H.live_mask_plain(qk.shard(d),
+                                                 H.LIVE_RETIRE, 0)
+                               for d in range(s)]),
+          s * cap * 8, s * cap * 8)
+    qlive = H.live_mask_sharded(qk, H.LIVE_RETIRE, 0)
+    qt = H.ht.TableState(
+        torch.zeros((s, cap, KW), dtype=torch.int32, device=dev),
+        torch.zeros((s, cap), dtype=torch.int32, device=dev))
+    qo2n, _q = H.ht.probe_insert_sharded(qt, qk.table.keys, qlive)
+    qfill = torch.tensor(H.state_fills(q7), dtype=torch.int32, device=dev)
+    timed("remap", lambda: H.remap_sharded(qk.st, qo2n, qt.occ, qfill, cap),
+          lambda: torch.stack([H.remap_plain(qk.st[d], qo2n[d], qt.occ[d],
+                                             qfill, cap) for d in range(s)]),
+          s * cap * 8 + s * r * cap * 4, s * cap * r)
+    return dict(max_abs_err=max(err, fe), timings=t, reshard_s=reshard_s)
+
+
+def _groups(st) -> np.ndarray:
+    """Every occupied slot's key lanes and state column, over all
+    shards, sorted by key: the sharded state's snapshot, slot-free."""
+    keys = st.table.keys.cpu().numpy()
+    occ = st.table.occ.cpu().numpy() != 0
+    cols = st.st.cpu().numpy().transpose(0, 2, 1)
+    rows = np.concatenate([keys[occ], cols[occ]], axis=1)
+    return rows[np.lexsort(rows[:, :KW].T[::-1])]
+
+
+def lanes_split(v: int) -> tuple:
+    from risingwave_tpu_torch.ops import lanes
+    hi, lo = lanes.split_i64(np.asarray([v], dtype=np.int64))
+    return int(hi[0]), int(lo[0])
+
+
+# -- phase 4: q7 over 8 shards ----------------------------------------------------
+
+def _q7_mesh(dev, store, events: int, fusion: bool):
+    from risingwave_tpu_torch.common.types import Interval
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.models.nexmark import build_q7
+    from risingwave_tpu_torch.parallel import ShardedAggKernel, ShardMesh
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=4096,
+                        generate_strings=False)
+    p = build_q7(store, cfg, rate_limit=16, min_chunks=16,
+                 watermark_delay=Interval(usecs=0), device=dev,
+                 fusion=fusion, mesh=ShardMesh(MESH_SHARDS, dev))
+    agg = p.actor.consumer.input
+    assert isinstance(agg.kernel, ShardedAggKernel)
+    assert (agg.fused_stages is not None) == fusion, "fusion did not fire"
+    return p, cfg, agg
+
+
+def run_q7_mesh(dev, events: int, trace: bool = False,
+                fusion: bool = False) -> dict:
+    """q7-core over MESH_SHARDS logical shards through build_q7(mesh=...)
+    + drive_to_completion at bench.py's mesh lane shape (4096-row chunks,
+    16 per epoch, no strings, watermark retirement on, two barriers in
+    flight); the MV must equal the oracle. With ``fusion`` the prelude
+    must sit on the sharded kernel."""
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    p, cfg, agg = _q7_mesh(dev, MemoryStateStore(), events, fusion)
+    n_bids = events * 46 // 50
+    out = drive(p, {1: n_bids}, dev, trace)
+    assert (agg.kernel._prelude is not None) == fusion, \
+        "the prelude is not on the sharded kernel"
+    got = {r[0]: (r[1], r[2]) for _pk, r in p.mv_table.iter_rows()}
+    assert got == q7_oracle(cfg, n_bids), "q7-mesh MV differs from the oracle"
+    k = agg.kernel
+    return dict(out, windows=len(got), mv_digest=mv_digest(got.items()),
+                shards=k.n_dev, shard_capacity=k.capacity,
+                routed_steps_and_gathers=k.dispatches)
+
+
+def run_q7_mesh_recovery(dev, events: int) -> dict:
+    """q7-mesh killed halfway and rebuilt on the same store: a fresh
+    pipeline and sharded kernel reload the committed groups, run to the
+    end, and the MV equals the oracle. Launch counts cover both halves."""
+    from risingwave_tpu_torch.models.nexmark import drive_to_completion
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    store = MemoryStateStore()
+    n_bids = events * 46 // 50
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    p1, _c, _a = _q7_mesh(dev, store, events, False)
+    asyncio.run(drive_to_completion(p1, {1: n_bids // 2}, in_flight=2))
+    del p1
+    p2, cfg, agg = _q7_mesh(dev, store, events, False)
+    asyncio.run(drive_to_completion(p2, {1: n_bids}, in_flight=2))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    got = {r[0]: (r[1], r[2]) for _pk, r in p2.mv_table.iter_rows()}
+    assert got == q7_oracle(cfg, n_bids), \
+        "q7-mesh after recovery differs from the oracle"
+    # both halves, set-up included: no warmup epoch is split off here
+    return dict(events=n_bids, elapsed_s=wall, windows=len(got),
+                launches=LAUNCHES.snapshot(), mv_digest=mv_digest(got.items()))
+
+
+def mesh_host_fns(stats) -> dict:
+    """Cumulative host time (s) of the sharded path's own host work: the
+    routing's host twin and bucket sizing, the step, the flush."""
+    want = ("owners_host", "skew_bucket", "_dispatch_backlog", "flush",
+            "apply", "apply_raw")
+    out: dict = {}
+    for (path, _line, fn), (_cc, _nc, _tt, ct, _callers) in \
+            stats.stats.items():
+        if "parallel" in path and fn in want:
+            key = f"parallel/{path.split('parallel/')[-1]}:{fn}"
+            out[key] = out.get(key, 0.0) + ct
+    return out
 
 
 def main() -> int:
@@ -1373,6 +1778,18 @@ def main() -> int:
         log(f"kernel {name}: " + json.dumps(results[name]))
     torch.cuda.empty_cache()
 
+    results["route"] = check_route(dev)
+    log("kernel route: " + json.dumps(results["route"]))
+    t0 = time.perf_counter()
+    sharded = check_sharded(dev)
+    log(f"sharded K1-K4 at {MESH_SHARDS} shards x {MESH_CAP} slots (q7 "
+        f"plan and the mixed plan over {MESH_GROUPS} groups) match their "
+        f"plain versions: max_abs_err {sharded['max_abs_err']} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for name, t in sharded["timings"].items():
+        log(f"sharded {name} at q7's routed step: " + json.dumps(t))
+    torch.cuda.empty_cache()
+
     floor = launch_floor_ms(dev)
     log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
 
@@ -1389,7 +1806,12 @@ def main() -> int:
              Q8_FUSED_PATH),
             ("q1", lambda d, e: run_q1(d, e, fusion=False), Q1_EVENTS, ()),
             ("q1 fused", lambda d, e: run_q1(d, e, fusion=True), Q1_EVENTS,
-             Q1_FUSED_PATH)):
+             Q1_FUSED_PATH),
+            ("q7 mesh", run_q7_mesh, Q7_MESH_EVENTS, Q7_MESH_PATH),
+            ("q7 mesh fused", lambda d, e: run_q7_mesh(d, e, fusion=True),
+             Q7_MESH_EVENTS, Q7_MESH_FUSED_PATH),
+            ("q7 mesh recovery", run_q7_mesh_recovery,
+             Q7_MESH_RECOVERY_EVENTS, Q7_MESH_PATH)):
         out = run(dev, events)
         paths[label] = out
         missing = [k for k in path if out["launches"].get(k, 0) == 0]
@@ -1407,6 +1829,16 @@ def main() -> int:
         log(f"{q} fused vs unfused: events/s {b['events_per_s']} vs "
             f"{a['events_per_s']}, p99 barrier latency "
             f"{b['p99_barrier_latency_s']} vs {a['p99_barrier_latency_s']}")
+    for label in ("q7 mesh", "q7 mesh fused"):
+        m, one = paths[label], paths[label.replace(" mesh", "")]
+        assert m["mv_digest"] == one["mv_digest"], \
+            f"{label}: the MV differs from the single-device q7's"
+        steps = m["launches"]["route"]
+        log(f"{label}: {MESH_SHARDS} shards vs one device: events/s "
+            f"{m['events_per_s']} vs {one['events_per_s']}, p99 barrier "
+            f"latency {m['p99_barrier_latency_s']} vs "
+            f"{one['p99_barrier_latency_s']}; per routed step "
+            + json.dumps({k: v / steps for k, v in m["launches"].items()}))
 
     # 5. where the time goes: shorter traced runs (their launches are not
     # the main paths' and are not reported)
@@ -1420,6 +1852,11 @@ def main() -> int:
     log(f"q8 fused traced at {Q8_TRACE_EVENTS[0]} events: "
         + json.dumps(run_q8(dev, Q8_TRACE_EVENTS[0], trace=True,
                             fusion=True)))
+    for fusion in (False, True):
+        log(f"q7 mesh{' fused' if fusion else ''} traced at "
+            f"{Q7_MESH_TRACE_EVENTS} events: "
+            + json.dumps(run_q7_mesh(dev, Q7_MESH_TRACE_EVENTS, trace=True,
+                                     fusion=fusion)))
 
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 

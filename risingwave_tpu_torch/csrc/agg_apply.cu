@@ -32,6 +32,12 @@
 // atomic order, which differs from run to run: it is held to a stated
 // tolerance, not to bits.
 //
+// Shard axis (risingwave_tpu/parallel/agg.py:283, B22): blockIdx.y is the
+// shard. Shard s reads its own batch (packed + s * pshard, slots + s *
+// sshard) and updates its own state matrix (st + s * stshard), so one
+// launch per phase and slice serves every shard; the single-device path
+// launches S = 1.
+//
 // What bounds it on the card: bytes in the general case (each row's W
 // lanes are read once; state is touched at the rows' slots). In q7 nearly
 // all 32K rows of a batch hit ONE slot, so the same-address atomics
@@ -47,11 +53,17 @@ constexpr int kLimbs = 4;
 
 __global__ void apply_kernel(int phase, const int32_t* __restrict__ packed,
                              int w, int kw, int row0, int nrows,
-                             const int32_t* __restrict__ slots, int32_t* st,
-                             long long cap,
+                             long long pshard,
+                             const int32_t* __restrict__ slots,
+                             long long sshard, int32_t* st, long long cap,
+                             long long stshard,
                              const int32_t* __restrict__ desc, int ncalls) {
   const int r = row0 + blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= row0 + nrows) return;
+  const long long sh = blockIdx.y;
+  packed += sh * pshard;
+  slots += sh * sshard;
+  st += sh * stshard;
   const int32_t* p = packed + static_cast<size_t>(r) * w;
   const int32_t slot = slots[r];
   if (p[kw + 1] == 0 || slot < 0) return;
@@ -117,11 +129,12 @@ __global__ void apply_kernel(int phase, const int32_t* __restrict__ packed,
 
 // Carry normalization of every integer-SUM call's limbs over all slots
 // (ops/hash_agg.py:424-428): limbs 0..2 back into [0, 2^17).
-__global__ void carry_kernel(int32_t* st, long long cap,
+__global__ void carry_kernel(int32_t* st, long long cap, long long stshard,
                              const int32_t* __restrict__ desc, int ncalls) {
   const long long j = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (j >= cap) return;
+  st += blockIdx.y * stshard;
   for (int c = 0; c < ncalls; ++c) {
     if (desc[4 * c] != kSumInt) continue;
     int32_t* acc = st + static_cast<size_t>(rw::kRowAcc0 + desc[4 * c + 1]) *
@@ -139,27 +152,36 @@ __global__ void carry_kernel(int32_t* st, long long cap,
 
 }  // namespace
 
+// Strides are in int32 elements: pshard between the shards' batches,
+// sshard between their slot rows, stshard between their state matrices.
 RW_API int rw_agg_apply(int phase, const void* packed, int w, int kw,
-                        int row0, int nrows, const void* slots, void* st,
-                        long long cap, const void* desc, int ncalls,
-                        void* stream) {
+                        int row0, int nrows, long long pshard,
+                        const void* slots, long long sshard, void* st,
+                        long long cap, long long stshard, const void* desc,
+                        int ncalls, int nshards, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nrows > 0) {
+  if (nrows > 0 && nshards > 0) {
     constexpr int kThreads = 256;
-    apply_kernel<<<rw::blocks_for(nrows, kThreads), kThreads, 0, s>>>(
+    const dim3 grid(rw::blocks_for(nrows, kThreads), nshards);
+    apply_kernel<<<grid, kThreads, 0, s>>>(
         phase, static_cast<const int32_t*>(packed), w, kw, row0, nrows,
-        static_cast<const int32_t*>(slots), static_cast<int32_t*>(st), cap,
+        pshard, static_cast<const int32_t*>(slots), sshard,
+        static_cast<int32_t*>(st), cap, stshard,
         static_cast<const int32_t*>(desc), ncalls);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-RW_API int rw_agg_carry(void* st, long long cap, const void* desc,
-                        int ncalls, void* stream) {
+RW_API int rw_agg_carry(void* st, long long cap, long long stshard,
+                        const void* desc, int ncalls, int nshards,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int kThreads = 256;
-  carry_kernel<<<rw::blocks_for(cap, kThreads), kThreads, 0, s>>>(
-      static_cast<int32_t*>(st), cap, static_cast<const int32_t*>(desc),
-      ncalls);
+  if (nshards > 0) {
+    const dim3 grid(rw::blocks_for(cap, kThreads), nshards);
+    carry_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<int32_t*>(st), cap, stshard,
+        static_cast<const int32_t*>(desc), ncalls);
+  }
   return static_cast<int>(cudaGetLastError());
 }

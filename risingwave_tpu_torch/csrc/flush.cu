@@ -23,6 +23,12 @@
 // advance: one elementwise launch; for every dirty slot emitted := current
 // (emitted_valid = group_rows > 0), then dirty = 0.
 //
+// Shard axis (risingwave_tpu/parallel/agg.py:219 _shardwise, B23):
+// blockIdx.y is the shard. State is keys int32[S, cap, k], occ int32[S,
+// cap] and st int32[S, R, cap]; the gather writes out[S, 1 + flush_cap,
+// W'], one header per shard, and counts is int32[S, 2 * nb]. One launch of
+// each serves every shard; the single-device path launches S = 1.
+//
 // What bounds them on the card: bytes. The scan reads dirty and occ once
 // (8 bytes per slot) plus the dirty slots' rows; at cap = 2^18 that is
 // 2 MiB, ~0.6 us at 3.35 TB/s, so launch latency dominates. advance reads
@@ -35,7 +41,10 @@ constexpr int kTile = 1024;
 
 __global__ void count_kernel(const int32_t* __restrict__ st,
                              const int32_t* __restrict__ occ, long long cap,
-                             int32_t* counts, int nb) {
+                             long long stshard, int32_t* counts, int nb) {
+  st += blockIdx.y * stshard;
+  occ += blockIdx.y * cap;
+  counts += blockIdx.y * 2LL * nb;
   const long long j = blockIdx.x * static_cast<long long>(kTile) +
                       threadIdx.x;
   int d = 0;
@@ -84,10 +93,14 @@ __device__ void gather_row(int32_t* out, long long s,
 
 __global__ void write_kernel(const int32_t* __restrict__ st,
                              const int32_t* __restrict__ keys, long long cap,
-                             int k, int nacc,
+                             long long stshard, int k, int nacc,
                              const int32_t* __restrict__ counts, int nb,
                              int flush_cap, int32_t* out, int wout) {
   __shared__ int sh[32];
+  st += blockIdx.y * stshard;
+  keys += blockIdx.y * cap * k;
+  counts += blockIdx.y * 2LL * nb;
+  out += blockIdx.y * (1LL + flush_cap) * wout;
   __shared__ int warp_off[32];
   int pre = 0;
   int td = 0;
@@ -140,7 +153,9 @@ __global__ void write_kernel(const int32_t* __restrict__ st,
   }
 }
 
-__global__ void advance_kernel(int32_t* st, long long cap, int nacc) {
+__global__ void advance_kernel(int32_t* st, long long cap, long long stshard,
+                               int nacc) {
+  st += blockIdx.y * stshard;
   const long long j = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (j >= cap || st[rw::kRowDirty * cap + j] == 0) return;
@@ -155,29 +170,39 @@ __global__ void advance_kernel(int32_t* st, long long cap, int nacc) {
 
 }  // namespace
 
-// counts: int32 scratch of 2 * ceil(cap / 1024); out: [1 + flush_cap, wout].
+// counts: int32 scratch of S * 2 * ceil(cap / 1024); out: [S, 1 +
+// flush_cap, wout].
 RW_API int rw_flush_gather(const void* st, const void* keys, const void* occ,
-                           long long cap, int k, int nacc, void* counts,
-                           int flush_cap, void* out, int wout,
+                           long long cap, int k, int nacc, int nshards,
+                           void* counts, int flush_cap, void* out, int wout,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nshards <= 0) return static_cast<int>(cudaGetLastError());
   const int nb = rw::blocks_for(cap, kTile);
-  count_kernel<<<nb, kTile, 0, s>>>(static_cast<const int32_t*>(st),
-                                    static_cast<const int32_t*>(occ), cap,
-                                    static_cast<int32_t*>(counts), nb);
+  const long long stshard = (rw::kRowAcc0 + 2LL * nacc) * cap;
+  const dim3 grid(nb, nshards);
+  count_kernel<<<grid, kTile, 0, s>>>(static_cast<const int32_t*>(st),
+                                      static_cast<const int32_t*>(occ), cap,
+                                      stshard, static_cast<int32_t*>(counts),
+                                      nb);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  write_kernel<<<nb, kTile, 0, s>>>(
+  write_kernel<<<grid, kTile, 0, s>>>(
       static_cast<const int32_t*>(st), static_cast<const int32_t*>(keys), cap,
-      k, nacc, static_cast<const int32_t*>(counts), nb, flush_cap,
+      stshard, k, nacc, static_cast<const int32_t*>(counts), nb, flush_cap,
       static_cast<int32_t*>(out), wout);
   return static_cast<int>(cudaGetLastError());
 }
 
-RW_API int rw_advance(void* st, long long cap, int nacc, void* stream) {
+RW_API int rw_advance(void* st, long long cap, int nacc, int nshards,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int kThreads = 256;
-  advance_kernel<<<rw::blocks_for(cap, kThreads), kThreads, 0, s>>>(
-      static_cast<int32_t*>(st), cap, nacc);
+  if (nshards > 0) {
+    const dim3 grid(rw::blocks_for(cap, kThreads), nshards);
+    advance_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<int32_t*>(st), cap, (rw::kRowAcc0 + 2LL * nacc) * cap,
+        nacc);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,11 @@
 // ops of rows i-1-K .. i+1+K for K composed predicates, and the output
 // columns of i-1 / i+1 only when an update pair makes their equality
 // matter. Batched raw matrices carry an always-invisible separator row per
-// chunk, so no pair spans two chunks.
+// chunk, so no pair spans two chunks. With a segment length (agg_prelude
+// over the row blocks of a sharded step, risingwave_tpu/parallel/agg.py:337
+// _build_raw_step, where each shard runs the prelude on its own block), the
+// rows roll inside their own segment of `seg` rows, not over the whole
+// range.
 //
 // Stage counts: per counter, __syncthreads_count over the block and one
 // atomicAdd on unsigned long long per block — exact and order-free.
@@ -78,6 +82,7 @@ struct Ctx {
   long long n;          // raw rows
   int w;
   long long m;          // rows after hop expansion: n * units
+  long long seg;        // rows of one roll segment (m: the whole range)
   const int8_t* host_same;
 };
 
@@ -473,9 +478,13 @@ __device__ unsigned pred_bits(const Ctx& C, long long r) {
   return bits;
 }
 
-__device__ __forceinline__ long long wrap_row(long long r, long long m) {
-  r %= m;
-  return r < 0 ? r + m : r;
+// row i + d, rolled inside the segment that holds row i
+__device__ __forceinline__ long long wrap_row(const Ctx& C, long long i,
+                                              long long d) {
+  const long long base = i - i % C.seg;
+  long long r = (i - base + d) % C.seg;
+  if (r < 0) r += C.seg;
+  return base + r;
 }
 
 // visibility before the predicates: raw vis, the hop's NULL-timestamp
@@ -618,7 +627,7 @@ __global__ void fused_kernel(const int64_t* __restrict__ prog, int prog_len,
                              const int64_t* __restrict__ raw, long long n,
                              int w, const int8_t* __restrict__ host_same,
                              void* out, int out_w,
-                             unsigned long long* counts) {
+                             unsigned long long* counts, long long seg) {
   extern __shared__ int64_t sprog[];
   for (int i = threadIdx.x; i < prog_len; i += blockDim.x) sprog[i] = prog[i];
   __syncthreads();
@@ -628,6 +637,7 @@ __global__ void fused_kernel(const int64_t* __restrict__ prog, int prog_len,
   C.n = n;
   C.w = w;
   C.m = n * sprog[H_UNITS];
+  C.seg = seg > 0 ? seg : C.m;
   C.host_same = host_same;
   const int mode = static_cast<int>(sprog[H_MODE]);
   const int nout = static_cast<int>(sprog[H_NOUT]);
@@ -656,7 +666,7 @@ __global__ void fused_kernel(const int64_t* __restrict__ prog, int prog_len,
         unsigned pb[kWin];
         bool vin[3], vwm[3];
         for (int t = 0; t < W; ++t) {
-          const long long r = wrap_row(i - R + t, C.m);
+          const long long r = wrap_row(C, i, t - R);
           opw[t] = raw_op(C, r);
           pb[t] = K > 0 ? pred_bits(C, r) : 0u;
           if (t >= R - 1 && t <= R + 1) base_vis(C, r, vin[t - R + 1],
@@ -678,8 +688,8 @@ __global__ void fused_kernel(const int64_t* __restrict__ prog, int prog_len,
         const int ops_i = opw[R];
         bool vis = vis2[1];
         if (drop_pairs) {
-          const long long ip = wrap_row(i + 1, C.m);
-          const long long im = wrap_row(i - 1, C.m);
+          const long long ip = wrap_row(C, i, 1);
+          const long long im = wrap_row(C, i, -1);
           const bool pair_i = vis2[1] && vis2[2] && opw[R] == OP_UD &&
                               opw[R + 1] == OP_UI;
           const bool pair_m = vis2[0] && vis2[1] && opw[R - 1] == OP_UD &&
@@ -722,11 +732,14 @@ __global__ void fused_kernel(const int64_t* __restrict__ prog, int prog_len,
   }
 }
 
-// the Python wrapper checks that the program's mode is the entry point's
+// the Python wrapper checks that the program's mode is the entry point's,
+// and that a segment length divides the rows of a program without hop
+// expansion
 int launch(const int64_t* prog, int prog_len, const int64_t* raw,
            long long n, int w, const int8_t* host_same, void* out, int out_w,
-           int64_t* counts, cudaStream_t stream) {
-  if (prog_len <= 0 || prog_len > kProgMax || n < 0)
+           int64_t* counts, long long seg, cudaStream_t stream) {
+  if (prog_len <= 0 || prog_len > kProgMax || n < 0 || seg < 0 ||
+      (seg > 0 && n % seg != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   // grid-stride: hop-expanded rows (n * units) loop over the same grid
@@ -735,7 +748,7 @@ int launch(const int64_t* prog, int prog_len, const int64_t* raw,
   const size_t smem = static_cast<size_t>(prog_len) * sizeof(int64_t);
   fused_kernel<<<blocks, kThreads, smem, stream>>>(
       prog, prog_len, raw, n, w, host_same, out, out_w,
-      reinterpret_cast<unsigned long long*>(counts));
+      reinterpret_cast<unsigned long long*>(counts), seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -746,15 +759,17 @@ RW_API int rw_fused_chain(const int64_t* prog, int prog_len,
                           const int8_t* host_same, int64_t* out, int out_w,
                           int64_t* counts, cudaStream_t stream) {
   return launch(prog, prog_len, raw, n, w, host_same, out, out_w,
-                counts, stream);
+                counts, 0, stream);
 }
 
+// seg > 0: the rows are n / seg blocks of seg rows, each its own ring
 RW_API int rw_agg_prelude(const int64_t* prog, int prog_len,
                           const int64_t* raw, long long n, int w,
                           const int8_t* host_same, int32_t* out, int out_w,
-                          int64_t* counts, cudaStream_t stream) {
+                          int64_t* counts, long long seg,
+                          cudaStream_t stream) {
   return launch(prog, prog_len, raw, n, w, host_same, out, out_w,
-                counts, stream);
+                counts, seg, stream);
 }
 
 RW_API int rw_join_prelude(const int64_t* prog, int prog_len,
@@ -762,5 +777,5 @@ RW_API int rw_join_prelude(const int64_t* prog, int prog_len,
                            const int8_t* host_same, int32_t* out, int out_w,
                            int64_t* counts, cudaStream_t stream) {
   return launch(prog, prog_len, raw, n, w, host_same, out, out_w,
-                counts, stream);
+                counts, 0, stream);
 }

@@ -24,6 +24,12 @@
 // gets -1 and sets stats[1]; the Python side turns that into an error.
 // The wrapper keeps load under MAX_LOAD 0.70, so this never fires.
 //
+// Shard axis (risingwave_tpu/parallel/agg.py, B22/B23). The launch takes S
+// independent tables (keys int32[S, cap, K], occ int32[S, cap]) and S
+// batches of n rows each, one per grid row (blockIdx.y = shard): shard s
+// probes and claims only inside its own cap slots, and stats is int32[S, 2].
+// One launch serves every shard; the single-device path launches S = 1.
+//
 // What bounds it on the card: bytes — each row reads its K lanes and its
 // valid flag and writes one slot; the table is touched only at the probed
 // slots. In the q7 steady state nearly every row hits the same existing
@@ -38,14 +44,22 @@ constexpr int32_t kReady = 1;
 constexpr int32_t kBusy = -1;
 
 __global__ void probe_insert_kernel(const int32_t* __restrict__ bkeys,
-                                    long long kstride,
+                                    long long kstride, long long kshard,
                                     const int32_t* __restrict__ valid,
-                                    long long vstride, int n, int k,
-                                    int32_t* tkeys, int32_t* occ, int cap,
+                                    long long vstride, long long vshard,
+                                    int n, int k, int32_t* tkeys,
+                                    int32_t* occ, int cap,
                                     int32_t* __restrict__ slots,
                                     int32_t* stats) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
+  const long long sh = blockIdx.y;
+  bkeys += sh * kshard;
+  valid += sh * vshard;
+  tkeys += sh * static_cast<long long>(cap) * k;
+  occ += sh * cap;
+  slots += sh * n;
+  stats += 2 * sh;
   if (valid[static_cast<long long>(r) * vstride] == 0) {
     slots[r] = -1;
     return;
@@ -88,19 +102,25 @@ __global__ void probe_insert_kernel(const int32_t* __restrict__ bkeys,
 
 }  // namespace
 
-// stats[0] = rows inserted, stats[1] = overflow flag; both zeroed here.
+// Per shard: stats[s, 0] = rows inserted, stats[s, 1] = overflow flag;
+// all zeroed here. Strides are in int32 elements: kstride/vstride between
+// rows, kshard/vshard between shards' batches; slots is int32[S, n].
 RW_API int rw_probe_insert(const void* bkeys, long long kstride,
-                           const void* valid, long long vstride, int n,
+                           long long kshard, const void* valid,
+                           long long vstride, long long vshard, int n,
                            int k, void* tkeys, void* occ, int cap,
-                           void* slots, void* stats, void* stream) {
+                           int nshards, void* slots, void* stats,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t), st);
+  cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t) * nshards,
+                                  st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (n > 0) {
+  if (n > 0 && nshards > 0) {
     constexpr int kThreads = 256;
-    probe_insert_kernel<<<rw::blocks_for(n, kThreads), kThreads, 0, st>>>(
-        static_cast<const int32_t*>(bkeys), kstride,
-        static_cast<const int32_t*>(valid), vstride, n, k,
+    const dim3 grid(rw::blocks_for(n, kThreads), nshards);
+    probe_insert_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const int32_t*>(bkeys), kstride, kshard,
+        static_cast<const int32_t*>(valid), vstride, vshard, n, k,
         static_cast<int32_t*>(tkeys), static_cast<int32_t*>(occ), cap,
         static_cast<int32_t*>(slots), static_cast<int32_t*>(stats));
   }

@@ -13,9 +13,12 @@ tree top-down and collapses maximal filter/project runs:
   ``FusedFragmentExecutor`` (one ``fused_chain`` launch per chunk).
 
 Eligibility is checked BEFORE anything changes, and the engine's checker
-re-derives every plan invariant after the rule fires. Distributed
-parallelism above 1 is refused (the sharded path is not ported), and so
-is hop absorption: the port has no HopWindowExecutor yet.
+re-derives every plan invariant after the rule fires. An agg with an
+injected sharded kernel (``build_q7(mesh=...)``) absorbs its run like any
+other, but for a hop expansion (the routing is sized for the uploaded
+rows). Distributed parallelism above 1 is the SQL planner's cut, which is
+not ported, and is refused; so is hop absorption in general: the port has
+no HopWindowExecutor yet.
 """
 
 from __future__ import annotations
@@ -80,9 +83,14 @@ def _collect_run(top, kinds=BLOCK_KINDS) -> Tuple[list, object]:
 def agg_ineligible_reason(agg) -> Optional[str]:
     """THE agg eligibility predicate (rule, adopt guard and checker all
     call it; `fused_stages is not None` is deliberately not a
-    condition). The port refuses the reference's host-state aggs at
+    condition). A kernel that exists already (injected, or built by
+    data) must still take a prelude: only a sharded kernel that has seen
+    no data does. The port refuses the reference's host-state aggs at
     construction already, so host-typed (interned) group keys are what
     is left to refuse here."""
+    k = agg._kernel
+    if k is not None and not getattr(k, "supports_prelude", False):
+        return "injected kernel without a prelude path"
     if agg.key_codec.interners:
         return "host-typed group keys (interning)"
     return None
@@ -121,8 +129,8 @@ def fuse_fragments(root, dist_parallelism: int = 1, device=None
     their agg's or join's device."""
     if dist_parallelism != 1:
         raise NotImplementedError(
-            "fusion at distributed parallelism > 1 needs the sharded "
-            "path, which is not ported")
+            "fusion at distributed parallelism > 1 needs the SQL "
+            "planner's sharded cut, which is not ported")
     from risingwave_tpu_torch.frontend.opt.rules import _swap_child
     from risingwave_tpu_torch.ops.fused import FusedStages
     from risingwave_tpu_torch.stream.executors.fused import (
@@ -146,6 +154,14 @@ def fuse_fragments(root, dist_parallelism: int = 1, device=None
         reason = fs.fusable_reason()
         if reason is not None:
             details.append(f"agg run NOT fused ({reason})")
+            return None
+        if fs.hop is not None and agg._kernel is not None:
+            # an injected (sharded) kernel sizes its routing for the
+            # uploaded rows; a hop prelude multiplies them on the card
+            details.append(
+                "agg run NOT fused (hop expansion needs the single-device "
+                "lazy kernel — sharded routing shapes are sized "
+                "pre-expansion)")
             return None
         new_agg = copy.copy(agg)
         new_agg.adopt_fused_stages(fs, base)

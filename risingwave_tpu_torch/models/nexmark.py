@@ -24,8 +24,10 @@ fusion rule (``frontend/opt``), as the reference's ``_finish`` does:
 q1's row-id generation and projection become one FusedFragmentExecutor
 (``fused_chain``), q7's and q8's aggs absorb their tumble projections
 (``agg_prelude``), and q8's join sides absorb theirs (``join_prelude``).
-The reference's monitoring, mesh, coalescing and tiering options are not
-ported and raise NotImplementedError.
+``build_q7(mesh=ShardMesh(n))`` runs q7's agg vnode-sharded over n
+logical shards of one card (``parallel/agg.ShardedAggKernel``), unfused
+or fused. The reference's monitoring, coalescing and tiering options,
+and q8's mesh, are not ported and raise NotImplementedError.
 
 ``from_jax_state`` / ``to_numpy_state`` (from ``ops/hash_agg.py``) carry
 grouped-agg device state across the two packages as numpy arrays:
@@ -50,6 +52,8 @@ from risingwave_tpu_torch.meta.barrier import BarrierLoop
 from risingwave_tpu_torch.ops.hash_agg import (  # noqa: F401 (re-export)
     AggKind, from_jax_state, to_numpy_state,
 )
+from risingwave_tpu_torch.parallel.agg import ShardedAggKernel
+from risingwave_tpu_torch.parallel.mesh import ShardMesh
 from risingwave_tpu_torch.state.state_table import StateTable
 from risingwave_tpu_torch.state.store import MemoryStateStore
 from risingwave_tpu_torch.stream.actor import Actor, LocalBarrierManager
@@ -58,6 +62,7 @@ from risingwave_tpu_torch.stream.executors.hash_agg import (
     AggCall, HashAggExecutor, agg_state_schema,
 )
 from risingwave_tpu_torch.stream.executors.hash_join import HashJoinExecutor
+from risingwave_tpu_torch.stream.executors.keys import LANES_PER_KEY
 from risingwave_tpu_torch.stream.executors.materialize import (
     MaterializeExecutor,
 )
@@ -156,7 +161,8 @@ def build_q7(store, cfg: NexmarkConfig,
              window: Interval = DEFAULT_WINDOW,
              min_chunks: Optional[int] = None,
              watermark_delay: Optional[Interval] = None,
-             mesh=None,
+             mesh: Optional[ShardMesh] = None,
+             shard_capacity: int = 1 << 14,
              coalesce_rows: Optional[int] = None,
              tier_cap: Optional[int] = None,
              fusion: bool = False,
@@ -166,13 +172,24 @@ def build_q7(store, cfg: NexmarkConfig,
     With ``watermark_delay``, a WatermarkFilter generates event-time
     watermarks on date_time; the projection derives a window_start
     watermark through tumble_start, and the agg retires closed windows
-    (bounded state)."""
-    for what, given in (("mesh", mesh), ("coalesce_rows", coalesce_rows),
+    (bounded state).
+
+    With ``mesh`` (a ``ShardMesh`` on the pipeline's device), the agg runs
+    vnode-sharded over its shards, ``shard_capacity`` slots each: the
+    reference's hash dispatch to N parallel actors (dispatch.rs:582)
+    becomes one routing kernel per step."""
+    for what, given in (("coalesce_rows", coalesce_rows),
                         ("tier_cap", tier_cap)):
         if given:
             raise NotImplementedError(f"build_q7 {what} is not ported")
     _check_store(store)
     device = resolve_device(device)
+    if mesh is not None:
+        if not isinstance(mesh, ShardMesh):
+            raise TypeError(f"build_q7 takes a ShardMesh, got {mesh!r}")
+        if mesh.device != device:
+            raise ValueError(f"the mesh is on {mesh.device}, the pipeline "
+                             f"on {device}")
     local = LocalBarrierManager()
     source = _source(local, store, 1, cfg, 1, rate_limit, min_chunks)
     s = source.schema
@@ -195,10 +212,16 @@ def build_q7(store, cfg: NexmarkConfig,
     agg_schema, agg_pk = agg_state_schema(project.schema, [0], calls)
     agg_state = StateTable(2, agg_schema, agg_pk, store,
                            dist_key_indices=[0])
+    kernel = None
+    if mesh is not None:
+        kernel = ShardedAggKernel(
+            mesh, key_width=LANES_PER_KEY * 1,
+            specs=[c.spec(project.schema) for c in calls],
+            capacity=shard_capacity)
     agg = HashAggExecutor(project, [0], calls, agg_state,
                           append_only=True,
                           output_names=["max_price", "bid_count"],
-                          device=device)
+                          kernel=kernel, device=device)
     mv_table = StateTable(3, agg.schema, [0], store)  # pk = window_start
     mat = MaterializeExecutor(agg, mv_table)
     return _finish(local, store, mat, mv_table, 1, {1: source.reader},
@@ -217,7 +240,8 @@ def build_q8(store, cfg_p: NexmarkConfig, cfg_a: NexmarkConfig,
     presized from the known Nexmark cardinalities, as the reference
     does."""
     if mesh is not None:
-        raise NotImplementedError("build_q8 mesh is not ported")
+        raise NotImplementedError(
+            "build_q8 mesh needs the sharded join, which is not ported")
     _check_store(store)
     device = resolve_device(device)
     local = LocalBarrierManager()

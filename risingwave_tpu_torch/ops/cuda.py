@@ -45,19 +45,22 @@ _L = ctypes.c_longlong
 # library -> {entry point: argtypes}; every entry point returns an int
 LIBRARIES: Dict[str, Dict[str, list]] = {
     "probe_insert": {
-        "rw_probe_insert": [_P, _L, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P],
+        "rw_probe_insert": [_P, _L, _L, _P, _L, _L, _I, _I, _P, _P, _I, _I,
+                            _P, _P, _P],
     },
     "agg_apply": {
-        "rw_agg_apply": [_I, _P, _I, _I, _I, _I, _P, _P, _L, _P, _I, _P],
-        "rw_agg_carry": [_P, _L, _P, _I, _P],
+        "rw_agg_apply": [_I, _P, _I, _I, _I, _I, _L, _P, _L, _P, _L, _L,
+                         _P, _I, _I, _P],
+        "rw_agg_carry": [_P, _L, _L, _P, _I, _I, _P],
     },
     "flush": {
-        "rw_flush_gather": [_P, _P, _P, _L, _I, _I, _P, _I, _P, _I, _P],
-        "rw_advance": [_P, _L, _I, _P],
+        "rw_flush_gather": [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _I, _P],
+        "rw_advance": [_P, _L, _I, _I, _P],
     },
     "rebuild": {
-        "rw_live_mask": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
-        "rw_remap": [_P, _L, _P, _P, _L, _P, _I, _P, _P],
+        "rw_live_mask": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I, _P,
+                         _P],
+        "rw_remap": [_P, _L, _P, _P, _L, _P, _I, _I, _P, _P],
     },
     "join_apply": {
         "rw_join_apply": [_P, _P, _L, _I, _P, _L, _P, _L, _P, _L, _I, _P,
@@ -75,8 +78,12 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     },
     "fused": {
         "rw_fused_chain": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
-        "rw_agg_prelude": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
+        "rw_agg_prelude": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _L, _P],
         "rw_join_prelude": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
+    },
+    "route": {
+        "rw_route": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                     _P, _P, _P],
     },
 }
 

@@ -504,6 +504,27 @@ class FusedStages:
         self.stage_chunks[:] = 0
         return out
 
+    def input_positions(self, cols) -> Optional[List[int]]:
+        """Map output column positions back through the composed
+        projection to raw input positions, or None when any is not a pure
+        input ref (``ops/fused.py:592`` of the reference): a sharded agg
+        computes its routing owners on the host from those raw columns."""
+        from risingwave_tpu_torch.expr.expr import InputRef
+        n_in = len(self.in_schema)
+        out: List[int] = []
+        for c in cols:
+            if self.out_exprs is None:
+                if not 0 <= c < n_in:
+                    return None
+                out.append(int(c))
+                continue
+            e = self.out_exprs[c]
+            if isinstance(e, InputRef) and e.index < n_in:
+                out.append(int(e.index))
+            else:
+                return None
+        return out
+
     def stage_rows_of(self, counts: np.ndarray) -> np.ndarray:
         """Per-stage visible rows from a program's cumulative mask counts
         ([input, (watermark,) each predicate, final]): a filter reports
@@ -1402,15 +1423,24 @@ def _order_word(r: _Reg, t: int) -> torch.Tensor:
 
 def run_program_plain(prog: Program, raw: torch.Tensor,
                       host_same: Optional[torch.Tensor] = None,
-                      counts: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      counts: Optional[torch.Tensor] = None,
+                      seg: int = 0) -> torch.Tensor:
     """The plain version of all three entry points: the program's words
     interpreted opcode by opcode as vectorized torch ops over every row
-    (the reference's chain_body + preludes, with xp = torch)."""
+    (the reference's chain_body + preludes, with xp = torch). With
+    ``seg``, the rows are blocks of ``seg`` rows and the ±1 neighbour
+    rolls wrap inside each block (a sharded step's per-shard prelude)."""
     w = prog.words
     rows = _PlainRows(w, raw)
     m = rows.m
     dev = raw.device
+    _check_seg(prog, raw, seg)
+
+    def roll(x: torch.Tensor, shift: int) -> torch.Tensor:
+        if not seg:
+            return torch.roll(x, shift)
+        return torch.roll(x.reshape(-1, seg), shift, dims=1).reshape(-1)
+
     mode = int(w[H_MODE])
     outtab_at = int(w[H_OUTTAB])
     nout = int(w[H_NOUT])
@@ -1441,10 +1471,10 @@ def run_program_plain(prog: Program, raw: torch.Tensor,
             r = _eval_plain(rows, int(w[pt + 2 * k]), int(w[pt + 2 * k + 1]))
             pred = (r.v != 0) & r.ok
             is_ud, is_ui = ops == ud, ops == ui
-            ddel = is_ud & torch.roll(is_ui, -1) & pred & \
-                ~torch.roll(pred, -1)
-            dins = is_ui & torch.roll(is_ud, 1) & pred & \
-                ~torch.roll(pred, 1)
+            ddel = is_ud & roll(is_ui, -1) & pred & \
+                ~roll(pred, -1)
+            dins = is_ui & roll(is_ud, 1) & pred & \
+                ~roll(pred, 1)
             ops = torch.where(ddel, torch.full_like(ops, int(Op.DELETE)),
                               ops)
             ops = torch.where(dins, torch.full_like(ops, int(Op.INSERT)),
@@ -1452,17 +1482,17 @@ def run_program_plain(prog: Program, raw: torch.Tensor,
             vis = vis & pred
             cnt.append(vis.sum())
         if int(w[H_DROP]):
-            is_pair = vis & torch.roll(vis, -1) & (ops == ud) & \
-                (torch.roll(ops, -1) == ui)
+            is_pair = vis & roll(vis, -1) & (ops == ud) & \
+                (roll(ops, -1) == ui)
             same = torch.ones(m, dtype=torch.bool, device=dev) \
                 if host_same is None else rows.tile(host_same != 0)
             for r in outs:
-                eq = (r.v == torch.roll(r.v, -1))
-                ok_n = torch.roll(r.ok, -1)
+                eq = (r.v == roll(r.v, -1))
+                ok_n = roll(r.ok, -1)
                 eq = (eq & r.ok & ok_n) | (~r.ok & ~ok_n)
                 same = same & eq
             drop = is_pair & same
-            vis = vis & ~drop & ~torch.roll(drop, 1)
+            vis = vis & ~drop & ~roll(drop, 1)
         cnt.append(vis.sum())
         if counts is not None:
             counts += torch.stack(cnt).to(torch.int64)
@@ -1528,15 +1558,21 @@ def _check_launch(prog: Program, raw: torch.Tensor, what: str) -> None:
                          "program's")
 
 
+def _check_seg(prog: Program, raw: torch.Tensor, seg: int) -> None:
+    if seg and (prog.units != 1 or seg < 0 or raw.shape[0] % seg):
+        raise ValueError(f"segments of {seg} rows need a program without "
+                         f"hop expansion and a multiple of {seg} rows")
+
+
 def _launch(fn: str, prog: Program, raw: torch.Tensor,
             host_same: Optional[torch.Tensor], out: torch.Tensor,
-            counts: Optional[torch.Tensor]) -> None:
+            counts: Optional[torch.Tensor], *extra) -> None:
     pw = prog.on(raw.device)
     cuda.call("fused", fn, pw.data_ptr(), int(pw.shape[0]), raw.data_ptr(),
               int(raw.shape[0]), int(raw.shape[1]),
               0 if host_same is None else host_same.data_ptr(),
               out.data_ptr(), int(out.shape[1]),
-              0 if counts is None else counts.data_ptr())
+              0 if counts is None else counts.data_ptr(), *extra)
 
 
 def fused_chain(prog: Program, raw: torch.Tensor,
@@ -1563,20 +1599,25 @@ def fused_chain(prog: Program, raw: torch.Tensor,
 
 
 def agg_prelude(prog: Program, raw: torch.Tensor,
-                counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                counts: Optional[torch.Tensor] = None,
+                seg: int = 0) -> torch.Tensor:
     """B19: raw int64[N, 2 + 2r] → the packed int32[N * units, W] matrix
     of ops/hash_agg.pack_chunk; the cumulative mask counts add into
-    `counts`."""
+    `counts`. With ``seg`` (no hop expansion), the rows are N / seg
+    blocks, each its own ring for the neighbour rolls: the sharded
+    step's prelude, which the reference runs on each shard's block
+    (``parallel/agg.py:349``); the counts sum over the blocks."""
     assert prog.mode == MODE_AGG
     if raw.device.type != "cuda":
-        return run_program_plain(prog, raw, None, counts)
+        return run_program_plain(prog, raw, None, counts, seg)
     _check_launch(prog, raw, "agg_prelude")
+    _check_seg(prog, raw, seg)
     if counts is not None and (counts.dtype != torch.int64 or
                                counts.shape != (prog.n_counts,)):
         raise TypeError("agg_prelude takes int64[n_counts] counts")
     out = torch.empty((raw.shape[0] * prog.units, prog.out_width),
                       dtype=torch.int32, device=raw.device)
-    _launch("rw_agg_prelude", prog, raw, None, out, counts)
+    _launch("rw_agg_prelude", prog, raw, None, out, counts, int(seg))
     LAUNCHES.add("agg_prelude")
     return out
 

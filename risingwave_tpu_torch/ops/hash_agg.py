@@ -354,6 +354,48 @@ def make_agg_state(capacity: int, key_width: int, specs: Sequence[AggSpec],
     return AggState(ht.make_state(capacity, key_width, device), st)
 
 
+class ShardedAggState(NamedTuple):
+    """Device state of S shards of one grouped-agg operator: the
+    ``AggState`` tensors with a leading shard axis (the reference's
+    stacked ``AggState`` of ``parallel/agg.py``), updated in place."""
+
+    table: ht.TableState               # keys int32[S, cap, K], occ [S, cap]
+    st: torch.Tensor                   # int32[S, 4 + 2 * n_acc, cap]
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.st.shape[0])
+
+    @property
+    def capacity(self) -> int:
+        return int(self.st.shape[2])
+
+    @property
+    def n_acc(self) -> int:
+        return (int(self.st.shape[1]) - ROW_ACC0) // 2
+
+    def shard(self, s: int) -> AggState:
+        """Shard s as an ``AggState`` of views (writes reach this state)."""
+        return AggState(ht.TableState(self.table.keys[s], self.table.occ[s]),
+                        self.st[s])
+
+
+def make_sharded_agg_state(n_shards: int, capacity: int, key_width: int,
+                           specs: Sequence[AggSpec],
+                           device: torch.device) -> ShardedAggState:
+    fills = state_fills(specs)
+    st = torch.empty((n_shards, len(fills), capacity), dtype=torch.int32,
+                     device=device)
+    for r, f in enumerate(fills):
+        st[:, r].fill_(f)
+    table = ht.TableState(
+        keys=torch.zeros((n_shards, capacity, key_width), dtype=torch.int32,
+                         device=device),
+        occ=torch.zeros((n_shards, capacity), dtype=torch.int32,
+                        device=device))
+    return ShardedAggState(table, st)
+
+
 class HostTable(NamedTuple):
     keys: np.ndarray     # int32[cap, K]
     occ: np.ndarray      # bool[cap]
@@ -418,6 +460,52 @@ def to_numpy_state(state: AggState,
         emitted_accs=tuple(acc(ROW_ACC0 + n + i, dt)
                            for i, (dt, _f) in enumerate(lay)),
     )
+
+
+def _host_shard(ref, s: int) -> HostAggState:
+    """Shard s of a stacked reference-layout state, as numpy arrays."""
+    def a(x):
+        return np.asarray(x)[s]
+    return HostAggState(
+        table=HostTable(a(ref.table.keys), a(ref.table.occ)),
+        group_rows=a(ref.group_rows), dirty=a(ref.dirty),
+        accs=tuple(a(x) for x in ref.accs),
+        emitted_valid=a(ref.emitted_valid), emitted_rows=a(ref.emitted_rows),
+        emitted_accs=tuple(a(x) for x in ref.emitted_accs))
+
+
+def from_jax_sharded_state(ref, device) -> ShardedAggState:
+    """A stacked reference-layout state (the reference ``AggState`` with a
+    leading [n_dev] axis on every array, as ``ShardedAggKernel.state``
+    holds it) → the port's ``ShardedAggState`` on `device`."""
+    n = np.asarray(ref.group_rows).shape[0]
+    shards = [from_jax_state(_host_shard(ref, s), device) for s in range(n)]
+    return ShardedAggState(
+        ht.TableState(torch.stack([a.table.keys for a in shards]),
+                      torch.stack([a.table.occ for a in shards])),
+        torch.stack([a.st for a in shards]))
+
+
+def to_numpy_sharded_state(state: ShardedAggState,
+                           specs: Sequence[AggSpec]) -> HostAggState:
+    """The port's ``ShardedAggState`` → numpy arrays in the reference
+    layout, each with a leading shard axis."""
+    per = [to_numpy_state(state.shard(s), specs)
+           for s in range(state.n_shards)]
+
+    def stack(get):
+        return np.stack([get(h) for h in per])
+    n_acc = len(per[0].accs)
+    return HostAggState(
+        table=HostTable(stack(lambda h: h.table.keys),
+                        stack(lambda h: h.table.occ)),
+        group_rows=stack(lambda h: h.group_rows),
+        dirty=stack(lambda h: h.dirty),
+        accs=tuple(stack(lambda h, i=i: h.accs[i]) for i in range(n_acc)),
+        emitted_valid=stack(lambda h: h.emitted_valid),
+        emitted_rows=stack(lambda h: h.emitted_rows),
+        emitted_accs=tuple(stack(lambda h, i=i: h.emitted_accs[i])
+                           for i in range(n_acc)))
 
 
 class ApplyPlan:
@@ -524,37 +612,62 @@ def agg_apply(state: AggState, packed: torch.Tensor, slots: torch.Tensor,
     if packed.device.type != "cuda":
         agg_apply_plain(state, packed, slots, plan)
         return
-    st = state.st
-    n, w = packed.shape
+    _agg_apply_cuda(state.st[None], packed[None], slots[None], plan)
+
+
+def agg_apply_sharded_plain(state: ShardedAggState, packed: torch.Tensor,
+                            slots: torch.Tensor, plan: ApplyPlan) -> None:
+    """Plain PyTorch version of the sharded K2: shard by shard."""
+    for s in range(state.n_shards):
+        agg_apply_plain(state.shard(s), packed[s], slots[s], plan)
+
+
+def agg_apply_sharded(state: ShardedAggState, packed: torch.Tensor,
+                      slots: torch.Tensor, plan: ApplyPlan) -> None:
+    """K2 over S shards in one launch per phase and slice (the per-shard
+    accumulator update of ``risingwave_tpu/parallel/agg.py:306-321``):
+    shard s folds ``packed[s]`` int32[N, W] at ``slots[s]`` into its own
+    state. The launch plan is ``agg_apply``'s, whatever S is."""
+    if packed.device.type != "cuda":
+        agg_apply_sharded_plain(state, packed, slots, plan)
+        return
+    _agg_apply_cuda(state.st, packed, slots, plan)
+
+
+def _agg_apply_cuda(st: torch.Tensor, packed: torch.Tensor,
+                    slots: torch.Tensor, plan: ApplyPlan) -> None:
+    ns, n, w = packed.shape
     if packed.dtype != torch.int32 or slots.dtype != torch.int32 or \
             st.dtype != torch.int32:
         raise TypeError("agg_apply takes int32 packed rows, slots, state")
-    if slots.shape != (n,) or not (packed.is_contiguous() and
-                                   slots.is_contiguous() and
-                                   st.is_contiguous()):
-        raise ValueError("agg_apply needs contiguous [N, W] rows, [N] "
-                         "slots and state")
+    if slots.shape != (ns, n) or st.shape[0] != ns or not (
+            packed.stride(1) == w and packed.stride(2) == 1
+            and slots.stride(1) == 1 and st[0].is_contiguous()):
+        raise ValueError("agg_apply needs [S, N, W] rows, [S, N] slots and "
+                         "[S, R, cap] state, each shard contiguous")
     if not (packed.device == slots.device == st.device ==
             plan.desc_dev.device):
         raise ValueError("agg_apply tensors must share one device")
-    cap = st.shape[1]
+    cap = st.shape[2]
     ncalls = plan.desc.shape[0]
     kw = plan.key_width
     step = lanes.MAX_CHUNK_ROWS if plan.has_sum_int else max(n, 1)
     for lo in range(0, n, step):
         rows = min(step, n - lo)
-        cuda.call("agg_apply", "rw_agg_apply", 0, packed.data_ptr(), w,
-                  kw, lo, rows, slots.data_ptr(), st.data_ptr(), cap,
-                  plan.desc_dev.data_ptr(), ncalls)
+        cuda.call("agg_apply", "rw_agg_apply", 0, packed.data_ptr(), w, kw,
+                  lo, rows, packed.stride(0), slots.data_ptr(),
+                  slots.stride(0), st.data_ptr(), cap, st.stride(0),
+                  plan.desc_dev.data_ptr(), ncalls, ns)
         LAUNCHES.add("agg_apply")
         if plan.has_sum_int:
             cuda.call("agg_apply", "rw_agg_carry", st.data_ptr(), cap,
-                      plan.desc_dev.data_ptr(), ncalls)
+                      st.stride(0), plan.desc_dev.data_ptr(), ncalls, ns)
             LAUNCHES.add("agg_apply")
     if plan.has_extreme and n:
         cuda.call("agg_apply", "rw_agg_apply", 1, packed.data_ptr(), w, kw,
-                  0, n, slots.data_ptr(), st.data_ptr(), cap,
-                  plan.desc_dev.data_ptr(), ncalls)
+                  0, n, packed.stride(0), slots.data_ptr(), slots.stride(0),
+                  st.data_ptr(), cap, st.stride(0),
+                  plan.desc_dev.data_ptr(), ncalls, ns)
         LAUNCHES.add("agg_apply")
 
 
@@ -575,17 +688,19 @@ def flush_width(key_width: int, n_acc: int) -> int:
     return 1 + key_width + 1 + n_acc + 2 + n_acc
 
 
-def _check_state(state: AggState, what: str) -> None:
-    """Wrapper checks of K3/K4: int32, contiguous, one device, one cap."""
-    st, keys, occ = state.st, state.table.keys, state.table.occ
+def _check_state(st: torch.Tensor, keys: torch.Tensor, occ: torch.Tensor,
+                 what: str) -> None:
+    """Wrapper checks of K3/K4 on [S, ...] state: int32, contiguous, one
+    device, one capacity and shard count."""
     if not all(t.dtype == torch.int32 for t in (st, keys, occ)):
         raise TypeError(f"{what} takes int32 state")
     if not all(t.is_contiguous() for t in (st, keys, occ)):
         raise ValueError(f"{what} needs contiguous state")
     if not (st.device == keys.device == occ.device):
         raise ValueError(f"{what}: state tensors on different devices")
-    if not (st.shape[1] == keys.shape[0] == occ.shape[0]):
-        raise ValueError(f"{what}: state and table capacities differ")
+    if not (st.shape[0] == keys.shape[0] == occ.shape[0] and
+            st.shape[2] == keys.shape[1] == occ.shape[1]):
+        raise ValueError(f"{what}: state and table shapes differ")
 
 
 def flush_gather_plain(state: AggState, flush_cap: int) -> torch.Tensor:
@@ -623,18 +738,40 @@ def flush_gather(state: AggState, flush_cap: int) -> torch.Tensor:
     st, keys, occ = state.st, state.table.keys, state.table.occ
     if st.device.type != "cuda":
         return flush_gather_plain(state, flush_cap)
-    _check_state(state, "flush_gather")
-    cap = st.shape[1]
-    k = keys.shape[1]
-    nacc = state.n_acc
+    return _flush_gather_cuda(st[None], keys[None], occ[None], flush_cap)[0]
+
+
+def flush_gather_sharded_plain(state: ShardedAggState,
+                               flush_cap: int) -> torch.Tensor:
+    return torch.stack([flush_gather_plain(state.shard(s), flush_cap)
+                        for s in range(state.n_shards)])
+
+
+def flush_gather_sharded(state: ShardedAggState,
+                         flush_cap: int) -> torch.Tensor:
+    """K3 (gather) over S shards in one launch (``parallel/agg.py:621``'s
+    per-shard ``gather_packed``) → int32[S, 1 + flush_cap, W'], one
+    header per shard."""
+    if state.st.device.type != "cuda":
+        return flush_gather_sharded_plain(state, flush_cap)
+    return _flush_gather_cuda(state.st, state.table.keys, state.table.occ,
+                              flush_cap)
+
+
+def _flush_gather_cuda(st: torch.Tensor, keys: torch.Tensor,
+                       occ: torch.Tensor, flush_cap: int) -> torch.Tensor:
+    _check_state(st, keys, occ, "flush_gather")
+    ns, r, cap = st.shape
+    k = keys.shape[2]
+    nacc = (r - ROW_ACC0) // 2
     wout = flush_width(k, nacc)
     nb = (cap + 1023) // 1024
-    counts = torch.empty(2 * nb, dtype=torch.int32, device=st.device)
-    out = torch.empty((1 + flush_cap, wout), dtype=torch.int32,
+    counts = torch.empty((ns, 2 * nb), dtype=torch.int32, device=st.device)
+    out = torch.empty((ns, 1 + flush_cap, wout), dtype=torch.int32,
                       device=st.device)
     cuda.call("flush", "rw_flush_gather", st.data_ptr(), keys.data_ptr(),
-              occ.data_ptr(), cap, k, nacc, counts.data_ptr(), flush_cap,
-              out.data_ptr(), wout)
+              occ.data_ptr(), cap, k, nacc, ns, counts.data_ptr(),
+              flush_cap, out.data_ptr(), wout)
     LAUNCHES.add("flush_gather")
     return out
 
@@ -661,15 +798,30 @@ def advance(state: AggState) -> None:
     if st.device.type != "cuda":
         advance_plain(state)
         return
-    _check_state(state, "advance")
-    cuda.call("flush", "rw_advance", st.data_ptr(), st.shape[1],
-              state.n_acc)
+    _advance_cuda(st[None], state.table.keys[None], state.table.occ[None])
+
+
+def advance_sharded(state: ShardedAggState) -> None:
+    """K3 (advance) over S shards in one launch (``parallel/agg.py:664``).
+    In place."""
+    if state.st.device.type != "cuda":
+        for s in range(state.n_shards):
+            advance_plain(state.shard(s))
+        return
+    _advance_cuda(state.st, state.table.keys, state.table.occ)
+
+
+def _advance_cuda(st: torch.Tensor, keys: torch.Tensor,
+                  occ: torch.Tensor) -> None:
+    _check_state(st, keys, occ, "advance")
+    cuda.call("flush", "rw_advance", st.data_ptr(), st.shape[2],
+              (st.shape[1] - ROW_ACC0) // 2, st.shape[0])
     LAUNCHES.add("advance")
 
 
 # -- K4: rebuild (live mask + remap) ------------------------------------------------
 
-LIVE_GROW = 0
+LIVE_GROW = 0          # also the reshard's rule (parallel/agg.py:833)
 LIVE_RETIRE = 1
 _I32_SIGN_FLIP = -0x80000000
 
@@ -700,15 +852,34 @@ def live_mask(state: AggState, mode: int, lane_off: int = 0,
     st, keys, occ = state.st, state.table.keys, state.table.occ
     if st.device.type != "cuda":
         return live_mask_plain(state, mode, lane_off, wm_hi, wm_lo)
-    _check_state(state, "live_mask")
-    if mode == LIVE_RETIRE and lane_off + 3 > keys.shape[1]:
+    return _live_mask_cuda(st[None], keys[None], occ[None], mode, lane_off,
+                           wm_hi, wm_lo)[0]
+
+
+def live_mask_sharded(state: ShardedAggState, mode: int, lane_off: int = 0,
+                      wm_hi: int = 0, wm_lo: int = 0) -> torch.Tensor:
+    """K4 (live mask) over S shards in one launch → int32[S, cap]: the
+    growth rule (also the reshard's) or the retirement rule."""
+    if state.st.device.type != "cuda":
+        return torch.stack([live_mask_plain(state.shard(s), mode, lane_off,
+                                            wm_hi, wm_lo)
+                            for s in range(state.n_shards)])
+    return _live_mask_cuda(state.st, state.table.keys, state.table.occ,
+                           mode, lane_off, wm_hi, wm_lo)
+
+
+def _live_mask_cuda(st: torch.Tensor, keys: torch.Tensor, occ: torch.Tensor,
+                    mode: int, lane_off: int, wm_hi: int,
+                    wm_lo: int) -> torch.Tensor:
+    _check_state(st, keys, occ, "live_mask")
+    if mode == LIVE_RETIRE and lane_off + 3 > keys.shape[2]:
         raise ValueError(f"lane_off {lane_off} past key width "
-                         f"{keys.shape[1]}")
-    cap = st.shape[1]
-    live = torch.empty(cap, dtype=torch.int32, device=st.device)
+                         f"{keys.shape[2]}")
+    ns, _r, cap = st.shape
+    live = torch.empty((ns, cap), dtype=torch.int32, device=st.device)
     cuda.call("rebuild", "rw_live_mask", mode, st.data_ptr(),
-              keys.data_ptr(), occ.data_ptr(), cap, keys.shape[1], lane_off,
-              wm_hi, wm_lo, live.data_ptr())
+              keys.data_ptr(), occ.data_ptr(), cap, keys.shape[2], lane_off,
+              wm_hi, wm_lo, st.stride(0), ns, live.data_ptr())
     LAUNCHES.add("live_mask")
     return live
 
@@ -733,19 +904,40 @@ def remap(src: torch.Tensor, old_to_new: torch.Tensor,
     row in the slots the fresh table (``occ_new``) left empty."""
     if src.device.type != "cuda":
         return remap_plain(src, old_to_new, occ_new, fill, new_cap)
-    r, n = src.shape
+    return _remap_cuda(src[None], old_to_new[None], occ_new[None], fill,
+                       new_cap)[0]
+
+
+def remap_sharded(src: torch.Tensor, old_to_new: torch.Tensor,
+                  occ_new: torch.Tensor, fill: torch.Tensor,
+                  new_cap: int) -> torch.Tensor:
+    """K4 (remap) over S shards in one launch: ``src[S, R, n]`` through
+    ``old_to_new[S, n]`` into a fresh ``[S, R, new_cap]``, shard by
+    shard."""
+    if src.device.type != "cuda":
+        return torch.stack([remap_plain(src[s], old_to_new[s], occ_new[s],
+                                        fill, new_cap)
+                            for s in range(src.shape[0])])
+    return _remap_cuda(src, old_to_new, occ_new, fill, new_cap)
+
+
+def _remap_cuda(src: torch.Tensor, old_to_new: torch.Tensor,
+                occ_new: torch.Tensor, fill: torch.Tensor,
+                new_cap: int) -> torch.Tensor:
+    ns, r, n = src.shape
     if src.dtype != torch.int32 or old_to_new.dtype != torch.int32 or \
             occ_new.dtype != torch.int32 or fill.dtype != torch.int32:
         raise TypeError("remap takes int32 tensors")
-    if old_to_new.shape != (n,) or occ_new.shape != (new_cap,) or \
+    if old_to_new.shape != (ns, n) or occ_new.shape != (ns, new_cap) or \
             fill.shape != (r,):
         raise ValueError("remap shape mismatch")
     if not all(t.is_contiguous() for t in (src, old_to_new, occ_new, fill)):
         raise ValueError("remap needs contiguous tensors")
-    out = torch.empty((r, new_cap), dtype=torch.int32, device=src.device)
+    out = torch.empty((ns, r, new_cap), dtype=torch.int32,
+                      device=src.device)
     cuda.call("rebuild", "rw_remap", src.data_ptr(), n,
               old_to_new.data_ptr(), occ_new.data_ptr(), new_cap,
-              fill.data_ptr(), r, out.data_ptr())
+              fill.data_ptr(), r, ns, out.data_ptr())
     LAUNCHES.add("remap")
     return out
 

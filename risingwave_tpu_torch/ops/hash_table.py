@@ -7,7 +7,9 @@ with ``atomicCAS``). Capacity is a power of two; probing is linear with
 stride 1; deletion is logical (slots are reclaimed by a rebuild).
 
 ``probe_insert`` is kernel K1 (``csrc/probe_insert.cu``) on a CUDA tensor
-and its plain PyTorch version on a CPU tensor. ``lookup`` (the read-only
+and its plain PyTorch version on a CPU tensor; ``probe_insert_sharded``
+launches the same kernel over S independent tables with a leading shard
+axis (the vnode-sharded agg, ``parallel/agg.py``). ``lookup`` (the read-only
 probe) has only its plain version here: on the card it runs inside K6
 (``csrc/join_probe.cu``), the one kernel that needs it. Where the reference
 donates the state to a pure function (``donate_argnums=(0,)``), the port
@@ -123,16 +125,51 @@ def probe_insert(state: TableState, batch_keys: torch.Tensor,
         slots, stats = probe_insert_plain(state, batch_keys, valid)
         return state, slots, stats
     keys, occ = state
-    n, k = batch_keys.shape
+    slots, stats = _probe_insert_cuda(keys[None], occ[None], batch_keys[None],
+                                      valid[None])
+    return state, slots[0], stats[0]
+
+
+def probe_insert_sharded_plain(state: TableState, batch_keys: torch.Tensor,
+                               valid: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the sharded K1: the single-table plain
+    version on each shard's table and batch in turn."""
+    keys, occ = state
+    out = [probe_insert_plain(TableState(keys[s], occ[s]), batch_keys[s],
+                              valid[s]) for s in range(keys.shape[0])]
+    return (torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]))
+
+
+def probe_insert_sharded(state: TableState, batch_keys: torch.Tensor,
+                         valid: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 over S independent tables in one launch (the per-shard probe of
+    ``risingwave_tpu/parallel/agg.py:304``): ``state`` holds keys
+    int32[S, cap, K] and occ int32[S, cap], ``batch_keys`` int32[S, N, K]
+    (contiguous lanes, any row and shard strides) and ``valid`` [S, N].
+    Shard s probes only its own table. Returns (slots int32[S, N], stats
+    int32[S, 2])."""
+    if batch_keys.device.type != "cuda":
+        return probe_insert_sharded_plain(state, batch_keys, valid)
+    return _probe_insert_cuda(state.keys, state.occ, batch_keys, valid)
+
+
+def _probe_insert_cuda(keys: torch.Tensor, occ: torch.Tensor,
+                       batch_keys: torch.Tensor, valid: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    s, n, k = batch_keys.shape
     if batch_keys.dtype != torch.int32 or valid.dtype not in (
             torch.int32, torch.bool):
         raise TypeError("probe_insert takes int32 key lanes and an "
                         "int32/bool valid mask")
-    if k != keys.shape[1] or valid.shape != (n,):
+    if k != keys.shape[2] or valid.shape != (s, n) or \
+            keys.shape[0] != s or occ.shape != keys.shape[:2]:
         raise ValueError(f"shape mismatch: batch {tuple(batch_keys.shape)}"
                          f", valid {tuple(valid.shape)}, table "
                          f"{tuple(keys.shape)}")
-    if batch_keys.stride(1) != 1 or not keys.is_contiguous() or \
+    if batch_keys.stride(2) != 1 or not keys.is_contiguous() or \
             not occ.is_contiguous():
         raise ValueError("probe_insert needs contiguous key lanes")
     if not (keys.device == occ.device == batch_keys.device ==
@@ -140,16 +177,16 @@ def probe_insert(state: TableState, batch_keys: torch.Tensor,
         raise ValueError("probe_insert tensors must share one device")
     if valid.dtype == torch.bool:
         valid = valid.to(torch.int32)
-    slots = torch.empty(n, dtype=torch.int32, device=keys.device)
-    stats = torch.empty(2, dtype=torch.int32, device=keys.device)
+    slots = torch.empty((s, n), dtype=torch.int32, device=keys.device)
+    stats = torch.empty((s, 2), dtype=torch.int32, device=keys.device)
     cuda.call("probe_insert", "rw_probe_insert",
-              batch_keys.data_ptr(), batch_keys.stride(0),
-              valid.data_ptr(), valid.stride(0), n, k, keys.data_ptr(),
-              occ.data_ptr(), keys.shape[0], slots.data_ptr(),
-              stats.data_ptr())
+              batch_keys.data_ptr(), batch_keys.stride(1),
+              batch_keys.stride(0), valid.data_ptr(), valid.stride(1),
+              valid.stride(0), n, k, keys.data_ptr(), occ.data_ptr(),
+              keys.shape[1], s, slots.data_ptr(), stats.data_ptr())
     if n:
         LAUNCHES.add("probe_insert")
-    return state, slots, stats
+    return slots, stats
 
 
 def lookup_plain(state: TableState, batch_keys: torch.Tensor,

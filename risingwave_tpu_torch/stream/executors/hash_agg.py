@@ -26,10 +26,16 @@ matrix (``ops/fused.encode_raw_chunk``) and the absorbed filter/project
 run becomes the kernel's prelude (``agg_prelude``, B19) ahead of K1 + K2;
 watermarks derive through the absorbed stages.
 
+Kernel injection: ``build_q7(mesh=...)`` passes a vnode-sharded kernel
+(``parallel/agg.ShardedAggKernel``) with the same host surface; the
+executor runs it as it runs its own, and on the fused path hands it the
+prelude on first touch and, when the group keys map to raw input columns,
+per-row owners for its skew-exact routing bucket.
+
 Not ported yet, and refused at construction with NotImplementedError:
 retractable MIN/MAX (the materialized-input tables), DISTINCT,
-approx_count_distinct, string_agg/array_agg, the cold tier (``tier_cap``)
-and injected (sharded) kernels.
+approx_count_distinct, string_agg/array_agg and the cold tier
+(``tier_cap``).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from risingwave_tpu_torch.common.types import DataType, Field, Schema
 from risingwave_tpu_torch.ops.hash_agg import (
     DEVICE_AGG_KINDS, AggKind, AggSpec, GroupedAggKernel, acc_dtypes,
 )
+from risingwave_tpu_torch.parallel.agg import ShardedAggKernel
 from risingwave_tpu_torch.state.state_table import StateTable
 from risingwave_tpu_torch.stream.executor import Executor, ExecutorInfo
 from risingwave_tpu_torch.stream.executors.keys import LANES_PER_KEY, KeyCodec
@@ -140,7 +147,6 @@ class HashAggExecutor(Executor):
                  device=None):
         for what, given in (("minput_tables", minput_tables),
                             ("distinct_tables", distinct_tables),
-                            ("kernel injection (mesh)", kernel),
                             ("tier_cap", tier_cap)):
             if given:
                 raise NotImplementedError(f"{what} is not ported")
@@ -172,9 +178,10 @@ class HashAggExecutor(Executor):
         if flush_capacity is not None:
             kw["flush_capacity"] = flush_capacity
         # the kernel is built on first touch: the fusion rule absorbs a
-        # run into a copy of this executor before any data flows
+        # run into a copy of this executor before any data flows. An
+        # injected (sharded) kernel is used as it is.
         self._kern_kw = kw
-        self._kernel: Optional[GroupedAggKernel] = None
+        self._kernel = kernel
         if fused_stages is not None:
             from risingwave_tpu_torch.frontend.opt.fusion import (
                 agg_ineligible_reason,
@@ -194,39 +201,42 @@ class HashAggExecutor(Executor):
             f"HashAggExecutor(actor={actor_id})"))
 
     @property
-    def kernel(self) -> GroupedAggKernel:
+    def kernel(self):
         """The device kernel, built on first touch (raw mode when the agg
-        absorbed a fused run)."""
+        absorbed a fused run). An injected sharded kernel gets the
+        absorbed run's prelude on first touch instead."""
         if self._kernel is None:
             kw = dict(self._kern_kw)
             if self.fused_stages is not None:
-                from risingwave_tpu_torch.ops.fused import (
-                    MODE_AGG, compile_program,
-                )
-                kw["prelude"] = compile_program(
-                    self.fused_stages, MODE_AGG,
-                    group_indices=self.group_indices,
-                    agg_calls=self.agg_calls, specs=self.specs)
+                kw["prelude"] = self._compile_prelude()
             self._kernel = GroupedAggKernel(
                 key_width=LANES_PER_KEY * len(self.group_indices),
                 specs=self.specs, **kw)
+        elif self.fused_stages is not None and \
+                getattr(self._kernel, "supports_prelude", False) and \
+                self._kernel._prelude is None:
+            self._kernel.set_prelude(self._compile_prelude())
         return self._kernel
+
+    def _compile_prelude(self):
+        from risingwave_tpu_torch.ops.fused import MODE_AGG, compile_program
+        return compile_program(self.fused_stages, MODE_AGG,
+                               group_indices=self.group_indices,
+                               agg_calls=self.agg_calls, specs=self.specs)
 
     # -- fragment fusion (frontend/opt/fusion.py adopts on a copy) --------
     def adopt_fused_stages(self, fs, raw_input: Executor) -> None:
         """Absorb a filter/project run: `raw_input` becomes the direct
         input and `fs` (whose out_schema must equal the input schema this
         executor was planned on) runs as the kernel's prelude. Only valid
-        before the kernel is built."""
+        before the kernel is built, or while an injected kernel has seen
+        no data (``agg_ineligible_reason``)."""
         from risingwave_tpu_torch.frontend.opt.fusion import (
             agg_fusable_reason,
         )
         r = agg_fusable_reason(self)
         if r is not None:
             raise ValueError(f"agg is not fusion-eligible: {r}")
-        if self._kernel is not None:
-            raise ValueError("agg kernel already built: adopt a run "
-                             "before any data flows")
         got = [f.data_type for f in fs.out_schema]
         want = [f.data_type for f in self.input.schema]
         if got != want:
@@ -255,8 +265,16 @@ class HashAggExecutor(Executor):
             # the RAW chunk ships as one int64 matrix; filter, project
             # and the key/lane encode run in the kernel's prelude
             from risingwave_tpu_torch.ops.fused import encode_raw_chunk
-            self.kernel.apply_raw(
-                encode_raw_chunk(chunk, self.fused_stages.ref_cols))
+            raw = encode_raw_chunk(chunk, self.fused_stages.ref_cols)
+            if not isinstance(self.kernel, ShardedAggKernel):
+                self.kernel.apply_raw(raw)
+                return
+            # sharded: when the group keys map to raw columns, per-row
+            # owners from the host key lanes size the routing bucket
+            raw_keys = self.fused_stages.input_positions(self.group_indices)
+            owners = None if raw_keys is None else self.kernel.owners_of(
+                self.key_codec.build(chunk, raw_keys))
+            self.kernel.apply_raw(raw, chunk.cardinality(), owners=owners)
             return
         key_lanes = self.key_codec.build(chunk, self.group_indices)
         self.kernel.apply(key_lanes, chunk.signs(), chunk.visibility,

@@ -363,3 +363,182 @@ def test_agg_and_join_preludes_match_plain(dev):
         want = F.run_program_plain(jp, raw)
         assert FC.mismatch(jp, got.cpu().numpy(), want.numpy(),
                            nan_rows) == 0, seed
+
+
+# -- the sharded path: route and the shard axis of K1-K4 -------------------------
+
+S = 8
+
+
+@pytest.mark.parametrize("n_shards,bucket", [(8, None), (8, 16), (3, None)])
+def test_route_matches_plain(dev, n_shards, bucket):
+    """The receive buffer, its flags and the overflow flags bit for bit
+    (input order inside each bucket, zeros in the unused rows)."""
+    from risingwave_tpu_torch.parallel import exchange as X
+    from risingwave_tpu_torch.parallel.mesh import contiguous_owner_map
+    local = 2500
+    packed = np.ascontiguousarray(np.tile(_batch(7), (n_shards, 1))[
+        :n_shards * local])
+    rows = torch.from_numpy(packed).to(dev)
+    omap = torch.from_numpy(contiguous_owner_map(n_shards)).to(dev)
+    valid = rows[:, KW + 1]
+    b = bucket or local
+    got = X.route(rows, valid, omap, n_shards, b, KW)
+    want = X.route_plain(rows, valid, omap, n_shards, b, KW)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    assert bool(got[2].any()) == (bucket is not None)
+
+
+def _sharded_applied(dev):
+    """A mixed batch routed to S shards of CAP slots (kernels)."""
+    from risingwave_tpu_torch.parallel import exchange as X
+    from risingwave_tpu_torch.parallel.mesh import contiguous_owner_map
+    packed = torch.from_numpy(np.concatenate([_batch(s) for s in range(S)])
+                              ).to(dev)
+    omap = torch.from_numpy(contiguous_owner_map(S)).to(dev)
+    recv, rvalid, ovf = X.route(packed, packed[:, KW + 1], omap, S, N, KW)
+    assert not bool(ovf.any())
+    st = H.make_sharded_agg_state(S, CAP, KW, _specs(), dev)
+    slots, stats = ht.probe_insert_sharded(st.table, recv[:, :, :KW], rvalid)
+    assert not bool(stats[:, 1].any())
+    return st, slots, recv, rvalid
+
+
+def test_sharded_probe_insert_invariants(dev):
+    st, slots, recv, rvalid = _sharded_applied(dev)
+    ref = H.make_sharded_agg_state(S, CAP, KW, _specs(), dev)
+    _ps, pstats = ht.probe_insert_sharded_plain(ref.table, recv[:, :, :KW],
+                                                rvalid)
+    for s in range(S):
+        sl = slots[s].cpu().numpy()
+        v = rvalid[s].cpu().numpy() != 0
+        keys = recv[s, :, :KW].cpu().numpy()
+        k = st.table.keys[s].cpu().numpy()
+        assert (sl[~v] == -1).all() and (sl[v] >= 0).all()
+        assert (k[sl[v]] == keys[v]).all()
+
+        def keyset(t):
+            x = t.keys[s].cpu().numpy()[t.occ[s].cpu().numpy() != 0]
+            return x[np.lexsort(x.T[::-1])]
+        np.testing.assert_array_equal(keyset(st.table), keyset(ref.table))
+    occ = (st.table.occ != 0).sum(dim=1).cpu().numpy()
+    np.testing.assert_array_equal(occ, pstats[:, 0].cpu().numpy())
+
+
+def test_sharded_agg_kernels_match_plain(dev):
+    """K2-K4 with a shard axis against their plain versions on the same
+    slots: integers exact, float SUM within rel 1e-6 of Σ|terms|."""
+    st, slots, recv, _rv = _sharded_applied(dev)
+    plan = H.ApplyPlan(KW, _specs(), dev)
+    a = H.ShardedAggState(st.table, st.st.clone())
+    b = H.ShardedAggState(st.table, st.st.clone())
+    H.agg_apply_sharded(a, recv, slots, plan)
+    H.agg_apply_sharded_plain(b, recv, slots, plan)
+    x, y = a.st.cpu().numpy(), b.st.cpu().numpy()
+    f = [H.ROW_ACC0 + 5, H.ROW_ACC0 + 6]
+    ints = [r for r in range(x.shape[1]) if r not in f]
+    np.testing.assert_array_equal(x[:, ints], y[:, ints])
+    for row in f:
+        err = np.abs(x[:, row].view(np.float32).astype(np.float64)
+                     - y[:, row].view(np.float32).astype(np.float64))
+        assert float(err.max()) <= 1e-6 * 100 * N
+    for fc in (1 << 12, 64):
+        np.testing.assert_array_equal(
+            H.flush_gather_sharded(b, fc).cpu().numpy(),
+            H.flush_gather_sharded_plain(b, fc).cpu().numpy())
+    c = H.ShardedAggState(b.table, b.st.clone())
+    H.advance_sharded(c)
+    for s in range(S):
+        H.advance_plain(b.shard(s))
+    np.testing.assert_array_equal(c.st.cpu().numpy(), b.st.cpu().numpy())
+    hi, lo = lanes.split_i64(np.asarray([1000 * 31], dtype=np.int64))
+    for mode in (H.LIVE_GROW, H.LIVE_RETIRE):
+        live = H.live_mask_sharded(b, mode, 0, int(hi[0]), int(lo[0]))
+        want = torch.stack([H.live_mask_plain(b.shard(s), mode, 0, int(hi[0]),
+                                              int(lo[0])) for s in range(S)])
+        np.testing.assert_array_equal(live.cpu().numpy(), want.cpu().numpy())
+    fill = torch.tensor(H.state_fills(_specs()), dtype=torch.int32,
+                        device=dev)
+    table = ht.TableState(
+        torch.zeros((S, 2 * CAP, KW), dtype=torch.int32, device=dev),
+        torch.zeros((S, 2 * CAP), dtype=torch.int32, device=dev))
+    o2n, _s = ht.probe_insert_sharded(table, b.table.keys, live)
+    np.testing.assert_array_equal(
+        H.remap_sharded(b.st, o2n, table.occ, fill, 2 * CAP).cpu().numpy(),
+        torch.stack([H.remap_plain(b.st[s], o2n[s], table.occ[s], fill,
+                                   2 * CAP) for s in range(S)]).cpu().numpy())
+
+
+def test_agg_prelude_segments_match_plain(dev):
+    """agg_prelude with a segment length: each block its own ring for the
+    U-/U+ pair rules, bit for bit against the plain program."""
+    for seed in range(4):
+        fs, chunk = FC.port_case(seed, 1 << 12, True, separators=16)
+        g, calls, specs = FC.agg_plan(fs, seed)
+        prog = F.compile_program(fs, F.MODE_AGG, group_indices=g,
+                                 agg_calls=calls, specs=specs)
+        if prog.units != 1:
+            continue
+        raw = torch.from_numpy(F.encode_raw_chunk(chunk, fs.ref_cols)) \
+            .to(dev)
+        for seg in (8, 512):
+            ck = torch.zeros(prog.n_counts, dtype=torch.int64, device=dev)
+            cp = ck.clone()
+            got = F.agg_prelude(prog, raw, ck, seg=seg)
+            want = F.run_program_plain(prog, raw, None, cp, seg=seg)
+            assert FC.mismatch(prog, got.cpu().numpy(), want.cpu().numpy(),
+                               FC.nan_rows_of(fs, chunk)) == 0
+            np.testing.assert_array_equal(ck.cpu().numpy(), cp.cpu().numpy())
+
+
+def test_sharded_kernel_on_the_card_matches_the_cpu(dev):
+    """ShardedAggKernel end to end, card against CPU: the same snapshots
+    after growth, flushes, retirement, a reshard and a rebuild (integer
+    plan: the card's slots differ, its decoded groups do not), and one
+    routed step launches route, probe_insert and agg_apply as often at 8
+    shards as at 1."""
+    from risingwave_tpu_torch.parallel import ShardedAggKernel, ShardMesh
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    specs = tuple(H.AggSpec(H.AggKind(k), None if d is None else np.dtype(d))
+                  for k, d in [("sum", np.int64), ("max", np.int64),
+                               ("count", None)])
+    rng = np.random.default_rng(4)
+    kernels = {d: ShardedAggKernel(ShardMesh(S, d), KW, specs, capacity=256)
+               for d in ("cuda", "cpu")}
+    for _e in range(3):
+        g = rng.integers(0, 3000, 2048).astype(np.int64) * 13
+        v = rng.integers(-10**9, 10**9, 2048)
+        args = (_lanes(g), np.ones(2048, np.int32), np.ones(2048, bool),
+                [(specs[0].encode_input(v), np.ones(2048, bool)),
+                 (specs[1].encode_input(v), np.ones(2048, bool)),
+                 ((), None)])
+        for k in kernels.values():
+            k.apply(*args)
+            k.flush()
+            k.advance()
+    snaps = [k.snapshot() for k in kernels.values()]
+    assert snaps[0] == snaps[1] and kernels["cuda"].capacity > 256
+    for k in kernels.values():
+        k.retire_below(0, 1500 * 13)
+        k.reshard(np.roll(k.mesh.owner_map(), 11))
+    snaps = [k.snapshot() for k in kernels.values()]
+    assert snaps[0] == snaps[1] and snaps[0]
+    n = 500
+    keys = _lanes(np.arange(n, dtype=np.int64) * 7)
+    accs = [rng.integers(-10**9, 10**9, n), np.ones(n, np.int64),
+            rng.integers(-10**9, 10**9, n), np.ones(n, np.int64),
+            rng.integers(1, 9, n)]
+    for k in kernels.values():
+        k.rebuild(keys, np.ones(n, np.int64), accs)
+    assert kernels["cuda"].snapshot() == kernels["cpu"].snapshot()
+    steps = {}
+    for n_shards in (1, S):
+        k = ShardedAggKernel(ShardMesh(n_shards, "cuda"), KW, specs,
+                             capacity=1 << 12)
+        k.apply(*args)
+        LAUNCHES.reset()
+        k._dispatch_backlog()
+        steps[n_shards] = LAUNCHES.snapshot()
+    assert steps[1] == steps[S]
+    assert steps[S]["route"] == 1 and steps[S]["probe_insert"] == 1

@@ -135,10 +135,14 @@ def test_q7_fused_matches_reference_and_unfused(scenario):
 
 
 def test_q7_port_refuses_unported_options():
+    from risingwave_tpu_torch.parallel import ShardMesh
     cfg = NexmarkConfig(event_num=1000)
-    for kw in (dict(tier_cap=8), dict(mesh=object()),
-               dict(coalesce_rows=64)):
+    for kw in (dict(tier_cap=8), dict(coalesce_rows=64),
+               dict(tier_cap=8, mesh=ShardMesh(8, "cpu"))):
         with pytest.raises(NotImplementedError):
             build_q7(MemoryStateStore(), cfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         build_q7(object(), cfg, device="cpu")
+    # the mesh is ported: it must be the port's own ShardMesh
+    with pytest.raises(TypeError):
+        build_q7(MemoryStateStore(), cfg, device="cpu", mesh=object())

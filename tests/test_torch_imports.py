@@ -27,6 +27,10 @@ import risingwave_tpu_torch.ops.fused_cases
 import risingwave_tpu_torch.stream.executors.fused
 import risingwave_tpu_torch.stream.executors.row_id_gen
 import risingwave_tpu_torch.stream.executors.simple
+import risingwave_tpu_torch.parallel
+import risingwave_tpu_torch.parallel.agg
+import risingwave_tpu_torch.parallel.exchange
+import risingwave_tpu_torch.parallel.mesh
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "risingwave_tpu" or m.startswith("risingwave_tpu."))
