@@ -39,6 +39,15 @@ phases, any failure of which exits non-zero:
      the same slots, q7's whole step against its plain twin as
      key-sorted flushes), then a reshard to a rotated owner map with
      equal snapshots before and after;
+   - the sharded join at q8-mesh's shapes (8 shards, 2^16-row
+     side-epochs, ~2M stored refs built through key growth): K5 and K6
+     with a shard axis exact per shard against their plain twins
+     (ShardedJoinKernel through the plain versions), with hot keys,
+     deletes and a forced per-shard pair-buffer overflow; then the
+     per-chunk step B16 (route, K6 with its degree block at the chunk's
+     scalar seq, K1, K5) on the per-chunk arm's own 4,096-row chunks
+     (deletes, U-/U+ pairs, NULL keys), every step's per-shard matrices
+     and both sides' state exact against the plain twin;
 4. the main paths end to end, each with every launch count reset just
    before and read just after, each MV equal to a vectorized oracle,
    with the plan checker strict (a rewrite that breaks an invariant
@@ -61,8 +70,15 @@ phases, any failure of which exits non-zero:
      (the prelude on the sharded kernel), each MV equal to the oracle and
      to the single-device q7's; then q7-mesh at 2M events killed halfway
      and rebuilt on the same store, equal to the oracle;
+   - q8 over 8 logical shards (``build_q8(mesh=ShardMesh(8))``) at 100M
+     events, unfused and fused, each MV equal to the oracle and to the
+     single-device q8's; and the per-chunk arm
+     (``HashJoinExecutor(mesh=ShardMesh(8), epoch_batch=False)``, one
+     apply_and_probe per chunk) equal to its epoch-batched twin and to
+     an oracle on a script with updates, deletes, NULL keys and growth;
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
-   events, fused q7 and q8 at 2M, and q7-mesh at 2M unfused and fused,
+   events, fused q7 and q8 at 2M, and q7-mesh and q8-mesh at 2M unfused
+   and fused,
    under torch.profiler (the device's busy time and idle share) and
    cProfile (host self-time by module; the sharded path's own host
    functions by cumulative time), after the main paths' counts were
@@ -76,6 +92,7 @@ counts) and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import statistics
 import subprocess
@@ -117,6 +134,11 @@ MESH_ROWS = 1 << 18           # its batch: ~106K distinct groups
 Q7_MESH_EVENTS = 10_000_000
 Q7_MESH_RECOVERY_EVENTS = 2_000_000
 Q7_MESH_TRACE_EVENTS = 2_000_000
+Q8_MESH_TRACE_EVENTS = 2_000_000
+MESH_CHUNK_ROWS = 4096        # bench.py's q8 lane chunks
+PERCHUNK_CHUNKS = 96          # per side: 393,216 rows
+PERCHUNK_EPOCH = 8            # chunks per side between barriers
+PERCHUNK_STEP_CHUNKS = 16     # per side in the B16 step check: 2 epochs
 
 KERNELS = {
     # name: (source, reference program it replaces)
@@ -165,6 +187,10 @@ Q1_FUSED_PATH = ("fused_chain",)
 Q7_MESH_PATH = ("route", "probe_insert", "agg_apply", "flush_gather",
                 "advance", "live_mask", "remap")
 Q7_MESH_FUSED_PATH = Q7_MESH_PATH + ("agg_prelude",)
+Q8_MESH_PATH = ("route",) + Q8_PATH
+Q8_MESH_FUSED_PATH = Q8_MESH_PATH + ("agg_prelude", "join_prelude")
+# B16 per chunk: route, K6 on the other side, K1 + K5 on this side
+PERCHUNK_PATH = ("route", "join_probe", "probe_insert", "join_apply")
 
 
 def log(msg: str) -> None:
@@ -762,13 +788,15 @@ def check_join_apply(dev, js: dict) -> dict:
 
 
 def _probe_bytes(js, mat, with_degrees, rows) -> float:
+    """K6's byte bound on one probe epoch: the header and the pairs it
+    writes are charged, not the unwritten rest of the pair buffer."""
     n = js["n"]
     _pu, pa = js["probe"]
     vis = int(((pa[:, 2] & 1) != 0).sum())
     total = int(mat[0, 0])
     w = 2 + JP + int(with_degrees)
     nbytes = (n * (JKW * 4 + 16) + vis * (JKW * 4 + 4 + 4)
-              + total * (12 + JP * 4) + (1 + OUT_CAP) * w * 4)
+              + total * (12 + JP * 4) + (1 + total) * w * 4)
     if with_degrees:
         nbytes += n * w * 4 + total * 4 + 4 * rows * 4 + n * 4
     return nbytes
@@ -1105,12 +1133,15 @@ def q8_oracle(cfg, n_persons: int, n_auctions: int,
 
 
 def run_q8(dev, events: int, trace: bool = False,
-           fusion: bool = False) -> dict:
+           fusion: bool = False, mesh: bool = False) -> dict:
     """q8 through build_q8 + drive_to_completion at bench.py's q8 shape;
     the MV must equal the oracle exactly. With ``fusion`` both join sides
-    and the dedup agg must have absorbed their projections."""
+    and the dedup agg must have absorbed their projections; with ``mesh``
+    the join runs over MESH_SHARDS logical shards (ShardedJoinKernel at
+    its defaults) and launches are also given per barrier."""
     from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
     from risingwave_tpu_torch.models.nexmark import build_q8
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
     from risingwave_tpu_torch.state.store import MemoryStateStore
 
     base = NexmarkConfig(event_num=events, max_chunk_size=4096,
@@ -1118,8 +1149,11 @@ def run_q8(dev, events: int, trace: bool = False,
     cfg_p = NexmarkConfig(**{**base.__dict__, "table_type": "person"})
     cfg_a = NexmarkConfig(**{**base.__dict__, "table_type": "auction"})
     p = build_q8(MemoryStateStore(), cfg_p, cfg_a, rate_limit=16,
-                 min_chunks=16, device=dev, fusion=fusion)
+                 min_chunks=16, device=dev, fusion=fusion,
+                 mesh=ShardMesh(MESH_SHARDS, dev) if mesh else None)
     join = p.actor.consumer.input.input
+    assert all(isinstance(s.kernel, ShardedJoinKernel) == mesh
+               for s in join.sides)
     fired = [s.fused_input is not None for s in join.sides] + \
         [getattr(join.right_in, "fused_stages", None) is not None]
     assert fired == [fusion] * 3, f"fusion fired as {fired}"
@@ -1130,11 +1164,18 @@ def run_q8(dev, events: int, trace: bool = False,
     assert len(rows) == len(want) and set(rows) == want, \
         "q8 MV differs from the oracle"
     assert p.readers[1].offset == n_p and p.readers[2].offset == n_a
+    extra = {}
+    if mesh:
+        extra = dict(shards=MESH_SHARDS, per_barrier={
+            k: v / out["barriers"] for k, v in out["launches"].items()},
+            routed_steps=[s.kernel.dispatches for s in join.sides])
     return dict(out, mv_rows=len(rows), mv_digest=mv_digest(rows),
-                key_capacity=[s.kernel.table.capacity for s in join.sides],
+                key_capacity=[getattr(s.kernel, "key_capacity", None)
+                              or s.kernel.table.capacity
+                              for s in join.sides],
                 row_capacity=[s.kernel.row_capacity for s in join.sides],
                 stored_rows=[s.next_ref for s in join.sides],
-                dead_refs=[len(s.free) for s in join.sides])
+                dead_refs=[len(s.free) for s in join.sides], **extra)
 
 
 def run_q1(dev, events: int, fusion: bool) -> dict:
@@ -1711,11 +1752,578 @@ def run_q7_mesh_recovery(dev, events: int) -> dict:
                 launches=LAUNCHES.snapshot(), mv_digest=mv_digest(got.items()))
 
 
+# -- phase 3, the sharded join: K5 and K6 with a shard axis -------------------
+
+@contextlib.contextmanager
+def plain_join_steps():
+    """Run ShardedJoinKernel's routed steps through the plain versions
+    (route_plain, the sharded K1/K4/K5/K6 plain versions) on the card's
+    tensors: a twin of the kernel path with the same host logic."""
+    import risingwave_tpu_torch.parallel.join as PJ
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.parallel import exchange as X
+
+    def apply_plain(chains, slots, scratch=None, **kw):
+        return J.join_apply_sharded_plain(chains, slots, **kw)
+
+    def remap_plain(src, o2n, occ, fill, cap):
+        return torch.stack([H.remap_plain(src[s], o2n[s], occ[s], fill, cap)
+                            for s in range(src.shape[0])])
+    saved = (PJ.route, PJ.join_apply_sharded, PJ.join_probe_sharded,
+             PJ.remap_sharded, ht.probe_insert_sharded)
+    PJ.route, PJ.join_apply_sharded = X.route_plain, apply_plain
+    PJ.join_probe_sharded = J.join_probe_sharded_plain
+    PJ.remap_sharded = remap_plain
+    ht.probe_insert_sharded = ht.probe_insert_sharded_plain
+    try:
+        yield
+    finally:
+        (PJ.route, PJ.join_apply_sharded, PJ.join_probe_sharded,
+         PJ.remap_sharded, ht.probe_insert_sharded) = saved
+
+
+def _mesh_stage_apply(k, up, aux):
+    """One side-epoch through a ShardedJoinKernel's staging (guards,
+    skew-exact bucket from per-row owners) and apply; returns the
+    staging."""
+    up_np, aux_np = up.cpu().numpy(), aux.cpu().numpy()
+    mr = int(aux_np[:, 0].max())
+    staged = k.stage_epoch(up_np, aux_np, len(up_np), mr,
+                           owners=k.owners_of(up_np[:, :JKW]))
+    k.apply_epoch(staged[0], staged[1], len(up_np), mr, bucket=staged[2])
+    return staged
+
+
+def build_mesh_join_states(dev) -> dict:
+    """q8-mesh's join side: a ShardedJoinKernel over MESH_SHARDS shards at
+    its defaults (2^15 slots, 2^17 rows per shard) fed the ~2M stored rows
+    of join_epochs through stage_epoch + apply_epoch (route, K1, K5; the
+    key tables grow 4x twice: K1 + K4), and its twin through the plain
+    versions; then both take the mixed epoch (hot keys, deletes), which
+    is K5's check."""
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
+    stored, mixed, fresh, probe, probe_hot = join_epochs(J_EPOCHS, J_N)
+    mesh = ShardMesh(MESH_SHARDS, dev)
+    ks, kp = ShardedJoinKernel(mesh, JKW), ShardedJoinKernel(mesh, JKW)
+    caps = [ks.key_capacity]
+    t0 = time.perf_counter()
+    for up, aux in stored:
+        _mesh_stage_apply(ks, *(torch.from_numpy(x) for x in (up, aux)))
+        caps.append(ks.key_capacity)
+    ks.drain_overflows()
+    built_s = time.perf_counter() - t0
+    with plain_join_steps():
+        for up, aux in stored:
+            _mesh_stage_apply(kp, *(torch.from_numpy(x) for x in (up, aux)))
+        kp.drain_overflows()
+
+    def dev_pair(e):
+        return tuple(torch.from_numpy(x).to(dev) for x in e)
+    return dict(ks=ks, kp=kp, mixed=dev_pair(mixed), fresh=dev_pair(fresh),
+                probe=dev_pair(probe), probe_hot=dev_pair(probe_hot),
+                caps=caps, built_s=built_s)
+
+
+def _shard_by_key(k, s) -> tuple:
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    return _by_key(ht.TableState(k.table.keys[s], k.table.occ[s]),
+                   J.ChainState(*(c[s] for c in k.chains)))
+
+
+def _mesh_routed(k, up, aux, bits, probe: bool):
+    """The receive block of one side-epoch as the kernel's step routes
+    it, with the skew-exact bucket of its routed rows: (recv, rvalid,
+    bucket)."""
+    from risingwave_tpu_torch.parallel import exchange as X
+    up_np, aux_np = up.cpu().numpy(), aux.cpu().numpy()
+    m = up.shape[0]
+    ow = k.owners_of(up_np[:, :JKW]).astype(np.int64)
+    ow[(aux_np[:, 2] & bits) == 0] = -1
+    bucket = X.skew_bucket(ow, ow >= 0, k.n_dev, m // k.n_dev)
+    if probe:
+        rows = torch.cat([up[:, :JKW], torch.arange(
+            m, dtype=torch.int32, device=up.device)[:, None], aux[:, 3:4]],
+            dim=1)
+    else:
+        rows = torch.cat([up[:, :JKW], aux], dim=1)
+    recv, rvalid, ovf = X.route(rows, (aux[:, 2] & bits) != 0, k.owner_map,
+                                k.n_dev, bucket, JKW)
+    assert not bool(ovf.any())
+    return recv, rvalid, bucket
+
+
+def check_mesh_join_apply(dev, mj: dict) -> dict:
+    """Sharded K5, exact per shard: after the stored epochs and the mixed
+    epoch (runs of rows on 8 hot keys, deletes of stored refs, new keys),
+    each shard's per-key heads and its ref-indexed next, ins_seq and
+    del_seq equal the plain twin's. Timed on the fresh epoch (q8's shape,
+    every row a new key) on the slots K1 gave, beside its byte bound:
+    every received row is charged its flags, the insert rows their slot,
+    ref, sequence and two chain writes, the delete rows their ref,
+    sequence and one write, the distinct slots a head read and write."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    ks, kp = mj["ks"], mj["kp"]
+    _mesh_stage_apply(ks, *mj["mixed"])
+    with plain_join_steps():
+        _mesh_stage_apply(kp, *mj["mixed"])
+    ks.drain_overflows()
+    assert (ks.key_capacity, ks.row_capacity) == \
+        (kp.key_capacity, kp.row_capacity)
+    err = 0.0
+    for s in range(ks.n_dev):
+        for a, b in zip(_shard_by_key(ks, s), _shard_by_key(kp, s)):
+            err = max(err, abs_err(a, b))
+    for a, b in zip(ks.chains[1:], kp.chains[1:]):
+        err = max(err, abs_err(a.cpu().numpy(), b.cpu().numpy()))
+    assert err == 0, f"sharded join_apply differs from the plain twin: {err}"
+    fresh_refs = int(mj["fresh"][1][:, 0].max())
+    ks.reserve_rows(fresh_refs)
+    kp.reserve_rows(fresh_refs)
+    recv, _rv, bucket = _mesh_routed(ks, *mj["fresh"], J.FLAG_INS
+                                     | J.FLAG_DEL, probe=False)
+    f = recv[:, :, JKW + 2]
+    table = ht.TableState(ks.table.keys.clone(), ks.table.occ.clone())
+    slots, _st = ht.probe_insert_sharded(table, recv[:, :, :JKW],
+                                         f & J.FLAG_INS)
+    kw = dict(ins_ok=f, ins_bits=J.FLAG_INS, ins_ref=recv[:, :, JKW],
+              del_ok=f, del_bits=J.FLAG_DEL, del_ref=recv[:, :, JKW + 1],
+              seq=recv[:, :, JKW + 3])
+    kc = J.ChainState(*(t.clone() for t in ks.chains))
+    scratch = torch.full(ks.chains.head.shape, -1, dtype=torch.int32,
+                         device=dev)
+    ms = time_ms(lambda: J.join_apply_sharded(kc, slots, scratch=scratch,
+                                              **kw))
+    pc = J.ChainState(*(t.clone() for t in kp.chains))
+    plain_ms = time_ms(lambda: J.join_apply_sharded_plain(pc, slots, **kw),
+                       samples=5, per=1)
+    fl = f.cpu().numpy()
+    sl = slots.cpu().numpy()
+    ins = (fl & J.FLAG_INS) != 0
+    n_ins, n_del = int(ins.sum()), int(((fl & J.FLAG_DEL) != 0).sum())
+    n_slots = sum(len(np.unique(sl[d][ins[d]])) for d in range(ks.n_dev))
+    nbytes = (fl.size * 4 + n_ins * (4 + 4 + 4 + 8) + n_del * (4 + 4 + 4)
+              + n_slots * 8)
+    b, by = bound_ms(nbytes, fl.size * 4)
+    log(f"sharded join_apply: {ks.n_dev} shards, bucket {bucket}, "
+        f"{fl.shape[1]} received rows per shard ({n_ins} inserts); key "
+        f"slots per shard while building {sorted(set(mj['caps']))}, "
+        f"{ks.row_capacity} rows per shard; the stored epochs applied in "
+        f"{mj['built_s']:.3f} s wall")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
+
+
+def check_mesh_join_probe(dev, mj: dict) -> dict:
+    """Sharded K6, exact: the q8-like and the hot-key probe epochs through
+    the kernel's probe_epoch (route + K6) against the plain twin's, every
+    shard's packed matrix; then a per-shard pair buffer of 2^8 that must
+    grow and re-dispatch to the same pairs. Timed on the q8-like epoch's
+    receive block, beside its byte bound: every received row is charged
+    its flag, the probe rows their key lanes, sequence, row id and the
+    table's lanes, occupancy and head at their slot, every visited chain
+    entry its next, ins_seq and del_seq, and each shard's header and
+    each pair written one write (not the unwritten rest of the
+    buffer)."""
+    from risingwave_tpu_torch.common.chunk import next_pow2
+    from risingwave_tpu_torch.ops import hash_join as J
+    ks, kp = mj["ks"], mj["kp"]
+    cap0 = ks.probe_capacity           # q8-mesh's per-shard pair buffer
+    err = 0.0
+
+    def staged(k, which):
+        """The probe epoch staged for a probe only (its insert flags
+        dropped: nothing here applies it)."""
+        up_np, aux_np = (x.cpu().numpy() for x in mj[which])
+        aux_np = aux_np.copy()
+        aux_np[:, 2] &= J.FLAG_PROBE
+        return k.stage_epoch(up_np, aux_np, len(up_np), -1,
+                             owners=k.owners_of(up_np[:, :JKW]))
+    for which in ("probe", "probe_hot"):
+        got, want = [], []
+        for k, out in ((ks, got), (kp, want)):
+            ctx = plain_join_steps() if k is kp else contextlib.nullcontext()
+            with ctx:
+                u, a, bucket = staged(k, which)
+                pend = k.probe_epoch(u, a, False, bucket=bucket)
+                out.append(pend.mats.cpu().numpy())
+                out.append(pend.collect())
+        err = max(err, abs_err(got[0], want[0]))
+        for x, y in zip(got[1], want[1]):
+            assert (x is None) == (y is None)
+            if x is not None:
+                err = max(err, abs_err(x, y))
+        assert err == 0, f"sharded join_probe differs on {which}: {err}"
+        if which == "probe":
+            totals = got[0][:, 0, 0]
+            want_pairs = want[1]
+    small = max(1, next_pow2(int(totals.max())) // 8)
+    ks.probe_capacity = small
+    u, a, bucket = staged(ks, "probe")
+    got = ks.probe_epoch(u, a, False, bucket=bucket).collect()
+    grown = ks.probe_capacity
+    assert grown > small, "the per-shard buffer did not overflow"
+    for x, y in zip(got, want_pairs):
+        if x is not None:
+            err = max(err, abs_err(x, y))
+    assert err == 0, f"the re-dispatched sharded probe differs: {err}"
+    # the hot-key epoch grew the buffer; time at q8-mesh's own
+    ks.probe_capacity = cap0
+    recv, rv, bucket = _mesh_routed(ks, *mj["probe"], J.FLAG_PROBE,
+                                    probe=True)
+    out_cap = ks.probe_capacity
+    args = (recv[:, :, :JKW], rv, -1, recv[:, :, JKW + 1], out_cap, False)
+    kw = dict(rid=recv[:, :, JKW], rvalid=rv)
+    ms = time_ms(lambda: J.join_probe_sharded(ks.table, ks.chains, *args,
+                                              **kw))
+    plain_ms = time_ms(lambda: J.join_probe_sharded_plain(
+        kp.table, kp.chains, *args, **kw), samples=5, per=1)
+    s, m = rv.shape
+    valid = int(rv.sum())
+    total = int(totals.sum())
+    nbytes = (s * m * 4 + valid * (JKW * 4 + 4 + 4 + JKW * 4 + 4 + 4)
+              + total * 12 + s * 2 * 4 + total * 2 * 4)
+    b, by = bound_ms(nbytes, valid * 64)
+    log(f"sharded join_probe: {total} pairs (worst shard "
+        f"{int(totals.max())}) of {valid} probe rows in {s} x {m} received "
+        f"rows (bucket {bucket}); a per-shard buffer of {small} grew to "
+        f"{grown} and re-dispatched to the same pairs")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by)
+
+
+def record_perchunk_steps(dev) -> list:
+    """The per-chunk arm's apply_and_probe calls, in order, on the first
+    PERCHUNK_STEP_CHUNKS chunks per side of perchunk_script: [(side,
+    host arguments)]."""
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel
+    from risingwave_tpu_torch.stream.executors.test_utils import (
+        collect_until_n_barriers,
+    )
+    sl, sr, nb, _view = perchunk_script(PERCHUNK_STEP_CHUNKS)
+    ex = _join_executor(dev, sl, sr, epoch_batch=False)
+    calls = []
+    orig = ShardedJoinKernel.apply_and_probe
+
+    def recording(self, other, *args):
+        calls.append((self, tuple(np.array(a, copy=True) if isinstance(
+            a, np.ndarray) else a for a in args)))
+        return orig(self, other, *args)
+    ShardedJoinKernel.apply_and_probe = recording
+    try:
+        asyncio.run(collect_until_n_barriers(ex, nb))
+    finally:
+        ShardedJoinKernel.apply_and_probe = orig
+    sides = [side.kernel for side in ex.sides]
+    return [(sides.index(k), args) for k, args in calls]
+
+
+def _kernel_copy(k):
+    """A ShardedJoinKernel sharing nothing mutable with ``k``: its table
+    and chains cloned, for timing steps that must not touch ``k``."""
+    import copy
+    from risingwave_tpu_torch.ops import hash_table as ht
+    c = copy.copy(k)
+    c.table = ht.TableState(k.table.keys.clone(), k.table.occ.clone())
+    c.chains = type(k.chains)(*(t.clone() for t in k.chains))
+    c._apply_overflows = []
+    c._new_scratch()
+    return c
+
+
+def check_mesh_apply_and_probe(dev) -> dict:
+    """B16 on the mesh, exact: the per-chunk arm's recorded
+    apply_and_probe steps (route; K6 on the other side at the chunk's
+    scalar seq, with the degree block and the rid / rvalid row map; K1
+    and K5 on this side at that seq) replayed on two fresh pairs of
+    ShardedJoinKernel, one through the kernels and one through the plain
+    twin. Every step's per-shard matrices (headers, degree blocks,
+    pairs) are equal before collect, and so are the collected degrees,
+    probe rows and refs; after the last step each side's per-key heads
+    per shard and its ref-indexed next, ins_seq and del_seq. The last
+    step's device half is timed on a copy of its side's state, whole and
+    launch by launch, beside
+    its byte bound: the chunk's rows read once, each probe row its
+    table slot (lanes, occupancy, head) and degree row, each pair its
+    chain entry (next, ins_seq, del_seq) and its write, each shard's
+    header, each insert its table slot and two chain writes, each
+    distinct insert key a head read and write, each delete one write.
+    The receive block is the step's own intermediate and not
+    charged."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
+    t0 = time.perf_counter()
+    steps = record_perchunk_steps(dev)
+    mesh = ShardMesh(MESH_SHARDS, dev)
+    kw = steps[0][1][0].shape[1]
+    ks = [ShardedJoinKernel(mesh, kw) for _ in range(2)]
+    kp = [ShardedJoinKernel(mesh, kw) for _ in range(2)]
+    err = 0.0
+    n_del = n_null = 0
+    for me, args in steps:
+        hk = ks[me].apply_and_probe(ks[1 - me], *args)
+        with plain_join_steps():
+            hp = kp[me].apply_and_probe(kp[1 - me], *args)
+        err = max(err, abs_err(hk.mats.cpu().numpy(), hp.mats.cpu().numpy()))
+        with plain_join_steps():
+            want = hp.collect()
+        for a, b in zip(hk.collect(), want):
+            err = max(err, abs_err(a, b))
+        assert err == 0, f"the sharded apply_and_probe step differs: {err}"
+        n_del += int(np.asarray(args[5]).sum())
+        n_null += int((~np.asarray(args[1], bool)).sum())
+    for side in (0, 1):
+        a, b = ks[side], kp[side]
+        assert (a.key_capacity, a.row_capacity) == \
+            (b.key_capacity, b.row_capacity)
+        for d in range(a.n_dev):
+            for x, y in zip(_shard_by_key(a, d), _shard_by_key(b, d)):
+                err = max(err, abs_err(x, y))
+        for x, y in zip(a.chains[1:], b.chains[1:]):
+            err = max(err, abs_err(x.cpu().numpy(), y.cpu().numpy()))
+    assert err == 0, f"the per-chunk sharded state differs: {err}"
+    assert n_del > 0 and n_null > 0, (n_del, n_null)
+    checked_s = time.perf_counter() - t0
+    me, args = steps[-1]
+    lanes, pvis, refs, ins, drefs, dels, seq = args
+    kc, pc = _kernel_copy(ks[me]), _kernel_copy(kp[me])
+    rows = kc._stage_chunk(lanes, pvis, refs, ins, drefs, dels)[0]
+    out_cap = ks[1 - me].probe_capacity
+    ms = time_ms(lambda: kc._chunk_step(ks[1 - me], rows, seq, out_cap))
+    with plain_join_steps():
+        plain_ms = time_ms(lambda: pc._chunk_step(kp[1 - me], rows, seq,
+                                                  out_cap),
+                           samples=5, per=1)
+    mats = kc._chunk_step(ks[1 - me], rows, seq, out_cap)[0].cpu().numpy()
+    total = int(mats[:, 0, 0].sum())
+    m, s = int(rows.shape[0]), ks[me].n_dev
+    # the step's launches one by one, on the same routed rows
+    recv, rvalid, _ovf = kc._route(rows, rows[:, kw + 3] != 0, m // s)
+    fl = recv[:, :, kw + 3]
+    split = {
+        "route": time_ms(lambda: kc._route(rows, rows[:, kw + 3] != 0,
+                                           m // s)),
+        "join_probe": time_ms(lambda: ks[1 - me]._probe_routed(
+            recv, rvalid, fl, J.FLAG_PROBE, kw, seq, out_cap, True)),
+        "probe_insert + join_apply": time_ms(lambda: kc._apply_routed(
+            recv, (fl, J.FLAG_INS), kw + 1, (fl, J.FLAG_DEL), kw + 2,
+            seq))}
+    ins, dels = np.asarray(ins, bool), np.asarray(dels, bool)
+    n_probe, n_ins = int(np.asarray(pvis, bool).sum()), int(ins.sum())
+    n_keys = len(np.unique(np.asarray(lanes)[ins], axis=0))
+    nbytes = (m * rows.shape[1] * 4 + n_probe * (kw * 4 + 4 + 4 + 8)
+              + total * (12 + 8) + s * 8 + n_ins * (kw * 4 + 4 + 8)
+              + n_keys * 8 + int(dels.sum()) * 4)
+    b, by = bound_ms(nbytes, m * 64)
+    log(f"sharded apply_and_probe (B16): {len(steps)} steps of "
+        f"{MESH_CHUNK_ROWS}-row chunks ({n_del} deletes, {n_null} rows "
+        f"not probed: NULL keys or invisible) exact against the plain twin"
+        f" in {checked_s:.3f} s; the last step: {m} rows, {n_probe} "
+        f"probes, {n_ins} inserts, {total} pairs, {s} x {m} received rows "
+        f"per kernel")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, steps=len(steps), split_ms=split)
+
+
+# -- phase 4: the per-chunk arm of the sharded join ---------------------------
+
+def perchunk_script(n_chunks: int = PERCHUNK_CHUNKS, seed: int = 41):
+    """Both sides' streams: n_chunks chunks of 4,096 rows per side,
+    PERCHUNK_EPOCH chunks per side between barriers. Each chunk deletes
+    live rows, moves live rows to another key with a U-/U+ pair, and
+    inserts new rows; 5% of keys are NULL, and the key range widens each
+    epoch so the sharded key tables grow. Returns (left messages, right
+    messages, barriers, the oracle's view as sorted rows [lk, lv, rk,
+    rv])."""
+    from risingwave_tpu_torch.common.chunk import Column, Op, StreamChunk
+    from risingwave_tpu_torch.common.epoch import Epoch, EpochPair
+    from risingwave_tpu_torch.common.types import DataType, Schema
+    from risingwave_tpu_torch.stream.message import Barrier, BarrierKind
+    rng = np.random.default_rng(seed)
+    n = MESH_CHUNK_ROWS
+    schemas = (Schema.of(lk=DataType.INT64, lv=DataType.INT64),
+               Schema.of(rk=DataType.INT64, rv=DataType.INT64))
+    live = [dict(k=np.zeros(0, np.int64), null=np.zeros(0, bool),
+                 pk=np.zeros(0, np.int64)) for _ in range(2)]
+    next_pk = [0, 10**9]
+    msgs = ([], [])
+
+    def barrier(b):
+        prev = Epoch.from_physical(b - 1) if b > 1 else Epoch.INVALID
+        return Barrier(EpochPair(Epoch.from_physical(b), prev),
+                       BarrierKind.CHECKPOINT)
+
+    def keys(m, hi):
+        """30% on 50K hot keys (matches), 70% over a widening range."""
+        k = np.where(rng.random(m) < 0.3, rng.integers(0, 50_000, m),
+                     50_000 + rng.integers(0, hi, m))
+        return k.astype(np.int64), rng.random(m) < 0.05
+    b = 1
+    for side in (0, 1):
+        msgs[side].append(barrier(b))
+    for c in range(n_chunks):
+        hi = 200_000 * (c // PERCHUNK_EPOCH + 1)
+        for side in (0, 1):
+            lv = live[side]
+            d = min(400, len(lv["pk"]) // 4)
+            u = min(300, len(lv["pk"]) // 4)
+            pick = rng.choice(len(lv["pk"]), d + u, replace=False)
+            dl, up = pick[:d], pick[d:]
+            nk, nn = keys(u, hi)
+            i = n - d - 2 * u
+            ik, inn = keys(i, hi)
+            ipk = next_pk[side] + np.arange(i)
+            next_pk[side] += i
+            k = np.concatenate([lv["k"][dl], np.stack(
+                [lv["k"][up], nk], 1).reshape(-1), ik])
+            null = np.concatenate([lv["null"][dl], np.stack(
+                [lv["null"][up], nn], 1).reshape(-1), inn])
+            pk = np.concatenate([lv["pk"][dl], np.repeat(lv["pk"][up], 2),
+                                 ipk])
+            ops = np.concatenate([
+                np.full(d, int(Op.DELETE)),
+                np.tile([int(Op.UPDATE_DELETE), int(Op.UPDATE_INSERT)], u),
+                np.full(i, int(Op.INSERT))]).astype(np.int8)
+            msgs[side].append(StreamChunk(
+                schemas[side],
+                [Column(DataType.INT64, np.where(null, 0, k), ~null),
+                 Column(DataType.INT64, pk)], np.ones(n, bool), ops))
+            lv["k"][up], lv["null"][up] = nk, nn
+            keep = np.ones(len(lv["pk"]), bool)
+            keep[dl] = False
+            for name, new in (("k", ik), ("null", inn), ("pk", ipk)):
+                lv[name] = np.concatenate([lv[name][keep], new])
+        if (c + 1) % PERCHUNK_EPOCH == 0:
+            b += 1
+            for side in (0, 1):
+                msgs[side].append(barrier(b))
+    # the oracle: every (left, right) pair of live rows on one non-NULL key
+    lk, rk = (np.where(x["null"], -1, x["k"]) for x in live)
+    order = np.argsort(rk, kind="stable")
+    rs = rk[order]
+    lo = np.searchsorted(rs, lk, "left")
+    hi_ = np.searchsorted(rs, lk, "right")
+    cnt = np.where(lk >= 0, hi_ - lo, 0)
+    li = np.repeat(np.arange(len(lk)), cnt)
+    ri = order[np.concatenate([np.arange(a, a + c_) for a, c_ in
+                               zip(lo[cnt > 0], cnt[cnt > 0])])
+               if cnt.any() else np.zeros(0, np.int64)]
+    view = np.stack([lk[li], live[0]["pk"][li], rk[ri], live[1]["pk"][ri]],
+                    axis=1)
+    return msgs[0], msgs[1], b, view[np.lexsort(view.T[::-1])]
+
+
+def _chunk_arrays(c) -> tuple:
+    vis = np.asarray(c.visibility)
+    return (np.asarray(c.ops)[vis],) + tuple(
+        np.asarray(col.values)[vis] for col in c.columns) + tuple(
+        np.ones(int(vis.sum()), bool) if col.validity is None
+        else np.asarray(col.validity)[vis] for col in c.columns)
+
+
+def _chunk_rows(c) -> np.ndarray:
+    """A chunk's visible rows (op, values, validity) as one sorted int64
+    matrix: its records as a multiset."""
+    rows = np.stack([a.astype(np.int64) for a in _chunk_arrays(c)], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def _view_of(chunks) -> np.ndarray:
+    """The join's output folded into its view (sorted rows; each joined
+    row's count must end at 0 or 1: the pks are unique)."""
+    rows, sign = [], []
+    for c in chunks:
+        a = _chunk_arrays(c)
+        rows.append(np.stack(a[1:5], axis=1))
+        sign.append(np.where((a[0] == 1) | (a[0] == 4), 1, -1))
+    rows = np.concatenate(rows)
+    uniq, inv = np.unique(rows, axis=0, return_inverse=True)
+    cnt = np.bincount(inv.reshape(-1), weights=np.concatenate(sign),
+                      minlength=len(uniq)).astype(np.int64)
+    assert ((cnt == 0) | (cnt == 1)).all(), "a joined row counted twice"
+    return uniq[cnt == 1]
+
+
+def _join_executor(dev, sl, sr, epoch_batch: bool):
+    """The inner join of perchunk_script's two streams over MESH_SHARDS
+    shards."""
+    from risingwave_tpu_torch.parallel import ShardMesh
+    from risingwave_tpu_torch.state.state_table import StateTable
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    from risingwave_tpu_torch.stream.executors.hash_join import (
+        HashJoinExecutor,
+    )
+    from risingwave_tpu_torch.stream.executors.test_utils import MockSource
+    ls, rs = sl[1].schema, sr[1].schema
+    store = MemoryStateStore()
+    return HashJoinExecutor(
+        MockSource(ls, sl), MockSource(rs, sr), [0], [0],
+        StateTable(21, ls, [1], store, dist_key_indices=[]),
+        StateTable(22, rs, [1], store, dist_key_indices=[]),
+        mesh=ShardMesh(MESH_SHARDS, dev), epoch_batch=epoch_batch,
+        device=dev)
+
+
+def run_join_perchunk(dev, n_chunks: int = PERCHUNK_CHUNKS) -> dict:
+    """HashJoinExecutor over MESH_SHARDS shards, per-chunk arm
+    (``epoch_batch=False``: one apply_and_probe per chunk, B16) against
+    its epoch-batched twin on perchunk_script: the same output chunks,
+    each the same multiset of records (the order of one probe row's
+    matches is its chain's, and the arms link a key's rows in another
+    order: the epoch arm a whole epoch in batch order, the per-chunk arm
+    each chunk ahead of the earlier ones, as in the reference), and the
+    view equal to the oracle. Launch counts are the per-chunk arm's."""
+    from risingwave_tpu_torch.stream.executors.test_utils import (
+        collect_until_n_barriers,
+    )
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    sl, sr, nb, want = perchunk_script(n_chunks)
+    out = {}
+    for arm in ("epoch", "per-chunk"):
+        ex = _join_executor(dev, sl, sr, epoch_batch=arm == "epoch")
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        msgs = asyncio.run(collect_until_n_barriers(ex, nb))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        out[arm] = dict(wall_s=time.perf_counter() - t0,
+                        launches=LAUNCHES.snapshot(),
+                        chunks=[m for m in msgs if hasattr(m, "ops")],
+                        key_capacity=ex.sides[0].kernel.key_capacity,
+                        row_capacity=ex.sides[0].kernel.row_capacity)
+    a, b = out["epoch"]["chunks"], out["per-chunk"]["chunks"]
+    assert len(a) == len(b), "the arms emitted different chunk counts"
+    for x, y in zip(a, b):
+        assert np.array_equal(_chunk_rows(x), _chunk_rows(y)), \
+            "the arms' messages differ"
+    got = _view_of(b)
+    assert got.shape == want.shape and (got == want).all(), \
+        "the per-chunk arm's view differs from the oracle"
+    steps = 2 * n_chunks
+    pc = out["per-chunk"]
+    assert pc["key_capacity"] > 1 << 15, "the key tables did not grow"
+    return dict(rows_per_side=n_chunks * MESH_CHUNK_ROWS,
+                barriers=nb, joined_rows=len(got), out_chunks=len(b),
+                epoch_wall_s=out["epoch"]["wall_s"], wall_s=pc["wall_s"],
+                key_capacity=pc["key_capacity"],
+                row_capacity=pc["row_capacity"],
+                launches=pc["launches"],
+                epoch_arm_launches=out["epoch"]["launches"],
+                per_chunk={k: v / steps for k, v in pc["launches"].items()},
+                elapsed_s=pc["wall_s"])
+
+
 def mesh_host_fns(stats) -> dict:
-    """Cumulative host time (s) of the sharded path's own host work: the
-    routing's host twin and bucket sizing, the step, the flush."""
+    """Cumulative host time (s) of the sharded paths' own host work: the
+    routing's host twin and bucket sizing, the agg's step and flush, the
+    join's guards, staging, steps and collects."""
     want = ("owners_host", "skew_bucket", "_dispatch_backlog", "flush",
-            "apply", "apply_raw")
+            "apply", "apply_raw", "_guard_keys", "_guard_keys_blind",
+            "stage_epoch", "apply_epoch", "probe_epoch", "collect", "read",
+            "drain_overflows", "apply_and_probe")
     out: dict = {}
     for (path, _line, fn), (_cc, _nc, _tt, ct, _callers) in \
             stats.stats.items():
@@ -1789,6 +2397,21 @@ def main() -> int:
     for name, t in sharded["timings"].items():
         log(f"sharded {name} at q7's routed step: " + json.dumps(t))
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mj = build_mesh_join_states(dev)
+    mesh_join = {"join_apply": check_mesh_join_apply(dev, mj),
+                 "join_probe": check_mesh_join_probe(dev, mj)}
+    for name, r in mesh_join.items():
+        log(f"sharded {name} at q8-mesh's side-epoch ({MESH_SHARDS} "
+            f"shards, {J_N} rows): " + json.dumps(r))
+    del mj
+    torch.cuda.empty_cache()
+    step = check_mesh_apply_and_probe(dev)
+    log(f"sharded apply_and_probe (B16) at the per-chunk arm's chunks "
+        f"({MESH_SHARDS} shards, {MESH_CHUNK_ROWS} rows): "
+        + json.dumps(step))
+    log(f"sharded join kernels checked in {time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
 
     floor = launch_floor_ms(dev)
     log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
@@ -1811,7 +2434,14 @@ def main() -> int:
             ("q7 mesh fused", lambda d, e: run_q7_mesh(d, e, fusion=True),
              Q7_MESH_EVENTS, Q7_MESH_FUSED_PATH),
             ("q7 mesh recovery", run_q7_mesh_recovery,
-             Q7_MESH_RECOVERY_EVENTS, Q7_MESH_PATH)):
+             Q7_MESH_RECOVERY_EVENTS, Q7_MESH_PATH),
+            ("q8 mesh", lambda d, e: run_q8(d, e, mesh=True), Q8_EVENTS,
+             Q8_MESH_PATH),
+            ("q8 mesh fused", lambda d, e: run_q8(d, e, fusion=True,
+                                                  mesh=True), Q8_EVENTS,
+             Q8_MESH_FUSED_PATH),
+            ("q8 mesh per-chunk", lambda d, e: run_join_perchunk(d), 0,
+             PERCHUNK_PATH)):
         out = run(dev, events)
         paths[label] = out
         missing = [k for k in path if out["launches"].get(k, 0) == 0]
@@ -1839,6 +2469,15 @@ def main() -> int:
             f"latency {m['p99_barrier_latency_s']} vs "
             f"{one['p99_barrier_latency_s']}; per routed step "
             + json.dumps({k: v / steps for k, v in m["launches"].items()}))
+    for label in ("q8 mesh", "q8 mesh fused"):
+        m, one = paths[label], paths[label.replace(" mesh", "")]
+        assert m["mv_digest"] == paths["q8"]["mv_digest"], \
+            f"{label}: the MV differs from the single-device q8's"
+        log(f"{label}: {MESH_SHARDS} shards vs one device: events/s "
+            f"{m['events_per_s']} vs {one['events_per_s']}, p99 barrier "
+            f"latency {m['p99_barrier_latency_s']} vs "
+            f"{one['p99_barrier_latency_s']}; per barrier "
+            + json.dumps(m["per_barrier"]))
 
     # 5. where the time goes: shorter traced runs (their launches are not
     # the main paths' and are not reported)
@@ -1857,20 +2496,38 @@ def main() -> int:
             f"{Q7_MESH_TRACE_EVENTS} events: "
             + json.dumps(run_q7_mesh(dev, Q7_MESH_TRACE_EVENTS, trace=True,
                                      fusion=fusion)))
+    for fusion in (False, True):
+        log(f"q8 mesh{' fused' if fusion else ''} traced at "
+            f"{Q8_MESH_TRACE_EVENTS} events: "
+            + json.dumps(run_q8(dev, Q8_MESH_TRACE_EVENTS, trace=True,
+                                fusion=fusion, mesh=True)))
 
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
-        rows.append({"name": name, "status": "ported, matches plain",
-                     "route": "cuda", "source": source,
-                     "replaces": replaces,
-                     "launches": sum(p["launches"].get(name, 0)
-                                     for p in paths.values()),
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+        row = {"name": name, "status": "ported, matches plain",
+               "route": "cuda", "source": source, "replaces": replaces,
+               "launches": sum(p["launches"].get(name, 0)
+                               for p in paths.values()),
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None}
+        if name in mesh_join:
+            # the shard axis (B24) at q8-mesh's side-epoch
+            m = mesh_join[name]
+            row["max_abs_err"] = max(row["max_abs_err"], m["max_abs_err"])
+            row["sharded"] = {k: m[k] for k in ("ms", "plain_ms",
+                                                "bound_ms", "bound_by")}
+        if name in PERCHUNK_PATH:
+            # the per-chunk step B16 that launches this kernel: its
+            # device half at the per-chunk arm's chunk, all four kernels
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     step["max_abs_err"])
+            row["per_chunk_step"] = {k: step[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")}
+        rows.append(row)
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

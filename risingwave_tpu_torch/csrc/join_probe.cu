@@ -1,12 +1,16 @@
 // Kernel K6: join_probe — probe a batch of rows against a join side's
 // chains, each row at its own message sequence, and write the packed
-// pair matrix.
+// pair matrix; over S independent join-side shards in one launch.
 //
 // Replaces risingwave_tpu/ops/hash_join.py:237 epoch_probe (B15) and, with
 // no payload, :116 probe_pairs (B13); the read-only key probe of
-// risingwave_tpu/ops/hash_table.py:137 lookup (B3) runs inside it.
+// risingwave_tpu/ops/hash_table.py:137 lookup (B3) runs inside it. With
+// S > 1 and a row-id lane, the per-shard probe of
+// risingwave_tpu/parallel/join.py (B24: the steps at :391, :450, :717) on
+// the rows `route` delivered to each shard, mapped back to global row ids.
 //
-// One thread per probe row, two launches over 1024-row tiles:
+// One thread per probe row, two launches over 1024-row tiles, grid.y =
+// shard:
 //   count_kernel  lookup (linear probe from the row hash, KW lanes
 //                 compared, stopping at an empty slot; bounded by cap
 //                 steps, stats[1] flags a row that ran out), then a walk
@@ -29,13 +33,26 @@
 //                 copies the wrapper made: the originals stay untouched for
 //                 a re-dispatch).
 //
+// Shards: shard s reads its n rows at its own shard stride of every row
+// input, probes its own table and chains (cap slots, row_cap refs: refs
+// are GLOBAL, a ref lives on its key's owner shard only), and writes its
+// own block of the output [S, 1 + (n) + out_cap, W], its own scratch and
+// its own stats; each block's header keeps that shard's TRUE total, so a
+// caller re-dispatches when the worst shard overflowed. With a row-id lane
+// (`rid`, the global row of each routed row), a pair row writes rid[row]
+// instead of the local row, and a degree row writes (deg, rvalid ? rid :
+// -1): route's empty received rows (rvalid 0) are never probed and show
+// -1.
+//
 // Output order equals the reference's: pairs by probe row, then by chain
 // order (K5 builds the chains in the reference's order).
 //
 // What bounds it on the card: the chain walks are dependent loads
 // (latency), and bytes beyond them — each row reads its key lanes, aux
 // entries and visited chain entries, and writes its pair rows. A hot key
-// makes one thread walk a long chain twice; that is left simple.
+// makes one thread walk a long chain twice; that is left simple. On the
+// sharded path each shard also reads the flags of its mostly empty
+// receive block and writes its degree rows.
 #include "common.cuh"
 
 namespace {
@@ -77,15 +94,19 @@ __device__ int block_sum(int v, int* sh) {
 
 struct Probe {
   const int32_t* keys;
-  long long key_stride;
+  long long key_stride, key_ss;
   int k;
   const int32_t* vis;
-  long long vis_stride;
+  long long vis_stride, vis_ss;
   int vis_bits;
   const int32_t* seq;
-  long long seq_stride;
-  const int32_t* aux;  // [n, 4] or null
+  long long seq_stride, seq_ss;
+  const int32_t* aux;  // [S, n, 4] or null
   int n;
+  const int32_t* rid;  // routed global row ids, or null
+  long long rid_stride, rid_ss;
+  const int32_t* rvalid;
+  long long rvalid_stride, rvalid_ss;
   const int32_t* tkeys;
   const int32_t* occ;
   long long cap;
@@ -93,6 +114,7 @@ struct Probe {
   const int32_t* next;
   const int32_t* ins_seq;
   const int32_t* del_seq;
+  long long row_cap;
   const int32_t* pay;
   int p;
   const int32_t* deg_self;
@@ -105,14 +127,47 @@ struct Probe {
   int32_t* out;
   long long out_cap;
   int w;
+  int ntiles;
   int32_t* deg;
   int32_t* cur0;
   int32_t* tile_sum;
   int32_t* stats;
 };
 
-__global__ void count_kernel(Probe q) {
+template <typename T>
+__device__ __forceinline__ T* adv(T* p, long long off) {
+  return p == nullptr ? p : p + off;
+}
+
+// The shard's view: every pointer moved to shard s's part.
+__device__ __forceinline__ Probe shard_view(Probe q, long long s) {
+  q.keys = adv(q.keys, s * q.key_ss);
+  q.vis = adv(q.vis, s * q.vis_ss);
+  q.seq = adv(q.seq, s * q.seq_ss);
+  q.aux = adv(q.aux, s * q.n * 4);
+  q.rid = adv(q.rid, s * q.rid_ss);
+  q.rvalid = adv(q.rvalid, s * q.rvalid_ss);
+  q.tkeys = adv(q.tkeys, s * q.cap * q.k);
+  q.occ = adv(q.occ, s * q.cap);
+  q.head = adv(q.head, s * q.cap);
+  q.next = adv(q.next, s * q.row_cap);
+  q.ins_seq = adv(q.ins_seq, s * q.row_cap);
+  q.del_seq = adv(q.del_seq, s * q.row_cap);
+  q.pay = adv(q.pay, s * q.row_cap * q.p);
+  q.deg_self = adv(q.deg_self, s * q.row_cap);
+  q.deg_self_out = adv(q.deg_self_out, s * q.row_cap);
+  q.deg_sink_out = adv(q.deg_sink_out, s * q.sink_cap);
+  q.out = adv(q.out, s * (1 + (q.deg_rows ? q.n : 0) + q.out_cap) * q.w);
+  q.deg = adv(q.deg, s * (2LL * q.n + q.ntiles));
+  q.cur0 = q.deg + q.n;
+  q.tile_sum = q.cur0 + q.n;
+  q.stats = adv(q.stats, s * 2);
+  return q;
+}
+
+__global__ void count_kernel(Probe q0) {
   __shared__ int sh[32];
+  const Probe q = shard_view(q0, blockIdx.y);
   const int i = blockIdx.x * kTile + threadIdx.x;
   int d = 0;
   if (i < q.n) {
@@ -134,13 +189,14 @@ __global__ void count_kernel(Probe q) {
   if (threadIdx.x == 0) q.tile_sum[blockIdx.x] = t;
 }
 
-__global__ void emit_kernel(Probe q, int ntiles) {
+__global__ void emit_kernel(Probe q0) {
   __shared__ int sh[32];
   __shared__ int warp_sums[kTile / 32];
+  const Probe q = shard_view(q0, blockIdx.y);
   // tiles before this one, and all tiles
   int before = 0;
   int all = 0;
-  for (int j = threadIdx.x; j < ntiles; j += blockDim.x) {
+  for (int j = threadIdx.x; j < q.ntiles; j += blockDim.x) {
     const int v = q.tile_sum[j];
     all += v;
     if (j < static_cast<int>(blockIdx.x)) before += v;
@@ -164,10 +220,18 @@ __global__ void emit_kernel(Probe q, int ntiles) {
   const long long pair0 = 1 + (q.deg_rows ? q.n : 0);
   if (i < q.n) {
     long long wp = base + wbase + incl - d;
+    const int32_t row_id =
+        q.rid != nullptr ? q.rid[static_cast<long long>(i) * q.rid_stride]
+                         : i;
     if (q.deg_rows) {
       int32_t* row = q.out + (1 + static_cast<long long>(i)) * q.w;
       row[0] = d;
       for (int c = 1; c < q.w; ++c) row[c] = 0;
+      if (q.rid != nullptr) {
+        row[1] = q.rvalid[static_cast<long long>(i) * q.rvalid_stride] != 0
+                     ? row_id
+                     : -1;
+      }
     }
     const int32_t sq = q.seq[static_cast<long long>(i) * q.seq_stride];
     const bool neg = q.scatter && (q.aux[i * 4 + 2] & 8) != 0;  // FLAG_NEG
@@ -175,7 +239,7 @@ __global__ void emit_kernel(Probe q, int ntiles) {
       if (!(q.ins_seq[cur] < sq && q.del_seq[cur] >= sq)) continue;
       if (wp < q.out_cap) {
         int32_t* row = q.out + (pair0 + wp) * q.w;
-        row[0] = i;
+        row[0] = row_id;
         row[1] = cur;
         const int32_t* src = q.pay + static_cast<long long>(cur) * q.p;
         for (int c = 0; c < q.p; ++c) row[2 + c] = src[c];
@@ -205,32 +269,53 @@ __global__ void emit_kernel(Probe q, int ntiles) {
 
 }  // namespace
 
-// scratch: int32[2n + ntiles] (degrees, chain heads, tile sums);
-// stats: int32[2] = [0, lookup overflow], zeroed here.
+// Row inputs have a row stride and a shard stride (seq may have both 0:
+// one scalar). The table is keys int32[S, cap, k] + occ int32[S, cap], the
+// chains head int32[S, cap] + next/ins_seq/del_seq int32[S, row_cap]; pay,
+// degrees and aux (S = 1 only on the paths that use them) follow the same
+// shard layout. rid/rvalid: the routed row-id lane and the route's valid
+// flags, or null (pair rows then carry the local row). out: int32[S, 1 +
+// (deg_rows ? n : 0) + out_cap, w]. scratch: int32[S, 2n + ntiles]
+// (degrees, chain heads, tile sums); stats: int32[S, 2] = [0, lookup
+// overflow], zeroed here.
 RW_API int rw_join_probe(
-    const void* keys, long long key_stride, int k, const void* vis,
-    long long vis_stride, int vis_bits, const void* seq, long long seq_stride,
-    const void* aux, int n, const void* tkeys, const void* occ, long long cap,
+    const void* keys, long long key_stride, long long key_ss, int k,
+    const void* vis, long long vis_stride, long long vis_ss, int vis_bits,
+    const void* seq, long long seq_stride, long long seq_ss, const void* aux,
+    int n, int shards, const void* rid, long long rid_stride,
+    long long rid_ss, const void* rvalid, long long rvalid_stride,
+    long long rvalid_ss, const void* tkeys, const void* occ, long long cap,
     const void* head, const void* next, const void* ins_seq,
-    const void* del_seq, const void* pay, int p, const void* deg_self,
-    void* deg_self_out, void* deg_sink_out, long long sink_cap, int deg_rows,
-    int old_col, int scatter, void* out, long long out_cap, int w,
-    void* scratch, void* stats, void* stream) {
+    const void* del_seq, long long row_cap, const void* pay, int p,
+    const void* deg_self, void* deg_self_out, void* deg_sink_out,
+    long long sink_cap, int deg_rows, int old_col, int scatter, void* out,
+    long long out_cap, int w, void* scratch, void* stats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t), st);
+  if (shards <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t e =
+      cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t) * shards, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int ntiles = n > 0 ? (n + kTile - 1) / kTile : 1;
   Probe q;
   q.keys = static_cast<const int32_t*>(keys);
   q.key_stride = key_stride;
+  q.key_ss = key_ss;
   q.k = k;
   q.vis = static_cast<const int32_t*>(vis);
   q.vis_stride = vis_stride;
+  q.vis_ss = vis_ss;
   q.vis_bits = vis_bits;
   q.seq = static_cast<const int32_t*>(seq);
   q.seq_stride = seq_stride;
+  q.seq_ss = seq_ss;
   q.aux = static_cast<const int32_t*>(aux);
   q.n = n;
+  q.rid = static_cast<const int32_t*>(rid);
+  q.rid_stride = rid_stride;
+  q.rid_ss = rid_ss;
+  q.rvalid = static_cast<const int32_t*>(rvalid);
+  q.rvalid_stride = rvalid_stride;
+  q.rvalid_ss = rvalid_ss;
   q.tkeys = static_cast<const int32_t*>(tkeys);
   q.occ = static_cast<const int32_t*>(occ);
   q.cap = cap;
@@ -238,6 +323,7 @@ RW_API int rw_join_probe(
   q.next = static_cast<const int32_t*>(next);
   q.ins_seq = static_cast<const int32_t*>(ins_seq);
   q.del_seq = static_cast<const int32_t*>(del_seq);
+  q.row_cap = row_cap;
   q.pay = static_cast<const int32_t*>(pay);
   q.p = p;
   q.deg_self = static_cast<const int32_t*>(deg_self);
@@ -250,12 +336,18 @@ RW_API int rw_join_probe(
   q.out = static_cast<int32_t*>(out);
   q.out_cap = out_cap;
   q.w = w;
+  q.ntiles = ntiles;
   q.deg = static_cast<int32_t*>(scratch);
   q.cur0 = q.deg + n;
   q.tile_sum = q.cur0 + n;
   q.stats = static_cast<int32_t*>(stats);
-  if (n > 0) count_kernel<<<ntiles, kTile, 0, st>>>(q);
-  else cudaMemsetAsync(q.tile_sum, 0, sizeof(int32_t), st);
-  emit_kernel<<<ntiles, kTile, 0, st>>>(q, ntiles);
+  const dim3 grid(ntiles, shards);
+  if (n > 0) {
+    count_kernel<<<grid, kTile, 0, st>>>(q);
+  } else {
+    e = cudaMemsetAsync(scratch, 0, sizeof(int32_t) * shards, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  emit_kernel<<<grid, kTile, 0, st>>>(q);
   return static_cast<int>(cudaGetLastError());
 }

@@ -104,10 +104,14 @@ def agg_fusable_reason(agg) -> Optional[str]:
 
 
 def join_side_ineligible_reason(join, side_idx: int) -> Optional[str]:
-    """THE join-side eligibility predicate: host-typed keys would need
-    interning on the card (the port refuses the per-chunk path and the
-    cold tier at construction)."""
+    """THE join-side eligibility predicate (rule, adopt guard and checker
+    all call it): the fused path needs the epoch dispatches (the prelude
+    runs there; the sharded kernel has them too), and host-typed keys
+    would need interning on the card (the port refuses the cold tier at
+    construction)."""
     side = join.sides[side_idx]
+    if not join._epoch_batch:
+        return "per-chunk dispatch path (epoch batching off)"
     for i in side.key_indices:
         if not side.schema[i].data_type.is_device:
             return (f"host-typed join key column "

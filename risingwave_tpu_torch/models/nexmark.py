@@ -25,9 +25,11 @@ q1's row-id generation and projection become one FusedFragmentExecutor
 (``fused_chain``), q7's and q8's aggs absorb their tumble projections
 (``agg_prelude``), and q8's join sides absorb theirs (``join_prelude``).
 ``build_q7(mesh=ShardMesh(n))`` runs q7's agg vnode-sharded over n
-logical shards of one card (``parallel/agg.ShardedAggKernel``), unfused
-or fused. The reference's monitoring, coalescing and tiering options,
-and q8's mesh, are not ported and raise NotImplementedError.
+logical shards of one card (``parallel/agg.ShardedAggKernel``), and
+``build_q8(mesh=ShardMesh(n))`` q8's join (``parallel/join.
+ShardedJoinKernel``), each unfused or fused. The reference's monitoring,
+coalescing and tiering options are not ported and raise
+NotImplementedError.
 
 ``from_jax_state`` / ``to_numpy_state`` (from ``ops/hash_agg.py``) carry
 grouped-agg device state across the two packages as numpy arrays:
@@ -238,12 +240,22 @@ def build_q8(store, cfg_p: NexmarkConfig, cfg_a: NexmarkConfig,
     Two sources → projects → auction-side hash-agg dedup → inner
     HashJoin (device matcher) → project → materialize. Capacities are
     presized from the known Nexmark cardinalities, as the reference
-    does."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_q8 mesh needs the sharded join, which is not ported")
+    does.
+
+    With ``mesh`` (a ``ShardMesh`` on the pipeline's device), the join
+    runs on the vnode-sharded matcher (``parallel/join.
+    ShardedJoinKernel``) at its default capacities, as the reference's
+    does: both sides' rows route to their key's owner shard, the
+    reference's hash dispatch to N parallel join actors
+    (dispatch.rs:582)."""
     _check_store(store)
     device = resolve_device(device)
+    if mesh is not None:
+        if not isinstance(mesh, ShardMesh):
+            raise TypeError(f"build_q8 takes a ShardMesh, got {mesh!r}")
+        if mesh.device != device:
+            raise ValueError(f"the mesh is on {mesh.device}, the pipeline "
+                             f"on {device}")
     local = LocalBarrierManager()
     persons = _source(local, store, 1, cfg_p, 1, rate_limit, min_chunks)
     ps = persons.schema
@@ -280,14 +292,14 @@ def build_q8(store, cfg_p: NexmarkConfig, cfg_a: NexmarkConfig,
     lt = StateTable(4, p_proj.schema, [0, 2], store, dist_key_indices=[0])
     rt = StateTable(5, a_dedup_proj.schema, [0, 1], store,
                     dist_key_indices=[0])
-    join_opts = {
+    join_opts = None if mesh is not None else {
         "key_capacity": presize_cap(max(n_p, n_a)),
         "row_capacity": presize_cap(max(n_p, n_a)),
         "probe_capacity": 1 << 16,
     }
     join = HashJoinExecutor(p_proj, a_dedup_proj,
                             left_keys=[0, 2], right_keys=[0, 1],
-                            left_table=lt, right_table=rt,
+                            left_table=lt, right_table=rt, mesh=mesh,
                             shard_opts=join_opts, device=device)
     out = ProjectExecutor(
         join,

@@ -63,14 +63,15 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
         "rw_remap": [_P, _L, _P, _P, _L, _P, _I, _I, _P, _P],
     },
     "join_apply": {
-        "rw_join_apply": [_P, _P, _L, _I, _P, _L, _P, _L, _P, _L, _I, _P,
-                          _L, _P, _L, _I, _I, _P, _L, _P, _P, _P, _L, _P,
-                          _P, _P, _P],
+        "rw_join_apply": [_P, _L, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L,
+                          _P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I, _I,
+                          _I, _P, _L, _P, _P, _P, _L, _P, _P, _P, _P],
     },
     "join_probe": {
-        "rw_join_probe": [_P, _L, _I, _P, _L, _I, _P, _L, _P, _I, _P, _P,
-                          _L, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _I,
-                          _I, _I, _P, _L, _I, _P, _P, _P],
+        "rw_join_probe": [_P, _L, _L, _I, _P, _L, _L, _I, _P, _L, _L, _P,
+                          _I, _I, _P, _L, _L, _P, _L, _L, _P, _P, _L, _P,
+                          _P, _P, _P, _L, _P, _I, _P, _P, _P, _L, _I, _I,
+                          _I, _P, _L, _I, _P, _P, _P],
     },
     "join_maint": {
         "rw_masked_scatter": [_P, _L, _I, _P, _P, _P, _I, _P],

@@ -30,12 +30,16 @@ the plain PyTorch version beside it on a CPU tensor; nothing falls back):
     K7 join_maint   csrc/join_maint.cu   _masked_scatter, _rebase (B17)
     K4 remap        csrc/rebuild.cu      _remap_head (B17) on growth
 
+K5 and K6 also take a leading shard axis (``join_apply_sharded``,
+``join_probe_sharded``: one launch serves every shard of the
+vnode-sharded join, ``parallel/join.py``; one device is S = 1). The
+per-chunk step ``apply_and_probe`` (B16) is the launch sequence K6, K1,
+K5.
+
 Where the reference donates state to a pure function, the port updates
 it in place. The degree arrays of ``epoch_probe`` are NOT updated in
 place (the reference does not donate them either): an overflow
-redispatch recomputes from the originals. The apply, probe and
-growth-time entry points (``apply_and_probe``, ``probe_submit``) of the
-mesh path are not ported.
+redispatch recomputes from the originals.
 """
 
 from __future__ import annotations
@@ -305,6 +309,90 @@ def _rebase_plain(chains: ChainState) -> ChainState:
     return chains
 
 
+def _bits(t: Optional[torch.Tensor], bits: int) -> Optional[torch.Tensor]:
+    return None if t is None else (t & bits) != 0
+
+
+def _shard_seq(seq, s: int):
+    return seq[s] if isinstance(seq, torch.Tensor) and seq.dim() == 2 \
+        else seq
+
+
+def _shard(chains: ChainState, s: int) -> ChainState:
+    """Shard s's chain arrays (views: writes land in the [S, ...]
+    arrays)."""
+    return ChainState(*(a[s] for a in chains))
+
+
+def join_apply_sharded_plain(chains: ChainState,
+                             slots: Optional[torch.Tensor], *, ins_ok=None,
+                             ins_bits: int = -1, ins_ref=None, del_ok=None,
+                             del_bits: int = -1, del_ref=None, seq=None
+                             ) -> ChainState:
+    """Plain version of the sharded K5: the reference's per-shard
+    ``link_rows`` then ``tombstone_rows`` (``parallel/join.py:419-420``),
+    shard by shard, in place."""
+    cap = int(chains.head.shape[-1])
+    im, dm = _bits(ins_ok, ins_bits), _bits(del_ok, del_bits)
+    for s in range(int(chains.head.shape[0])):
+        c = _shard(chains, s)
+        sq = _shard_seq(seq, s)
+        if slots is not None:
+            link_rows_plain(c, slots[s], ins_ref[s], im[s], cap, sq)
+        if dm is not None:
+            tombstone_rows_plain(c, del_ref[s], dm[s], sq)
+    return chains
+
+
+def join_probe_sharded_plain(table: ht.TableState, chains: ChainState,
+                             key_lanes: torch.Tensor, vis: torch.Tensor,
+                             vis_bits: int, seq, out_cap: int,
+                             with_degrees: bool,
+                             rid: Optional[torch.Tensor] = None,
+                             rvalid: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the sharded K6: ``probe_pairs`` on each shard's
+    received rows, then the reference's map back to global rows
+    (``parallel/join.py:421-432``): pair rows carry rid[probe row],
+    degree rows (deg, rvalid ? rid : -1)."""
+    mats, stats = [], []
+    m = int(key_lanes.shape[1])
+    for s in range(int(key_lanes.shape[0])):
+        mat, st = probe_pairs_plain(
+            ht.TableState(table.keys[s], table.occ[s]), _shard(chains, s),
+            key_lanes[s], (vis[s] & vis_bits) != 0, _shard_seq(seq, s),
+            out_cap, with_degrees)
+        if rid is not None:
+            r = rid[s].to(torch.int32)
+            p0 = 1 + (m if with_degrees else 0)
+            pr = mat[p0:, 0].to(torch.int64)
+            mat[p0:, 0] = torch.where(pr >= 0, r[torch.clamp(pr, min=0)],
+                                      -1)
+            if with_degrees:
+                mat[1:1 + m, 1] = torch.where(rvalid[s] != 0, r, -1)
+        mats.append(mat)
+        stats.append(st)
+    return torch.stack(mats), torch.stack(stats)
+
+
+def apply_and_probe_plain(my_table: ht.TableState, my_chains: ChainState,
+                          other_table: ht.TableState,
+                          other_chains: ChainState, key_lanes: torch.Tensor,
+                          probe_vis: torch.Tensor, ins_refs: torch.Tensor,
+                          ins_mask: torch.Tensor, del_refs: torch.Tensor,
+                          del_mask: torch.Tensor, seq, out_cap: int):
+    """``apply_and_probe`` (:415) written out: probe_pairs on the other
+    side, then probe_insert, link_rows and tombstone_rows on this side.
+    Returns (my_table, my_chains, K1 stats, probe matrix)."""
+    mat, _st = probe_pairs_plain(other_table, other_chains, key_lanes,
+                                 probe_vis, seq, out_cap)
+    slots, stats = ht.probe_insert_plain(my_table, key_lanes, ins_mask)
+    link_rows_plain(my_chains, slots, ins_refs, ins_mask,
+                    my_table.capacity, seq)
+    tombstone_rows_plain(my_chains, del_refs, del_mask, seq)
+    return my_table, my_chains, stats, mat
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -320,24 +408,33 @@ def _check_dev(*ts: torch.Tensor) -> None:
             raise TypeError(f"join kernels take int32 tensors, got {t.dtype}")
 
 
-def _seq_arg(seq, n: int, device) -> Tuple[torch.Tensor, int]:
-    """(tensor, stride) for the kernels' per-row sequence: a vector with
-    stride 1, or a one-element tensor with stride 0."""
-    if isinstance(seq, torch.Tensor) and seq.dim() == 1:
-        if seq.shape[0] != n:
-            raise ValueError("seq vector length differs from the batch")
-        return seq, seq.stride(0)
-    return torch.tensor([0 if seq is None else int(seq)], dtype=torch.int32,
-                        device=device), 0
+def _seq_arg(seq, shape, device):
+    """The kernels' sequence argument: (tensor to keep alive over the
+    launch, (pointer, row stride, shard stride)). A vector of the batch's
+    shape ([n], or [S, n] on the sharded path) keeps its strides; None or
+    a scalar becomes one element every row reads (both strides 0)."""
+    if isinstance(seq, torch.Tensor) and seq.dim() >= 1:
+        if tuple(seq.shape) != tuple(shape):
+            raise ValueError(f"seq shape {tuple(seq.shape)} differs from "
+                             f"the batch's {tuple(shape)}")
+        return seq, _rows(seq)
+    # a fill launch, not a copy from pageable host memory (which would
+    # wait for the stream to drain)
+    t = torch.full((1,), 0 if seq is None else int(seq), dtype=torch.int32,
+                   device=device)
+    return t, (t.data_ptr(), 0, 0)
 
 
-def _slot_scratch(scratch: Optional[torch.Tensor], cap: int,
-                  device) -> torch.Tensor:
-    """K5's per-slot bucket heads: -1 on entry, restored by the kernel."""
+def _slot_scratch(scratch: Optional[torch.Tensor], head: torch.Tensor
+                  ) -> torch.Tensor:
+    """K5's per-slot bucket heads, shaped like ``head`` ([cap] or [S,
+    cap]): -1 on entry, restored by the kernel."""
     if scratch is None:
-        return torch.full((cap,), -1, dtype=torch.int32, device=device)
-    if scratch.shape != (cap,) or scratch.device != device:
-        raise ValueError("link scratch must be int32[cap] on the device")
+        return torch.full(head.shape, -1, dtype=torch.int32,
+                          device=head.device)
+    if scratch.shape != head.shape or scratch.device != head.device:
+        raise ValueError("link scratch must be int32 shaped like head on "
+                         "the device")
     return scratch
 
 
@@ -345,40 +442,52 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _stride(t: Optional[torch.Tensor]) -> int:
-    return 0 if t is None else t.stride(0)
+def _rows(t: Optional[torch.Tensor], lanes: bool = False
+          ) -> Tuple[int, int, int]:
+    """(pointer, row stride, shard stride) of a row input: [n] (or [n, L]
+    with ``lanes``) for one shard, [S, n] (or [S, n, L]) for S shards,
+    any strides; None gives zeros (the part is off)."""
+    if t is None:
+        return 0, 0, 0
+    if t.dim() == 1 + lanes:
+        return t.data_ptr(), t.stride(0), 0
+    return t.data_ptr(), t.stride(1), t.stride(0)
 
 
 def _join_apply_launch(chains: ChainState, pay: Optional[torch.Tensor],
-                       n: int, *, slots=None, ins_ok=None, ins_bits=-1,
-                       ins_ref=None, seq=None, seq_stride=0, del_ok=None,
-                       del_bits=-1, del_ref=None, pay_src=None,
+                       n: int, shards: int = 1, *, slots=None, ins_ok=None,
+                       ins_bits=-1, ins_ref=None, seq=(0, 0, 0),
+                       del_ok=None, del_bits=-1, del_ref=None, pay_src=None,
                        scratch=None) -> None:
-    """One K5 launch sequence; every part optional (None → skipped).
-    ``ins_ok``/``del_ok``/``ins_ref``/``del_ref``/``pay_src`` are int32
-    views with any row stride (aux columns or plain vectors)."""
+    """One K5 launch sequence over ``shards`` shards; every part optional
+    (None → skipped). Row inputs are int32 [n] (one shard) or [S, n]
+    views with any strides (aux or receive-block columns, plain
+    vectors); ``seq`` is _seq_arg's (pointer, row stride, shard stride);
+    the chain arrays are [cap]/[row_cap], or [S, cap]/[S, row_cap]."""
     head, nxt, ins_seq, del_seq = chains
-    dev = head.device
-    cap = int(head.shape[0])
-    row_cap = int(nxt.shape[0])
     if n == 0:
         return
     for t in (head, nxt, ins_seq, del_seq):
         if not t.is_contiguous():
             raise ValueError("chain arrays must be contiguous")
-    P = 0 if pay_src is None else int(pay_src.shape[1])
+    if shards > 1 and head.dim() != 2:
+        raise ValueError("sharded chain arrays are [S, ...]")
+    cap = int(head.shape[-1])
+    row_cap = int(nxt.shape[-1])
+    P = 0 if pay_src is None else int(pay_src.shape[-1])
     if P:
-        if pay is None or pay.shape != (row_cap, P) or \
-                not pay.is_contiguous() or pay_src.stride(1) != 1:
+        if pay is None or tuple(pay.shape[-2:]) != (row_cap, P) or \
+                not pay.is_contiguous() or pay_src.stride(-1) != 1:
             raise ValueError("payload store must be int32[row_cap, P] "
                              "with contiguous source lanes")
-    sl = _slot_scratch(scratch, cap, dev) if slots is not None else None
-    rows = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    if slots is not None and slots.stride(-1) != 1:
+        raise ValueError("slots must be contiguous along the rows")
+    sl = _slot_scratch(scratch, head) if slots is not None else None
+    rows = torch.empty(2 * shards * n, dtype=torch.int32, device=head.device)
     cuda.call("join_apply", "rw_join_apply",
-              _ptr(slots), _ptr(ins_ok), _stride(ins_ok), ins_bits,
-              _ptr(ins_ref), _stride(ins_ref), seq.data_ptr(), seq_stride,
-              _ptr(del_ok), _stride(del_ok), del_bits, _ptr(del_ref),
-              _stride(del_ref), _ptr(pay_src), _stride(pay_src), P, n,
+              _ptr(slots), _rows(slots)[2], *_rows(ins_ok), ins_bits,
+              *_rows(ins_ref), *seq, *_rows(del_ok), del_bits,
+              *_rows(del_ref), *_rows(pay_src, lanes=True), P, n, shards,
               head.data_ptr(), cap, nxt.data_ptr(), ins_seq.data_ptr(),
               del_seq.data_ptr(), row_cap, _ptr(pay if P else None),
               _ptr(sl), rows.data_ptr())
@@ -400,10 +509,9 @@ def link_rows(chains: ChainState, slots: torch.Tensor,
     _check_dev(slots, row_refs, vis, *chains)
     if cap != chains.head.shape[0]:
         raise ValueError("cap differs from the head array")
-    sq, ss = _seq_arg(seq, n, slots.device)
+    _keep, sq = _seq_arg(seq, (n,), slots.device)
     _join_apply_launch(chains, None, n, slots=slots, ins_ok=vis,
-                       ins_ref=row_refs, seq=sq, seq_stride=ss,
-                       scratch=scratch)
+                       ins_ref=row_refs, seq=sq, scratch=scratch)
     return chains
 
 
@@ -416,9 +524,9 @@ def tombstone_rows(chains: ChainState, row_refs: torch.Tensor,
     vis = _i32(vis)
     row_refs = _i32(row_refs)
     _check_dev(row_refs, vis, *chains)
-    sq, ss = _seq_arg(seq, n, row_refs.device)
+    _keep, sq = _seq_arg(seq, (n,), row_refs.device)
     _join_apply_launch(chains, None, n, del_ok=vis, del_ref=row_refs,
-                       seq=sq, seq_stride=ss)
+                       seq=sq)
     return chains
 
 
@@ -443,10 +551,48 @@ def join_apply(chains: ChainState, pay: torch.Tensor, slots: torch.Tensor,
     _join_apply_launch(
         chains, pay, n, slots=slots, ins_ok=aux[:, AUX_FLAGS],
         ins_bits=FLAG_INS, ins_ref=aux[:, AUX_INS_REF],
-        seq=aux[:, AUX_SEQ], seq_stride=aux.stride(0),
-        del_ok=aux[:, AUX_FLAGS], del_bits=FLAG_DEL,
-        del_ref=aux[:, AUX_DEL_REF],
+        seq=_rows(aux[:, AUX_SEQ]), del_ok=aux[:, AUX_FLAGS],
+        del_bits=FLAG_DEL, del_ref=aux[:, AUX_DEL_REF],
         pay_src=up[:, key_width:] if P else None, scratch=scratch)
+
+
+def join_apply_sharded(chains: ChainState, slots: Optional[torch.Tensor],
+                       *, ins_ok=None, ins_bits: int = -1, ins_ref=None,
+                       del_ok=None, del_bits: int = -1, del_ref=None,
+                       seq=None, scratch: Optional[torch.Tensor] = None
+                       ) -> ChainState:
+    """K5 over S shards in one launch sequence, in place (the per-shard
+    link_rows + tombstone_rows of ``risingwave_tpu/parallel/join.py``).
+    ``chains`` holds head [S, cap] and next/ins_seq/del_seq [S, row_cap]
+    (indexed by GLOBAL row ref); ``slots`` is K1's int32[S, n] (None: no
+    link); ``ins_ok``/``ins_ref``/``del_ok``/``del_ref`` are int32 [S, n]
+    views with any strides (receive-block columns), a row inserting when
+    ``ins_ok & ins_bits`` and tombstoning when ``del_ok & del_bits``;
+    ``seq`` is a scalar or int32[S, n]. ``scratch``: int32[S, cap] of -1,
+    or None."""
+    if chains.head.device.type != "cuda":
+        return join_apply_sharded_plain(
+            chains, slots, ins_ok=ins_ok, ins_bits=ins_bits,
+            ins_ref=ins_ref, del_ok=del_ok, del_bits=del_bits,
+            del_ref=del_ref, seq=seq)
+    s = int(chains.head.shape[0])
+    ref = ins_ref if ins_ref is not None else del_ref
+    if ref is None or ref.dim() != 2 or ref.shape[0] != s:
+        raise ValueError("sharded join_apply takes [S, n] row inputs")
+    n = int(ref.shape[1])
+    parts = [t for t in (slots, ins_ok, ins_ref, del_ok, del_ref)
+             if t is not None]
+    _check_dev(*parts, *chains)
+    if any(tuple(t.shape) != (s, n) for t in parts):
+        raise ValueError("sharded join_apply row inputs must be [S, n]")
+    if slots is not None and (ins_ok is None or ins_ref is None):
+        raise ValueError("a link needs ins_ok and ins_ref")
+    _keep, sq = _seq_arg(seq, (s, n), chains.head.device)
+    _join_apply_launch(chains, None, n, s, slots=slots, ins_ok=ins_ok,
+                       ins_bits=ins_bits, ins_ref=ins_ref, seq=sq,
+                       del_ok=del_ok, del_bits=del_bits, del_ref=del_ref,
+                       scratch=scratch)
+    return chains
 
 
 def epoch_apply(table: ht.TableState, chains: ChainState,
@@ -463,37 +609,46 @@ def epoch_apply(table: ht.TableState, chains: ChainState,
 
 
 def _join_probe_launch(table: ht.TableState, chains: ChainState, *,
-                       keys, vis, vis_bits, seq, seq_stride, aux, n,
-                       pay, deg_self, deg_self_out, deg_sink_out,
-                       out_cap: int, deg_rows: bool, old_col: bool,
-                       scatter: bool, name: str):
+                       keys, vis, vis_bits, seq, aux, n, pay, deg_self,
+                       deg_self_out, deg_sink_out, out_cap: int,
+                       deg_rows: bool, old_col: bool, scatter: bool,
+                       name: str, shards: int = 1, rid=None, rvalid=None):
+    """One K6 launch sequence over ``shards`` shards. One shard: keys
+    [n, K], vis [n], the table [cap, K] and chains [cap]/[row_cap];
+    S shards: [S, n, K], [S, n], [S, cap, K], [S, cap]/[S, row_cap].
+    ``seq`` is _seq_arg's triple. Returns (out [(S,) rows, W], stats
+    [(S,) 2])."""
     tkeys, occ = table
     head, nxt, ins_seq, del_seq = chains
     dev = head.device
-    k = int(keys.shape[1])
-    if k != tkeys.shape[1] or keys.stride(1) != 1:
+    k = int(keys.shape[-1])
+    if k != tkeys.shape[-1] or keys.stride(-1) != 1:
         raise ValueError("probe key lanes must match the table's width "
                          "and be contiguous")
     if not all(t.is_contiguous() for t in (tkeys, occ, *chains)):
         raise ValueError("table and chain arrays must be contiguous")
-    P = 0 if pay is None else int(pay.shape[1])
+    if (rid is None) != (rvalid is None):
+        raise ValueError("a row-id lane comes with the route's valid flags")
+    P = 0 if pay is None else int(pay.shape[-1])
     if P and not pay.is_contiguous():
         raise ValueError("payload store must be contiguous")
     W = 2 + P + int(old_col)
     rows = 1 + (n if deg_rows else 0) + out_cap
-    out = torch.empty((rows, W), dtype=torch.int32, device=dev)
+    lead = (shards,) if head.dim() == 2 else ()
+    out = torch.empty(lead + (rows, W), dtype=torch.int32, device=dev)
     tiles = max(1, -(-n // 1024))
-    scratch = torch.empty(2 * n + tiles, dtype=torch.int32, device=dev)
-    stats = torch.empty(2, dtype=torch.int32, device=dev)
+    scratch = torch.empty(shards * (2 * n + tiles), dtype=torch.int32,
+                          device=dev)
+    stats = torch.empty(lead + (2,), dtype=torch.int32, device=dev)
     cuda.call("join_probe", "rw_join_probe",
-              keys.data_ptr(), keys.stride(0), k,
-              vis.data_ptr(), vis.stride(0), vis_bits,
-              seq.data_ptr(), seq_stride, _ptr(aux), n,
-              tkeys.data_ptr(), occ.data_ptr(), int(tkeys.shape[0]),
+              *_rows(keys, lanes=True), k, *_rows(vis), vis_bits, *seq,
+              _ptr(aux), n, shards, *_rows(rid), *_rows(rvalid),
+              tkeys.data_ptr(), occ.data_ptr(), int(tkeys.shape[-2]),
               head.data_ptr(), nxt.data_ptr(), ins_seq.data_ptr(),
-              del_seq.data_ptr(), _ptr(pay if P else None), P,
-              _ptr(deg_self), _ptr(deg_self_out), _ptr(deg_sink_out),
-              0 if deg_sink_out is None else int(deg_sink_out.shape[0]),
+              del_seq.data_ptr(), int(nxt.shape[-1]),
+              _ptr(pay if P else None), P, _ptr(deg_self),
+              _ptr(deg_self_out), _ptr(deg_sink_out),
+              0 if deg_sink_out is None else int(deg_sink_out.shape[-1]),
               int(deg_rows), int(old_col), int(scatter),
               out.data_ptr(), out_cap, W, scratch.data_ptr(),
               stats.data_ptr())
@@ -513,13 +668,50 @@ def probe_pairs(table: ht.TableState, chains: ChainState,
     n = int(key_lanes.shape[0])
     vis = _i32(vis)
     _check_dev(key_lanes, vis, *table, *chains)
-    sq, ss = _seq_arg(seq, n, key_lanes.device)
+    _keep, sq = _seq_arg(seq, (n,), key_lanes.device)
     return _join_probe_launch(
         table, chains, keys=key_lanes, vis=vis, vis_bits=-1, seq=sq,
-        seq_stride=ss, aux=None, n=n, pay=None, deg_self=None,
-        deg_self_out=None, deg_sink_out=None, out_cap=out_cap,
-        deg_rows=with_degrees, old_col=False, scatter=False,
+        aux=None, n=n, pay=None, deg_self=None, deg_self_out=None,
+        deg_sink_out=None, out_cap=out_cap, deg_rows=with_degrees,
+        old_col=False, scatter=False,
         name="join_probe_deg" if with_degrees else "join_probe")
+
+
+def join_probe_sharded(table: ht.TableState, chains: ChainState,
+                       key_lanes: torch.Tensor, vis: torch.Tensor,
+                       vis_bits: int, seq, out_cap: int,
+                       with_degrees: bool,
+                       rid: Optional[torch.Tensor] = None,
+                       rvalid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 over S shards in one launch sequence (the per-shard
+    probe_pairs of ``risingwave_tpu/parallel/join.py``): shard s probes
+    its table keys [S, cap, K] + occ [S, cap] and chains ([S, cap] head,
+    [S, row_cap] rows) with its rows ``key_lanes`` [S, n, K], visible
+    where ``vis & vis_bits`` ([S, n], any strides), at ``seq`` (a scalar
+    or [S, n]). Returns (out int32[S, 1 + (n) + out_cap, 2], stats
+    int32[S, 2]); each shard's header holds its TRUE total. With ``rid``
+    (the routed global row ids, [S, n]) and ``rvalid`` (the route's
+    valid flags), pair rows carry rid[row] and degree rows (deg, rvalid ?
+    rid : -1)."""
+    if key_lanes.device.type != "cuda":
+        return join_probe_sharded_plain(table, chains, key_lanes, vis,
+                                        vis_bits, seq, out_cap,
+                                        with_degrees, rid, rvalid)
+    s, n = int(key_lanes.shape[0]), int(key_lanes.shape[1])
+    parts = [t for t in (vis, rid, rvalid) if t is not None]
+    _check_dev(key_lanes, *parts, *table, *chains)
+    if any(tuple(t.shape) != (s, n) for t in parts) or \
+            table.keys.shape[0] != s or chains.head.shape[0] != s:
+        raise ValueError("sharded join_probe takes [S, n] rows and [S, ...]"
+                         " state")
+    _keep, sq = _seq_arg(seq, (s, n), key_lanes.device)
+    return _join_probe_launch(
+        table, chains, keys=key_lanes, vis=vis, vis_bits=vis_bits, seq=sq,
+        aux=None, n=n, pay=None, deg_self=None, deg_self_out=None,
+        deg_sink_out=None, out_cap=out_cap, deg_rows=with_degrees,
+        old_col=False, scatter=False, name="join_probe", shards=s, rid=rid,
+        rvalid=rvalid)
 
 
 def epoch_probe(table: ht.TableState, chains: ChainState,
@@ -543,13 +735,42 @@ def epoch_probe(table: ht.TableState, chains: ChainState,
         ds, dk = deg_self.clone(), deg_sink.clone()
     mat, stats = _join_probe_launch(
         table, chains, keys=up[:, :key_width], vis=aux[:, AUX_FLAGS],
-        vis_bits=FLAG_PROBE, seq=aux[:, AUX_SEQ], seq_stride=aux.stride(0),
-        aux=aux, n=n, pay=pay if pay.shape[1] else None,
+        vis_bits=FLAG_PROBE, seq=_rows(aux[:, AUX_SEQ]), aux=aux, n=n,
+        pay=pay if pay.shape[1] else None,
         deg_self=deg_self if with_degrees else None, deg_self_out=ds,
         deg_sink_out=dk, out_cap=out_cap, deg_rows=with_degrees,
         old_col=with_degrees, scatter=with_degrees,
         name="join_probe_deg" if with_degrees else "join_probe")
     return mat, ds, dk, stats
+
+
+def apply_and_probe(my_table: ht.TableState, my_chains: ChainState,
+                    other_table: ht.TableState, other_chains: ChainState,
+                    key_lanes: torch.Tensor, probe_vis: torch.Tensor,
+                    ins_refs: torch.Tensor, ins_mask: torch.Tensor,
+                    del_refs: torch.Tensor, del_mask: torch.Tensor, seq,
+                    out_cap: int, scratch: Optional[torch.Tensor] = None):
+    """The whole per-chunk step (B16, ``hash_join.py:415``): probe the
+    OTHER side at ``seq`` (K6 with degrees, no payload), then insert this
+    side's rows' keys (K1) and link and tombstone them at ``seq`` (one K5
+    launch), in place. Returns (my_table, my_chains, K1 stats, probe
+    matrix)."""
+    if key_lanes.device.type != "cuda":
+        return apply_and_probe_plain(
+            my_table, my_chains, other_table, other_chains, key_lanes,
+            probe_vis, ins_refs, ins_mask, del_refs, del_mask, seq, out_cap)
+    mat, _st = probe_pairs(other_table, other_chains, key_lanes, probe_vis,
+                           seq, out_cap, True)
+    n = int(key_lanes.shape[0])
+    ins_mask, del_mask = _i32(ins_mask), _i32(del_mask)
+    ins_refs, del_refs = _i32(ins_refs), _i32(del_refs)
+    my_table, slots, stats = ht.probe_insert(my_table, key_lanes, ins_mask)
+    _check_dev(slots, ins_mask, ins_refs, del_mask, del_refs, *my_chains)
+    _keep, sq = _seq_arg(seq, (n,), key_lanes.device)
+    _join_apply_launch(my_chains, None, n, slots=slots, ins_ok=ins_mask,
+                       ins_ref=ins_refs, seq=sq, del_ok=del_mask,
+                       del_ref=del_refs, scratch=scratch)
+    return my_table, my_chains, stats, mat
 
 
 def _masked_scatter(arr: torch.Tensor, refs: torch.Tensor,
@@ -592,7 +813,7 @@ def _remap_head(head: torch.Tensor, old_to_new: torch.Tensor,
     if occ_new is None:
         raise ValueError("_remap_head on the card takes the new table's "
                          "occupancy (K4 remap writes the fill there)")
-    fill = torch.tensor([-1], dtype=torch.int32, device=head.device)
+    fill = torch.full((1,), -1, dtype=torch.int32, device=head.device)
     return remap(head.view(1, -1), _i32(old_to_new), _i32(occ_new), fill,
                  new_cap)[0]
 
@@ -610,6 +831,53 @@ def _rebase(chains: ChainState) -> ChainState:
 
 
 # -- host side ----------------------------------------------------------------
+
+class PendingProbe:
+    """An in-flight per-chunk probe (``hash_join.py:467``): dispatched,
+    its device→host copy started, not yet read.
+
+    Sequence versioning makes ``collect`` exact at any later point: the
+    kernel may have applied more messages since, and a re-dispatch after
+    a pair-buffer overflow (``redispatch(cap)`` probes the kernel's
+    CURRENT state at a larger buffer) still returns the probe-time
+    result. ``bump(cap)`` records the grown buffer on the owning
+    kernel."""
+
+    def __init__(self, mat: torch.Tensor, n: int, cap: int,
+                 redispatch: Callable[[int], torch.Tensor],
+                 with_degrees: bool = True, bump=None):
+        self.mat = mat
+        self._fetch = start_fetch(mat)
+        self.n = n
+        self.cap = cap
+        self.redispatch = redispatch
+        self.with_degrees = with_degrees
+        self.bump = bump
+
+    def collect(self) -> Tuple[Optional[np.ndarray], np.ndarray,
+                               np.ndarray]:
+        """(degrees | None, probe_idx[pairs], refs[pairs]); pairs sorted
+        by probe row."""
+        n = self.n
+        while True:
+            mat = self._fetch.result()
+            total = int(mat[0, 0])
+            if total <= self.cap:
+                break
+            self.cap = max(self.cap * 2, next_pow2(total))
+            if self.bump is not None:
+                self.bump(self.cap)
+            self.mat = self.redispatch(self.cap)
+            self._fetch = start_fetch(self.mat)
+        if self.with_degrees:
+            deg = np.ascontiguousarray(mat[1:1 + n, 0])
+            pairs = mat[1 + n:1 + n + total]
+        else:
+            deg = None
+            pairs = mat[1:1 + total]
+        return (deg, np.ascontiguousarray(pairs[:, 0]),
+                np.ascontiguousarray(pairs[:, 1]))
+
 
 class PendingEpochProbe:
     """An in-flight epoch probe: dispatched, its device→host copy
@@ -758,10 +1026,72 @@ class JoinSideKernel:
                                 vis, self.table.capacity, seq,
                                 scratch=self._link_scratch)
 
-    def delete(self, row_refs: np.ndarray, vis, seq: int = 0) -> None:
+    def delete(self, row_refs: np.ndarray, vis, seq: int = 0,
+               key_lanes=None) -> None:
+        """Tombstone by ref (``key_lanes``: the sharded kernel's routing
+        argument, unused on one device)."""
+        del key_lanes
         self.chains = tombstone_rows(
             self.chains, upload(np.asarray(row_refs, np.int32), self.device),
             upload(np.asarray(vis, np.int32), self.device), seq)
+
+    # -- per chunk (B16) ----------------------------------------------------
+    def _dev(self, a, dtype=np.int32) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        return upload(np.asarray(a, dtype), self.device)
+
+    def apply_and_probe(self, other: "JoinSideKernel", key_lanes,
+                        probe_vis, ins_refs, ins_mask, del_refs, del_mask,
+                        seq: int) -> PendingProbe:
+        """One per-chunk step (``hash_join.py:690``): probe ``other`` at
+        ``seq`` and apply this side's inserts and deletes at ``seq`` (K6,
+        then K1 + K5). Arguments are host arrays or device tensors of the
+        chunk's rows; returns the pending probe (copy started)."""
+        lanes = self._dev(key_lanes)
+        n = int(lanes.shape[0])
+        ins_refs = np.asarray(ins_refs)
+        if np.asarray(ins_mask).any():
+            self.reserve_rows(int(ins_refs.max()))
+        self.table.reserve(n)
+        vis = self._dev(probe_vis)
+        out_cap = other._probe_cap
+        self.table.state, self.chains, stats, mat = apply_and_probe(
+            self.table.state, self.chains, other.table.state, other.chains,
+            lanes, vis, self._dev(ins_refs), self._dev(ins_mask),
+            self._dev(del_refs), self._dev(del_mask), seq, out_cap,
+            scratch=self._link_scratch)
+        self.table._counters.push(stats, n)
+
+        def redispatch(cap):
+            return probe_pairs(other.table.state, other.chains, lanes, vis,
+                               seq, cap, True)[0]
+
+        def bump(cap):
+            other._probe_cap = max(other._probe_cap, cap)
+
+        return PendingProbe(mat, n, out_cap, redispatch, bump=bump)
+
+    def probe_submit(self, key_lanes, vis, seq: Optional[int] = None
+                     ) -> PendingProbe:
+        """Dispatch a probe of this side (K6) and start its copy; never
+        waits (``hash_join.py:725``). The result is a function of (state,
+        seq) alone: ``collect`` may run after later applies."""
+        s = I32_MAX if seq is None else seq
+        lanes, vis_d = self._dev(key_lanes), self._dev(vis)
+
+        def dispatch(cap):
+            return probe_pairs(self.table.state, self.chains, lanes, vis_d,
+                               s, cap, True)[0]
+
+        def bump(cap):
+            self._probe_cap = max(self._probe_cap, cap)
+
+        return PendingProbe(dispatch(self._probe_cap), int(lanes.shape[0]),
+                            self._probe_cap, dispatch, bump=bump)
+
+    def probe(self, key_lanes, vis, seq: Optional[int] = None):
+        return self.probe_submit(key_lanes, vis, seq).collect()
 
     # -- epoch batching ---------------------------------------------------
     def stage_epoch(self, up: np.ndarray, aux: np.ndarray, total: int,

@@ -32,13 +32,24 @@ barrier one ``join_prelude`` launch (B20) builds the side's [key lanes |
 payload lanes] on the card from it; that one matrix feeds both the
 side's apply (K1 + K5) and its probe of the other side (K6).
 
+With ``mesh`` (a ``ShardMesh``), both sides' matchers are the
+vnode-sharded ``parallel/join.ShardedJoinKernel``: the reference's hash
+dispatch to N parallel join actors. Its epoch steps route each side's
+epoch to the key owners with a skew-exact bucket (per-row owners from the
+host twin of the routing, ``_ingest_chunk``), and matched rows gather
+from the host arena by ref (the reference's mesh path keeps no device
+payload). ``epoch_batch=False`` (only with a mesh, as in the reference)
+is the per-chunk arm: each chunk dispatches one ``apply_and_probe`` (B16)
+at once and the pending probes are collected in message order at the
+barrier. ``device_payload=False`` forces the same host-gather emit on
+one device.
+
 Not ported, refused at construction with NotImplementedError: the outer,
-semi and anti join types (device degrees), ``mesh`` (the sharded
-matcher), ``epoch_batch=False``, ``device_payload=False`` (the
-host-gather emit path) and the cold tier (``state_cap``).
-Join-key watermarks (state expiry) raise NotImplementedError when one
-arrives; a watermark on any other column is dropped, as the reference
-drops it. Metrics, hot-key sketches and dispatch spans are left out.
+semi and anti join types (device degrees) and the cold tier
+(``state_cap``), with or without a mesh. Join-key watermarks (state
+expiry) raise NotImplementedError when one arrives; a watermark on any
+other column is dropped, as the reference drops it. Metrics, hot-key
+sketches and dispatch spans are left out.
 """
 
 from __future__ import annotations
@@ -54,6 +65,8 @@ from risingwave_tpu_torch.ops import lanes as _lanes
 from risingwave_tpu_torch.ops.hash_join import (
     FLAG_DEL, FLAG_INS, FLAG_NEG, FLAG_PROBE, JoinSideKernel,
 )
+from risingwave_tpu_torch.parallel.join import ShardedJoinKernel
+from risingwave_tpu_torch.parallel.mesh import ShardMesh
 from risingwave_tpu_torch.state.state_table import StateTable
 from risingwave_tpu_torch.stream.executor import Executor, ExecutorInfo
 from risingwave_tpu_torch.stream.executors.keys import LANES_PER_KEY, KeyCodec
@@ -129,7 +142,11 @@ class _Arena:
 
 
 class _JoinSide:
-    """One side's state: device matcher + host arena + durability."""
+    """One side's state: device matcher + host arena + durability.
+
+    With a mesh, the matcher is the vnode-sharded
+    ``parallel/join.ShardedJoinKernel`` (same API, rows routed to their
+    key's owner shard) and every output column gathers from the arena."""
 
     # dead-ref fraction of the arena that triggers a compaction; dead
     # refs cannot be recycled in place (see alloc_refs), so churn-heavy
@@ -140,7 +157,8 @@ class _JoinSide:
     def __init__(self, schema: Schema, key_indices: Sequence[int],
                  pk_indices: Sequence[int], table: StateTable,
                  key_codec: KeyCodec, kernel_opts: Optional[dict],
-                 device):
+                 device, mesh: Optional[ShardMesh] = None,
+                 device_payload: bool = True):
         self.schema = schema
         self.key_indices = list(key_indices)
         self.pk_indices = list(pk_indices)
@@ -151,16 +169,25 @@ class _JoinSide:
         # device payload lanes: every device-typed column of a stored row
         # lives on the card as a (hi, lo, valid) int32 triple by row ref,
         # written where the apply links chains and gathered by the
-        # probe's emit walk; host-typed columns stay arena-gathered
+        # probe's emit walk; host-typed columns stay arena-gathered. One
+        # device only: the sharded kernel keeps no payload store
         self.pay_indices: List[int] = [
-            i for i, f in enumerate(schema) if f.data_type.is_device]
+            i for i, f in enumerate(schema) if f.data_type.is_device
+        ] if device_payload and mesh is None else []
         self.pay_pos: Dict[int, int] = {
             c: k for k, c in enumerate(self.pay_indices)}
-        opts = {k: v for k, v in dict(kernel_opts or {}).items()
-                if k in ("key_capacity", "row_capacity", "probe_capacity")}
-        self.kernel = JoinSideKernel(
-            key_width=LANES_PER_KEY * len(self.key_indices),
-            payload_width=3 * len(self.pay_indices), device=device, **opts)
+        self.mesh = mesh
+        key_width = LANES_PER_KEY * len(self.key_indices)
+        if mesh is not None:
+            self.kernel = ShardedJoinKernel(mesh, key_width,
+                                            **dict(kernel_opts or {}))
+        else:
+            opts = {k: v for k, v in dict(kernel_opts or {}).items()
+                    if k in ("key_capacity", "row_capacity",
+                             "probe_capacity")}
+            self.kernel = JoinSideKernel(
+                key_width=key_width, payload_width=3 * len(self.pay_indices),
+                device=device, **opts)
         self.arena = _Arena(schema)
         self.pk_to_ref: Dict[tuple, int] = {}
         self.free: List[int] = []
@@ -383,24 +410,31 @@ class HashJoinExecutor(Executor):
         if join_type != JoinType.INNER:
             raise NotImplementedError(
                 f"{join_type.value} join is not ported (inner only)")
-        for what, refused in (("mesh", mesh is not None),
-                              ("state_cap (cold tier)",
-                               state_cap is not None),
-                              ("device_payload=False", not device_payload),
-                              ("epoch_batch=False", epoch_batch is False)):
-            if refused:
-                raise NotImplementedError(f"HashJoinExecutor {what} is "
-                                          "not ported")
+        if state_cap is not None:
+            raise NotImplementedError("HashJoinExecutor state_cap (cold "
+                                      "tier) is not ported")
+        if mesh is not None and not isinstance(mesh, ShardMesh):
+            raise TypeError(f"HashJoinExecutor takes a ShardMesh, got "
+                            f"{mesh!r}")
+        if epoch_batch is False and mesh is None:
+            raise ValueError(
+                "epoch_batch=False is the sharded per-chunk arm: it needs a "
+                "mesh (the single-device kernel is epoch-only)")
         assert len(left_keys) == len(right_keys)
         device = resolve_device(device)
+        if mesh is not None and mesh.device != device:
+            raise ValueError(f"the mesh is on {mesh.device}, the join on "
+                             f"{device}")
         self.left_in, self.right_in = left, right
         self.join_type = join_type
         key_codec = KeyCodec([left.schema[i].data_type for i in left_keys])
         self.sides = (
             _JoinSide(left.schema, left_keys, left_table.pk_indices,
-                      left_table, key_codec, shard_opts, device),
+                      left_table, key_codec, shard_opts, device, mesh,
+                      device_payload),
             _JoinSide(right.schema, right_keys, right_table.pk_indices,
-                      right_table, key_codec, shard_opts, device),
+                      right_table, key_codec, shard_opts, device, mesh,
+                      device_payload),
         )
         n_left = len(left.schema)
         names = list(output_names) if output_names else None
@@ -418,8 +452,9 @@ class HashJoinExecutor(Executor):
             Schema(fields), pk,
             f"HashJoinExecutor({join_type.value}, actor={actor_id})"))
         self.n_left = n_left
+        self._epoch_batch = epoch_batch is not False
         # message sequence (sequence-versioned device state) + the
-        # epoch's buffered chunks
+        # epoch's buffered chunks (per-chunk arm: pending probes)
         self._seq = 1
         self._pending: List[tuple] = []
         self._epoch_buf: tuple = ([], [])
@@ -540,14 +575,26 @@ class HashJoinExecutor(Executor):
                       raw: Optional[np.ndarray] = None) -> None:
         """Host bookkeeping per chunk; the device work buffers for the
         ONE epoch dispatch at the barrier (sequence versioning keeps the
-        batched probes exact per row). A fused side buffers its raw
-        matrix instead of lanes."""
+        batched probes exact per row), or, on the per-chunk arm,
+        dispatches one apply_and_probe now and collects it at the
+        barrier. A fused side buffers its raw matrix instead of lanes."""
         me = self.sides[side_idx]
         seq = self._seq
         self._seq += 1
         probe_vis = np.asarray(chunk.visibility) & nonnull
         (_ins_idx, ins_refs, full_refs, ins_mask, del_refs,
          del_mask) = me.apply_chunk_host(chunk, nonnull)
+        if not self._epoch_batch:
+            # ins/del entries exist only at storable (= probe-visible)
+            # rows, so one mask decides both dispatch and collect
+            handle = None
+            if probe_vis.any():
+                handle = me.kernel.apply_and_probe(
+                    self.sides[1 - side_idx].kernel, key_lanes, probe_vis,
+                    full_refs, ins_mask, del_refs, del_mask, seq)
+            self._pending.append((side_idx, chunk, handle, 0,
+                                  chunk.capacity))
+            return
         dn = chunk.capacity
         ops = np.asarray(chunk.ops)
         neg = (ops != int(Op.INSERT)) & (ops != int(Op.UPDATE_INSERT))
@@ -559,7 +606,7 @@ class HashJoinExecutor(Executor):
                      + del_mask[:dn] * FLAG_DEL + neg[:dn] * FLAG_NEG)
         aux[:, 3] = seq
         off = self._epoch_rows[side_idx]
-        self._pending.append((side_idx, chunk, off, dn))
+        self._pending.append((side_idx, chunk, None, off, dn))
         if raw is not None:
             # fused side: the RAW int64 matrix is the upload; the side's
             # join_prelude builds [key | payload] lanes on the card
@@ -571,8 +618,15 @@ class HashJoinExecutor(Executor):
                                  me.payload_rows(chunk)[:dn]], axis=1)
         else:
             up = key_lanes[:dn]
+        owners = None
+        if me.mesh is not None:
+            # per-row owner shards for the skew-exact routing bucket; a
+            # fused side builds its key lanes from the post chunk here
+            lanes_o = key_lanes if key_lanes is not None else \
+                me.key_codec.build(chunk, me.key_indices)
+            owners = me.kernel.owners_of(np.asarray(lanes_o)[:dn])
         self._epoch_buf[side_idx].append(
-            (up, aux, int(ins_refs.max()) if len(ins_refs) else -1))
+            (up, aux, int(ins_refs.max()) if len(ins_refs) else -1, owners))
         self._epoch_rows[side_idx] = off + dn
 
     def _dispatch_epoch(self) -> Dict[int, tuple]:
@@ -590,31 +644,44 @@ class HashJoinExecutor(Executor):
             # fused sides buffer int64 raw matrices, others int32 lanes
             up = np.zeros((cap, buf[0][0].shape[1]), dtype=buf[0][0].dtype)
             aux = np.zeros((cap, 4), dtype=np.int32)
+            side = self.sides[s]
+            owners = None if side.mesh is None else \
+                np.zeros(cap, dtype=np.int64)
             at = 0
             max_ref = -1
-            for lan, a, mr in buf:
+            for lan, a, mr, ow in buf:
                 up[at:at + lan.shape[0]] = lan
                 aux[at:at + a.shape[0]] = a
+                if owners is not None:
+                    owners[at:at + lan.shape[0]] = ow
                 at += lan.shape[0]
                 max_ref = max(max_ref, mr)
-            side = self.sides[s]
-            up_dev, aux_dev = side.kernel.stage_epoch(up, aux, total,
-                                                      max_ref)
+            # the sharded kernel pads to the shard count, runs its growth
+            # guards and sizes the skew-exact routing bucket here
+            kw = {}
+            if side.mesh is None:
+                up_dev, aux_dev = side.kernel.stage_epoch(up, aux, total,
+                                                          max_ref)
+            else:
+                up_dev, aux_dev, kw["bucket"] = side.kernel.stage_epoch(
+                    up, aux, total, max_ref, owners=owners)
             if side.fused_input is not None:
-                # one prelude launch per side-epoch: its lanes feed both
-                # this side's apply and its probe of the other side
+                # one prelude launch per side-epoch, before any routing
+                # (its output is per row): its lanes feed both this side's
+                # apply and its probe of the other side
                 from risingwave_tpu_torch.ops.fused import join_prelude
                 up_dev = join_prelude(side.prelude, up_dev)
-            devs[s] = (up_dev, aux_dev, total, max_ref)
+            devs[s] = (up_dev, aux_dev, total, max_ref, kw)
         # both applies land before either probe dispatches: a probe at
         # seq s must see the other side's same-epoch rows with seq < s
-        for s, (ld, ad, total, max_ref) in devs.items():
-            self.sides[s].kernel.apply_epoch(ld, ad, total, max_ref)
+        for s, (ld, ad, total, max_ref, kw) in devs.items():
+            self.sides[s].kernel.apply_epoch(ld, ad, total, max_ref, **kw)
         # inner: both probes dispatch before either collects, so the two
-        # device→host copies overlap
+        # device→host copies overlap; a probe routes by the PROBING side's
+        # bucket
         probes = {s: self.sides[1 - s].kernel.probe_epoch(
-            ld, ad, False, sink=self.sides[s].kernel)
-            for s, (ld, ad, _t, _m) in devs.items()}
+            ld, ad, False, sink=self.sides[s].kernel, **kw)
+            for s, (ld, ad, _t, _m, kw) in devs.items()}
         return {s: p.collect() for s, p in probes.items()}
 
     def _emit_pending(self) -> List[StreamChunk]:
@@ -623,11 +690,13 @@ class HashJoinExecutor(Executor):
         outs: List[StreamChunk] = []
         results = self._dispatch_epoch() \
             if (self._epoch_buf[0] or self._epoch_buf[1]) else {}
-        for side_idx, chunk, off, dn in self._pending:
+        for side_idx, chunk, handle, off, dn in self._pending:
             probe_idx = np.zeros(0, dtype=np.int32)
             refs = np.zeros(0, dtype=np.int32)
             pay = None
-            if side_idx in results:
+            if handle is not None:
+                _d, probe_idx, refs = handle.collect()
+            elif side_idx in results:
                 _d, p_s, r_s, pay_s, _old = results[side_idx]
                 lo = np.searchsorted(p_s, off)
                 hi = np.searchsorted(p_s, off + dn)
@@ -706,6 +775,9 @@ class HashJoinExecutor(Executor):
                 for out in self._emit_pending():
                     yield out
                 for side in self.sides:
+                    if side.mesh is not None:
+                        # the apply steps' lazily fetched overflow flags
+                        side.kernel.drain_overflows()
                     side.table.commit(msg.epoch)
                     side.maybe_compact()
                     if side.fused_input is not None:

@@ -542,3 +542,226 @@ def test_sharded_kernel_on_the_card_matches_the_cpu(dev):
         steps[n_shards] = LAUNCHES.snapshot()
     assert steps[1] == steps[S]
     assert steps[S]["route"] == 1 and steps[S]["probe_insert"] == 1
+
+
+# -- the sharded join: K5 and K6 with a shard axis, B16 -----------------------
+
+
+def _recv_block(rng, s, n, hot=True):
+    """A receive block as route leaves it: [S, n] rows, ~40% empty (zero
+    lanes and flags, ref 0), insert rows with in-block duplicates and a
+    hot key, delete rows of refs stored by the first call."""
+    valid = rng.random((s, n)) < 0.6
+    g = rng.integers(0, 4000, (s, n))
+    if hot:
+        g[rng.random((s, n)) < 0.05] = 77
+    keys = _lanes(g.reshape(-1)).reshape(s, n, KW)
+    keys[~valid] = 0
+    return keys, valid
+
+
+def _sharded_join_state(dev, rng, s=S, n=N, rows=1 << 15):
+    """Sharded chains after one insert block (kernels): (table, chains,
+    keys, valid, refs)."""
+    keys, valid = _recv_block(rng, s, n)
+    refs = np.zeros((s, n), np.int32)
+    refs[valid] = np.arange(int(valid.sum()))
+    table = ht.TableState(
+        torch.zeros((s, CAP, KW), dtype=torch.int32, device=dev),
+        torch.zeros((s, CAP), dtype=torch.int32, device=dev))
+    chains = J.ChainState(
+        torch.full((s, CAP), -1, dtype=torch.int32, device=dev),
+        *(torch.full((s, rows), v, dtype=torch.int32, device=dev)
+          for v in (-1, J.I32_MAX, J.I32_MAX)))
+    kd, vd = torch.from_numpy(keys).to(dev), torch.from_numpy(valid).to(dev)
+    slots, stats = ht.probe_insert_sharded(table, kd, vd.to(torch.int32))
+    assert not bool(stats[:, 1].any())
+    J.join_apply_sharded(chains, slots, ins_ok=vd.to(torch.int32),
+                         ins_ref=torch.from_numpy(refs).to(dev), seq=1)
+    return table, chains, keys, valid, refs
+
+
+def test_sharded_join_apply_matches_plain(dev):
+    """Sharded K5 (S = 8) against its plain version on the same slots:
+    inserts with a hot key and in-block duplicates, tombstones of stored
+    refs, empty received rows, per-row sequences; every array exact, and
+    the bucket scratch all -1 again."""
+    rng = np.random.default_rng(31)
+    table, chains, _k, valid0, refs0 = _sharded_join_state(dev, rng)
+    keys, valid = _recv_block(rng, S, N)
+    ins = valid & (rng.random((S, N)) < 0.6)
+    dels = valid & ~ins
+    flags = (ins * J.FLAG_INS + dels * J.FLAG_DEL).astype(np.int32)
+    ins_ref = np.zeros((S, N), np.int32)
+    ins_ref[ins] = 100_000 + np.arange(int(ins.sum()))
+    del_ref = np.zeros((S, N), np.int32)
+    del_ref[dels] = rng.choice(refs0[valid0], int(dels.sum()), replace=False)
+    seq = torch.from_numpy(rng.integers(2, 50, (S, N)).astype(np.int32)) \
+        .to(dev)
+    f = torch.from_numpy(flags).to(dev)
+    slots, _st = ht.probe_insert_sharded(table, torch.from_numpy(keys).to(dev),
+                                         f & J.FLAG_INS)
+    kw = dict(ins_ok=f, ins_bits=J.FLAG_INS,
+              ins_ref=torch.from_numpy(ins_ref).to(dev), del_ok=f,
+              del_bits=J.FLAG_DEL, del_ref=torch.from_numpy(del_ref).to(dev),
+              seq=seq)
+    a = J.ChainState(*(t.clone() for t in chains))
+    b = J.ChainState(*(t.clone() for t in chains))
+    scratch = torch.full((S, CAP), -1, dtype=torch.int32, device=dev)
+    J.join_apply_sharded(a, slots, scratch=scratch, **kw)
+    J.join_apply_sharded_plain(b, slots, **kw)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    assert bool((scratch == -1).all())
+
+
+def test_sharded_join_probe_matches_plain(dev):
+    """Sharded K6 (S = 8) with the row-id map against its plain version:
+    with and without degree rows, at a scalar and at per-row sequences,
+    and with a pair buffer too small (each header its TRUE total)."""
+    rng = np.random.default_rng(32)
+    table, chains, _k, _v, _r = _sharded_join_state(dev, rng)
+    keys, valid = _recv_block(rng, S, N)
+    vis = torch.from_numpy(valid.astype(np.int32)).to(dev)
+    kd = torch.from_numpy(keys).to(dev)
+    rid = torch.from_numpy(rng.permutation(S * N).reshape(S, N)
+                           .astype(np.int32)).to(dev)
+    rseq = torch.from_numpy(rng.integers(0, 3, (S, N)).astype(np.int32)) \
+        .to(dev)
+    for seq, out_cap, deg in ((2, 1 << 14, True), (rseq, 1 << 14, False),
+                              (J.I32_MAX, 64, True)):
+        got = J.join_probe_sharded(table, chains, kd, vis, -1, seq, out_cap,
+                                   deg, rid=rid, rvalid=vis)
+        want = J.join_probe_sharded_plain(table, chains, kd, vis, -1, seq,
+                                          out_cap, deg, rid=rid, rvalid=vis)
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+        if out_cap == 64:
+            assert int(got[0][:, 0, 0].max()) > 64
+
+
+@pytest.mark.parametrize("n_shards", [1, S])
+def test_apply_and_probe_matches_plain(dev, n_shards):
+    """B16 per chunk: at S = 1 the launch sequence apply_and_probe (K6,
+    K1, K5) against its plain version; at S = 8 ShardedJoinKernel's
+    routed step. The probe outputs and the ref-indexed arrays exact, the
+    heads per key."""
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
+    rng = np.random.default_rng(33)
+    n = 4096
+    if n_shards == 1:
+        sides = {d: [J.JoinSideKernel(KW, 1 << 14, 1 << 14, 1 << 12,
+                                      device=d) for _ in range(2)]
+                 for d in (dev, "cpu")}
+    else:
+        sides = {d: [ShardedJoinKernel(ShardMesh(S, d), KW, 1 << 12,
+                                       1 << 14, 1 << 12) for _ in range(2)]
+                 for d in (dev, "cpu")}
+    live = [[], []]
+    for seq in range(1, 7):
+        me = seq % 2
+        g = rng.integers(0, 3000, n)
+        g[rng.random(n) < 0.02] = 5
+        kl = _lanes(g)
+        pvis = rng.random(n) < 0.9
+        ins = pvis & (rng.random(n) < 0.7)
+        dels = pvis & ~ins
+        refs = np.zeros(n, np.int32)
+        refs[ins] = seq * n + np.arange(int(ins.sum()))
+        drefs = np.zeros(n, np.int32)
+        pos = np.flatnonzero(dels)
+        k = min(len(pos), len(live[me]))
+        dels[pos[k:]] = False
+        for i, (r, row) in zip(pos[:k], live[me][:k]):
+            drefs[i], kl[i] = r, row
+        live[me] = live[me][k:] + list(zip(refs[ins].tolist(), kl[ins]))
+        outs = [s[me].apply_and_probe(s[1 - me], kl, pvis, refs, ins, drefs,
+                                      dels, seq).collect()
+                for s in sides.values()]
+        for x, y in zip(*outs):
+            np.testing.assert_array_equal(x, y)
+    for a, b in zip(*sides.values()):
+        for x, y in zip(a.chains[1:], b.chains[1:]):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+        ta = a.table if n_shards > 1 else a.table.state
+        tb = b.table if n_shards > 1 else b.table.state
+        for s in range(n_shards):
+            pa = _head_by_key(*_shard_of(ta, a.chains, s, n_shards))
+            pb = _head_by_key(*_shard_of(tb, b.chains, s, n_shards))
+            for x, y in zip(pa, pb):
+                np.testing.assert_array_equal(x, y)
+
+
+def _shard_of(table, chains, s, n_shards):
+    if n_shards == 1:
+        return table, chains
+    return (ht.TableState(table.keys[s], table.occ[s]),
+            J.ChainState(*(c[s] for c in chains)))
+
+
+def test_sharded_join_kernel_on_the_card_matches_the_cpu(dev):
+    """ShardedJoinKernel end to end, card against CPU: the same probe
+    outputs and ref-indexed chains after per-chunk steps, epoch applies
+    and probes with the skew bucket, key and row growth, a rebase and a
+    rebuild; and each routed step launches the same kernels as often at 8
+    shards as at 1."""
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    rng = np.random.default_rng(34)
+    ks = {d: [ShardedJoinKernel(ShardMesh(S, d), KW, 1 << 10, 1 << 12,
+                                1 << 8) for _ in range(2)]
+          for d in (dev, "cpu")}
+    next_ref = [0, 0]
+    for epoch in range(4):
+        staged = {d: {} for d in ks}
+        for side in (0, 1):
+            m = 3000 + 37 * epoch
+            kl = _lanes(rng.integers(0, 20_000, m))
+            aux = np.zeros((m, 4), np.int32)
+            ins = rng.random(m) < 0.8
+            aux[ins, J.AUX_INS_REF] = next_ref[side] + np.arange(
+                int(ins.sum()))
+            next_ref[side] += int(ins.sum())
+            aux[:, J.AUX_FLAGS] = J.FLAG_PROBE + ins * J.FLAG_INS
+            aux[:, J.AUX_SEQ] = 1 + epoch * 100 + np.arange(m) // 512
+            for d, k in ks.items():
+                staged[d][side] = k[side].stage_epoch(
+                    kl, aux, m, int(aux[:, 0].max()), k[side].owners_of(kl))
+        outs = {}
+        for d, k in ks.items():
+            for side, (u, a, b) in staged[d].items():
+                k[side].apply_epoch(u, a, 0, -1, bucket=b)
+            outs[d] = [k[1 - side].probe_epoch(u, a, False, bucket=b)
+                       .collect() for side, (u, a, b) in staged[d].items()]
+        for x, y in zip(*outs.values()):
+            for p, q in zip(x, y):
+                assert (p is None) == (q is None)
+                if p is not None:
+                    np.testing.assert_array_equal(p, q)
+    assert ks[dev][0].key_capacity > 1 << 10
+    assert ks[dev][0].row_capacity > 1 << 12
+    for k in (*ks[dev], *ks["cpu"]):
+        k.rebase_seq()
+    for a, b in zip(ks[dev], ks["cpu"]):
+        for x, y in zip(a.chains[1:], b.chains[1:]):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    q = _lanes(rng.integers(0, 20_000, 1000))
+    kl = _lanes(rng.integers(0, 500, 2000))
+    for k in (ks[dev][1], ks["cpu"][1]):
+        k.rebuild(kl, np.arange(2000, dtype=np.int32))
+    for p, r in zip(ks[dev][1].probe(kl[:500], np.ones(500, bool)),
+                    ks["cpu"][1].probe(kl[:500], np.ones(500, bool))):
+        np.testing.assert_array_equal(p, r)
+    steps = {}
+    for n_shards in (1, S):
+        a, b = (ShardedJoinKernel(ShardMesh(n_shards, dev), KW)
+                for _ in range(2))
+        LAUNCHES.reset()
+        a.apply_and_probe(b, q, np.ones(1000, bool),
+                          np.arange(1000, dtype=np.int32),
+                          np.ones(1000, bool), np.zeros(1000, np.int32),
+                          np.zeros(1000, bool), 1).collect()
+        steps[n_shards] = LAUNCHES.snapshot()
+    assert steps[1] == steps[S]
+    assert steps[S] == {"route": 1, "join_probe": 1, "probe_insert": 1,
+                        "join_apply": 1}

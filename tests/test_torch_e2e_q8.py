@@ -166,17 +166,19 @@ def test_q8_fused_matches_reference_and_unfused():
 
 
 def test_q8_port_refuses_unported_options():
+    from risingwave_tpu_torch.parallel import ShardMesh
     cfg = NexmarkConfig(event_num=1000)
-    for kw in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError):
-            build_q8(MemoryStateStore(), cfg, cfg, device="cpu", **kw)
+    with pytest.raises(TypeError):          # a mesh is a ShardMesh
+        build_q8(MemoryStateStore(), cfg, cfg, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         build_q8(object(), cfg, cfg, device="cpu")
     p = build_q8(MemoryStateStore(), NexmarkConfig(table_type="person"),
                  NexmarkConfig(table_type="auction"), device="cpu")
     join = p.actor.consumer.input.input
+    mesh = ShardMesh(8, "cpu")
     for kw in (dict(join_type=port_hj.JoinType.FULL_OUTER),
-               dict(mesh=object()), dict(state_cap=1 << 10)):
+               dict(join_type=port_hj.JoinType.FULL_OUTER, mesh=mesh),
+               dict(state_cap=1 << 10), dict(state_cap=1 << 10, mesh=mesh)):
         with pytest.raises(NotImplementedError):
             port_hj.HashJoinExecutor(
                 join.left_in, join.right_in, [0, 2], [0, 1],

@@ -559,11 +559,15 @@ def test_executor_refuses_unported_options():
     for kw in (dict(join_type=PX.JoinType.LEFT_OUTER),
                dict(join_type=PX.JoinType.LEFT_SEMI),
                dict(join_type=PX.JoinType.RIGHT_ANTI),
-               dict(mesh=object()), dict(state_cap=8),
-               dict(epoch_batch=False), dict(device_payload=False)):
+               dict(state_cap=8)):
         with pytest.raises(NotImplementedError):
             build(**kw)
+    with pytest.raises(TypeError):          # a mesh is a ShardMesh
+        build(mesh=object())
+    with pytest.raises(ValueError):         # the per-chunk arm needs a mesh
+        build(epoch_batch=False)
     build()     # inner is ported
+    build(device_payload=False)
 
 
 def test_executor_key_watermark_raises_other_watermark_dropped():

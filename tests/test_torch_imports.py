@@ -30,6 +30,7 @@ import risingwave_tpu_torch.stream.executors.simple
 import risingwave_tpu_torch.parallel
 import risingwave_tpu_torch.parallel.agg
 import risingwave_tpu_torch.parallel.exchange
+import risingwave_tpu_torch.parallel.join
 import risingwave_tpu_torch.parallel.mesh
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -58,3 +59,22 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_q7(MemoryStateStore(), NexmarkConfig(event_num=100))
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_mesh_entry_points_default_to_the_card():
+    """A ShardMesh, the sharded join and build_q8(mesh=...) without a
+    device run on the card, and raise without one."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.models.nexmark import build_q8
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+
+    if torch.cuda.is_available():
+        assert ShardMesh(8).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardMesh(8)
+    cfg = NexmarkConfig(event_num=100)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_q8(MemoryStateStore(), cfg, cfg, mesh=ShardMesh(8, "cpu"))
+    assert ShardedJoinKernel(ShardMesh(8, "cpu"), 3).device.type == "cpu"
