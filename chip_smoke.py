@@ -48,6 +48,15 @@ phases, any failure of which exits non-zero:
      scalar seq, K1, K5) on the per-chunk arm's own 4,096-row chunks
      (deletes, U-/U+ pairs, NULL keys), every step's per-shard matrices
      and both sides' state exact against the plain twin;
+   - the agg's cold tier and patch (B9, B10), at the large shape (a
+     2^20-slot table holding 600K groups of the SUM/SUM(float)/MIN/COUNT
+     plan, 2^16 keys evicted, 2^16 rows patched and reloaded) and at the
+     capped maxbids arm's own sizes: K8 (lookup) and K4's evict mode
+     exact, B9 (evict_state) and the reload (K1 + K9) key-sorted against
+     their plain twins, K9 (scatter_rows) exact, also with its shard
+     axis at 8 x 2^15 slots, with ``index_put_`` timed beside it; a
+     patch_accs that must pass the integer SUM limbs and the float SUM
+     (hi, lo) bits through; K2 with a kNone lane;
 4. the main paths end to end, each with every launch count reset just
    before and read just after, each MV equal to a vectorized oracle,
    with the plan checker strict (a rewrite that breaks an invariant
@@ -76,9 +85,22 @@ phases, any failure of which exits non-zero:
      (``HashJoinExecutor(mesh=ShardMesh(8), epoch_batch=False)``, one
      apply_and_probe per chunk) equal to its epoch-batched twin and to
      an oracle on a script with updates, deletes, NULL keys and growth;
+   - Nexmark q5's MaxBids over 10 s tumbling windows (two aggs: COUNT(*)
+     per (window, auction), then MAX/MIN/COUNT/SUM of the counts per
+     window, retractable MIN/MAX patched by scatter_rows every barrier)
+     at 10M events, and at 2M with a tier cap of 64 groups on the first
+     agg (evictions and reloads must both happen), bench_q8's chunking;
+   - Nexmark q15's distinct counts per 10 s window (COUNT(*), two
+     COUNT(DISTINCT) and approx_count_distinct, K2 with a kNone lane) at
+     10M events, q7's chunking: exact counts equal the oracle, the
+     estimate equals this script's own dense-HLL registers and is within
+     2% of the exact count;
+   - q7-core under a tier cap of 8 groups at 2M events (watermark
+     retirement on), its MV equal to the oracle and to the uncapped q7's
+     (phase 5's traced run at the same size);
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
-   events, fused q7 and q8 at 2M, and q7-mesh and q8-mesh at 2M unfused
-   and fused,
+   events, fused q7 and q8 at 2M, q7-mesh and q8-mesh at 2M unfused
+   and fused, and maxbids (uncapped and capped) and distinct at 2M,
    under torch.profiler (the device's busy time and idle share) and
    cProfile (host self-time by module; the sharded path's own host
    functions by cumulative time), after the main paths' counts were
@@ -172,6 +194,10 @@ KERNELS = {
                      "risingwave_tpu/ops/fused.py:930"),
     "route": ("risingwave_tpu_torch/csrc/route.cu",
               "risingwave_tpu/parallel/exchange.py:72"),
+    "lookup": ("risingwave_tpu_torch/csrc/probe_insert.cu",
+               "risingwave_tpu/ops/hash_table.py:137"),
+    "scatter_rows": ("risingwave_tpu_torch/csrc/scatter.cu",
+                     "risingwave_tpu/ops/hash_agg.py:783"),
 }
 # the kernels each main path must have launched (the others run off
 # these paths: degrees serve outer/semi/anti joins, masked_scatter the
@@ -191,6 +217,12 @@ Q8_MESH_PATH = ("route",) + Q8_PATH
 Q8_MESH_FUSED_PATH = Q8_MESH_PATH + ("agg_prelude", "join_prelude")
 # B16 per chunk: route, K6 on the other side, K1 + K5 on this side
 PERCHUNK_PATH = ("route", "join_probe", "probe_insert", "join_apply")
+# maxbids: the second agg's retractable MIN/MAX patch (K9) every barrier;
+# the capped arm adds the eviction (K8, K4's evict mode, K1 + K4 remap)
+MAXBIDS_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+                "scatter_rows")
+MAXBIDS_CAPPED_PATH = MAXBIDS_PATH + ("lookup", "live_mask", "remap")
+DISTINCT_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance")
 
 
 def log(msg: str) -> None:
@@ -784,7 +816,51 @@ def check_join_apply(dev, js: dict) -> dict:
         f"already placed): {k1_ms} ms; key table capacities while "
         f"building: {sorted(set(js['caps']))}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by)
+                bound_by=by, epoch_apply=_epoch_apply_times(js, nbytes))
+
+
+def _epoch_apply_times(js, k5_bytes: float) -> dict:
+    """B14 (epoch_apply) as the port runs it: K1 inserting a fresh
+    side-epoch's keys (every row a new key, q8's shape), then K5 linking
+    the rows, each launch on a fresh copy of the side; the plain pair
+    beside it. Bound: K1's key lanes, flags and slot writes plus the new
+    keys' table writes, and K5's bytes (``_k5_times``)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    ks = js["ks"]
+    up, aux = js["fresh"]
+    ins = aux[:, J.AUX_FLAGS] & J.FLAG_INS
+
+    def kernels():
+        t, c, pay = _clone_side(ks.table.state, ks.chains, ks.pay)
+        torch.cuda._sleep(SLEEP_CYCLES // 4)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        _t, slots, _s = ht.probe_insert(t, up[:, :JKW], ins)
+        J.join_apply(c, pay, slots, up, aux, JKW, scratch=ks._link_scratch)
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+    def plain():
+        t, c, pay = _clone_side(*js["plain"])
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        slots, _s = ht.probe_insert_plain(t, up[:, :JKW], ins != 0)
+        J.join_apply_plain(c, pay, slots, up, aux, JKW)
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+    kernels()
+    ms = statistics.median(kernels() for _ in range(SAMPLES))
+    plain_ms = statistics.median(plain() for _ in range(5))
+    n = js["n"]
+    n_ins = int((ins != 0).sum())
+    k1_bytes = n * (JKW * 4 + 4 + 4) + n_ins * (JKW * 4 + 4)
+    b, by = bound_ms(k1_bytes + k5_bytes, n * (12 * JKW + 16))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
 
 
 def _probe_bytes(js, mat, with_degrees, rows) -> float:
@@ -1080,10 +1156,10 @@ def mv_digest(rows) -> str:
 
 
 def run_q7(dev, events: int, trace: bool = False,
-           fusion: bool = False) -> dict:
+           fusion: bool = False, tier_cap=None) -> dict:
     """q7-core through build_q7 + drive_to_completion; the MV must equal
     the oracle. With ``fusion`` the agg must have absorbed the tumble
-    projection."""
+    projection; with ``tier_cap`` the agg runs under the cold tier."""
     from risingwave_tpu_torch.common.types import Interval
     from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
     from risingwave_tpu_torch.models.nexmark import build_q7
@@ -1093,7 +1169,7 @@ def run_q7(dev, events: int, trace: bool = False,
                         generate_strings=False)
     p = build_q7(MemoryStateStore(), cfg, rate_limit=32, min_chunks=32,
                  watermark_delay=Interval(usecs=0), device=dev,
-                 fusion=fusion)
+                 fusion=fusion, tier_cap=tier_cap)
     agg = p.actor.consumer.input
     assert (agg.fused_stages is not None) == fusion, "fusion did not fire"
     n_bids = events * 46 // 50
@@ -1102,13 +1178,30 @@ def run_q7(dev, events: int, trace: bool = False,
     want = q7_oracle(cfg, n_bids)
     assert got == want, "q7 MV differs from the oracle"
     assert p.reader.offset == n_bids
-    return dict(out, windows=len(got), mv_digest=mv_digest(got.items()))
+    extra = {}
+    if tier_cap is not None:
+        part = agg._tier_part
+        extra = dict(evicted=part.evicted_total, reloaded=part.reload_total,
+                     resident=len(part.keys))
+    return dict(out, windows=len(got), mv_digest=mv_digest(got.items()),
+                **extra)
+
+
+_ORACLES: dict = {}       # one oracle per path and size, shared by its arms
 
 
 def q8_oracle(cfg, n_persons: int, n_auctions: int,
               block: int = 1 << 21) -> set:
     """persons ⋈ distinct (seller, window) of auctions on id = seller and
-    the same window, vectorized per block: (id, name, window) rows."""
+    the same window, vectorized per block: (id, name, window) rows;
+    computed once per size (the four q8 arms share it)."""
+    key = ("q8", cfg.event_num, n_persons, n_auctions)
+    if key not in _ORACLES:
+        _ORACLES[key] = _q8_oracle(cfg, n_persons, n_auctions, block)
+    return _ORACLES[key]
+
+
+def _q8_oracle(cfg, n_persons: int, n_auctions: int, block: int) -> set:
     from risingwave_tpu_torch.connectors.nexmark import (
         gen_auctions, gen_persons,
     )
@@ -1204,10 +1297,13 @@ def run_q1(dev, events: int, fusion: bool) -> dict:
     rows = np.asarray([r for _pk, r in p.mv_table.iter_rows()],
                       dtype=np.int64)
     got = rows[np.lexsort(rows[:, :4].T[::-1]), :4]
-    b = gen_bids(np.arange(n_bids, dtype=np.int64), cfg)
-    want = np.stack([b["auction"], b["bidder"], b["price"] * 9080,
-                     b["date_time"]], axis=1)
-    want = want[np.lexsort(want.T[::-1])]
+    key = ("q1", events)
+    if key not in _ORACLES:             # both q1 arms share the oracle
+        b = gen_bids(np.arange(n_bids, dtype=np.int64), cfg)
+        want = np.stack([b["auction"], b["bidder"], b["price"] * 9080,
+                         b["date_time"]], axis=1)
+        _ORACLES[key] = want[np.lexsort(want.T[::-1])]
+    want = _ORACLES[key]
     assert got.shape == want.shape and (got == want).all(), \
         "q1 MV differs from the oracle"
     assert len(np.unique(rows[:, 4])) == n_bids, "row ids not unique"
@@ -1238,7 +1334,8 @@ def check_fused_random(dev) -> dict:
     err = {"fused_chain": 0.0, "agg_prelude": 0.0, "join_prelude": 0.0}
     ops = set()
     for seed in range(FUSED_SEEDS):
-        fs, chunk = FC.port_case(seed, FUSED_ROWS, True, separators=64)
+        fs, chunk = FC.port_case(seed, FUSED_ROWS, True, separators=64,
+                                 subnormals=True)
         raw = torch.from_numpy(F.encode_raw_chunk(chunk, fs.ref_cols)) \
             .to(dev)
         hs = fs.host_noop_eq(chunk)
@@ -2333,6 +2430,594 @@ def mesh_host_fns(stats) -> dict:
     return out
 
 
+# -- phase 3, the agg's cold tier and patch: K8, K4 (evict), K9, K2 (kNone) ------
+
+COLD_CAP = 1 << 20            # the large shape: ~600K groups, as maxbids'
+COLD_GROUPS = 600_000         # first agg holds at 10M events
+COLD_KEYS = 1 << 16           # keys evicted, rows patched and reloaded
+CAPPED_CAP = 1 << 18          # the capped arm's table (the default size)
+CAPPED_GROUPS = 4_418         # resident before a sweep at 2M events (CPU
+CAPPED_SWEEP = 4_370          # rehearsal: the median sweep evicts 4,370
+CAPPED_RELOAD = 30            # groups; a reload brings back ~30)
+CAPPED_PATCH = 8              # the second agg's patch: 1-2 windows, padded
+MIXED_PLAN = [("sum", np.int64), ("sum", np.float64), ("min", np.int64),
+              ("count", None)]
+
+
+def _cold_state(dev, cap: int, groups: int, seed: int = 31):
+    """The mixed plan's state holding `groups` clean groups (each applied
+    through K1 + K2 in 2^15-row steps, then advanced), with the groups'
+    key lanes."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    specs = make_specs(H, MIXED_PLAN)
+    plan = H.ApplyPlan(KW, specs, dev)
+    st = H.make_agg_state(cap, KW, specs, dev)
+    rng = np.random.default_rng(seed)
+    g = rng.permutation(groups * 4)[:groups].astype(np.int64) * 7_919 - 3
+    for lo in range(0, groups, N):
+        gg = g[lo:lo + N]
+        n = len(gg)
+        ints = rng.integers(-10**12, 10**12, n)
+        floats = rng.standard_normal(n) * 1e3
+        inputs = tuple(
+            ((), None) if s_.in_dtype is None else
+            (s_.encode_input(floats if s_.is_float_sum else ints),
+             np.ones(n, bool)) for s_ in specs)
+        packed = H.pack_chunk(KW, specs, _key_lanes(gg), np.ones(n, np.int32),
+                              np.ones(n, bool), inputs)
+        stats = H.apply_batch(st, torch.from_numpy(packed).to(dev), plan)
+        assert int(stats[1]) == 0
+    H.advance(st)
+    return specs, st, _key_lanes(g)
+
+
+def _sorted_groups(state) -> tuple:
+    """(keys, state columns) of the occupied slots, sorted by key: state
+    free of slot numbering (K1 numbers slots its own way)."""
+    occ = state.table.occ.cpu().numpy() != 0
+    keys = state.table.keys.cpu().numpy()[occ]
+    cols = state.st.cpu().numpy()[:, occ].T
+    order = np.lexsort(keys.T[::-1])
+    return keys[order], cols[order]
+
+
+def _evict_query(rng, keys: np.ndarray, n: int) -> np.ndarray:
+    """n query rows: 7/8 resident keys (some twice), 1/8 absent."""
+    q = keys[rng.choice(len(keys), n - n // 8, replace=False)]
+    d = n // 32
+    q[:d] = q[d:2 * d]                                      # duplicates
+    absent = _key_lanes(rng.integers(10**13, 10**14, n // 8))
+    out = np.concatenate([q, absent])
+    return out[rng.permutation(n)]
+
+
+def _check_evict(dev, specs, st, keys, n_evict: int, seed: int) -> dict:
+    """K8, K4 (evict) and the whole B9 against their plain versions on
+    the card; times of K8, K4 (evict) and B9."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import hash_table as ht
+    rng = np.random.default_rng(seed)
+    cap = st.capacity
+    q = torch.from_numpy(_evict_query(rng, keys, n_evict)).to(dev)
+    v = torch.ones(n_evict, dtype=torch.int32, device=dev)
+    fill = torch.tensor(H.state_fills(specs), dtype=torch.int32, device=dev)
+    dk = torch.zeros(cap, dtype=torch.int32, device=dev)
+    dp = torch.zeros(cap, dtype=torch.int32, device=dev)
+    sk, lk = ht.lookup(st.table, q, v, dk)
+    sp, lp = ht.lookup_plain(st.table, q, v, dp)
+    err = abs_err(sk.cpu().numpy(), sp.cpu().numpy())
+    err = max(err, abs_err(dk.cpu().numpy(), dp.cpu().numpy()),
+              abs_err(lk.cpu().numpy(), lp.cpu().numpy()))
+    found = int((sk >= 0).sum())
+    assert err == 0 and int(lk[1]) == 0 and found > n_evict // 2, err
+    lv_k = H.live_mask(st, H.LIVE_EVICT, dropped=dk)
+    lv_p = H.live_mask_plain(st, H.LIVE_EVICT, dropped=dp)
+    err = max(err, abs_err(lv_k.cpu().numpy(), lv_p.cpu().numpy()))
+    assert err == 0, err
+    new_k, stats, _ls = H.evict_state(st, q, v, fill)
+
+    def plain_twin():
+        d = torch.zeros(cap, dtype=torch.int32, device=dev)
+        ht.lookup_plain(st.table, q, v, d)
+        live = H.live_mask_plain(st, H.LIVE_EVICT, dropped=d)
+        t = ht.make_state(cap, KW, dev)
+        o2n_, s_ = ht.probe_insert_plain(t, st.table.keys, live)
+        return H.AggState(t, H.remap_plain(st.st, o2n_, t.occ, fill,
+                                           cap)), s_
+    new_p, pstats = plain_twin()
+    err = max(err, abs_err(stats.cpu().numpy(), pstats.cpu().numpy()))
+    for a, b in zip(_sorted_groups(new_k), _sorted_groups(new_p)):
+        err = max(err, abs_err(a, b))
+    assert err == 0, f"evict_state differs from its plain twin: {err}"
+    n_occ = int((st.table.occ != 0).sum())
+    assert int(stats[0]) == n_occ - len(np.unique(
+        sk.cpu().numpy()[sk.cpu().numpy() >= 0]))
+    absent = n_evict - found
+    lk_bytes = n_evict * (KW * 4 + 4 + 4) + found * (KW * 4 + 4 + 4) \
+        + absent * 4
+    lb, lby = bound_ms(lk_bytes, n_evict * 12 * KW)
+    lookup = dict(ms=time_ms(lambda: ht.lookup(st.table, q, v, dk)),
+                  plain_ms=time_ms(lambda: ht.lookup_plain(st.table, q, v,
+                                                           dp), 5, 1),
+                  bound_ms=lb, bound_by=lby, rows=n_evict, found=found)
+    mb, mby = bound_ms(cap * 4 * 3 + n_occ * 4, cap * 4)
+    evict_mode = dict(
+        ms=time_ms(lambda: H.live_mask(st, H.LIVE_EVICT, dropped=dk)),
+        plain_ms=time_ms(lambda: H.live_mask_plain(st, H.LIVE_EVICT,
+                                                   dropped=dp), 5, 1),
+        bound_ms=mb, bound_by=mby)
+    r = st.st.shape[0]
+    n_live = int(lv_k.sum())
+    eb, eby = bound_ms(lk_bytes + cap * 4 * 3 + n_occ * 4
+                       + n_occ * (KW + 1) * 4 * 2 + n_live * r * 4
+                       + r * cap * 4, cap * r)
+    b9 = dict(ms=time_ms(lambda: H.evict_state(st, q, v, fill), 5, 1,
+                         cold=True),
+              plain_ms=time_ms(plain_twin, 3, 1, cold=True),
+              bound_ms=eb, bound_by=eby, evicted=n_occ - n_live)
+    return dict(max_abs_err=err, lookup=lookup, evict_mode=evict_mode,
+                evict_state=b9)
+
+
+def _check_patch(dev, st, n: int, seed: int) -> dict:
+    """K9 at a patch's shape: every accumulator row at n distinct
+    occupied slots (padding to a power of two with cap), exact against
+    its plain version; kernel, plain and ``index_put_`` times."""
+    from risingwave_tpu_torch.common.chunk import next_pow2
+    from risingwave_tpu_torch.ops import hash_agg as H
+    rng = np.random.default_rng(seed)
+    cap = st.capacity
+    occ = np.flatnonzero(st.table.occ.cpu().numpy())
+    pad = next_pow2(n)
+    idx = np.full(pad, cap, np.int32)
+    idx[:n] = rng.choice(occ, n, replace=False)
+    src = rng.integers(-2**31, 2**31, (st.n_acc, pad)).astype(np.int32)
+    it, srct = torch.from_numpy(idx).to(dev), torch.from_numpy(src).to(dev)
+    rows = H.patch_rows(st.n_acc, dev)
+    a, b = st.st.clone(), st.st.clone()
+    H.scatter_rows(a, it, rows, srct)
+    H.scatter_rows_plain(b[None], it[None], rows, srct[None])
+    err = abs_err(a.cpu().numpy(), b.cpu().numpy())
+    assert err == 0, f"scatter_rows differs from its plain version: {err}"
+    r64 = rows.to(torch.int64)[:, None]
+    i64 = it[:n].to(torch.int64)[None, :]
+    sub = srct[:, :n].contiguous()
+    nb, nby = bound_ms(pad * 4 + 2 * st.n_acc * n * 4 + st.n_acc * 4, n)
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: H.scatter_rows(a, it, rows, srct)),
+                plain_ms=time_ms(lambda: H.scatter_rows_plain(
+                    b[None], it[None], rows, srct[None]), 5, 1),
+                library_ms=time_ms(lambda: a.index_put_((r64, i64), sub)),
+                bound_ms=nb, bound_by=nby, rows=n)
+
+
+def _check_reload(dev, specs, st, keys, n: int, seed: int) -> dict:
+    """load_groups' device half (K1 inserting the keys, K9 setting every
+    row but dirty) on an evicted state, against its plain twin, compared
+    key-sorted; both timed on fresh copies of the evicted state."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import hash_table as ht
+    rng = np.random.default_rng(seed)
+    gone = keys[rng.choice(len(keys), n, replace=False)]
+    q = torch.from_numpy(gone).to(dev)
+    fill = torch.tensor(H.state_fills(specs), dtype=torch.int32, device=dev)
+    ev, _s, _l = H.evict_state(st, q, torch.ones(n, dtype=torch.int32,
+                                                 device=dev), fill)
+    rows32 = rng.integers(1, 50, n).astype(np.int64)
+    cols = [rng.integers(-2**20, 2**20, n).astype(np.int32)
+            for _ in range(ev.n_acc)]
+    src = torch.from_numpy(H.load_src(rows32, cols)).to(dev)
+    lr = H.load_rows(ev.n_acc, dev)
+    one = torch.ones(n, dtype=torch.int32, device=dev)
+    def fresh():
+        return H.AggState(ht.TableState(ev.table.keys.clone(),
+                                        ev.table.occ.clone()), ev.st.clone())
+
+    def kernels(a):
+        _t, sk_, _s = ht.probe_insert(a.table, q, one)
+        H.scatter_rows(a.st, sk_, lr, src)
+        return sk_
+
+    def plain(b):
+        sp_, _s = ht.probe_insert_plain(b.table, q, one)
+        H.scatter_rows_plain(b.st[None], sp_[None], lr, src[None])
+
+    a, b = fresh(), fresh()
+    sk = kernels(a)
+    plain(b)
+    err = 0.0
+    for x, y in zip(_sorted_groups(a), _sorted_groups(b)):
+        err = max(err, abs_err(x, y))
+    assert err == 0, f"the reload differs from its plain twin: {err}"
+    assert int((a.st[H.ROW_EMITTED_VALID][sk.to(torch.int64)] == 1).all())
+    copies = [fresh() for _ in range(8)]
+    ms = statistics.median(_timed(lambda: kernels(c)) for c in copies[:5])
+    plain_ms = statistics.median(_timed(lambda: plain(c))
+                                 for c in copies[5:])
+    r = len(lr)
+    nb, nby = bound_ms(n * (KW * 4 + 4 + 4) + n * (KW + 1) * 4
+                       + 2 * r * n * 4 + r * 4, n * 12 * KW)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=nb,
+                bound_by=nby, rows=n)
+
+
+def _timed(fn) -> float:
+    """Device time (ms) of one call, by CUDA events when on the card; the
+    call is queued behind a device sleep, so its launches run back to
+    back (as in ``time_ms``)."""
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES // 4)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def _check_passthrough(dev) -> float:
+    """GroupedAggKernel.patch_accs on the card: a corrected MIN beside an
+    integer SUM, a float SUM and a COUNT; the untouched calls' rows keep
+    K2's limbs and (hi, lo) bits exactly, the MIN rows take the corrected
+    values at the flushed slots, and no other slot moves."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    specs = make_specs(H, MIXED_PLAN)
+    k = H.GroupedAggKernel(KW, specs, capacity=CAPPED_CAP, device=dev)
+    packed = mixed_batch(N, specs, groups=CAPPED_GROUPS, seed=5)
+    packed[:, KW] = 1              # inserts only: no group below 0 rows
+    stats = H.apply_batch(k.state, torch.from_numpy(packed).to(dev),
+                          k._plan)
+    assert int(stats[1]) == 0
+    fr = k.flush()
+    idx = k._flush_idx.astype(np.int64)
+    before = k.state.st.cpu().numpy()
+    v = np.random.default_rng(6).integers(-10**12, 10**12, fr.n)
+    nn = fr.nns[2]
+    k.patch_accs([None, None, (v, nn), None], fr.raw_accs)
+    after = k.state.st.cpu().numpy()
+    k.advance()
+    sl = H._call_slices(specs)[2]
+    min_rows = [H.ROW_ACC0 + i for i in range(sl.start, sl.stop)]
+    other = [r for r in range(after.shape[0]) if r not in min_rows]
+    err = abs_err(after[other], before[other])
+    want = np.stack(H.as_i32_cols(specs[2].encode_acc(v, nn)))
+    err = max(err, abs_err(after[min_rows][:, idx], want))
+    untouched = np.setdiff1d(np.arange(after.shape[1]), idx)
+    err = max(err, abs_err(after[min_rows][:, untouched],
+                           before[min_rows][:, untouched]))
+    assert err == 0, f"patch_accs moved an untouched row: {err}"
+    return err
+
+
+def _check_scatter_sharded(dev) -> dict:
+    """K9 with its shard axis at q7-mesh's shapes (8 shards x 2^15
+    slots): each shard's own slots and its own padding (cap) exact
+    against the plain version; times and bound."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    rng = np.random.default_rng(17)
+    specs = make_specs(H, MIXED_PLAN)
+    r = len(H.state_fills(specs))
+    st = torch.from_numpy(rng.integers(-2**31, 2**31, (
+        MESH_SHARDS, r, MESH_CAP)).astype(np.int32)).to(dev)
+    m, n = 1 << 12, 3000
+    idx = np.full((MESH_SHARDS, m), MESH_CAP, np.int32)
+    for d in range(MESH_SHARDS):
+        idx[d, :n - 100 * d] = rng.permutation(MESH_CAP)[:n - 100 * d]
+    nacc = (r - H.ROW_ACC0) // 2
+    src = rng.integers(-2**31, 2**31, (MESH_SHARDS, nacc, m)) \
+        .astype(np.int32)
+    it, srct = torch.from_numpy(idx).to(dev), torch.from_numpy(src).to(dev)
+    rows = H.patch_rows(nacc, dev)
+    a, b = st.clone(), st.clone()
+    H.scatter_rows_sharded(a, it, rows, srct)
+    H.scatter_rows_plain(b, it, rows, srct)
+    err = abs_err(a.cpu().numpy(), b.cpu().numpy())
+    assert err == 0, f"sharded scatter_rows differs: {err}"
+    real = int((idx < MESH_CAP).sum())
+    nb, nby = bound_ms(idx.size * 4 + 2 * nacc * real * 4, real)
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: H.scatter_rows_sharded(a, it, rows, srct)),
+                plain_ms=time_ms(lambda: H.scatter_rows_plain(
+                    b, it, rows, srct), 5, 1),
+                bound_ms=nb, bound_by=nby, rows=real)
+
+
+def _check_none_kind(dev) -> dict:
+    """K2 with the distinct path's plan (COUNT(*), two COUNT(col) calls
+    and approx_count_distinct's dummy lane, kNone) at q7's step: exact
+    against the plain version, the dummy lane untouched; timed."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    specs = make_specs(H, [("count", None), ("count", np.int64),
+                           ("count", np.int64),
+                           ("approx_count_distinct", np.int64)])
+    plan = H.ApplyPlan(KW, specs, dev)
+    assert plan.desc[3, 0] == H._K_NONE
+    packed = torch.from_numpy(q7_batch(N, specs)).to(dev)
+    st, slots = _state_after(dev, specs, packed, CAP)
+    a = H.AggState(st.table, st.st.clone())
+    b = H.AggState(st.table, st.st.clone())
+    H.agg_apply(a, packed, slots, plan)
+    H.agg_apply_plain(b, packed, slots, plan)
+    err = abs_err(a.st.cpu().numpy(), b.st.cpu().numpy())
+    assert err == 0 and not bool(a.st[H.ROW_ACC0 + 3].any()), err
+    w = packed.shape[1]
+    touched = len(np.unique(slots.cpu().numpy()))
+    nb, nby = bound_ms(N * w * 4 + N * 4 + touched * 5 * 4 * 2, N * 8)
+    return dict(max_abs_err=err,
+                ms=time_ms(lambda: H.agg_apply(a, packed, slots, plan)),
+                plain_ms=time_ms(lambda: H.agg_apply_plain(b, packed, slots,
+                                                           plan)),
+                bound_ms=nb, bound_by=nby)
+
+
+def check_cold(dev) -> dict:
+    """The cold tier's and the patch's kernels against their plain
+    versions at the capped arm's shapes and at the large shape."""
+    t0 = time.perf_counter()
+    out = {}
+    specs, st, keys = _cold_state(dev, COLD_CAP, COLD_GROUPS)
+    large = _check_evict(dev, specs, st, keys, COLD_KEYS, 1)
+    large["patch"] = _check_patch(dev, st, COLD_KEYS, 2)
+    large["reload"] = _check_reload(dev, specs, st, keys, COLD_KEYS, 3)
+    del st
+    torch.cuda.empty_cache()
+    specs, st, keys = _cold_state(dev, CAPPED_CAP, CAPPED_GROUPS)
+    capped = _check_evict(dev, specs, st, keys, CAPPED_SWEEP, 4)
+    capped["patch"] = _check_patch(dev, st, CAPPED_PATCH, 5)
+    capped["reload"] = _check_reload(dev, specs, st, keys, CAPPED_RELOAD,
+                                     6)
+    sharded = _check_scatter_sharded(dev)
+    passthrough = _check_passthrough(dev)
+    err = max(large["max_abs_err"], capped["max_abs_err"],
+              large["patch"]["max_abs_err"], capped["patch"]["max_abs_err"],
+              large["reload"]["max_abs_err"],
+              capped["reload"]["max_abs_err"],
+              sharded["max_abs_err"], passthrough)
+    out["lookup"] = dict(large["lookup"], max_abs_err=err,
+                         capped_shape=capped["lookup"])
+    out["scatter_rows"] = dict(large["patch"], max_abs_err=err,
+                               capped_shape=capped["patch"],
+                               sharded=sharded)
+    out["evict_mode"] = dict(large["evict_mode"],
+                             capped_shape=capped["evict_mode"])
+    out["evict_state"] = dict(large["evict_state"],
+                              capped_shape=capped["evict_state"])
+    out["load_groups"] = dict(large["reload"],
+                              capped_shape=capped["reload"])
+    out["none_kind"] = _check_none_kind(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# -- phase 4: Nexmark q5's MaxBids, q15's distinct counts, q7 under the tier -----
+
+MAXBIDS_EVENTS = 10_000_000
+MAXBIDS_CAPPED_EVENTS = 2_000_000
+MAXBIDS_TRACE_EVENTS = 2_000_000     # maxbids both ways, distinct: traced
+# below Nexmark's 100 in-flight auctions: only their groups are touched
+# again after a barrier, and a sweep keeps 3/4 of the cap (48 groups), so
+# the next barrier's bids reload some. A cap of 128 or more (2048
+# included) evicts every sweep and never reloads (CPU rehearsal at 2M)
+MAXBIDS_TIER_CAP = 64
+DISTINCT_EVENTS = 10_000_000
+Q7_TIER_EVENTS = 2_000_000
+Q7_TIER_CAP = 8
+
+
+def build_maxbids(dev, store, cfg, tier_cap=None, capacity=None):
+    """Nexmark q5's MaxBids subquery over 10 s tumbling windows, from the
+    port's executors: bid source → project(window_start, auction) → A:
+    COUNT(*) AS num per (window_start, auction), append-only → B:
+    MAX(num), MIN(num), COUNT(*), SUM(num) per window_start, MAX and MIN
+    retractable over materialized-input tables (A emits U-/U+ pairs) →
+    materialize. bench_q8's chunking: 4096-row chunks, 16 a barrier."""
+    from risingwave_tpu_torch.common.types import DataType
+    from risingwave_tpu_torch.expr.expr import InputRef, tumble_start
+    from risingwave_tpu_torch.models import nexmark as M
+    from risingwave_tpu_torch.stream.executors.hash_agg import (
+        AggCall, HashAggExecutor, agg_aux_tables, agg_state_schema,
+    )
+    local = M.LocalBarrierManager()
+    source = M._source(local, store, 1, cfg, 1, 16, 16)
+    s = source.schema
+    project = M.ProjectExecutor(
+        source, exprs=[tumble_start(InputRef(s.index_of("date_time"),
+                                             DataType.TIMESTAMP),
+                                    M.DEFAULT_WINDOW),
+                       InputRef(s.index_of("auction"), DataType.INT64)],
+        names=["window_start", "auction"])
+    calls_a = [AggCall(M.AggKind.COUNT)]
+    sch_a, pk_a = agg_state_schema(project.schema, [0, 1], calls_a)
+    agg_a = HashAggExecutor(
+        project, [0, 1], calls_a,
+        M.StateTable(2, sch_a, pk_a, store, dist_key_indices=[0, 1]),
+        append_only=True, output_names=["num"], tier_cap=tier_cap,
+        kernel_capacity=capacity, device=dev)
+    k = M.AggKind
+    calls_b = [AggCall(k.MAX, 2), AggCall(k.MIN, 2), AggCall(k.COUNT),
+               AggCall(k.SUM, 2)]
+    sch_b, pk_b = agg_state_schema(agg_a.schema, [0], calls_b)
+    dist, minput = agg_aux_tables(agg_a.schema, [0], calls_b, False, store,
+                                  lambda c: 10 + c, lambda j: 20 + j)
+    agg_b = HashAggExecutor(
+        agg_a, [0], calls_b,
+        M.StateTable(3, sch_b, pk_b, store, dist_key_indices=[0]),
+        output_names=["max_num", "min_num", "auctions", "bids"],
+        minput_tables=minput, distinct_tables=dist, device=dev)
+    mv = M.StateTable(4, agg_b.schema, [0], store)
+    mat = M.MaterializeExecutor(agg_b, mv)
+    p = M._finish(local, store, mat, mv, 1, {1: source.reader}, "maxbids",
+                  False, dev)
+    return p, agg_a, agg_b
+
+
+def maxbids_oracle(cfg, n_bids: int, block: int = 1 << 21) -> dict:
+    """window_start → (MAX, MIN, COUNT, SUM) of the per-auction bid
+    counts, vectorized: one int64 (window, auction) code per bid."""
+    from risingwave_tpu_torch.connectors.nexmark import gen_bids
+    from risingwave_tpu_torch.models.nexmark import DEFAULT_WINDOW
+    w = DEFAULT_WINDOW.usecs
+    codes = []
+    for lo in range(0, n_bids, block):
+        b = gen_bids(np.arange(lo, min(lo + block, n_bids), dtype=np.int64),
+                     cfg)
+        codes.append(((b["date_time"] // w) << 32) | b["auction"])
+    u, num = np.unique(np.concatenate(codes), return_counts=True)
+    win = u >> 32
+    starts = np.flatnonzero(np.r_[True, win[1:] != win[:-1]])
+    mx = np.maximum.reduceat(num, starts)
+    mn = np.minimum.reduceat(num, starts)
+    cnt = np.diff(np.r_[starts, len(u)])
+    tot = np.add.reduceat(num, starts)
+    return {int(ws) * w: (int(a), int(b), int(c), int(d))
+            for ws, a, b, c, d in zip(win[starts].tolist(), mx.tolist(),
+                                      mn.tolist(), cnt.tolist(),
+                                      tot.tolist())}
+
+
+def run_maxbids(dev, events: int, tier_cap=None, trace: bool = False
+                ) -> dict:
+    """maxbids through drive_to_completion; the MV must equal the oracle.
+    With a tier cap on A, evictions and reloads must both happen."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=4096,
+                        generate_strings=False)
+    cap = None if tier_cap is not None else 1 << 20
+    p, agg_a, agg_b = build_maxbids(dev, MemoryStateStore(), cfg, tier_cap,
+                                    cap)
+    n_bids = events * 46 // 50
+    out = drive(p, {1: n_bids}, dev, trace)
+    t0 = time.perf_counter()
+    got = {r[0]: tuple(r[1:]) for _pk, r in p.mv_table.iter_rows()}
+    want = maxbids_oracle(cfg, n_bids)
+    assert got == want, "maxbids MV differs from the oracle"
+    assert p.reader.offset == n_bids
+    extra = dict(windows=len(got), mv_digest=mv_digest(got.items()),
+                 groups_a=int((agg_a.kernel.state.table.occ != 0).sum()),
+                 capacity_a=agg_a.kernel.capacity,
+                 oracle_s=time.perf_counter() - t0)
+    if tier_cap is not None:
+        part = agg_a._tier_part
+        assert part.evicted_total > 0 and part.reload_total > 0, \
+            "the capped arm neither evicted nor reloaded"
+        extra.update(evicted=part.evicted_total, reloaded=part.reload_total,
+                     resident=len(part.keys))
+    return dict(out, **extra)
+
+
+HLL_B = 16                     # the dense sketch: 2^16 registers
+
+
+def hll_estimate(values: np.ndarray) -> int:
+    """The dense HyperLogLog estimate of an int64 value set, from this
+    script's own registers: splitmix64, the top HLL_B bits as the
+    register, the rank of the rest; the bias-corrected harmonic mean
+    with linear counting below 2.5 m (approx_count_distinct/mod.rs)."""
+    m = 1 << HLL_B
+    with np.errstate(over="ignore"):
+        z = values.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        h = z ^ (z >> np.uint64(31))
+    reg = (h >> np.uint64(64 - HLL_B)).astype(np.int64)
+    rest = h << np.uint64(HLL_B)
+    bits = np.zeros(len(rest), dtype=np.int64)
+    x = rest.copy()
+    for s_ in (32, 16, 8, 4, 2, 1):
+        big = x >= (np.uint64(1) << np.uint64(s_))
+        bits = np.where(big, bits + s_, bits)
+        x = np.where(big, x >> np.uint64(s_), x)
+    bits = bits + (rest > 0)                 # bit length
+    rho = np.where(rest == 0, 65 - HLL_B, 64 - bits + 1)
+    rho = np.minimum(rho, 65 - HLL_B)
+    regs = np.zeros(m, dtype=np.int64)
+    np.maximum.at(regs, reg, rho)
+    alpha = 0.7213 / (1 + 1.079 / m)
+    e = alpha * m * m / np.power(2.0, -regs.astype(np.float64)).sum()
+    zeros = int((regs == 0).sum())
+    if e <= 2.5 * m and zeros > 0:
+        e = m * np.log(m / zeros)
+    return int(np.round(e))
+
+
+def run_distinct(dev, events: int, trace: bool = False) -> dict:
+    """Nexmark q15's distinct counts per 10 s tumbling window: COUNT(*),
+    COUNT(DISTINCT bidder), COUNT(DISTINCT auction) and
+    approx_count_distinct(bidder) over bids (append-only; dedup tables,
+    one HLL sketch table), at q7's chunking. The exact counts must equal
+    the oracle, and the estimate this script's own HLL registers, within
+    2% of the exact count."""
+    from risingwave_tpu_torch.common.types import DataType
+    from risingwave_tpu_torch.connectors.nexmark import (
+        NexmarkConfig, gen_bids,
+    )
+    from risingwave_tpu_torch.expr.expr import InputRef, tumble_start
+    from risingwave_tpu_torch.models import nexmark as M
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    from risingwave_tpu_torch.stream.executors.hash_agg import (
+        AggCall, HashAggExecutor, agg_aux_tables, agg_state_schema,
+    )
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=8192,
+                        generate_strings=False)
+    store = MemoryStateStore()
+    local = M.LocalBarrierManager()
+    source = M._source(local, store, 1, cfg, 1, 32, 32)
+    s = source.schema
+    project = M.ProjectExecutor(
+        source, exprs=[tumble_start(InputRef(s.index_of("date_time"),
+                                             DataType.TIMESTAMP),
+                                    M.DEFAULT_WINDOW),
+                       InputRef(s.index_of("bidder"), DataType.INT64),
+                       InputRef(s.index_of("auction"), DataType.INT64)],
+        names=["window_start", "bidder", "auction"])
+    k = M.AggKind
+    calls = [AggCall(k.COUNT), AggCall(k.COUNT, 1, distinct=True),
+             AggCall(k.COUNT, 2, distinct=True),
+             AggCall(k.APPROX_COUNT_DISTINCT, 1)]
+    sch, pk = agg_state_schema(project.schema, [0], calls)
+    dist, minput = agg_aux_tables(project.schema, [0], calls, True, store,
+                                  lambda c: 10 + c, lambda j: 20 + j)
+    agg = HashAggExecutor(project, [0], calls,
+                          M.StateTable(2, sch, pk, store,
+                                       dist_key_indices=[0]),
+                          append_only=True,
+                          output_names=["bids", "bidders", "auctions",
+                                        "approx_bidders"],
+                          minput_tables=minput, distinct_tables=dist,
+                          device=dev)
+    mv = M.StateTable(4, agg.schema, [0], store)
+    p = M._finish(local, store, M.MaterializeExecutor(agg, mv), mv, 1,
+                  {1: source.reader}, "distinct", False, dev)
+    n_bids = events * 46 // 50
+    out = drive(p, {1: n_bids}, dev, trace)
+    t0 = time.perf_counter()
+    got = {r[0]: tuple(r[1:]) for _pk, r in mv.iter_rows()}
+    b = gen_bids(np.arange(n_bids, dtype=np.int64), cfg)
+    w = M.DEFAULT_WINDOW.usecs
+    win = b["date_time"] - b["date_time"] % w
+    starts = np.flatnonzero(np.r_[True, win[1:] != win[:-1]])
+    ends = np.r_[starts[1:], len(win)]
+    worst = 0.0
+    for lo, hi in zip(starts.tolist(), ends.tolist()):
+        bidders = np.unique(b["bidder"][lo:hi])
+        want = (hi - lo, len(bidders), len(np.unique(b["auction"][lo:hi])))
+        row = got.pop(int(win[lo]))
+        assert row[:3] == want, ("distinct counts differ", row, want)
+        est = hll_estimate(bidders)
+        assert row[3] == est, ("the estimate differs from the dense HLL",
+                               row[3], est)
+        worst = max(worst, abs(est - want[1]) / want[1])
+    assert not got, "the MV holds windows the oracle has not"
+    assert worst < 0.02, f"the estimate is {worst:.4f} off the exact count"
+    return dict(out, windows=len(starts), hll_worst_rel_err=worst,
+                oracle_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2359,6 +3044,7 @@ def main() -> int:
         f", cuda {torch.version.cuda}")
 
     # 3. kernels against their plain versions
+    t_start = time.perf_counter()
     results = {}
     for name, check in CHECKS.items():
         results[name] = check(dev, CAP, N)
@@ -2413,6 +3099,15 @@ def main() -> int:
     log(f"sharded join kernels checked in {time.perf_counter() - t0:.3f} s")
     torch.cuda.empty_cache()
 
+    cold = check_cold(dev)
+    for name in ("lookup", "scatter_rows", "evict_mode", "evict_state",
+                 "load_groups", "none_kind"):
+        log(f"cold tier {name}: " + json.dumps(cold[name]))
+    log(f"cold-tier kernels checked in {cold['seconds']:.3f} s")
+    results["lookup"] = cold["lookup"]
+    results["scatter_rows"] = cold["scatter_rows"]
+    torch.cuda.empty_cache()
+
     floor = launch_floor_ms(dev)
     log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
 
@@ -2441,8 +3136,17 @@ def main() -> int:
                                                   mesh=True), Q8_EVENTS,
              Q8_MESH_FUSED_PATH),
             ("q8 mesh per-chunk", lambda d, e: run_join_perchunk(d), 0,
-             PERCHUNK_PATH)):
+             PERCHUNK_PATH),
+            ("maxbids", run_maxbids, MAXBIDS_EVENTS, MAXBIDS_PATH),
+            ("maxbids capped", lambda d, e: run_maxbids(
+                d, e, tier_cap=MAXBIDS_TIER_CAP), MAXBIDS_CAPPED_EVENTS,
+             MAXBIDS_CAPPED_PATH),
+            ("distinct", run_distinct, DISTINCT_EVENTS, DISTINCT_PATH),
+            ("q7 tier", lambda d, e: run_q7(d, e, tier_cap=Q7_TIER_CAP),
+             Q7_TIER_EVENTS, Q7_PATH)):
+        t_path = time.perf_counter()
         out = run(dev, events)
+        out["path_s"] = time.perf_counter() - t_path
         paths[label] = out
         missing = [k for k in path if out["launches"].get(k, 0) == 0]
         assert not missing, f"{label} never launched {missing}"
@@ -2481,8 +3185,11 @@ def main() -> int:
 
     # 5. where the time goes: shorter traced runs (their launches are not
     # the main paths' and are not reported)
-    log("q7 traced: " + json.dumps(run_q7(dev, Q7_TRACE_EVENTS,
-                                          trace=True)))
+    q7_traced = run_q7(dev, Q7_TRACE_EVENTS, trace=True)
+    log("q7 traced: " + json.dumps(q7_traced))
+    assert Q7_TRACE_EVENTS == Q7_TIER_EVENTS
+    assert paths["q7 tier"]["mv_digest"] == q7_traced["mv_digest"], \
+        "q7 under the tier differs from the uncapped q7"
     log("q7 fused traced: " + json.dumps(run_q7(dev, Q7_TRACE_EVENTS,
                                                 trace=True, fusion=True)))
     for events in Q8_TRACE_EVENTS:
@@ -2502,6 +3209,17 @@ def main() -> int:
             + json.dumps(run_q8(dev, Q8_MESH_TRACE_EVENTS, trace=True,
                                 fusion=fusion, mesh=True)))
 
+    for label, traced in (
+            ("maxbids", lambda: run_maxbids(dev, MAXBIDS_TRACE_EVENTS,
+                                            trace=True)),
+            ("maxbids capped", lambda: run_maxbids(
+                dev, MAXBIDS_TRACE_EVENTS, tier_cap=MAXBIDS_TIER_CAP,
+                trace=True)),
+            ("distinct", lambda: run_distinct(dev, MAXBIDS_TRACE_EVENTS,
+                                              trace=True))):
+        log(f"{label} traced at {MAXBIDS_TRACE_EVENTS} events: "
+            + json.dumps(traced()))
+
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 
     rows = []
@@ -2513,7 +3231,18 @@ def main() -> int:
                                for p in paths.values()),
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "library_ms": None}
+               "bound_by": r["bound_by"],
+               "library_ms": r.get("library_ms")}
+        for extra in ("capped_shape", "sharded", "epoch_apply"):
+            if extra in r:
+                row[extra] = r[extra]
+        if name == "live_mask":
+            row["evict_mode"] = cold["evict_mode"]
+            row["evict_state"] = cold["evict_state"]
+        if name == "scatter_rows":
+            row["load_groups"] = cold["load_groups"]
+        if name == "agg_apply":
+            row["none_kind"] = cold["none_kind"]
         if name in mesh_join:
             # the shard axis (B24) at q8-mesh's side-epoch
             m = mesh_join[name]
@@ -2528,6 +3257,7 @@ def main() -> int:
             row["per_chunk_step"] = {k: step[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by")}
         rows.append(row)
+    log(f"smoke run (phases 3-5): {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

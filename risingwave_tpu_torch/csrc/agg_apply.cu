@@ -21,6 +21,10 @@
 //                         smaller hi)
 //   phase 1: MIN/MAX      rows whose hi equals the settled hi fold their lo
 //                         in with atomicMax/Min
+// A call of kind kNone writes nothing: the host kinds (string_agg,
+// array_agg) and approx_count_distinct keep their values on the host and
+// their one dummy lane only keeps the plan's layout (:396-403); the row
+// still counts in group_rows and marks its group dirty.
 // This is the reference's two-pass lexicographic (hi, lo) rule (:430-453),
 // bit for bit: after both phases (hi, lo) is the lexicographic extreme of
 // the old pair and the rows' pairs.
@@ -47,7 +51,9 @@
 
 namespace {
 
-enum Kind { kCount = 0, kSumInt = 1, kSumFloat = 2, kMax = 3, kMin = 4 };
+enum Kind {
+  kCount = 0, kSumInt = 1, kSumFloat = 2, kMax = 3, kMin = 4, kNone = 5
+};
 constexpr int kLimbBits = 17;
 constexpr int kLimbs = 4;
 
@@ -77,7 +83,7 @@ __global__ void apply_kernel(int phase, const int32_t* __restrict__ packed,
     const int a = desc[4 * c + 1];
     const int ic = desc[4 * c + 2];
     const int vc = desc[4 * c + 3];
-    if (vc >= 0 && p[vc] == 0) continue;
+    if (kind == kNone || (vc >= 0 && p[vc] == 0)) continue;
     int32_t* acc = st + static_cast<size_t>(rw::kRowAcc0 + a) * cap;
     const bool extreme = kind == kMax || kind == kMin;
     if (phase == 1) {

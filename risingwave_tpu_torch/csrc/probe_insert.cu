@@ -35,6 +35,19 @@
 // slots. In the q7 steady state nearly every row hits the same existing
 // slot, so the table reads are L2 hits and the kernel is launch-bound at
 // N = 32K rows.
+//
+// Kernel K8: lookup — the read-only probe (B3, risingwave_tpu/ops/
+// hash_table.py:137), standalone for the cold-tier eviction of
+// risingwave_tpu/ops/hash_agg.py:714 evict_state (B9). One thread per row
+// walks the same probe chain as K1 and stops at its key (slot) or at the
+// first empty slot (absent, -1): the table has no tombstones, so an empty
+// slot ends every chain. Invalid rows get -1. With a `dropped` int32[cap]
+// mask, a found row also sets dropped[slot] = 1 (equal keys write the
+// same 1, so duplicates need no atomics). A row that runs cap steps
+// without meeting its key or an empty slot sets stats[1], as K1 does. The
+// table is not written while the kernel runs, so plain loads suffice.
+// Bound: bytes — K lanes and a flag read per row, one slot written, and
+// the probed table slots.
 #include "common.cuh"
 
 namespace {
@@ -100,6 +113,36 @@ __global__ void probe_insert_kernel(const int32_t* __restrict__ bkeys,
   atomicExch(&stats[1], 1);
 }
 
+__global__ void lookup_kernel(const int32_t* __restrict__ bkeys,
+                              long long kstride,
+                              const int32_t* __restrict__ valid,
+                              long long vstride, int n, int k,
+                              const int32_t* __restrict__ tkeys,
+                              const int32_t* __restrict__ occ, int cap,
+                              int32_t* __restrict__ slots, int32_t* stats,
+                              int32_t* __restrict__ dropped) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  slots[r] = -1;
+  if (valid[static_cast<long long>(r) * vstride] == 0) return;
+  const int32_t* key = bkeys + static_cast<long long>(r) * kstride;
+  const uint32_t mask = static_cast<uint32_t>(cap) - 1u;
+  uint32_t slot = rw::hash_lanes(key, k) & mask;
+  for (int step = 0; step < cap; ++step) {
+    if (occ[slot] == kEmpty) return;
+    const int32_t* cur = tkeys + static_cast<size_t>(slot) * k;
+    bool eq = true;
+    for (int i = 0; i < k; ++i) eq = eq && (cur[i] == key[i]);
+    if (eq) {
+      slots[r] = static_cast<int32_t>(slot);
+      if (dropped != nullptr) dropped[slot] = 1;
+      return;
+    }
+    slot = (slot + 1u) & mask;
+  }
+  atomicExch(&stats[1], 1);
+}
+
 }  // namespace
 
 // Per shard: stats[s, 0] = rows inserted, stats[s, 1] = overflow flag;
@@ -123,6 +166,26 @@ RW_API int rw_probe_insert(const void* bkeys, long long kstride,
         static_cast<const int32_t*>(valid), vstride, vshard, n, k,
         static_cast<int32_t*>(tkeys), static_cast<int32_t*>(occ), cap,
         static_cast<int32_t*>(slots), static_cast<int32_t*>(stats));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: stats = [0, overflow], zeroed here; `dropped` may be null.
+RW_API int rw_lookup(const void* bkeys, long long kstride, const void* valid,
+                     long long vstride, int n, int k, const void* tkeys,
+                     const void* occ, int cap, void* slots, void* stats,
+                     void* dropped, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t), st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n > 0) {
+    constexpr int kThreads = 256;
+    lookup_kernel<<<rw::blocks_for(n, kThreads), kThreads, 0, st>>>(
+        static_cast<const int32_t*>(bkeys), kstride,
+        static_cast<const int32_t*>(valid), vstride, n, k,
+        static_cast<const int32_t*>(tkeys),
+        static_cast<const int32_t*>(occ), cap, static_cast<int32_t*>(slots),
+        static_cast<int32_t*>(stats), static_cast<int32_t*>(dropped));
   }
   return static_cast<int>(cudaGetLastError());
 }

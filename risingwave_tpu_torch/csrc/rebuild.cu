@@ -15,6 +15,10 @@
 //             mode 1 (retire):  the same, minus groups whose key column at
 //                               lane_off sorts strictly below the watermark
 //                               (hi signed, lo unsigned; NULL never below).
+//             mode 2 (evict):   the same, minus the slots K8 (lookup)
+//                               marked in dropped int32[S, cap]: the
+//                               cold-tier eviction of hash_agg.py:714
+//                               evict_state (B9), rule of :727-728.
 // remap_kernel, one launch over max(n_src, new_cap) indices: index i moves
 // source column i to old_to_new[i] (when >= 0), and index j writes the
 // fill of every row into new slot j when the fresh table left it empty.
@@ -43,6 +47,7 @@ __global__ void live_kernel(int mode, const int32_t* __restrict__ st,
                             const int32_t* __restrict__ occ, long long cap,
                             int k, int lane_off, int32_t wm_hi,
                             int32_t wm_lo, long long stshard,
+                            const int32_t* __restrict__ dropped,
                             int32_t* __restrict__ live) {
   const long long j = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
@@ -64,6 +69,7 @@ __global__ void live_kernel(int mode, const int32_t* __restrict__ st,
         hi < wm_hi || (hi == wm_hi && lo < static_cast<uint32_t>(wm_lo));
     if (nonnull && below) keep = false;
   }
+  if (mode == 2 && keep && dropped[blockIdx.y * cap + j] != 0) keep = false;
   live[j] = keep ? 1 : 0;
 }
 
@@ -93,11 +99,12 @@ __global__ void remap_kernel(const int32_t* __restrict__ src, long long n_src,
 
 }  // namespace
 
-// stshard: int32 elements between the shards' state matrices.
+// stshard: int32 elements between the shards' state matrices; dropped
+// (int32[S, cap]) is read in mode 2 only and may be null otherwise.
 RW_API int rw_live_mask(int mode, const void* st, const void* keys,
                         const void* occ, long long cap, int k, int lane_off,
                         int wm_hi, int wm_lo, long long stshard, int nshards,
-                        void* live, void* stream) {
+                        const void* dropped, void* live, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int kThreads = 256;
   if (nshards > 0) {
@@ -105,7 +112,8 @@ RW_API int rw_live_mask(int mode, const void* st, const void* keys,
     live_kernel<<<grid, kThreads, 0, s>>>(
         mode, static_cast<const int32_t*>(st),
         static_cast<const int32_t*>(keys), static_cast<const int32_t*>(occ),
-        cap, k, lane_off, wm_hi, wm_lo, stshard, static_cast<int32_t*>(live));
+        cap, k, lane_off, wm_hi, wm_lo, stshard,
+        static_cast<const int32_t*>(dropped), static_cast<int32_t*>(live));
   }
   return static_cast<int>(cudaGetLastError());
 }

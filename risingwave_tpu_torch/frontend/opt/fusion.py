@@ -85,12 +85,18 @@ def agg_ineligible_reason(agg) -> Optional[str]:
     call it; `fused_stages is not None` is deliberately not a
     condition). A kernel that exists already (injected, or built by
     data) must still take a prelude: only a sharded kernel that has seen
-    no data does. The port refuses the reference's host-state aggs at
-    construction already, so host-typed (interned) group keys are what
-    is left to refuse here."""
+    no data does. Host-side agg state reads the post-stage chunks (the
+    multisets, sketches and the tier's touch), and host-typed group keys
+    would need interning on the card."""
     k = agg._kernel
     if k is not None and not getattr(k, "supports_prelude", False):
         return "injected kernel without a prelude path"
+    if agg.minput or agg.distinct_tables:
+        return "retractable MIN/MAX or DISTINCT (host multisets)"
+    if agg._hll_calls or agg._host_calls:
+        return "host-side agg state (HLL/string_agg/array_agg)"
+    if agg.tier_cap is not None:
+        return "cold-tier governed (per-chunk host touch)"
     if agg.key_codec.interners:
         return "host-typed group keys (interning)"
     return None

@@ -27,9 +27,10 @@ q1's row-id generation and projection become one FusedFragmentExecutor
 ``build_q7(mesh=ShardMesh(n))`` runs q7's agg vnode-sharded over n
 logical shards of one card (``parallel/agg.ShardedAggKernel``), and
 ``build_q8(mesh=ShardMesh(n))`` q8's join (``parallel/join.
-ShardedJoinKernel``), each unfused or fused. The reference's monitoring,
-coalescing and tiering options are not ported and raise
-NotImplementedError.
+ShardedJoinKernel``), each unfused or fused. ``build_q7(tier_cap=n)``
+puts q7's agg under the cold tier (``state/tier.py``) on one device. The
+reference's coalescing option is not ported and raises
+NotImplementedError, as does a tier cap on a mesh.
 
 ``from_jax_state`` / ``to_numpy_state`` (from ``ops/hash_agg.py``) carry
 grouped-agg device state across the two packages as numpy arrays:
@@ -179,11 +180,17 @@ def build_q7(store, cfg: NexmarkConfig,
     With ``mesh`` (a ``ShardMesh`` on the pipeline's device), the agg runs
     vnode-sharded over its shards, ``shard_capacity`` slots each: the
     reference's hash dispatch to N parallel actors (dispatch.rs:582)
-    becomes one routing kernel per step."""
-    for what, given in (("coalesce_rows", coalesce_rows),
-                        ("tier_cap", tier_cap)):
-        if given:
-            raise NotImplementedError(f"build_q7 {what} is not ported")
+    becomes one routing kernel per step.
+
+    With ``tier_cap`` (one device only), the agg keeps at most about that
+    many groups on the card after each checkpoint barrier: older groups
+    are evicted and reload when a later chunk touches them."""
+    if coalesce_rows:
+        raise NotImplementedError("build_q7 coalesce_rows is not ported")
+    if tier_cap is not None and mesh is not None:
+        raise NotImplementedError(
+            "build_q7 tier_cap with a mesh: the sharded kernel has no "
+            "targeted eviction (the reference drops the cap there)")
     _check_store(store)
     device = resolve_device(device)
     if mesh is not None:
@@ -220,10 +227,11 @@ def build_q7(store, cfg: NexmarkConfig,
             mesh, key_width=LANES_PER_KEY * 1,
             specs=[c.spec(project.schema) for c in calls],
             capacity=shard_capacity)
+    # tier_cap: a resident-group cap on the agg (state/tier.py)
     agg = HashAggExecutor(project, [0], calls, agg_state,
                           append_only=True,
                           output_names=["max_price", "bid_count"],
-                          kernel=kernel, device=device)
+                          kernel=kernel, tier_cap=tier_cap, device=device)
     mv_table = StateTable(3, agg.schema, [0], store)  # pk = window_start
     mat = MaterializeExecutor(agg, mv_table)
     return _finish(local, store, mat, mv_table, 1, {1: source.reader},

@@ -47,6 +47,7 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     "probe_insert": {
         "rw_probe_insert": [_P, _L, _L, _P, _L, _L, _I, _I, _P, _P, _I, _I,
                             _P, _P, _P],
+        "rw_lookup": [_P, _L, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P],
     },
     "agg_apply": {
         "rw_agg_apply": [_I, _P, _I, _I, _I, _I, _L, _P, _L, _P, _L, _L,
@@ -59,8 +60,11 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     },
     "rebuild": {
         "rw_live_mask": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I, _P,
-                         _P],
+                         _P, _P],
         "rw_remap": [_P, _L, _P, _P, _L, _P, _I, _I, _P, _P],
+    },
+    "scatter": {
+        "rw_scatter_rows": [_P, _L, _L, _P, _L, _I, _P, _I, _P, _L, _I, _P],
     },
     "join_apply": {
         "rw_join_apply": [_P, _L, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L,

@@ -22,9 +22,17 @@ a kernel takes one pointer and a rebuild moves every array in one launch:
     rows 4+n_acc .. 4+2*n_acc-1    emitted accumulators
 
 Accumulators per call: COUNT → [cnt]; SUM(int) → 4 limbs + nn (exact);
-SUM(float) → [hi f32, lo f32] + nn; MIN/MAX → order lanes [hi, lo] + nn.
-MIN/MAX are append-only on the device (the reference's retractable MIN/MAX
-recomputes on the host and patches — not ported yet).
+SUM(float) → [hi f32, lo f32] + nn; MIN/MAX → order lanes [hi, lo] + nn;
+approx_count_distinct, string_agg and array_agg → one dummy lane (their
+values live on the host: dense HLL sketches and the materialized-input
+multisets of the executor). MIN/MAX are append-only on the device: with
+retractions the executor recomputes them on the host from the
+materialized input and writes them back with ``patch_state`` (K9, B10).
+
+The agg's cold tier (``state/tier.py``) evicts clean groups with
+``evict_state`` (K8 lookup, K4 in its evict mode, then the K1 + K4
+rebuild: B9) and reloads them with ``GroupedAggKernel.load_groups`` (K1,
+then K9).
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (and counts
 the launch in ``LAUNCHES``) and runs its plain PyTorch version for CPU
@@ -67,16 +75,83 @@ class AggKind(enum.Enum):
     SUM = "sum"
     MIN = "min"
     MAX = "max"
-    # kinds the reference keeps on the host; not ported yet
+    # HyperLogLog cardinality sketch (append-only; see HLL_* below)
     APPROX_COUNT_DISTINCT = "approx_count_distinct"
+    # host-only aggs (string/list outputs never live on the card): the
+    # device keeps one dummy lane; the executor computes their outputs
+    # from the materialized-input value multiset at flush
     STRING_AGG = "string_agg"
     ARRAY_AGG = "array_agg"
 
 
-DEVICE_AGG_KINDS = (AggKind.COUNT, AggKind.SUM, AggKind.MIN, AggKind.MAX)
+HOST_AGG_KINDS = (AggKind.STRING_AGG, AggKind.ARRAY_AGG)
 
-# kernel-side call kinds (csrc/agg_apply.cu enum Kind)
-_K_COUNT, _K_SUM_INT, _K_SUM_FLOAT, _K_MAX, _K_MIN = range(5)
+# kernel-side call kinds (csrc/agg_apply.cu enum Kind); _K_NONE is the
+# dummy lane of the host kinds and approx_count_distinct: K2 writes nothing
+_K_COUNT, _K_SUM_INT, _K_SUM_FLOAT, _K_MAX, _K_MIN, _K_NONE = range(6)
+
+
+# -- HyperLogLog (approx_count_distinct) ----------------------------------
+# A dense 2^16-register sketch per group (the reference's bucket count,
+# src/expr/src/aggregate/approx_count_distinct/mod.rs:35-42; standard
+# error 1.04 / sqrt(2^16) ~ 0.4%), kept by the executor on the host (one
+# uint8 register array per group, a vectorized scatter-max per chunk) and
+# persisted as one BYTEA row per group. The estimate is float64 numpy on
+# the host; the card carries only the call's dummy lane.
+HLL_B = 16              # index bits
+HLL_M = 1 << HLL_B      # registers (65536)
+HLL_RHO_MAX = 65 - HLL_B
+HLL_ALPHA = 0.7213 / (1 + 1.079 / HLL_M)   # bias constant, m >= 128
+
+
+def _clz64(x: np.ndarray) -> np.ndarray:
+    """Vectorized count-leading-zeros over uint64 (0 → 64)."""
+    x = x.astype(np.uint64)
+    n = np.full(x.shape, 64, dtype=np.int64)
+    cur = x
+    for s in (32, 16, 8, 4, 2, 1):
+        big = cur >= (np.uint64(1) << np.uint64(s))
+        n = np.where(big, n - s, n)
+        cur = np.where(big, cur >> np.uint64(s), cur)
+    return n - 1 * (x > 0)          # exact clz: 64 - bit length, 64 for 0
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64 finalizer: a uniform 64-bit hash of the i64 image."""
+    with np.errstate(over="ignore"):
+        z = x.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return z ^ (z >> np.uint64(31))
+
+
+def hll_lanes(v64: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """i64 value image → (register index, rho) int32."""
+    h = _mix64(v64)
+    reg = (h >> np.uint64(64 - HLL_B)).astype(np.int32)
+    w = (h << np.uint64(HLL_B)).astype(np.uint64)
+    rho = np.where(w == 0, HLL_RHO_MAX, _clz64(w) + 1).astype(np.int32)
+    return reg, np.minimum(rho, HLL_RHO_MAX).astype(np.int32)
+
+
+def hll_estimate_dense(mat: np.ndarray) -> np.ndarray:
+    """Estimates for stacked register files: (G, HLL_M) uint8 → int64 per
+    group, with the linear-counting small-range correction."""
+    mat = np.atleast_2d(mat)
+    m = float(HLL_M)
+    inv = np.power(2.0, -mat.astype(np.float64)).sum(axis=1)
+    zeros = (mat == 0).sum(axis=1)
+    e = HLL_ALPHA * m * m / inv
+    small = (e <= 2.5 * m) & (zeros > 0)
+    with np.errstate(divide="ignore"):
+        lin = m * np.log(np.where(zeros > 0, m / np.maximum(zeros, 1),
+                                  1.0))
+    return np.where(small, lin, e).round().astype(np.int64)
+
+
+def _is_placeholder(kind: AggKind) -> bool:
+    """Calls whose device state is one dummy lane (no value, no nn)."""
+    return kind in HOST_AGG_KINDS or kind == AggKind.APPROX_COUNT_DISTINCT
 
 
 @dataclass(frozen=True)
@@ -86,16 +161,11 @@ class AggSpec:
     kind: AggKind
     in_dtype: Optional[np.dtype] = None   # None ⇒ count(*)
 
-    def _check(self) -> None:
-        if self.kind not in DEVICE_AGG_KINDS:
-            raise NotImplementedError(
-                f"{self.kind.value} is not ported: the port's device "
-                "agg covers count/sum/min/max")
-
     @property
     def out_dtype(self) -> np.dtype:
-        self._check()
-        if self.kind == AggKind.COUNT:
+        if self.kind in HOST_AGG_KINDS:
+            return np.dtype(object)
+        if self.kind in (AggKind.COUNT, AggKind.APPROX_COUNT_DISTINCT):
             return np.dtype(np.int64)
         assert self.in_dtype is not None
         if self.kind == AggKind.SUM:
@@ -111,11 +181,10 @@ class AggSpec:
 
     def dev_layout(self) -> List[Tuple[np.dtype, object]]:
         """Device accumulator arrays of this call: [(dtype, fill)]."""
-        self._check()
         i32 = np.dtype(np.int32)
         f32 = np.dtype(np.float32)
-        if self.kind == AggKind.COUNT:
-            return [(i32, 0)]
+        if self.kind == AggKind.COUNT or _is_placeholder(self.kind):
+            return [(i32, 0)]             # the count, or the dummy lane
         if self.kind == AggKind.SUM:
             if self.is_float_sum:
                 return [(f32, 0.0), (f32, 0.0), (i32, 0)]
@@ -126,9 +195,8 @@ class AggSpec:
     # -- host codecs -----------------------------------------------------
     def encode_input(self, vals: np.ndarray) -> Tuple[np.ndarray, ...]:
         """Host value column → device input lanes (vectorized)."""
-        self._check()
-        if self.kind == AggKind.COUNT:
-            return ()
+        if self.kind == AggKind.COUNT or _is_placeholder(self.kind):
+            return ()               # the host keeps the value (or sketch)
         if self.kind == AggKind.SUM:
             if self.is_float_sum:
                 hi = vals.astype(np.float32)
@@ -146,6 +214,15 @@ class AggSpec:
             assert (cnt >= 0).all(), \
                 "COUNT wrapped int32 — a group exceeded 2^31 rows"
             return cnt, np.zeros(cnt.shape, dtype=bool)
+        if self.kind in HOST_AGG_KINDS:
+            # placeholder: the executor overwrites these from the minput
+            # multiset at flush
+            n = len(cols[0])
+            return np.full(n, None, dtype=object), np.ones(n, dtype=bool)
+        if self.kind == AggKind.APPROX_COUNT_DISTINCT:
+            # placeholder: the executor overwrites these from its sketches
+            n = len(cols[0])
+            return np.zeros(n, dtype=np.int64), np.ones(n, dtype=bool)
         nn = cols[-1]
         assert (nn >= 0).all(), \
             "non-null count wrapped int32 — a group exceeded 2^31 rows"
@@ -161,8 +238,10 @@ class AggSpec:
 
     # -- host (state-row) accumulator layout ------------------------------
     def host_acc_dtypes(self) -> List[np.dtype]:
-        """Columns this call persists in the value-state row."""
-        if self.kind == AggKind.COUNT:
+        """Columns this call persists in the value-state row (one
+        placeholder for the dummy-lane kinds: their state lives in the
+        minput or sketch tables, and the row keeps its arity)."""
+        if self.kind == AggKind.COUNT or _is_placeholder(self.kind):
             return [np.dtype(np.int64)]
         return [self.out_dtype, np.dtype(np.int64)]
 
@@ -172,14 +251,16 @@ class AggSpec:
         rows, NULLs as None."""
         if self.kind == AggKind.COUNT:
             return [vals.tolist()]
+        if _is_placeholder(self.kind):
+            return [[0] * len(vals)]
         value_col = [None if bad else v
                      for v, bad in zip(vals.tolist(), nulls.tolist())]
         return [value_col, nn.tolist()]
 
     def encode_acc(self, value: np.ndarray, nn: Optional[np.ndarray]
                    ) -> Tuple[np.ndarray, ...]:
-        """(decoded value, nn) → device acc columns (recovery path).
-        NULL slots (nn == 0) re-encode as the identity fill."""
+        """(decoded value, nn) → device acc columns (recovery and the
+        patch). NULL slots (nn == 0) re-encode as the identity fill."""
         if self.kind == AggKind.COUNT:
             return (value.astype(np.int32),)
         assert nn is not None
@@ -201,7 +282,7 @@ class AggSpec:
     def host_to_dev(self, host_cols: Sequence[np.ndarray]
                     ) -> Tuple[np.ndarray, ...]:
         """Recovered host acc columns → device-layout columns."""
-        if self.kind == AggKind.COUNT:
+        if self.kind == AggKind.COUNT or _is_placeholder(self.kind):
             return (host_cols[0].astype(np.int32),)
         return self.encode_acc(host_cols[0], host_cols[1])
 
@@ -235,11 +316,13 @@ def dev_layout(specs: Sequence[AggSpec]) -> List[Tuple[np.dtype, object]]:
 
 def n_input_lanes(spec: AggSpec) -> int:
     """Device input lanes per row for this call (encode_input arity)."""
-    if spec.kind == AggKind.COUNT:
+    if spec.kind == AggKind.COUNT or spec.kind in HOST_AGG_KINDS:
         return 0
     if spec.kind == AggKind.SUM:
         return 2 if spec.is_float_sum else lanes.N_LIMBS
-    return 2              # MIN/MAX order lanes
+    # MIN/MAX order lanes; approx_count_distinct keeps the reference's two
+    # (register, rho) columns, which the host fills and K2 never reads
+    return 2
 
 
 def _call_slices(specs: Sequence[AggSpec]) -> List[slice]:
@@ -523,6 +606,8 @@ class ApplyPlan:
                 packed_layout(key_width, self.specs)):
             if spec.kind == AggKind.COUNT:
                 kind = _K_COUNT
+            elif _is_placeholder(spec.kind):
+                kind = _K_NONE
             elif spec.kind == AggKind.SUM:
                 kind = _K_SUM_FLOAT if spec.is_float_sum else _K_SUM_INT
             else:
@@ -559,6 +644,8 @@ def agg_apply_plain(state: AggState, packed: torch.Tensor,
     st[ROW_GROUP_ROWS].index_add_(0, idx, s32[vis])
     st[ROW_DIRTY][idx] = 1
     for kind, a, ic, vc in plan.desc.tolist():
+        if kind == _K_NONE:
+            continue
         row = ROW_ACC0 + a
         live = vis if vc < 0 else vis & (packed[:, vc] != 0)
         li = slot64[live]
@@ -823,17 +910,22 @@ def _advance_cuda(st: torch.Tensor, keys: torch.Tensor,
 
 LIVE_GROW = 0          # also the reshard's rule (parallel/agg.py:833)
 LIVE_RETIRE = 1
+LIVE_EVICT = 2
 _I32_SIGN_FLIP = -0x80000000
 
 
 def live_mask_plain(state: AggState, mode: int, lane_off: int = 0,
-                    wm_hi: int = 0, wm_lo: int = 0) -> torch.Tensor:
+                    wm_hi: int = 0, wm_lo: int = 0,
+                    dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the live masks of the growth step
-    (``hash_agg.py:968``) and ``retire_state`` (:676)."""
+    (``hash_agg.py:968``), ``retire_state`` (:676) and ``evict_state``
+    (:727-728: the growth rule minus the ``dropped`` slots)."""
     st, keys, occ = state.st, state.table.keys, state.table.occ
     occ_b = occ != 0
     live = occ_b & ((st[ROW_GROUP_ROWS] != 0) | (st[ROW_DIRTY] != 0)
                     | (st[ROW_EMITTED_VALID] != 0))
+    if mode == LIVE_EVICT:
+        live = live & (dropped == 0)
     if mode == LIVE_RETIRE:
         hi = keys[:, lane_off]
         lo = keys[:, lane_off + 1] ^ _I32_SIGN_FLIP
@@ -845,15 +937,18 @@ def live_mask_plain(state: AggState, mode: int, lane_off: int = 0,
 
 
 def live_mask(state: AggState, mode: int, lane_off: int = 0,
-              wm_hi: int = 0, wm_lo: int = 0) -> torch.Tensor:
+              wm_hi: int = 0, wm_lo: int = 0,
+              dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K4 (live mask) → int32[cap] of slots that survive a
-    rebuild: the growth rule, or the watermark-retirement rule on the key
-    column whose lanes start at ``lane_off``."""
+    rebuild: the growth rule, the watermark-retirement rule on the key
+    column whose lanes start at ``lane_off``, or the eviction rule (the
+    growth rule minus the slots set in ``dropped`` int32[cap])."""
     st, keys, occ = state.st, state.table.keys, state.table.occ
     if st.device.type != "cuda":
-        return live_mask_plain(state, mode, lane_off, wm_hi, wm_lo)
+        return live_mask_plain(state, mode, lane_off, wm_hi, wm_lo, dropped)
     return _live_mask_cuda(st[None], keys[None], occ[None], mode, lane_off,
-                           wm_hi, wm_lo)[0]
+                           wm_hi, wm_lo,
+                           None if dropped is None else dropped[None])[0]
 
 
 def live_mask_sharded(state: ShardedAggState, mode: int, lane_off: int = 0,
@@ -869,17 +964,25 @@ def live_mask_sharded(state: ShardedAggState, mode: int, lane_off: int = 0,
 
 
 def _live_mask_cuda(st: torch.Tensor, keys: torch.Tensor, occ: torch.Tensor,
-                    mode: int, lane_off: int, wm_hi: int,
-                    wm_lo: int) -> torch.Tensor:
+                    mode: int, lane_off: int, wm_hi: int, wm_lo: int,
+                    dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
     _check_state(st, keys, occ, "live_mask")
     if mode == LIVE_RETIRE and lane_off + 3 > keys.shape[2]:
         raise ValueError(f"lane_off {lane_off} past key width "
                          f"{keys.shape[2]}")
+    if mode == LIVE_EVICT and (
+            dropped is None or dropped.dtype != torch.int32
+            or dropped.shape != occ.shape or not dropped.is_contiguous()
+            or dropped.device != st.device):
+        raise ValueError("the evict mode needs a contiguous int32 dropped "
+                         "mask shaped like occ")
     ns, _r, cap = st.shape
     live = torch.empty((ns, cap), dtype=torch.int32, device=st.device)
     cuda.call("rebuild", "rw_live_mask", mode, st.data_ptr(),
               keys.data_ptr(), occ.data_ptr(), cap, keys.shape[2], lane_off,
-              wm_hi, wm_lo, st.stride(0), ns, live.data_ptr())
+              wm_hi, wm_lo, st.stride(0), ns,
+              None if mode != LIVE_EVICT else dropped.data_ptr(),
+              live.data_ptr())
     LAUNCHES.add("live_mask")
     return live
 
@@ -970,6 +1073,139 @@ def grow_state(state: AggState, new_cap: int,
     return rebuild_live(state, live, new_cap, fill)
 
 
+def evict_state(state: AggState, key_lanes: torch.Tensor,
+                valid: torch.Tensor, fill: torch.Tensor
+                ) -> Tuple[AggState, torch.Tensor, torch.Tensor]:
+    """Cold-tier eviction (``evict_state``, ``hash_agg.py:714``, B9): K8
+    finds the given keys' slots and marks them dropped, K4 keeps the
+    growth rule's live slots minus the dropped ones, and the K1 + K4
+    rebuild moves the survivors into a fresh table of the same capacity.
+    Keys that are not resident, duplicates and padding rows (valid = 0)
+    drop nothing. The caller guarantees the evicted groups are clean
+    (flushed and advanced). Returns (new state, K1's stats, K8's stats)."""
+    dropped = torch.zeros(state.capacity, dtype=torch.int32,
+                          device=state.st.device)
+    _slots, lstats = ht.lookup(state.table, key_lanes, valid, dropped)
+    live = live_mask(state, LIVE_EVICT, dropped=dropped)
+    new, stats = rebuild_live(state, live, state.capacity, fill)
+    return new, stats, lstats
+
+
+# -- K9: scatter rows (the patch and the reload) --------------------------------
+
+def scatter_rows_plain(st: torch.Tensor, idx: torch.Tensor,
+                       rows: torch.Tensor, src: torch.Tensor) -> None:
+    """Plain PyTorch version of K9 over S shards: ``st[s, rows[j],
+    idx[s, i]] = src[s, j, i]``, indices outside [0, cap) dropped
+    (``.at[idx].set(mode="drop")`` of ``build_patch``, :783)."""
+    cap = st.shape[2]
+    r = rows.to(torch.int64)
+    for s in range(st.shape[0]):
+        ix = idx[s].to(torch.int64)
+        keep = (ix >= 0) & (ix < cap)
+        st[s][r[:, None], ix[keep][None, :]] = src[s][:, keep]
+
+
+def scatter_rows_sharded(st: torch.Tensor, idx: torch.Tensor,
+                         rows: torch.Tensor, src: torch.Tensor) -> None:
+    """Kernel K9: ``st[s, rows[j], idx[s, i]] = src[s, j, i]`` over S
+    shards in one launch (st int32[S, R, cap], idx int32[S, n], rows
+    int32[k], src int32[S, k, n]); an index outside [0, cap) — each
+    shard's padding is its ``cap`` — writes nothing. In place."""
+    if st.device.type != "cuda":
+        scatter_rows_plain(st, idx, rows, src)
+        return
+    ns, _nr, cap = st.shape
+    n = idx.shape[1]
+    if not all(t.dtype == torch.int32 for t in (st, idx, rows, src)):
+        raise TypeError("scatter_rows takes int32 tensors")
+    if idx.shape != (ns, n) or src.shape != (ns, rows.shape[0], n) or \
+            rows.dim() != 1:
+        raise ValueError(f"scatter_rows shape mismatch: st {tuple(st.shape)}"
+                         f", idx {tuple(idx.shape)}, rows "
+                         f"{tuple(rows.shape)}, src {tuple(src.shape)}")
+    if not all(t.is_contiguous() for t in (st, idx, rows, src)):
+        raise ValueError("scatter_rows needs contiguous tensors")
+    if not all(t.device == st.device for t in (idx, rows, src)):
+        raise ValueError("scatter_rows tensors must share one device")
+    cuda.call("scatter", "rw_scatter_rows", st.data_ptr(), cap,
+              st.stride(0), idx.data_ptr(), idx.stride(0), n,
+              rows.data_ptr(), rows.shape[0], src.data_ptr(),
+              src.stride(0), ns)
+    if n:
+        LAUNCHES.add("scatter_rows")
+
+
+def scatter_rows(st: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+                 src: torch.Tensor) -> None:
+    """K9 on one device: ``st[rows[j], idx[i]] = src[j, i]`` (st int32[R,
+    cap], idx int32[n], src int32[k, n]); idx == cap is padding."""
+    scatter_rows_sharded(st[None], idx[None], rows, src[None])
+
+
+def encode_patch_cols(specs: Sequence[AggSpec], decoded,
+                      raw_accs) -> List[np.ndarray]:
+    """Corrected (value, nn) pairs → device acc columns for a patch
+    (``hash_agg.py:761``). ``decoded[j]`` is (value, nn) for a corrected
+    call, or None for an untouched one: untouched calls pass their RAW
+    gathered device columns through bit for bit (re-encoding a float sum
+    through its decoded f64 would perturb the (hi, lo) pair, and an
+    integer SUM keeps K2's own limbs). Shared by the single-device and
+    sharded kernels."""
+    slices = _call_slices(specs)
+    dev_cols: List[np.ndarray] = []
+    for j, (s, d) in enumerate(zip(specs, decoded)):
+        if d is None:
+            assert raw_accs is not None, "raw accs needed for passthrough"
+            dev_cols.extend(raw_accs[slices[j]])
+        else:
+            v, nn = d
+            dev_cols.extend(s.encode_acc(v, nn))
+    return dev_cols
+
+
+def as_i32_cols(cols: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """Device-layout columns as int32 (float columns as their bits)."""
+    return [c.view(np.int32) if c.dtype == np.float32 else c.astype(np.int32)
+            for c in cols]
+
+
+def patch_rows(n_acc: int, device: torch.device) -> torch.Tensor:
+    """The rows ``patch_state`` writes: every accumulator row."""
+    return torch.arange(ROW_ACC0, ROW_ACC0 + n_acc, dtype=torch.int32,
+                        device=device)
+
+
+def patch_state(state: AggState, idx: torch.Tensor,
+                cols: torch.Tensor) -> None:
+    """``build_patch`` (``hash_agg.py:783``, B10) on K9: set every
+    accumulator row at the slots ``idx`` int32[n] to ``cols`` int32[n_acc,
+    n] (device layout, float rows as bits); idx == cap is padding. In
+    place."""
+    scatter_rows(state.st, idx, patch_rows(state.n_acc, state.st.device),
+                 cols)
+
+
+def load_rows(n_acc: int, device: torch.device) -> torch.Tensor:
+    """The rows a reload writes (``load_groups``, :1200-1212): group_rows,
+    emitted_valid, emitted_rows, the accumulators and the emitted
+    accumulators — every row but dirty."""
+    return torch.tensor([ROW_GROUP_ROWS, ROW_EMITTED_VALID,
+                         ROW_EMITTED_ROWS,
+                         *range(ROW_ACC0, ROW_ACC0 + 2 * n_acc)],
+                        dtype=torch.int32, device=device)
+
+
+def load_src(group_rows: np.ndarray,
+             dev_cols: Sequence[np.ndarray]) -> np.ndarray:
+    """K9's source block of a reload, in ``load_rows`` order: the groups
+    come back emitted, their snapshot equal to their state."""
+    n = len(group_rows)
+    rows32 = np.asarray(group_rows).astype(np.int32)
+    cols = as_i32_cols(dev_cols)
+    return np.stack([rows32, np.ones(n, np.int32), rows32, *cols, *cols])
+
+
 # -- host view of a flush -------------------------------------------------------------
 
 @dataclass
@@ -987,13 +1223,18 @@ class FlushResult:
     prev_outs: List[np.ndarray]
     prev_nulls: List[np.ndarray]
     prev_nns: List[Optional[np.ndarray]]
+    # device-layout acc columns of the gather (None on an empty flush):
+    # the patch passes untouched calls' columns through bit for bit
+    raw_accs: Optional[List[np.ndarray]] = None
+    prev_raw_accs: Optional[List[np.ndarray]] = None
 
     @staticmethod
     def empty(specs: Sequence[AggSpec], key_width: int) -> "FlushResult":
         z = np.zeros(0, dtype=np.int64)
         zb = np.zeros(0, dtype=bool)
         vals = [np.zeros(0, dtype=s.out_dtype) for s in specs]
-        nns = [None if s.kind == AggKind.COUNT else z.copy() for s in specs]
+        nns = [None if s.kind == AggKind.COUNT or _is_placeholder(s.kind)
+               else z.copy() for s in specs]
         return FlushResult(
             0, np.zeros((0, key_width), dtype=np.int32), z.copy(),
             list(vals), [zb.copy() for _ in specs], list(nns),
@@ -1018,7 +1259,7 @@ def _unpack_acc_cols(specs: Sequence[AggSpec], data: np.ndarray,
 def _nns_of(specs, dev_cols) -> List[Optional[np.ndarray]]:
     out = []
     for s, sl in zip(specs, _call_slices(specs)):
-        out.append(None if s.kind == AggKind.COUNT
+        out.append(None if s.kind == AggKind.COUNT or _is_placeholder(s.kind)
                    else dev_cols[sl][-1].astype(np.int64))
     return out
 
@@ -1046,7 +1287,7 @@ def decode_flush_data(specs: Sequence[AggSpec], key_width: int,
         outs=outs, nulls=nulls, nns=_nns_of(specs, accs),
         was_emitted=was, prev_rows=prows.astype(np.int64),
         prev_outs=pouts, prev_nulls=pnulls,
-        prev_nns=_nns_of(specs, paccs))
+        prev_nns=_nns_of(specs, paccs), raw_accs=accs, prev_raw_accs=paccs)
 
 
 class GroupedAggKernel:
@@ -1055,8 +1296,11 @@ class GroupedAggKernel:
 
     ``apply`` per chunk (rows gather into a host backlog; one upload and
     one K1 + K2 step per ``BATCH_ROWS`` rows, no waits), ``flush`` per
-    barrier (one K3 gather, one device→host read), ``advance`` after it,
-    ``retire_below`` for watermark cleaning and ``rebuild`` on recovery.
+    barrier (one K3 gather, one device→host read), ``patch_accs`` between
+    them for a retractable MIN/MAX (K9), ``advance`` after it,
+    ``retire_below`` for watermark cleaning, ``evict_keys`` and
+    ``load_groups`` for the cold tier (B9, B10), and ``rebuild`` on
+    recovery (K1 + K4 ``remap``, as before).
 
     With ``prelude`` (an ``ops/fused.py`` program of MODE_AGG) the kernel
     runs in raw mode: ``apply_raw`` backlogs raw int64 chunk matrices, a
@@ -1213,6 +1457,55 @@ class GroupedAggKernel:
                                          group_pos * 3, self._fill)
         self._counters.watch(stats)
 
+    # -- cold tier (state/tier.py) ---------------------------------------
+    def evict_keys(self, key_lanes: np.ndarray) -> None:
+        """Drop the given groups' device slots (cold-tier eviction, B9;
+        their rows stay durable in the value-state table). Call only at a
+        barrier, after flush and advance, with no backlog: the tier sweeps
+        only there, so the evicted groups are clean. The rebuild only
+        reclaims, so the occupancy bound stays valid; K8's and K1's
+        overflow flags are checked when their copies land."""
+        if self._backlog_rows:
+            raise RuntimeError("evict_keys with undispatched backlog")
+        n = len(key_lanes)
+        if n == 0:
+            return
+        cap_n = next_pow2(n)
+        keys = np.zeros((cap_n, self.key_width), dtype=np.int32)
+        keys[:n] = key_lanes
+        valid = np.zeros(cap_n, dtype=np.int32)
+        valid[:n] = 1
+        self.state, stats, lstats = evict_state(
+            self.state, upload(keys, self.device),
+            upload(valid, self.device), self._fill)
+        self._counters.watch(lstats)
+        self._counters.watch(stats)
+
+    def load_groups(self, keys: np.ndarray, group_rows: np.ndarray,
+                    acc_cols: Sequence[np.ndarray]) -> None:
+        """Reload evicted groups from committed state rows into the live
+        table (cold-tier reload-on-touch, B10): K1 inserts the keys, K9
+        sets group_rows, the accumulators and the emitted snapshot and
+        marks them emitted (their outputs were committed downstream before
+        eviction, so the next flush derives update pairs). ``dirty`` and
+        the resident groups are untouched. `acc_cols` uses the HOST layout
+        (acc_dtypes). The backlog dispatches first, so the reload lands
+        before any buffered chunk that touches the same keys."""
+        n = len(group_rows)
+        if n == 0:
+            return
+        self._dispatch_backlog()
+        self._reserve(n)
+        dev_cols = encode_host_accs(self.specs, acc_cols)
+        _t, slots, stats = ht.probe_insert(
+            self.state.table,
+            upload(np.asarray(keys, dtype=np.int32), self.device),
+            upload(np.ones(n, dtype=np.int32), self.device))
+        self._counters.push(stats, n)
+        scatter_rows(self.state.st, slots,
+                     load_rows(self.state.n_acc, self.device),
+                     upload(load_src(group_rows, dev_cols), self.device))
+
     # -- barrier flush ---------------------------------------------------
     def flush(self) -> FlushResult:
         """Gather dirty groups to the host and decode — one device→host
@@ -1233,6 +1526,23 @@ class GroupedAggKernel:
         data = mat[1:1 + p]
         self._flush_idx = np.ascontiguousarray(data[:, 0])
         return decode_flush_data(self.specs, self.key_width, data)
+
+    def patch_accs(self, decoded: List[Optional[Tuple[np.ndarray,
+                                                      np.ndarray]]],
+                   raw_accs: Optional[List[np.ndarray]] = None) -> None:
+        """Overwrite the flushed groups' accumulators (the retractable
+        MIN/MAX recompute, ``hash_agg.py:1241``) with one K9 launch, before
+        ``advance``. See ``encode_patch_cols`` for the passthrough."""
+        idx = self._flush_idx
+        assert idx is not None and len(idx) > 0, "flush() first"
+        cols = as_i32_cols(encode_patch_cols(self.specs, decoded, raw_accs))
+        pad = next_pow2(len(idx))
+        idx_p = np.full(pad, self.capacity, dtype=np.int32)
+        idx_p[:len(idx)] = idx
+        src = np.zeros((len(cols), pad), dtype=np.int32)
+        src[:, :len(idx)] = np.stack(cols)
+        patch_state(self.state, upload(idx_p, self.device),
+                    upload(src, self.device))
 
     def advance(self) -> None:
         """Snapshot emitted := current for every dirty slot; clear dirty."""
@@ -1255,9 +1565,7 @@ class GroupedAggKernel:
         self._backlog_rows = 0
         if n == 0:
             return
-        dev_cols = [c.view(np.int32) if c.dtype == np.float32
-                    else c.astype(np.int32)
-                    for c in encode_host_accs(self.specs, acc_cols)]
+        dev_cols = as_i32_cols(encode_host_accs(self.specs, acc_cols))
         rows32 = np.asarray(group_rows).astype(np.int32)
         src = np.stack([rows32, np.zeros(n, np.int32), np.ones(n, np.int32),
                         rows32, *dev_cols, *dev_cols])

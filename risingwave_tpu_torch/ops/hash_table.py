@@ -10,8 +10,9 @@ stride 1; deletion is logical (slots are reclaimed by a rebuild).
 and its plain PyTorch version on a CPU tensor; ``probe_insert_sharded``
 launches the same kernel over S independent tables with a leading shard
 axis (the vnode-sharded agg, ``parallel/agg.py``). ``lookup`` (the read-only
-probe) has only its plain version here: on the card it runs inside K6
-(``csrc/join_probe.cu``), the one kernel that needs it. Where the reference
+probe, B3) is kernel K8 (``rw_lookup`` in ``csrc/probe_insert.cu``), which
+the agg's cold-tier eviction (B9) launches; the join's probe runs its own
+copy of the probe inside K6 (``csrc/join_probe.cu``). Where the reference
 donates the state to a pure function (``donate_argnums=(0,)``), the port
 updates ``keys`` and ``occ`` in place.
 
@@ -24,7 +25,7 @@ is held to the table invariants, not to the reference's slot numbers.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -190,12 +191,14 @@ def _probe_insert_cuda(keys: torch.Tensor, occ: torch.Tensor,
 
 
 def lookup_plain(state: TableState, batch_keys: torch.Tensor,
-                 valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``lookup`` (``hash_table.py:137``): the
+                 valid: torch.Tensor, dropped: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K8 ``lookup`` (``hash_table.py:137``): the
     reference's loop, step for step. Returns (slots int32[N], stats
     int32[2] = [0, overflow]): -1 for absent or invalid rows; overflow
     is set when a row ran ``cap`` steps without meeting its key or an
-    empty slot (a full table: the load-factor contract was broken)."""
+    empty slot (a full table: the load-factor contract was broken). With
+    ``dropped`` (int32[cap]), found slots are set to 1 in it."""
     keys, occ = state
     cap = keys.shape[0]
     mask = cap - 1
@@ -215,20 +218,58 @@ def lookup_plain(state: TableState, batch_keys: torch.Tensor,
         steps += 1
     overflow = int(not bool(done.all()))
     slots = torch.where(valid_b & found, slot, -1).to(torch.int32)
+    if dropped is not None:
+        dropped[slots[slots >= 0].to(torch.int64)] = 1
     stats = torch.tensor([0, overflow], dtype=torch.int32,
                          device=batch_keys.device)
     return slots, stats
 
 
 def lookup(state: TableState, batch_keys: torch.Tensor,
-           valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Slots of existing keys, -1 for absent or invalid rows; read-only
-    (B3). Returns (slots int32[N], stats int32[2] = [0, overflow])."""
-    if batch_keys.device.type == "cuda":
-        raise NotImplementedError(
-            "on the card lookup runs inside join_probe (kernel K6); "
-            "lookup takes CPU tensors")
-    return lookup_plain(state, batch_keys, valid)
+           valid: torch.Tensor, dropped: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K8: slots of existing keys, -1 for absent or invalid rows;
+    the table is read only (B3). ``batch_keys`` int32[N, K] (contiguous
+    lanes, any row stride), ``valid`` int32 or bool [N]. With ``dropped``
+    (int32[cap]), each found slot is also set to 1 there (the eviction
+    mask of B9). Returns (slots int32[N], stats int32[2] = [0,
+    overflow]); callers check the overflow flag lazily
+    (``PendingCounters.watch``), as K1's."""
+    if batch_keys.device.type != "cuda":
+        return lookup_plain(state, batch_keys, valid, dropped)
+    keys, occ = state
+    n, k = batch_keys.shape
+    if batch_keys.dtype != torch.int32 or valid.dtype not in (
+            torch.int32, torch.bool):
+        raise TypeError("lookup takes int32 key lanes and an int32/bool "
+                        "valid mask")
+    if k != keys.shape[1] or valid.shape != (n,):
+        raise ValueError(f"shape mismatch: batch {tuple(batch_keys.shape)}"
+                         f", valid {tuple(valid.shape)}, table "
+                         f"{tuple(keys.shape)}")
+    if batch_keys.stride(1) != 1 or not keys.is_contiguous() or \
+            not occ.is_contiguous():
+        raise ValueError("lookup needs contiguous key lanes")
+    if dropped is not None and (dropped.dtype != torch.int32
+                                or dropped.shape != occ.shape
+                                or not dropped.is_contiguous()):
+        raise ValueError("dropped must be a contiguous int32[cap]")
+    if not all(t.device == keys.device for t in (
+            occ, batch_keys, valid,
+            *(() if dropped is None else (dropped,)))):
+        raise ValueError("lookup tensors must share one device")
+    if valid.dtype == torch.bool:
+        valid = valid.to(torch.int32)
+    slots = torch.empty(n, dtype=torch.int32, device=keys.device)
+    stats = torch.empty(2, dtype=torch.int32, device=keys.device)
+    cuda.call("probe_insert", "rw_lookup", batch_keys.data_ptr(),
+              batch_keys.stride(0), valid.data_ptr(), valid.stride(0), n, k,
+              keys.data_ptr(), occ.data_ptr(), keys.shape[0],
+              slots.data_ptr(), stats.data_ptr(),
+              None if dropped is None else dropped.data_ptr())
+    if n:
+        LAUNCHES.add("lookup")
+    return slots, stats
 
 
 class DeviceHashTable:

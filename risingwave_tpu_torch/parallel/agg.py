@@ -19,8 +19,11 @@ per epoch batch:
 
 One step launches ``route``, ``probe_insert`` and K2 (``agg_apply``) the
 same number of times whatever S is. The barrier flush gathers every
-shard's dirty groups in one K3 launch; growth, retirement, recovery and
-resharding rebuild every shard with K1 + K4 in one launch each. On the
+shard's dirty groups in one K3 launch, and a retractable MIN/MAX
+recompute patches them back on every shard in one K9 launch
+(``patch_accs``); growth, retirement, recovery and resharding rebuild
+every shard with K1 + K4 in one launch each. There is no targeted
+eviction: the cold tier runs on the single-device kernel only. On the
 CPU every wrapper runs its plain version, shard by shard, so the state is
 the reference's bit for bit (float SUM within its declared tolerance).
 """
@@ -38,10 +41,11 @@ from risingwave_tpu_torch.ops import hash_table as ht
 from risingwave_tpu_torch.ops import lanes
 from risingwave_tpu_torch.ops.hash_agg import (
     LIVE_GROW, LIVE_RETIRE, ROW_ACC0, ROW_GROUP_ROWS, AggSpec, ApplyPlan,
-    FlushResult, ShardedAggState, advance_sharded, agg_apply_sharded,
-    decode_flush_data, decode_outputs, dev_layout, encode_host_accs,
-    flush_gather_sharded, live_mask_sharded, make_sharded_agg_state,
-    pack_chunk, remap_sharded, state_fills,
+    FlushResult, ShardedAggState, as_i32_cols, advance_sharded,
+    agg_apply_sharded, decode_flush_data, decode_outputs, dev_layout,
+    encode_host_accs, encode_patch_cols, flush_gather_sharded,
+    live_mask_sharded, make_sharded_agg_state, pack_chunk, patch_rows,
+    remap_sharded, scatter_rows_sharded, state_fills,
 )
 from risingwave_tpu_torch.parallel.exchange import (
     owners_host, route, skew_bucket,
@@ -390,11 +394,29 @@ class ShardedAggKernel:
         advance_sharded(self.state)
 
     def patch_accs(self, decoded, raw_accs=None) -> None:
-        """The retractable MIN/MAX patch (``agg.py:669``) needs B10's
-        ``build_patch``, which is not ported."""
-        raise NotImplementedError(
-            "patch_accs needs build_patch (B10), which is not ported: "
-            "retractable min/max runs on neither kernel yet")
+        """Overwrite the flushed groups' accumulators on every shard (the
+        retractable MIN/MAX recompute, ``agg.py:669``) in one K9 launch:
+        the flush's per-shard slots route each corrected row back to its
+        shard, each shard's batch padded with its ``cap``; untouched calls
+        pass their gathered columns through bit for bit."""
+        idxs = self._flush_idx
+        assert idxs is not None and any(len(ix) for ix in idxs), \
+            "flush() first"
+        cols = as_i32_cols(encode_patch_cols(self.specs, decoded, raw_accs))
+        counts = [len(ix) for ix in idxs]
+        m = next_pow2(max(counts))
+        bidx = np.full((self.n_dev, m), self.capacity, dtype=np.int32)
+        bsrc = np.zeros((self.n_dev, len(cols), m), dtype=np.int32)
+        flat = np.stack(cols)
+        at = 0
+        for d, ix in enumerate(idxs):
+            c = len(ix)
+            bidx[d, :c] = ix
+            bsrc[d, :, :c] = flat[:, at:at + c]
+            at += c
+        scatter_rows_sharded(self.state.st, upload(bidx, self.device),
+                             patch_rows(self.state.n_acc, self.device),
+                             upload(bsrc, self.device))
 
     def retire_below(self, group_pos: int, wm_i64: int) -> None:
         """Watermark state cleaning on every shard: one live-mask launch
@@ -435,9 +457,7 @@ class ShardedAggKernel:
                                             self.specs, self.device)
         if n == 0:
             return
-        dev_cols = [c.view(np.int32) if c.dtype == np.float32
-                    else c.astype(np.int32)
-                    for c in encode_host_accs(self.specs, acc_cols)]
+        dev_cols = as_i32_cols(encode_host_accs(self.specs, acc_cols))
         rows32 = np.asarray(group_rows).astype(np.int32)
         src = np.stack([rows32, np.zeros(n, np.int32), np.ones(n, np.int32),
                         rows32, *dev_cols, *dev_cols])

@@ -403,6 +403,18 @@ class StateTable:
             return value
         return self.store.get(self.table_id, key, self._read_epoch())
 
+    def get_rows(self, rows: Sequence[Sequence]) -> List[Optional[tuple]]:
+        """The current row under each given row's pk (None where there is
+        none), the pks encoded in one vectorized pass."""
+        self._spill_staged()
+        out: List[Optional[tuple]] = []
+        epoch = self._read_epoch()
+        for key in self._encode_pk_rows(rows):
+            present, value = self.mem_table.get(key)
+            out.append(value if present
+                       else self.store.get(self.table_id, key, epoch))
+        return out
+
     def iter_rows(self, vnode: Optional[int] = None,
                   reverse: bool = False
                   ) -> Iterator[Tuple[tuple, tuple]]:
@@ -420,6 +432,21 @@ class StateTable:
             end = encode_vnode_prefix(vnode + 1) if vnode + 1 < VNODE_COUNT \
                 else None
         yield from self._iter_range(start, end, reverse=reverse)
+
+    def iter_prefix(self, prefix_values: Sequence
+                    ) -> Iterator[Tuple[tuple, tuple]]:
+        """(pk, row) for every pk starting with the given leading pk
+        values (state_table.rs:1092 prefix iterators). The prefix must
+        cover the dist keys, so the vnode is derivable."""
+        k = len(prefix_values)
+        for i in self.dist_key_indices:
+            assert self.pk_indices.index(i) < k, \
+                "prefix must include all dist keys"
+        vnode = self._vnode_of_pk(
+            list(prefix_values) + [None] * (len(self.pk_indices) - k))
+        start = (encode_vnode_prefix(vnode) +
+                 encode_memcomparable(prefix_values, self.pk_types[:k]))
+        yield from self._iter_range(start, _next_prefix(start))
 
     def _iter_range_raw(self, start: Optional[bytes],
                         end: Optional[bytes], reverse: bool = False
@@ -458,3 +485,13 @@ def _key_lane(v, dt: DataType) -> np.ndarray:
         return np.asarray([0 if v is None else v], dtype=dt.np_dtype)
     return hash_strings_host(np.asarray([v], dtype=object), 1)
 
+
+def _next_prefix(b: bytes) -> Optional[bytes]:
+    """Smallest byte string greater than every string prefixed by b."""
+    arr = bytearray(b)
+    while arr:
+        if arr[-1] != 0xFF:
+            arr[-1] += 1
+            return bytes(arr)
+        arr.pop()
+    return None

@@ -13,7 +13,12 @@ sequences, payload, degrees) and probe matrices bit for bit, and the
 slot-indexed head per key (K1 numbers slots its own way). The fused
 preludes (fused_chain, agg_prelude, join_prelude) are held bit for bit to
 the plain program on random expression trees over every device type,
-with edge values; a NaN compares equal to a NaN whatever its bits.
+with edge values; a NaN compares equal to a NaN whatever its bits. The
+cold tier's and the patch's kernels: K8 (lookup) and K4's evict mode
+exactly, B9 (evict_state) key-sorted against its plain twin, K9
+(scatter_rows) exactly with and without its shard axis, K2's kNone lane
+exactly, and a GroupedAggKernel's patch, eviction and reload on the card
+against the same kernel on the CPU.
 """
 
 import numpy as np
@@ -161,6 +166,170 @@ def test_live_mask_and_remap_match_plain(dev):
     np.testing.assert_array_equal(
         H.remap(st.st, o2n, table.occ, fill, 2 * CAP).cpu().numpy(),
         H.remap_plain(st.st, o2n, table.occ, fill, 2 * CAP).cpu().numpy())
+
+
+# -- the agg's cold tier and patch: K8, K4's evict mode, K9, K2's kNone -------
+
+def test_lookup_matches_plain(dev):
+    """K8 on a table K1 filled: resident, absent, duplicate and padding
+    rows; the same slots and the same dropped mask as the plain
+    version."""
+    st, _slots, packed = _applied(dev)
+    rng = np.random.default_rng(8)
+    occ = np.flatnonzero(st.table.occ.cpu().numpy())
+    res = st.table.keys.cpu().numpy()[rng.choice(occ, 3000)]
+    q = np.concatenate([res, _lanes(rng.integers(10**6, 10**7, 1000))])
+    valid = (rng.random(len(q)) < 0.9).astype(np.int32)
+    qd, vd = torch.from_numpy(q).to(dev), torch.from_numpy(valid).to(dev)
+    da = torch.zeros(CAP, dtype=torch.int32, device=dev)
+    db = torch.zeros_like(da)
+    got, stats = ht.lookup(st.table, qd, vd, da)
+    want, pstats = ht.lookup_plain(st.table, qd, vd, db)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(da.cpu().numpy(), db.cpu().numpy())
+    assert stats.tolist() == pstats.tolist() == [0, 0]
+    assert (got.cpu().numpy() >= 0).sum() > 2000
+
+
+def test_evict_state_matches_plain(dev):
+    """B9 on the card against its plain twin: K8 + K4 (evict) + K1 + K4
+    (remap); compared as key-sorted state, K1 numbering slots its own
+    way."""
+    st, slots, packed = _applied(dev)
+    H.agg_apply(st, packed, slots, H.ApplyPlan(KW, _specs(), dev))
+    H.advance(st)
+    rng = np.random.default_rng(9)
+    occ = np.flatnonzero(st.table.occ.cpu().numpy())
+    q = st.table.keys.cpu().numpy()[rng.choice(occ, 700)]
+    q = np.concatenate([q, q[:50], _lanes(rng.integers(10**6, 10**7, 50))])
+    qd = torch.from_numpy(q).to(dev)
+    vd = torch.ones(len(q), dtype=torch.int32, device=dev)
+    fill = torch.tensor(H.state_fills(_specs()), dtype=torch.int32,
+                        device=dev)
+    dropped = torch.zeros(CAP, dtype=torch.int32, device=dev)
+    ht.lookup_plain(st.table, qd, vd, dropped)
+    np.testing.assert_array_equal(
+        H.live_mask(st, H.LIVE_EVICT, dropped=dropped).cpu().numpy(),
+        H.live_mask_plain(st, H.LIVE_EVICT, dropped=dropped).cpu().numpy())
+    a, stats, lstats = H.evict_state(
+        H.AggState(ht.TableState(st.table.keys.clone(),
+                                 st.table.occ.clone()), st.st.clone()),
+        qd, vd, fill)
+    table = ht.make_state(CAP, KW, dev)
+    live = H.live_mask_plain(st, H.LIVE_EVICT, dropped=dropped)
+    o2n, pstats = ht.probe_insert_plain(table, st.table.keys, live)
+    b = H.AggState(table, H.remap_plain(st.st, o2n, table.occ, fill, CAP))
+    assert stats.tolist() == pstats.tolist() and lstats.tolist() == [0, 0]
+    assert _groups(a) == _groups(b)
+    assert len(_groups(a)) < len(occ)
+
+
+def _groups(state):
+    """key lanes → the slot's state column, for every occupied slot."""
+    occ = state.table.occ.cpu().numpy() != 0
+    keys = state.table.keys.cpu().numpy()[occ]
+    cols = state.st.cpu().numpy()[:, occ].T
+    return {tuple(k): tuple(c) for k, c in zip(keys.tolist(), cols.tolist())}
+
+
+@pytest.mark.parametrize("n_shards", [1, 8])
+def test_scatter_rows_matches_plain(dev, n_shards):
+    """K9 with its shard axis: named rows at distinct slots, each shard's
+    padding (idx == cap) and an unplaced row (-1) dropped."""
+    rng = np.random.default_rng(n_shards)
+    r, cap, n = 4 + 2 * 7, 1 << 12, 1000
+    st = torch.from_numpy(rng.integers(-2**31, 2**31, (n_shards, r, cap))
+                          .astype(np.int32)).to(dev)
+    idx = np.stack([rng.permutation(cap)[:n] for _ in range(n_shards)])
+    idx[:, -100:] = cap
+    idx[:, 0] = -1
+    rows = np.asarray([0, 2, 3, *range(4, r)], np.int32)
+    src = rng.integers(-2**31, 2**31, (n_shards, len(rows), n)) \
+        .astype(np.int32)
+    a, b = st.clone(), st.clone()
+    args = (torch.from_numpy(idx.astype(np.int32)).to(dev),
+            torch.from_numpy(rows).to(dev), torch.from_numpy(src).to(dev))
+    H.scatter_rows_sharded(a, *args)
+    H.scatter_rows_plain(b, *args)
+    np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert not np.array_equal(a.cpu().numpy(), st.cpu().numpy())
+
+
+def test_agg_apply_none_kind_matches_plain(dev):
+    """K2 with approx_count_distinct and string_agg dummy lanes beside
+    COUNT and MAX: the dummy lanes stay at their fill, group_rows and
+    dirty move as for any call."""
+    specs = tuple(H.AggSpec(H.AggKind(k), None if d is None else np.dtype(d))
+                  for k, d in [("approx_count_distinct", np.int64),
+                               ("count", None), ("string_agg", object),
+                               ("max", np.int64)])
+    rng = np.random.default_rng(12)
+    g = rng.integers(0, 500, N).astype(np.int64)
+    v = rng.integers(-10**9, 10**9, N)
+    inputs = [((), rng.random(N) < 0.9), ((), None),
+              ((), rng.random(N) < 0.9),
+              (specs[3].encode_input(v), np.ones(N, bool))]
+    packed = H.pack_chunk(KW, specs, _lanes(g), np.ones(N, np.int32),
+                          rng.random(N) < 0.95, inputs)
+    pd = torch.from_numpy(packed).to(dev)
+    st = H.make_agg_state(CAP, KW, specs, dev)
+    _t, slots, _s = ht.probe_insert(st.table, pd[:, :KW], pd[:, KW + 1])
+    plan = H.ApplyPlan(KW, specs, dev)
+    assert plan.desc[[0, 2], 0].tolist() == [H._K_NONE] * 2
+    a = H.AggState(st.table, st.st.clone())
+    H.agg_apply(a, pd, slots, plan)
+    H.agg_apply_plain(st, pd, slots, plan)
+    np.testing.assert_array_equal(a.st.cpu().numpy(), st.st.cpu().numpy())
+    assert not a.st[H.ROW_ACC0].any() and not a.st[H.ROW_ACC0 + 2].any()
+
+
+def test_grouped_kernel_cold_path_on_the_card_matches_the_cpu(dev):
+    """GroupedAggKernel end to end, card against CPU: flushes, a
+    retractable-MIN/MAX patch, an eviction and a reload give the same
+    decoded groups (compared key-sorted)."""
+    specs = tuple(H.AggSpec(H.AggKind(k), None if d is None else np.dtype(d))
+                  for k, d in [("max", np.int64), ("sum", np.float64),
+                               ("sum", np.int64), ("count", None)])
+    rng = np.random.default_rng(13)
+    ks = {d: H.GroupedAggKernel(KW, specs, capacity=1 << 12, device=d)
+          for d in ("cuda", "cpu")}
+    g = rng.integers(0, 900, 4096).astype(np.int64)
+    v = rng.integers(-10**6, 10**6, 4096)
+    args = (_lanes(g), np.ones(4096, np.int32), np.ones(4096, bool),
+            [(s.encode_input(v.astype(np.float64) if s.is_float_sum else v),
+              np.ones(4096, bool)) if s.in_dtype is not None else ((), None)
+             for s in specs])
+
+    def flushed(k):
+        fr = k.flush()
+        order = np.lexsort(fr.keys.T[::-1])
+        return fr, order
+
+    out = {}
+    for d, k in ks.items():
+        k.apply(*args)
+        fr, order = flushed(k)
+        decoded = [(np.full(fr.n, 7), fr.nns[0])] + [None] * 3
+        k.patch_accs(decoded, fr.raw_accs)
+        k.advance()
+        k.evict_keys(_lanes(np.arange(0, 900, 3)))
+        k.load_groups(_lanes(np.arange(0, 300, 3)),
+                      np.full(100, 2), [np.full(100, 9), np.full(100, 1),
+                                        np.full(100, 1.5), np.full(100, 1),
+                                        np.full(100, 4), np.full(100, 1),
+                                        np.full(100, 2)])
+        k.apply(*args)
+        fr2, order2 = flushed(k)
+        out[d] = (fr.keys[order], [o[order] for o in fr.outs[::2]],
+                  fr2.keys[order2], [o[order2] for o in fr2.outs],
+                  fr2.was_emitted[order2])
+    a, b = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[2], b[2])
+    np.testing.assert_array_equal(a[4], b[4])
+    for x, y in zip(a[1] + a[3][::2] + a[3][3:], b[1] + b[3][::2] + b[3][3:]):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_allclose(a[3][1], b[3][1], rtol=1e-6)
 
 
 # -- join kernels (K5, K6, K7) -------------------------------------------------

@@ -129,9 +129,9 @@ def _schemas():
             RSchema([RField(n, RD[t]) for n, t in FC.COLS]))
 
 
-def _chunks(seed, edges):
+def _chunks(seed, edges, subnormals=False):
     ps, rs = _schemas()
-    cols = FC.column_values(N, seed, edges)
+    cols = FC.column_values(N, seed, edges, subnormals)
     vis, ops = FC.chunk_meta(N, seed)
     pc = StreamChunk(ps, [Column(DataType[t], v, ok) for (_n, t), (v, ok)
                           in zip(FC.COLS, cols)], vis, ops)
@@ -166,7 +166,8 @@ def _eq(x, ok_x, y, ok_y, nan_equal=False):
 @pytest.mark.parametrize("edges", [False, True])
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_numpy_eval_matches_reference(name, edges):
-    pc, rc = _chunks(3, edges)
+    # both interpretive paths are numpy: subnormals are kept on both
+    pc, rc = _chunks(3, edges, subnormals=edges)
     pe = FC.build(OPS[name], E, DataType, Interval)
     re_ = FC.build(OPS[name], RE, RD, RInterval)
     assert pe.return_type.value == re_.return_type.value
@@ -221,8 +222,15 @@ def test_program_matches_traced_reference(name, edges):
 
 
 def test_edge_values_reach_the_ops():
-    """The edge data really holds the values the semantics turn on."""
+    """The edge data really holds the values the semantics turn on; the
+    subnormals only where asked for (the numpy-side checks)."""
     cols = FC.column_values(N, 5, True)
+    tiny = np.finfo(np.float32).tiny
+    assert not ((cols[4][0] != 0) & (np.abs(cols[4][0]) < tiny)).any()
+    sub = FC.column_values(N, 3, True, subnormals=True)
+    assert ((sub[4][0] != 0) & (np.abs(sub[4][0]) < tiny)).any()
+    assert ((sub[5][0] != 0) & (np.abs(sub[5][0])
+                                < np.finfo(np.float64).tiny)).any()
     assert (cols[3][0] == np.iinfo(np.int64).min).any()
     assert np.isnan(cols[5][0]).any() and np.isinf(cols[5][0]).any()
     assert (cols[7][0] < 0).any()
@@ -314,3 +322,63 @@ def test_decimal_product_and_currency_rate():
     got = _program_column(desc, _one_row_chunk(l=-1234567))
     exact = decimal.Decimal("0.908") * -1234567
     assert got.values.tolist() == [int(exact * 10000)]
+
+
+# ops whose traced reference differs on subnormal inputs: XLA:CPU flushes
+# subnormal inputs and results to zero (f32 and f64), numpy keeps them
+SUBNORMAL_OPS = sorted([
+    "f32_add", "f32_mul", "f32_div", "f32_mod", "f32_div_const",
+    "f64_add", "f64_mul", "f64_div", "f64_mod", "f64_div_const",
+    "cmp_le_f32_f64", "cast_f64_bool", "cast_f32_f64", "promote_dec_f64",
+    "promote_f32_f64", "promote_i16_f64", "promote_i64_f32"])
+
+
+def _subnormal_chunks(seed):
+    """Plain data with half the float rows subnormal or tiny (products
+    of tiny values are subnormal)."""
+    ps, rs = _schemas()
+    cols = FC.column_values(N, seed, False)
+    rng = np.random.default_rng(seed)
+    for i, vals in ((4, FC.SUBNORMAL_F32), (5, FC.SUBNORMAL_F64)):
+        v = cols[i][0].copy()
+        m = rng.random(N) < 0.5
+        v[m] = rng.choice(np.asarray(vals, dtype=v.dtype), int(m.sum()))
+        cols[i] = (v, cols[i][1])
+    vis, ops = FC.chunk_meta(N, seed)
+    pc = StreamChunk(ps, [Column(DataType[t], v, ok) for (_n, t), (v, ok)
+                          in zip(FC.COLS, cols)], vis, ops)
+    rc = RChunk(rs, [RColumn(RD[t], v, ok) for (_n, t), (v, ok)
+                     in zip(FC.COLS, cols)], vis, ops)
+    return pc, rc, cols
+
+
+def _ieee_oracle(name, rc, cols):
+    """What the program computes with IEEE subnormals kept: the
+    reference's interpretive numpy path, except where the program's
+    declared forms differ from it (a division by a constant is the
+    reciprocal product, DECIMAL → float multiplies by 1/10^4)."""
+    (f, okf), (d, okd), (m, okm) = cols[4], cols[5], cols[6]
+    if name == "f32_div_const":
+        return f * (np.float32(1) / np.float32(-2.5)), okf
+    if name == "f64_div_const":
+        return d * (1.0 / 3.0), okd
+    if name == "promote_dec_f64":
+        return (m.astype(np.float64) * (1.0 / 10000.0)) * d, okm & okd
+    want = FC.build(OPS[name], RE, RD, RInterval).eval(rc)
+    return want.values, want.validity
+
+
+@pytest.mark.parametrize("name", SUBNORMAL_OPS)
+def test_deviation_subnormals_kept_as_ieee(name):
+    """Declared deviation (ROADMAP.md queue C): the port's program (and
+    csrc/fused.cu, built without flush-to-zero) keeps IEEE subnormals, as
+    numpy and the reference's interpretive path do; the reference's
+    traced function on XLA:CPU flushes them, so it differs here."""
+    pc, rc, cols = _subnormal_chunks(5)
+    got = _program_column(OPS[name], pc)
+    with np.errstate(all="ignore"):
+        want, want_ok = _ieee_oracle(name, rc, cols)
+    _eq(got.values, got.validity, want, want_ok, nan_equal=True)
+    traced, traced_ok = _traced_column(OPS[name], rc)
+    with pytest.raises(AssertionError):
+        _eq(got.values, got.validity, traced, traced_ok, nan_equal=True)

@@ -87,11 +87,11 @@ def test_traceable_reason_matches_reference():
 # -- rule decisions on hand-built chains -----------------------------------
 
 
-def _mini_agg_chain(group_type=DataType.INT64):
+def _mini_agg_chain(group_type=DataType.INT64, distinct=False):
     from risingwave_tpu_torch.state.state_table import StateTable
     from risingwave_tpu_torch.state.store import MemoryStateStore
     from risingwave_tpu_torch.stream.executors.hash_agg import (
-        AggCall, HashAggExecutor, agg_state_schema,
+        AggCall, HashAggExecutor, agg_aux_tables, agg_state_schema,
     )
     from risingwave_tpu_torch.stream.executors.materialize import (
         MaterializeExecutor,
@@ -107,10 +107,14 @@ def _mini_agg_chain(group_type=DataType.INT64):
         filt, [InputRef(0, group_type),
                BinaryOp("*", InputRef(1, DataType.INT64), lit(2))],
         ["k", "v2"])
-    calls = [AggCall(H.AggKind.SUM, 1)]
+    calls = [AggCall(H.AggKind.SUM, 1, distinct=distinct)]
     sch, pk = agg_state_schema(proj.schema, [0], calls)
+    distinct_tables, minput = agg_aux_tables(
+        proj.schema, [0], calls, False, store,
+        dedup_table_id=lambda c: 90 + c, minput_table_id=lambda j: 95 + j)
     agg = HashAggExecutor(proj, [0], calls, StateTable(2, sch, pk, store),
-                          device="cpu")
+                          distinct_tables=distinct_tables,
+                          minput_tables=minput, device="cpu")
     mv = StateTable(3, agg.schema, [0], store)
     return MaterializeExecutor(agg, mv)
 
@@ -130,27 +134,21 @@ def test_rule_absorbs_run_into_agg():
 
 
 def test_rule_refuses_an_ineligible_agg():
-    """Mirror of test_fusion.py:438. The port refuses DISTINCT aggs at
-    construction already; the ineligible agg the rule meets is one with
-    a host-typed (interned) group key: it keeps its input, and the run
-    fuses as a standalone block feeding it."""
+    """Mirror of test_fusion.py:438: a DISTINCT agg cannot absorb the run
+    (its dedup multisets read the post-stage chunks), and neither can an
+    agg with a host-typed (interned) group key; each keeps its input, and
+    the run fuses as a standalone block feeding it."""
     from risingwave_tpu_torch.stream.executors.fused import (
         FusedFragmentExecutor,
     )
-    from risingwave_tpu_torch.stream.executors.hash_agg import (
-        AggCall, HashAggExecutor,
-    )
-    from risingwave_tpu_torch.stream.executors.test_utils import MockSource
-    with pytest.raises(NotImplementedError, match="DISTINCT"):
-        HashAggExecutor(MockSource(Schema.of(k=DataType.INT64), []), [0],
-                        [AggCall(H.AggKind.COUNT, 0, distinct=True)],
-                        None, device="cpu")
-    new, report = rewrite_stream_plan(_mini_agg_chain(DataType.VARCHAR),
-                                      "none", fusion=True, device="cpu")
-    agg = new.input
-    assert agg.fused_stages is None
-    assert isinstance(agg.input, FusedFragmentExecutor)
-    assert report.fired.get("fusion_grouping") == 1
+    for chain in (_mini_agg_chain(distinct=True),
+                  _mini_agg_chain(DataType.VARCHAR)):
+        new, report = rewrite_stream_plan(chain, "none", fusion=True,
+                                          device="cpu")
+        agg = new.input
+        assert agg.fused_stages is None
+        assert isinstance(agg.input, FusedFragmentExecutor)
+        assert report.fired.get("fusion_grouping") == 1
 
 
 def test_rule_absorbs_join_sides_and_q1_block():

@@ -77,3 +77,20 @@ def test_float_keys_hash_through_f32():
     v = torch.tensor([1.0, 1.0 + 2**-40, 0.0, -0.0], dtype=torch.float64)
     h = port_hash.hash_columns([v]).numpy()
     assert h[0] == h[1] and h[2] == h[3]
+
+
+def test_deviation_f32_subnormal_key_hashes_its_bits():
+    """Declared deviation (ROADMAP.md queue C): an f32 subnormal key
+    hashes its own bits on the port, as the reference's numpy twin
+    ``hash_columns_host`` does; the reference's jitted ``hash_columns``
+    on XLA:CPU reads it as 0.0 (flush to zero). No executor reaches the
+    jitted float hash (device paths hash int32 lanes)."""
+    col = np.asarray([1e-40, -1e-40, 0.0, 1.0], dtype=np.float32)
+    got = port_hash.hash_columns([torch.from_numpy(col)]).numpy()
+    bits = np.asarray(ref_hash.hash_columns_host([col])).astype(np.int64)
+    np.testing.assert_array_equal(got, bits)
+    np.testing.assert_array_equal(
+        port_hash.hash_columns_host([col]).astype(np.int64), bits)
+    assert got[0] != got[2] and got[1] != got[2]
+    traced = np.asarray(ref_hash.hash_columns([jnp.asarray(col)]))
+    assert traced[0] == traced[2]        # the reference's flush

@@ -32,6 +32,9 @@ import risingwave_tpu_torch.parallel.agg
 import risingwave_tpu_torch.parallel.exchange
 import risingwave_tpu_torch.parallel.join
 import risingwave_tpu_torch.parallel.mesh
+import risingwave_tpu_torch.state.tier
+import risingwave_tpu_torch.utils.memory
+import risingwave_tpu_torch.stream.executors.hash_agg
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "risingwave_tpu" or m.startswith("risingwave_tpu."))
@@ -78,3 +81,28 @@ def test_mesh_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_q8(MemoryStateStore(), cfg, cfg, mesh=ShardMesh(8, "cpu"))
     assert ShardedJoinKernel(ShardMesh(8, "cpu"), 3).device.type == "cpu"
+
+
+def test_tier_defaults_to_the_process_memory_context():
+    """The port's tier reads the port's own memory context (a copy, not
+    the reference's), and an agg with a tier cap builds its kernel on the
+    card unless asked for the CPU."""
+    from risingwave_tpu_torch.ops.hash_agg import AggKind
+    from risingwave_tpu_torch.state import tier
+    from risingwave_tpu_torch.utils import memory
+    from risingwave_tpu_torch.stream.executors.hash_agg import (
+        AggCall, HashAggExecutor,
+    )
+    from risingwave_tpu_torch.stream.executors.test_utils import MockSource
+    from risingwave_tpu_torch.common.types import DataType, Schema
+
+    assert tier.StateTier()._mem() is memory.GLOBAL
+    assert memory.GLOBAL.soft_limit is None
+    ex = HashAggExecutor(MockSource(Schema.of(g=DataType.INT64), []), [0],
+                         [AggCall(AggKind.COUNT)], None, append_only=True,
+                         tier_cap=4)
+    if torch.cuda.is_available():
+        assert ex.kernel.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ex.kernel
