@@ -222,6 +222,9 @@ PERCHUNK_PATH = ("route", "join_probe", "probe_insert", "join_apply")
 MAXBIDS_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
                 "scatter_rows")
 MAXBIDS_CAPPED_PATH = MAXBIDS_PATH + ("lookup", "live_mask", "remap")
+# q7 under the tier: q7's own kernels, each sweep's eviction (K8, then
+# K4 and K1 + K4 as q7 has them) and each reload (K1 + K9)
+Q7_TIER_PATH = Q7_PATH + ("lookup", "scatter_rows")
 DISTINCT_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance")
 
 
@@ -1181,6 +1184,8 @@ def run_q7(dev, events: int, trace: bool = False,
     extra = {}
     if tier_cap is not None:
         part = agg._tier_part
+        assert part.evicted_total > 0 and part.reload_total > 0, \
+            "q7 under the tier neither evicted nor reloaded"
         extra = dict(evicted=part.evicted_total, reloaded=part.reload_total,
                      resident=len(part.keys))
     return dict(out, windows=len(got), mv_digest=mv_digest(got.items()),
@@ -2805,7 +2810,10 @@ MAXBIDS_TRACE_EVENTS = 2_000_000     # maxbids both ways, distinct: traced
 MAXBIDS_TIER_CAP = 64
 DISTINCT_EVENTS = 10_000_000
 Q7_TIER_EVENTS = 2_000_000
-Q7_TIER_CAP = 8
+# retirement leaves one window live at each sweep, so only a cap of 0
+# binds: every checkpoint evicts the open window, and the next barrier's
+# bids reload it (a window that closes while cold is forgotten instead)
+Q7_TIER_CAP = 0
 
 
 def build_maxbids(dev, store, cfg, tier_cap=None, capacity=None):
@@ -3129,7 +3137,7 @@ def main() -> int:
             ("q7 mesh fused", lambda d, e: run_q7_mesh(d, e, fusion=True),
              Q7_MESH_EVENTS, Q7_MESH_FUSED_PATH),
             ("q7 mesh recovery", run_q7_mesh_recovery,
-             Q7_MESH_RECOVERY_EVENTS, Q7_MESH_PATH),
+             Q7_MESH_RECOVERY_EVENTS, Q7_MESH_PATH + ("scatter_rows",)),
             ("q8 mesh", lambda d, e: run_q8(d, e, mesh=True), Q8_EVENTS,
              Q8_MESH_PATH),
             ("q8 mesh fused", lambda d, e: run_q8(d, e, fusion=True,
@@ -3143,7 +3151,7 @@ def main() -> int:
              MAXBIDS_CAPPED_PATH),
             ("distinct", run_distinct, DISTINCT_EVENTS, DISTINCT_PATH),
             ("q7 tier", lambda d, e: run_q7(d, e, tier_cap=Q7_TIER_CAP),
-             Q7_TIER_EVENTS, Q7_PATH)):
+             Q7_TIER_EVENTS, Q7_TIER_PATH)):
         t_path = time.perf_counter()
         out = run(dev, events)
         out["path_s"] = time.perf_counter() - t_path

@@ -1300,7 +1300,7 @@ class GroupedAggKernel:
     them for a retractable MIN/MAX (K9), ``advance`` after it,
     ``retire_below`` for watermark cleaning, ``evict_keys`` and
     ``load_groups`` for the cold tier (B9, B10), and ``rebuild`` on
-    recovery (K1 + K4 ``remap``, as before).
+    recovery (a fresh state and ``load_groups``).
 
     With ``prelude`` (an ``ops/fused.py`` program of MODE_AGG) the kernel
     runs in raw mode: ``apply_raw`` backlogs raw int64 chunk matrices, a
@@ -1553,27 +1553,15 @@ class GroupedAggKernel:
     # -- recovery ---------------------------------------------------------
     def rebuild(self, keys: np.ndarray, group_rows: np.ndarray,
                 acc_cols: Sequence[np.ndarray]) -> None:
-        """Reload from committed value-state rows (boot/recovery).
-        `acc_cols` uses the HOST layout (acc_dtypes). Restored groups are
-        marked emitted: their outputs were committed downstream."""
+        """Reload from committed value-state rows (boot/recovery): a fresh
+        state sized for them, then ``load_groups`` (K1 + K9). `acc_cols`
+        uses the HOST layout (acc_dtypes). Restored groups are marked
+        emitted: their outputs were committed downstream."""
         n = len(group_rows)
         cap = max(self.capacity, next_pow2(int(n / ht.MAX_LOAD) + 1))
         self.state = make_agg_state(cap, self.key_width, self.specs,
                                     self.device)
-        self._counters.reset(n)
+        self._counters.reset(0)
         self._backlog = []
         self._backlog_rows = 0
-        if n == 0:
-            return
-        dev_cols = as_i32_cols(encode_host_accs(self.specs, acc_cols))
-        rows32 = np.asarray(group_rows).astype(np.int32)
-        src = np.stack([rows32, np.zeros(n, np.int32), np.ones(n, np.int32),
-                        rows32, *dev_cols, *dev_cols])
-        table, slots, stats = ht.probe_insert(
-            self.state.table,
-            upload(np.asarray(keys, dtype=np.int32), self.device),
-            upload(np.ones(n, dtype=np.int32), self.device))
-        self._counters.watch(stats)
-        st = remap(upload(src, self.device), slots, table.occ, self._fill,
-                   cap)
-        self.state = AggState(table, st)
+        self.load_groups(keys, group_rows, acc_cols)

@@ -21,8 +21,9 @@ One step launches ``route``, ``probe_insert`` and K2 (``agg_apply``) the
 same number of times whatever S is. The barrier flush gathers every
 shard's dirty groups in one K3 launch, and a retractable MIN/MAX
 recompute patches them back on every shard in one K9 launch
-(``patch_accs``); growth, retirement, recovery and resharding rebuild
-every shard with K1 + K4 in one launch each. There is no targeted
+(``patch_accs``); growth, retirement and resharding rebuild every shard
+with K1 + K4 in one launch each, and recovery loads every shard with
+K1 + K9, as the single-device ``load_groups`` does. There is no targeted
 eviction: the cold tier runs on the single-device kernel only. On the
 CPU every wrapper runs its plain version, shard by shard, so the state is
 the reference's bit for bit (float SUM within its declared tolerance).
@@ -44,8 +45,9 @@ from risingwave_tpu_torch.ops.hash_agg import (
     FlushResult, ShardedAggState, as_i32_cols, advance_sharded,
     agg_apply_sharded, decode_flush_data, decode_outputs, dev_layout,
     encode_host_accs, encode_patch_cols, flush_gather_sharded,
-    live_mask_sharded, make_sharded_agg_state, pack_chunk, patch_rows,
-    remap_sharded, scatter_rows_sharded, state_fills,
+    live_mask_sharded, load_rows, load_src, make_sharded_agg_state,
+    pack_chunk, patch_rows, remap_sharded, scatter_rows_sharded,
+    state_fills,
 )
 from risingwave_tpu_torch.parallel.exchange import (
     owners_host, route, skew_bucket,
@@ -433,8 +435,8 @@ class ShardedAggKernel:
     def rebuild(self, keys: np.ndarray, group_rows: np.ndarray,
                 acc_cols: Sequence[np.ndarray]) -> None:
         """Reload committed value-state rows (recovery), routing each
-        group to its owning shard on the host, then one K1 + K4 launch
-        loads every shard (``agg.py:729``). Restored groups are marked
+        group to its owning shard on the host, then one K1 + K9 launch
+        loads every shard (``agg.py:729``), as ``load_groups`` does. Restored groups are marked
         emitted."""
         n = len(group_rows)
         self._backlog = []
@@ -457,10 +459,7 @@ class ShardedAggKernel:
                                             self.specs, self.device)
         if n == 0:
             return
-        dev_cols = as_i32_cols(encode_host_accs(self.specs, acc_cols))
-        rows32 = np.asarray(group_rows).astype(np.int32)
-        src = np.stack([rows32, np.zeros(n, np.int32), np.ones(n, np.int32),
-                        rows32, *dev_cols, *dev_cols])
+        src = load_src(group_rows, encode_host_accs(self.specs, acc_cols))
         m = next_pow2(int(per_shard.max(initial=1)))
         order = np.argsort(owner, kind="stable")
         pos = np.empty(n, dtype=np.int64)
@@ -475,11 +474,12 @@ class ShardedAggKernel:
         bvalid[owner, pos] = 1
         bsrc = np.zeros((self.n_dev, src.shape[0], m), dtype=np.int32)
         bsrc[owner, :, pos] = src.T
-        table = self.state.table
         slots, stats = ht.probe_insert_sharded(
-            table, upload(bkeys, self.device), upload(bvalid, self.device))
-        self.state = ShardedAggState(table, remap_sharded(
-            upload(bsrc, self.device), slots, table.occ, self._fill, cap))
+            self.state.table, upload(bkeys, self.device),
+            upload(bvalid, self.device))
+        scatter_rows_sharded(self.state.st, slots,
+                             load_rows(self.state.n_acc, self.device),
+                             upload(bsrc, self.device))
         self._counters.watch(stats)
         self._counters.reset(per_shard)
 

@@ -37,17 +37,15 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 class TierParticipant:
     """One registered executor-side cache (name, cap, evict hook)."""
 
-    __slots__ = ("name", "cap", "evict", "nbytes", "keys",
+    __slots__ = ("name", "cap", "evict", "keys",
                  "evicted_total", "reload_total")
 
     def __init__(self, name: str, evict: Callable[[List], int],
-                 cap: Optional[int],
-                 nbytes: Optional[Callable[[], int]]):
+                 cap: Optional[int]):
         # `evict(keys)` returns the number of keys actually evicted
         self.name = name
         self.evict = evict
         self.cap = cap
-        self.nbytes = nbytes
         # key → last-touched sequence; a re-touch deletes and reinserts,
         # so the dict's insertion order is oldest first (an O(1) LRU)
         self.keys: Dict[object, int] = {}
@@ -78,10 +76,8 @@ class StateTier:
 
     # -- registration -----------------------------------------------------
     def register(self, name: str, evict: Callable[[List], int],
-                 cap: Optional[int] = None,
-                 nbytes: Optional[Callable[[], int]] = None
-                 ) -> TierParticipant:
-        part = TierParticipant(name, evict, cap, nbytes)
+                 cap: Optional[int] = None) -> TierParticipant:
+        part = TierParticipant(name, evict, cap)
         self._parts[name] = part
         return part
 
@@ -153,12 +149,12 @@ class StateTier:
     def stats_rows(self) -> List[Tuple]:
         """(executor, cap, resident_keys, evicted_total, reload_total,
         accounted_bytes) per participant (the reference's rw_state_tier
-        rows)."""
+        rows). Byte accounting belongs to the observability slice, so
+        accounted_bytes is 0."""
         out = []
         for p in self._parts.values():
             out.append((p.name, -1 if p.cap is None else int(p.cap),
-                        len(p.keys), p.evicted_total, p.reload_total,
-                        0 if p.nbytes is None else int(p.nbytes())))
+                        len(p.keys), p.evicted_total, p.reload_total, 0))
         return out
 
 

@@ -16,7 +16,9 @@ reference on the CPU:
   state table's rows equal the reference's;
 - ``build_q7(tier_cap=8)`` against the reference's and the oracle (the
   uncapped q7 equals the oracle in tests/test_torch_e2e_q7.py), with and
-  without watermark retirement.
+  without watermark retirement, and ``tier_cap=0`` under retirement,
+  where every sweep evicts the open window and the next chunk reloads
+  it.
 
 The process-global tier is reset between tests.
 """
@@ -250,8 +252,10 @@ def test_maxbids_matches_oracle_and_reference(tier_cap):
 
 # -- build_q7(tier_cap=) ----------------------------------------------------------
 
-@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
-def test_q7_tier_cap_matches_reference_and_oracle(scenario):
+def _q7_tier_twins(scenario, tier_cap):
+    """build_q7(tier_cap=) in both packages on one scenario: the MVs and
+    the value-state rows, the port's equal to the oracle's; returns the
+    two aggs (port, ref)."""
     from risingwave_tpu.common.types import Interval as RefInterval
     from risingwave_tpu.connectors.nexmark import NexmarkConfig as RefConfig
     from risingwave_tpu.models import nexmark as ref_models
@@ -267,9 +271,9 @@ def test_q7_tier_cap_matches_reference_and_oracle(scenario):
     for label, build, drive, store, cfg, interval, extra in (
             ("port", port_models.build_q7, port_models.drive_to_completion,
              MemoryStateStore, NexmarkConfig, Interval,
-             dict(tier_cap=8, device="cpu")),
+             dict(tier_cap=tier_cap, device="cpu")),
             ("ref", ref_models.build_q7, ref_models.drive_to_completion,
-             RefStore, RefConfig, RefInterval, dict(tier_cap=8))):
+             RefStore, RefConfig, RefInterval, dict(tier_cap=tier_cap))):
         p, mv, rows, agg = _run(build, drive, store(), cfg(**sc["cfg"]),
                                 sc["n_bids"], sc["kw"], interval, **extra)
         out[label] = (mv, rows, agg)
@@ -277,7 +281,26 @@ def test_q7_tier_cap_matches_reference_and_oracle(scenario):
                                        sc["n_bids"])
     assert out["port"][0] == out["ref"][0]
     assert out["port"][1] == out["ref"][1]
+    return out["port"][2], out["ref"][2]
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_q7_tier_cap_matches_reference_and_oracle(scenario):
+    agg, _ref_agg = _q7_tier_twins(scenario, 8)
     # q7's source chunks per barrier follow the driver's timing (no
     # min_chunks), so the eviction counts are not compared across runs
     if scenario == "plain":
-        assert out["port"][2]._tier_part.evicted_total > 0
+        assert agg._tier_part.evicted_total > 0
+
+
+def test_q7_tier_cap_zero_evicts_and_reloads_the_open_window():
+    """Under watermark retirement only the open window is live at a
+    sweep, so a cap of 0 is the one that binds (chip_smoke.py's q7-tier
+    arm): each checkpoint evicts the open window, the next chunk that
+    touches it reloads it, and a window that closes while cold is
+    forgotten. Both packages evict and reload, and agree on the MV and
+    the state rows."""
+    agg, ref_agg = _q7_tier_twins("watermark", 0)
+    for a in (agg, ref_agg):
+        assert a._tier_part.evicted_total > 0
+        assert a._tier_part.reload_total > 0

@@ -393,7 +393,7 @@ def test_executor_case_matches_reference(case):
 
 def test_executor_recovery_matches_reference():
     """Phase 1 commits state; a fresh executor over the same store must
-    rebuild it (K1 + K4 remap) and emit updates, not inserts."""
+    rebuild it (K1 + K9, as load_groups) and emit updates, not inserts."""
     calls = [("count", None), ("sum", 1)]
     phase1 = [("b", 1), ("c", [1, 2], [10, 20], None), ("b", 2)]
     phase2 = [("b", 3), ("c", [1, 3], [5, 7], None), ("b", 4)]
