@@ -16,7 +16,11 @@ phases, any failure of which exits non-zero:
      plus a SUM(int) / SUM(float) / MIN / COUNT plan over ~20K groups):
      integers exact, K1 (probe_insert) by the table invariants, float
      SUM's hi and lo rows each within rel 1e-6 of the group's summed
-     magnitudes in that row;
+     magnitudes in that row; K2 (agg_apply) also on the batches of
+     ``ops/kernel_cases.py`` (the edges of its warp aggregation, and its
+     shard axis at 8 and 3 shards), and timed at q7's step, the ~20K
+     group plan, maxbids' first agg (a 2^20-slot table holding 600K
+     groups, a step of Nexmark's own bids) and q7-mesh's routed step;
    - the join kernels at q8's shapes (6 key lanes, 6 payload lanes,
      2^16 rows per side-epoch, ~2M stored rows built through the growth
      ladder 2^20 → 2^22 slots, a 2^16-row pair buffer): K5 (join_apply)
@@ -33,7 +37,9 @@ phases, any failure of which exits non-zero:
      the q7-mesh fused step, with U-/U+ pairs across every block edge;
    - the sharded path at q7-mesh's shapes: route (csrc/route.cu) bit for
      bit against route_plain on a 2^15-row step in 8 blocks (bucket =
-     the block), and with a forced overflow; the shard axis of K1-K4 at
+     the block), with a forced overflow and on ``ops/kernel_cases.py``'s
+     edge cases, timed with its split by kernel (torch.profiler), and at
+     q8-mesh's side-epoch; the shard axis of K1-K4 at
      8 shards x 2^15 slots on q7's step and on the mixed plan over ~120K
      groups (K1 by the table invariants shard by shard, K2-K4 exact on
      the same slots, q7's whole step against its plain twin as
@@ -109,6 +115,12 @@ phases, any failure of which exits non-zero:
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``; ``launches`` is the sum of the main paths'
 counts) and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --against DIR`` runs no phase: it times K2 and
+route of this checkout against the same kernels built from DIR's
+``risingwave_tpu_torch/csrc`` (the parent commit, unpacked with ``git
+archive`` into a directory git ignores), in turns, at the shapes above;
+the other build is compiled and bound by this script alone.
 """
 
 from __future__ import annotations
@@ -436,48 +448,170 @@ def _state_after(dev, specs, packed_t, cap):
     return st, slots
 
 
-def check_agg_apply(dev, cap: int, n: int) -> dict:
+def launches_of(fn, name: str) -> int:
+    """Launches of kernel `name` that one call of fn makes, as its
+    wrapper counts them (K2's wrapper counts each device launch)."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    before = LAUNCHES.snapshot().get(name, 0)
+    fn()
+    return LAUNCHES.snapshot().get(name, 0) - before
+
+
+def _k2_input(state, packed, slots, specs, kw: int = KW) -> dict:
     from risingwave_tpu_torch.ops import hash_agg as H
-    specs = make_specs(H, [("sum", np.int64), ("sum", np.float64),
-                           ("min", np.int64), ("count", None)])
-    plan = H.ApplyPlan(KW, specs, dev)
-    packed_np = mixed_batch(n, specs)
-    packed = torch.from_numpy(packed_np).to(dev)
-    st, slots = _state_after(dev, specs, packed, cap)
-    sk = H.AggState(st.table, st.st.clone())
-    sp = H.AggState(st.table, st.st.clone())
-    H.agg_apply(sk, packed, slots, plan)
-    H.agg_apply_plain(sp, packed, slots, plan)
-    a, b = sk.st.cpu().numpy(), sp.st.cpu().numpy()
-    frows = [H.ROW_ACC0 + 4 + 1, H.ROW_ACC0 + 4 + 1 + 1]   # float hi, lo
-    ints = [r for r in range(a.shape[0]) if r not in frows]
-    int_err = abs_err(a[ints], b[ints])
-    assert int_err == 0, int_err
-    err = float_sum_err(H, a, b, packed_np, slots.cpu().numpy(), specs, 1,
-                        frows, cap)
-    # the q7 plan at the q7 shape: exact, then timed
+    return dict(state=state, packed=packed, slots=slots, specs=specs, kw=kw,
+                plan=H.ApplyPlan(kw, specs, packed.device))
+
+
+def _k2_fns(inp) -> tuple:
+    """(kernel state, plain state, kernel step, plain step) on two copies
+    of the input's state; [S, m, W] rows take the sharded K2."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    packed, slots, plan = inp["packed"], inp["slots"], inp["plan"]
+    sharded = packed.dim() == 3
+    cls = H.ShardedAggState if sharded else H.AggState
+    k = cls(inp["state"].table, inp["state"].st.clone())
+    p = cls(inp["state"].table, inp["state"].st.clone())
+    kern = H.agg_apply_sharded if sharded else H.agg_apply
+    plain = H.agg_apply_sharded_plain if sharded else H.agg_apply_plain
+    return (k, p, lambda: kern(k, packed, slots, plan),
+            lambda: plain(p, packed, slots, plan))
+
+
+def k2_check(inp, times: int = 1) -> float:
+    """K2 against its plain version on copies of one state, `times`
+    steps: integers exact, float SUM within rel FLOAT_SUM_RTOL of its
+    group's Σ|terms| per lane (shard by shard). Returns the largest
+    float error."""
+    from risingwave_tpu_torch.ops import kernel_cases as KC
+    k, p, fk, fp = _k2_fns(inp)
+    packed = inp["packed"].cpu().numpy()
+    slots = inp["slots"].cpu().numpy()
+    if packed.ndim == 2:
+        packed, slots = packed[None], slots[None]
+    err = 0.0
+    for _ in range(times):
+        fk()
+        fp()
+        x, y = k.st.cpu().numpy(), p.st.cpu().numpy()
+        if x.ndim == 2:
+            x, y = x[None], y[None]
+        for s in range(len(x)):
+            err = max(err, KC.agg_state_err(inp["specs"], x[s], y[s],
+                                            packed[s], slots[s], inp["kw"]))
+    return err
+
+
+def k2_timed(inp) -> dict:
+    """K2's time per call and its plain version's, repeated steps on one
+    state (the counts just grow), beside its bound: every row its slot,
+    the live rows their packed row, each touched slot its group_rows,
+    dirty and accumulator rows read and written."""
+    _k, _p, fk, fp = _k2_fns(inp)
+    sl = inp["slots"].cpu().numpy()
+    sl2 = sl.reshape(-1, sl.shape[-1])
+    live = int((sl >= 0).sum())
+    touched = sum(len(np.unique(r[r >= 0])) for r in sl2)
+    w = inp["packed"].shape[-1]
+    nacc = inp["state"].n_acc
+    b, by = bound_ms(sl.size * 4 + live * w * 4 + touched * (2 + nacc) * 8,
+                     live * 12)
+    return dict(ms=time_ms(fk), plain_ms=time_ms(fp), bound_ms=b,
+                bound_by=by, launches_per_call=launches_of(fk, "agg_apply"),
+                groups_touched=touched)
+
+
+def maxbids_agg_input(dev) -> dict:
+    """MaxBids' first agg at 10M events: COUNT(*) per (window_start,
+    auction) (two int64 key columns: six lanes) on a 2^20-slot table
+    holding COLD_GROUPS groups (put there by K1), and a 2^15-row step of
+    Nexmark's own bids from the middle of the stream (half of them on
+    the hot auction, the rest over the 100 in-flight ones), placed by
+    K1."""
+    from risingwave_tpu_torch.connectors.nexmark import (NexmarkConfig,
+                                                         gen_bids)
+    from risingwave_tpu_torch.ops import hash_agg as H
+    kw = 2 * KW
+    specs = make_specs(H, [("count", None)])
+    st = H.make_agg_state(COLD_CAP, kw, specs, dev)
+    idx = np.arange(COLD_GROUPS, dtype=np.int64)
+    keys = np.concatenate([_key_lanes(BASE_US + idx // 100 * W_US),
+                           _key_lanes(1000 + idx)], axis=1)
+    for lo in range(0, COLD_GROUPS, N):
+        kk = torch.from_numpy(keys[lo:lo + N]).to(dev)
+        _t, _sl, stats = H.ht.probe_insert(st.table, kk, torch.ones(
+            len(kk), dtype=torch.int32, device=dev))
+        assert int(stats[1]) == 0
+    bids = gen_bids(np.arange(N, dtype=np.int64) + 4_600_000,
+                    NexmarkConfig(event_num=MAXBIDS_EVENTS,
+                                  generate_strings=False))
+    ts = bids["date_time"]
+    bkeys = np.concatenate([_key_lanes(ts - ts % W_US),
+                            _key_lanes(bids["auction"])], axis=1)
+    packed = torch.from_numpy(H.pack_chunk(
+        kw, specs, bkeys, np.ones(N, np.int32), np.ones(N, bool),
+        (((), None),))).to(dev)
+    _t, slots, stats = H.ht.probe_insert(st.table, packed[:, :kw],
+                                         packed[:, kw + 1])
+    assert int(stats[1]) == 0
+    return _k2_input(st, packed, slots, specs, kw)
+
+
+def k2_inputs(dev) -> dict:
+    """K2's timed shapes: q7's step (MAX(price) + COUNT(*), nearly every
+    row on one or two slots), the mixed plan over ~20K groups (mostly one
+    row a slot), maxbids' first agg, and q7-mesh's routed step (8 shards
+    of 8 x 4,096 received rows, one shard taking the whole batch)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    out = {}
     q7 = make_specs(H, [("max", np.int64), ("count", None)])
-    qplan = H.ApplyPlan(KW, q7, dev)
-    qpacked = torch.from_numpy(q7_batch(n, q7)).to(dev)
-    qs, qslots = _state_after(dev, q7, qpacked, cap)
-    snap = qs.st.clone()
-    q_k = H.AggState(qs.table, snap.clone())
-    q_p = H.AggState(qs.table, snap.clone())
-    H.agg_apply(q_k, qpacked, qslots, qplan)
-    H.agg_apply_plain(q_p, qpacked, qslots, qplan)
-    int_err = max(int_err, abs_err(q_k.st.cpu().numpy(),
-                                   q_p.st.cpu().numpy()))
-    assert int_err == 0, int_err
-    # repeated steps redo the same atomics (the counts just grow)
-    ms = time_ms(lambda: H.agg_apply(q_k, qpacked, qslots, qplan))
-    plain_ms = time_ms(lambda: H.agg_apply_plain(q_p, qpacked, qslots,
-                                                 qplan))
-    w = qpacked.shape[1]
-    touched = len(np.unique(qslots.cpu().numpy()))
-    nbytes = n * w * 4 + n * 4 + touched * (2 + 4) * 4 * 2
-    b, by = bound_ms(nbytes, n * 12)
-    return dict(max_abs_err=max(err, int_err), ms=ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by)
+    q7_np = q7_batch(N, q7)
+    p = torch.from_numpy(q7_np).to(dev)
+    st, slots = _state_after(dev, q7, p, CAP)
+    out["q7"] = _k2_input(st, p, slots, q7)
+    mixed = make_specs(H, MIXED_PLAN)
+    p = torch.from_numpy(mixed_batch(N, mixed)).to(dev)
+    st, slots = _state_after(dev, mixed, p, CAP)
+    out["mixed"] = _k2_input(st, p, slots, mixed)
+    out["maxbids"] = maxbids_agg_input(dev)
+    st, recv, _rv, slots = _mesh_step(dev, q7, q7_np, True)
+    out["q7_mesh"] = _k2_input(st, recv, slots, q7)
+    return out
+
+
+def check_agg_cases(dev) -> float:
+    """K2 against its plain version on ops/kernel_cases.py's batches (the
+    edges of warp aggregation), each applied twice, and on its sharded
+    batches at S = 8 and S = 3."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import kernel_cases as KC
+    err = 0.0
+    for specs, packed_np in KC.agg_cases().values():
+        packed = torch.from_numpy(packed_np).to(dev)
+        st, slots = _state_after(dev, specs, packed, 1 << 14)
+        err = max(err, k2_check(_k2_input(st, packed, slots, specs), 2))
+    for s in (8, 3):
+        specs, packed_np = KC.sharded_agg_batch(s)
+        packed = torch.from_numpy(packed_np).to(dev)
+        st = H.make_sharded_agg_state(s, 1 << 14, KW, specs, dev)
+        slots, stats = H.ht.probe_insert_sharded(
+            st.table, packed[:, :, :KW], packed[:, :, KW + 1])
+        assert not bool(stats[:, 1].any())
+        err = max(err, k2_check(_k2_input(st, packed, slots, specs)))
+    return err
+
+
+def check_agg_apply(dev, cap: int, n: int) -> dict:
+    """K2 on the edge cases, then at each timed shape: exact against the
+    plain version, then timed. The row's own numbers are q7's step."""
+    assert (cap, n) == (CAP, N)
+    err = check_agg_cases(dev)
+    out = {}
+    for name, inp in k2_inputs(dev).items():
+        err = max(err, k2_check(inp))
+        out[name] = k2_timed(inp)
+    return dict(out.pop("q7"), max_abs_err=err, mixed_shape=out["mixed"],
+                maxbids_shape=out["maxbids"], sharded=out["q7_mesh"])
 
 
 def _mixed_state(dev, cap, n):
@@ -1579,11 +1713,54 @@ def _flush_rows(H, st, fc) -> np.ndarray:
     return st_rows[np.lexsort(st_rows[:, :KW].T[::-1])]
 
 
+def kernel_split(fn, calls: int = 100) -> dict:
+    """Device time per call of each kernel that fn launches, by kernel
+    name: torch.profiler's per-kernel device time over `calls` calls (the
+    split of a wrapper that launches several kernels, which CUDA events
+    around the call cannot give)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        m = re.search(r"(\w+)\(", e.key)
+        name = m.group(1) if m else e.key
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
+
+
+def route_timed(rows, valid, omap, s, bucket, kw) -> dict:
+    """route's time and route_plain's on one step (a call: its count is
+    one a call, whatever the call launches), its byte bound, and its
+    per-kernel split."""
+    from risingwave_tpu_torch.parallel import exchange as X
+    n, w = rows.shape
+    b, by = bound_ms(X.bound_bytes(n, w, s, bucket), n * 16)
+    return dict(ms=time_ms(lambda: X.route(rows, valid, omap, s, bucket, kw)),
+                plain_ms=time_ms(lambda: X.route_plain(rows, valid, omap, s,
+                                                       bucket, kw)),
+                bound_ms=b, bound_by=by,
+                split=kernel_split(lambda: X.route(rows, valid, omap, s,
+                                                   bucket, kw)))
+
+
 def check_route(dev) -> dict:
     """route against route_plain bit for bit on a q7-mesh step (a 2^15-row
-    packed batch in 8 blocks, bucket = local), on the mixed plan's batch
-    and with a forced overflow (bucket 64); timed on the q7 step."""
+    packed batch in 8 blocks, bucket = local), on the mixed plan's batch,
+    with a forced overflow (bucket 64) and on ops/kernel_cases.py's edge
+    cases; timed on the q7 step."""
     from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import kernel_cases as KC
     from risingwave_tpu_torch.parallel import exchange as X
     from risingwave_tpu_torch.parallel.mesh import contiguous_owner_map
     s = MESH_SHARDS
@@ -1591,27 +1768,47 @@ def check_route(dev) -> dict:
     q7 = make_specs(H, [("max", np.int64), ("count", None)])
     mixed = make_specs(H, [("sum", np.int64), ("sum", np.float64),
                            ("min", np.int64), ("count", None)])
+    # (rows, bucket, shards, valid or None, whether a bucket overflows)
+    cases = [(q7_batch(N, q7), N // s, s, None, False),
+             (mixed_batch(N, mixed, groups=MESH_GROUPS), N // s, s, None,
+              False),
+             (mixed_batch(N, mixed, groups=MESH_GROUPS), 64, s, None, True)]
+    cases += [(r, b, ns, v, name in ("overflow", "bucket_0"))
+              for name, (r, v, ns, b) in KC.route_cases().items()]
     err = 0.0
-    for packed_np, bucket in ((q7_batch(N, q7), N // s),
-                              (mixed_batch(N, mixed, groups=MESH_GROUPS),
-                               N // s),
-                              (mixed_batch(N, mixed, groups=MESH_GROUPS),
-                               64)):
+    for packed_np, bucket, ns, valid_np, over in cases:
         packed = torch.from_numpy(packed_np).to(dev)
-        got = X.route(packed, packed[:, KW + 1], omap, s, bucket, KW)
-        want = X.route_plain(packed, packed[:, KW + 1], omap, s, bucket, KW)
+        valid = packed[:, KW + 1] if valid_np is None else \
+            torch.from_numpy(valid_np).to(dev)
+        om = torch.from_numpy(contiguous_owner_map(ns)).to(dev)
+        got = X.route(packed, valid, om, ns, bucket, KW)
+        want = X.route_plain(packed, valid, om, ns, bucket, KW)
         for g, w in zip(got, want):
             err = max(err, abs_err(g.cpu().numpy(), w.cpu().numpy()))
         assert err == 0, f"route differs from route_plain: {err}"
-        assert bool(got[2].any()) == (bucket == 64), "overflow flag"
+        assert bool(got[2].any()) == over, "route's overflow flag"
     packed = torch.from_numpy(q7_batch(N, q7)).to(dev)
-    valid = packed[:, KW + 1]
-    ms = time_ms(lambda: X.route(packed, valid, omap, s, N // s, KW))
-    plain_ms = time_ms(lambda: X.route_plain(packed, valid, omap, s,
-                                             N // s, KW))
-    b, by = bound_ms(X.bound_bytes(N, packed.shape[1], s, N // s), N * 16)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by)
+    return dict(route_timed(packed, packed[:, KW + 1], omap, s, N // s, KW),
+                max_abs_err=err)
+
+
+def check_route_q8(dev, mj: dict) -> dict:
+    """route at q8-mesh's side-epoch (the fresh epoch's 2^16 rows in 8
+    senders, with the skew-exact bucket): bit for bit against
+    route_plain, then timed."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.parallel import exchange as X
+    k = mj["ks"]
+    rows, valid, bucket = _mesh_route_args(k, *mj["fresh"],
+                                           J.FLAG_INS | J.FLAG_DEL,
+                                           probe=False)
+    got = X.route(rows, valid, k.owner_map, k.n_dev, bucket, JKW)
+    want = X.route_plain(rows, valid, k.owner_map, k.n_dev, bucket, JKW)
+    err = max(abs_err(g.cpu().numpy(), w.cpu().numpy())
+              for g, w in zip(got, want))
+    assert err == 0, f"route differs from route_plain at q8-mesh: {err}"
+    return dict(route_timed(rows, valid, k.owner_map, k.n_dev, bucket, JKW),
+                max_abs_err=err, bucket=bucket)
 
 
 def check_sharded(dev) -> dict:
@@ -1717,12 +1914,9 @@ def check_sharded(dev) -> dict:
         f"{reshard_s:.6f} s wall; snapshots equal")
     # timings at q7's step (8 shards: each shard receives the whole
     # 2^15-row batch, most of it rows routed elsewhere)
-    # The byte bounds charge every received row its valid flag (K1) or
-    # its slot (K2) and its slot write (K1), and only the valid rows
-    # their key lanes (K1) or their whole packed row (K2): with bucket =
+    # K1's byte bound charges every received row its valid flag and its
+    # slot write, and only the valid rows their key lanes: with bucket =
     # local, about 7/8 of each shard's m received rows are empty.
-    qplan = H.ApplyPlan(KW, q7, dev)
-    w = qrecv.shape[2]
     m = qrecv.shape[1]
     valid = int(qvalid.sum())
     qsl = qslots.cpu().numpy()
@@ -1740,12 +1934,8 @@ def check_sharded(dev) -> dict:
                                                   qvalid),
           s * m * 4 + valid * KW * 4 + s * m * 4 + s * 8
           + distinct * (KW + 1) * 4, valid * 14 * KW)
+    # K2 at this step: check_agg_apply's "sharded" shape
     qa = H.ShardedAggState(qk.table, qk.st.clone())
-    timed("agg_apply",
-          lambda: H.agg_apply_sharded(qa, qrecv, qslots, qplan),
-          lambda: H.agg_apply_sharded_plain(qa, qrecv, qslots, qplan),
-          s * m * 4 + valid * w * 4 + distinct * (2 + 4) * 4 * 2,
-          valid * 12)
     r = qk.st.shape[1]
     wout = H.flush_width(KW, qk.n_acc)
     timed("flush_gather", lambda: H.flush_gather_sharded(qk, 1 << 10),
@@ -1940,6 +2130,17 @@ def _mesh_routed(k, up, aux, bits, probe: bool):
     it, with the skew-exact bucket of its routed rows: (recv, rvalid,
     bucket)."""
     from risingwave_tpu_torch.parallel import exchange as X
+    rows, valid, bucket = _mesh_route_args(k, up, aux, bits, probe)
+    recv, rvalid, ovf = X.route(rows, valid, k.owner_map, k.n_dev, bucket,
+                                JKW)
+    assert not bool(ovf.any())
+    return recv, rvalid, bucket
+
+
+def _mesh_route_args(k, up, aux, bits, probe: bool):
+    """The rows one side-epoch routes, their valid flags and the
+    skew-exact bucket: (rows, valid, bucket)."""
+    from risingwave_tpu_torch.parallel import exchange as X
     up_np, aux_np = up.cpu().numpy(), aux.cpu().numpy()
     m = up.shape[0]
     ow = k.owners_of(up_np[:, :JKW]).astype(np.int64)
@@ -1951,10 +2152,7 @@ def _mesh_routed(k, up, aux, bits, probe: bool):
             dim=1)
     else:
         rows = torch.cat([up[:, :JKW], aux], dim=1)
-    recv, rvalid, ovf = X.route(rows, (aux[:, 2] & bits) != 0, k.owner_map,
-                                k.n_dev, bucket, JKW)
-    assert not bool(ovf.any())
-    return recv, rvalid, bucket
+    return rows, (aux[:, 2] & bits) != 0, bucket
 
 
 def check_mesh_join_apply(dev, mj: dict) -> dict:
@@ -3082,6 +3280,8 @@ def main() -> int:
 
     results["route"] = check_route(dev)
     log("kernel route: " + json.dumps(results["route"]))
+    log("route split at q7-mesh's step (ms a call, by kernel): "
+        + json.dumps(results["route"]["split"]))
     t0 = time.perf_counter()
     sharded = check_sharded(dev)
     log(f"sharded K1-K4 at {MESH_SHARDS} shards x {MESH_CAP} slots (q7 "
@@ -3093,6 +3293,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mj = build_mesh_join_states(dev)
+    results["route"]["q8_mesh_shape"] = check_route_q8(dev, mj)
+    log("route at q8-mesh's side-epoch: "
+        + json.dumps(results["route"]["q8_mesh_shape"]))
     mesh_join = {"join_apply": check_mesh_join_apply(dev, mj),
                  "join_probe": check_mesh_join_probe(dev, mj)}
     for name, r in mesh_join.items():
@@ -3158,7 +3361,9 @@ def main() -> int:
         paths[label] = out
         missing = [k for k in path if out["launches"].get(k, 0) == 0]
         assert not missing, f"{label} never launched {missing}"
+        # per launch: K2's count is of its launches, its time of a call
         busy_ms = sum(n * results[k]["ms"]
+                      / results[k].get("launches_per_call", 1)
                       for k, n in out["launches"].items() if k in results)
         log(f"{label}: " + json.dumps(out))
         log(f"{label}: kernel busy estimate (launches x phase-3 medians) "
@@ -3241,7 +3446,9 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
                "library_ms": r.get("library_ms")}
-        for extra in ("capped_shape", "sharded", "epoch_apply"):
+        for extra in ("capped_shape", "sharded", "epoch_apply",
+                      "launches_per_call", "mixed_shape", "maxbids_shape",
+                      "q8_mesh_shape", "split"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "live_mask":
@@ -3274,5 +3481,167 @@ def main() -> int:
     return 0
 
 
+# -- --against DIR: this checkout's K2 and route against another's ---------------
+
+def _other_lib(csrc: str, name: str, argtypes: dict):
+    """Library `name` built by nvcc from another checkout's ``csrc/`` with
+    this checkout's flags (into build/kernels/, beside this checkout's
+    own) and bound with `argtypes` (entry point -> argument types)."""
+    import ctypes
+    import os
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    os.makedirs(kcuda.BUILD_DIR, exist_ok=True)
+    out = os.path.join(kcuda.BUILD_DIR, f"against-{name}.so")
+    r = subprocess.run([kcuda.nvcc_path(), *kcuda.NVCC_FLAGS,
+                        *kcuda.EXTRA_FLAGS.get(name, []), "-I", csrc, "-o",
+                        out, os.path.join(csrc, f"{name}.cu")],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {csrc}/{name}.cu:\n"
+                           + r.stdout + r.stderr)
+    lib = ctypes.CDLL(out)
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def _bound_to(name: str, lib):
+    """Inside the block the port's wrappers launch `name` through `lib`
+    (same C interface)."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    mine = kcuda.load(name)
+    kcuda._loaded[name] = lib
+    try:
+        yield
+    finally:
+        kcuda._loaded[name] = mine
+
+
+def _route_raw(lib, with_total: bool, rows, valid, omap, s, bucket, kw):
+    """One rw_route call through `lib`, with scratch that both designs
+    take: counts for 64 tiles a sender or 1,024-row tiles, whichever is
+    more, and, `with_total`, the [S, S] totals of the three-launch
+    design (whose rw_route takes them between counts and recv)."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    n, w = rows.shape
+    local = n // s
+    i32 = dict(dtype=torch.int32, device=rows.device)
+    own = torch.empty(n, **i32)
+    counts = torch.empty(s * max(64, -(-local // 1024)) * s, **i32)
+    total = [torch.empty(s * s, **i32)] if with_total else []
+    recv = torch.empty((s, s * bucket, w), **i32)
+    rvalid = torch.empty((s, s * bucket), **i32)
+    ovf = torch.empty(s, **i32)
+    rc = lib.rw_route(rows.data_ptr(), rows.stride(0), valid.data_ptr(),
+                      valid.stride(0), s, local, kw, w, omap.data_ptr(),
+                      bucket, own.data_ptr(), counts.data_ptr(),
+                      *[t.data_ptr() for t in total], recv.data_ptr(),
+                      rvalid.data_ptr(), ovf.data_ptr(), kcuda.stream_ptr())
+    assert rc == 0, f"rw_route failed: CUDA error {rc}"
+    return recv, rvalid, ovf
+
+
+def route_inputs(dev) -> dict:
+    """route's timed shapes: q7-mesh's step (2^15 packed rows in 8
+    senders, bucket = the block; one window, so every row goes to one
+    shard) and q8-mesh's side-epoch (the fresh persons-like epoch of
+    2^16 join rows, skew-exact bucket): name -> (rows, int32 valid,
+    owner map, S, bucket, kw)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
+    from risingwave_tpu_torch.parallel.mesh import contiguous_owner_map
+    q7 = make_specs(H, [("max", np.int64), ("count", None)])
+    p = torch.from_numpy(q7_batch(N, q7)).to(dev)
+    omap = torch.from_numpy(contiguous_owner_map(MESH_SHARDS)).to(dev)
+    out = {"q7_mesh": (p, p[:, KW + 1], omap, MESH_SHARDS,
+                       N // MESH_SHARDS, KW)}
+    fresh = join_epochs(J_EPOCHS, J_N)[2]
+    k = ShardedJoinKernel(ShardMesh(MESH_SHARDS, dev), JKW)
+    up, aux = (torch.from_numpy(x).to(dev) for x in fresh)
+    rows, valid, bucket = _mesh_route_args(k, up, aux,
+                                           J.FLAG_INS | J.FLAG_DEL, False)
+    out["q8_mesh"] = (rows, valid.to(torch.int32), k.owner_map, k.n_dev,
+                      bucket, JKW)
+    return out
+
+
+def ab_main(base: str) -> int:
+    """``python3 chip_smoke.py --against DIR``: K2 (agg_apply) and route
+    of this checkout against the same kernels built from DIR's
+    ``risingwave_tpu_torch/csrc`` (another checkout: the parent commit
+    unpacked with ``git archive``), at the timed shapes of phase 3 on one
+    card. K2 runs behind this checkout's wrapper (its C interface is
+    shared); route is called through each build's own rw_route (DIR's
+    takes the three-launch design's totals where its source declares
+    them). Each build is first held to the plain version, then timed in
+    turns (DIR's, this, this, DIR's); route's per-kernel split is read
+    for both."""
+    import ctypes
+    import functools
+    import os
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    from risingwave_tpu_torch.parallel import exchange as X
+    dev = torch.device("cuda")
+    kcuda.build_all()
+    csrc = os.path.join(base, "risingwave_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "route.cu")) as f:
+        with_total = "void* total" in f.read()
+    rtypes = list(kcuda.LIBRARIES["route"]["rw_route"])
+    if with_total:
+        rtypes.insert(12, ctypes.c_void_p)
+    k2_other = _other_lib(csrc, "agg_apply", kcuda.LIBRARIES["agg_apply"])
+    route_libs = {True: kcuda.load("route"),
+                  False: _other_lib(csrc, "route", {"rw_route": rtypes})}
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True).stdout.strip())
+
+    def turns(side, check) -> dict:
+        """side(mine) -> (context, fn) of one build; each build is
+        checked with check(fn), then timed: DIR's, this, this, DIR's."""
+        err, t = 0.0, []
+        for mine in (False, True, True, False):
+            ctx, fn = side(mine)
+            with ctx:
+                if len(t) < 2:
+                    err = max(err, check(fn))
+                t.append(time_ms(fn))
+        return dict(base_ms=[t[0], t[3]], ms=[t[1], t[2]], max_abs_err=err)
+
+    for name, inp in k2_inputs(dev).items():
+        fk = _k2_fns(inp)[2]
+        r = turns(lambda mine, fk=fk: (
+            contextlib.nullcontext() if mine
+            else _bound_to("agg_apply", k2_other), fk),
+            lambda _fn, inp=inp: k2_check(inp))
+        r.update(launches_per_call=launches_of(fk, "agg_apply"))
+        log(f"agg_apply at {name}: " + json.dumps(r))
+    for name, args in route_inputs(dev).items():
+        def side(mine, args=args):
+            return contextlib.nullcontext(), functools.partial(
+                _route_raw, route_libs[mine], with_total and not mine,
+                *args)
+
+        def check(fn, args=args):
+            got, want = fn(), X.route_plain(*args)
+            err = max(abs_err(g.cpu().numpy(), w.cpu().numpy())
+                      for g, w in zip(got, want))
+            assert err == 0, f"route differs from route_plain: {err}"
+            return err
+        r = turns(side, check)
+        r["base_split"] = kernel_split(side(False)[1])
+        r["split"] = kernel_split(side(True)[1])
+        log(f"route at {name}: " + json.dumps(r))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--against"] and len(sys.argv) == 3:
+        sys.exit(ab_main(sys.argv[2]))
     sys.exit(main())

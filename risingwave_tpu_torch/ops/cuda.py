@@ -88,7 +88,7 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     },
     "route": {
         "rw_route": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
-                     _P, _P, _P],
+                     _P, _P],
     },
 }
 

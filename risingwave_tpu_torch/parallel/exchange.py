@@ -126,18 +126,17 @@ def route(rows: torch.Tensor, valid: torch.Tensor, owner_map: torch.Tensor,
         return route_plain(rows, valid, owner_map, n_shards, bucket, kw)
     local = _check(rows, valid, owner_map, n_shards, bucket, kw)
     n, w = rows.shape
-    if rows.stride(1) != 1 or not owner_map.is_contiguous():
+    if (n and rows.stride(1) != 1) or not owner_map.is_contiguous():
         raise ValueError("route needs contiguous lanes and owner map")
     if not rows.device == valid.device == owner_map.device:
         raise ValueError("route tensors must share one device")
     if valid.dtype == torch.bool:
         valid = valid.to(torch.int32)
     dev = rows.device
-    ntiles = (local + 1023) // 1024
     i32 = dict(dtype=torch.int32, device=dev)
     own = torch.empty(n, **i32)
-    counts = torch.empty(max(n_shards * ntiles * n_shards, 1), **i32)
-    total = torch.empty(n_shards * n_shards, **i32)
+    # the kernel's tile counts, sized for its most tiles a sender (64)
+    counts = torch.empty(n_shards * 64 * n_shards, **i32)
     m = n_shards * bucket
     recv = torch.empty((n_shards, m, w), **i32)
     rvalid = torch.empty((n_shards, m), **i32)
@@ -145,7 +144,7 @@ def route(rows: torch.Tensor, valid: torch.Tensor, owner_map: torch.Tensor,
     cuda.call("route", "rw_route", rows.data_ptr(), rows.stride(0),
               valid.data_ptr(), valid.stride(0), n_shards, local, kw, w,
               owner_map.data_ptr(), bucket, own.data_ptr(),
-              counts.data_ptr(), total.data_ptr(), recv.data_ptr(),
+              counts.data_ptr(), recv.data_ptr(),
               rvalid.data_ptr(), overflow.data_ptr())
     LAUNCHES.add("route")
     return recv, rvalid, overflow

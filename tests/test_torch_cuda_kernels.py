@@ -18,7 +18,9 @@ cold tier's and the patch's kernels: K8 (lookup) and K4's evict mode
 exactly, B9 (evict_state) key-sorted against its plain twin, K9
 (scatter_rows) exactly with and without its shard axis, K2's kNone lane
 exactly, and a GroupedAggKernel's patch, eviction and reload on the card
-against the same kernel on the CPU.
+against the same kernel on the CPU. K2 and route are also held to their
+plain versions on ``ops/kernel_cases.py``'s batches, the shapes at the
+edges of their warp-level designs.
 """
 
 import numpy as np
@@ -30,6 +32,7 @@ from risingwave_tpu_torch.ops import fused_cases as FC
 from risingwave_tpu_torch.ops import hash_agg as H
 from risingwave_tpu_torch.ops import hash_join as J
 from risingwave_tpu_torch.ops import hash_table as ht
+from risingwave_tpu_torch.ops import kernel_cases as KC
 from risingwave_tpu_torch.ops import lanes
 
 pytestmark = pytest.mark.cuda
@@ -133,6 +136,51 @@ def test_agg_apply_matches_plain(dev):
         err = np.abs(x[row].view(np.float32).astype(np.float64)
                      - y[row].view(np.float32).astype(np.float64))
         assert (err <= 1e-6 * mag).all(), (row, float(err.max()))
+
+
+@pytest.mark.parametrize("case", KC.AGG_CASES)
+def test_agg_apply_warp_cases_match_plain(dev, case):
+    """K2's warp aggregation at its edges (ops/kernel_cases.py): one slot
+    a batch, one slot a lane, two or three slots a warp with invisible
+    rows and NULLs, MAX/MIN ties on hi with retractions, integer SUM at
+    the limb extremes over whole 8192-row slices, the kNone lane. The
+    batch is applied twice, so the second pass meets settled extremes.
+    Integers exact, float SUM within rel 1e-6 of Σ|terms| per lane."""
+    specs, packed_np = KC.agg_cases()[case]
+    packed = torch.from_numpy(packed_np).to(dev)
+    st = H.make_agg_state(CAP, KW, specs, dev)
+    _t, slots, stats = ht.probe_insert(st.table, packed[:, :KW],
+                                       packed[:, KW + 1])
+    assert int(stats[1]) == 0
+    plan = H.ApplyPlan(KW, specs, dev)
+    a = H.AggState(st.table, st.st.clone())
+    b = H.AggState(st.table, st.st.clone())
+    for _ in range(2):
+        H.agg_apply(a, packed, slots, plan)
+        H.agg_apply_plain(b, packed, slots, plan)
+        KC.agg_state_err(specs, a.st.cpu().numpy(), b.st.cpu().numpy(),
+                         packed_np, slots.cpu().numpy())
+
+
+@pytest.mark.parametrize("n_shards", [8, 3])
+def test_sharded_agg_apply_warp_cases_match_plain(dev, n_shards):
+    """K2's shard axis (grid.y) at S = 8 and S = 3, each shard with a hot
+    slot, warm slots and singletons: shard by shard as the plain
+    version."""
+    specs, packed_np = KC.sharded_agg_batch(n_shards)
+    packed = torch.from_numpy(packed_np).to(dev)
+    st = H.make_sharded_agg_state(n_shards, CAP, KW, specs, dev)
+    slots, stats = ht.probe_insert_sharded(st.table, packed[:, :, :KW],
+                                           packed[:, :, KW + 1])
+    assert not bool(stats[:, 1].any())
+    plan = H.ApplyPlan(KW, specs, dev)
+    a = H.ShardedAggState(st.table, st.st.clone())
+    b = H.ShardedAggState(st.table, st.st.clone())
+    H.agg_apply_sharded(a, packed, slots, plan)
+    H.agg_apply_sharded_plain(b, packed, slots, plan)
+    x, y, sl = a.st.cpu().numpy(), b.st.cpu().numpy(), slots.cpu().numpy()
+    for s in range(n_shards):
+        KC.agg_state_err(specs, x[s], y[s], packed_np[s], sl[s])
 
 
 def test_flush_gather_and_advance_match_plain(dev):
@@ -557,6 +605,25 @@ def test_route_matches_plain(dev, n_shards, bucket):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
     assert bool(got[2].any()) == (bucket is not None)
+
+
+@pytest.mark.parametrize("case", KC.ROUTE_CASES)
+def test_route_edge_cases_match_plain(dev, case):
+    """route at the edges of its tiling (ops/kernel_cases.py): every row
+    to one owner, uniform owners, 3 shards, a block that is not a whole
+    number of 256-row chunks, tiles of several chunks, an overflowing
+    bucket, bucket 0 and empty blocks. All three outputs bit for bit."""
+    from risingwave_tpu_torch.parallel import exchange as X
+    from risingwave_tpu_torch.parallel.mesh import contiguous_owner_map
+    rows_np, valid_np, n_shards, bucket = KC.route_cases()[case]
+    rows = torch.from_numpy(rows_np).to(dev)
+    valid = torch.from_numpy(valid_np).to(dev)
+    omap = torch.from_numpy(contiguous_owner_map(n_shards)).to(dev)
+    got = X.route(rows, valid, omap, n_shards, bucket, KW)
+    want = X.route_plain(rows, valid, omap, n_shards, bucket, KW)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    assert bool(got[2].any()) == (case in ("overflow", "bucket_0"))
 
 
 def _sharded_applied(dev):

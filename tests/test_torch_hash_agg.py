@@ -66,9 +66,10 @@ def _specs(mod, pairs):
                              else np.dtype(d)) for k, d in pairs)
 
 
-def _packed(rng, n, n_groups, specs, retract=True):
+def _packed(rng, n, n_groups, specs, retract=True, ties=False):
     """A packed batch (pack_chunk layout) with nulls, invisible rows and,
-    optionally, retractions."""
+    optionally, retractions; with ``ties`` the int inputs take one of
+    three hi words and a random lo word."""
     g = rng.integers(0, n_groups, n).astype(np.int64) * 1_000_003 - 7
     hi, lo = ref_lanes.split_i64(g)
     keys = np.stack([hi, lo, np.ones(n, np.int32)], axis=1)
@@ -76,6 +77,8 @@ def _packed(rng, n, n_groups, specs, retract=True):
         .astype(np.int32)
     vis = rng.random(n) < 0.9
     ints = rng.integers(-10**12, 10**12, n)
+    if ties:
+        ints = (rng.integers(-1, 2, n) << 32) + rng.integers(0, 1 << 32, n)
     floats = rng.standard_normal(n) * 1e3
     inputs = []
     for s in specs:
@@ -133,13 +136,19 @@ def _run_applies(specs, batches, cap=1024):
     return ref_state, port_state, port_specs
 
 
-@pytest.mark.parametrize("rows,append_only", [(512, False), (16384, True)])
-def test_apply_matches_reference(rows, append_only):
-    """16384 rows span two 8192-row limb slices (carry between them)."""
+@pytest.mark.parametrize("rows,append_only,n_groups,ties", [
+    pytest.param(512, False, 60, False, id="512-False"),
+    pytest.param(16384, True, 60, False, id="16384-True"),
+    pytest.param(1024, False, 2, True, id="1024-ties")])
+def test_apply_matches_reference(rows, append_only, n_groups, ties):
+    """16384 rows span two 8192-row limb slices (carry between them). The
+    ties case puts 1024 rows on 2 groups whose MAX/MIN inputs share three
+    hi words with random lo words, retractions among them: the (hi, lo)
+    rule that K2's warp aggregation must keep bit for bit."""
     specs = _specs(R, SPECS)
     rng = np.random.default_rng(rows)
-    batches = [_packed(rng, rows, 60, specs, retract=not append_only)
-               for _ in range(3)]
+    batches = [_packed(rng, rows, n_groups, specs, retract=not append_only,
+                       ties=ties) for _ in range(3)]
     ref_state, port_state, _ = _run_applies(specs, batches)
     _assert_state_equal(port_state, ref_state, specs,
                         float_rows=_float_sum_rows(specs))

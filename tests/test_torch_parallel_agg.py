@@ -107,15 +107,24 @@ def _ref_route(mesh, rows, valid, omap, bucket, kw):
     return [np.asarray(x) for x in f(rows, valid, omap)]
 
 
-@pytest.mark.parametrize("n,small", [(8, False), (8, True), (3, False),
-                                     (3, True)])
-def test_route_plain_matches_bucketize_and_exchange(eight_devices, n, small):
+@pytest.mark.parametrize("n,small,one_owner", [
+    pytest.param(8, False, False, id="8-False"),
+    pytest.param(8, True, False, id="8-True"),
+    pytest.param(3, False, False, id="3-False"),
+    pytest.param(3, True, False, id="3-True"),
+    pytest.param(8, False, True, id="8-one-owner")])
+def test_route_plain_matches_bucketize_and_exchange(eight_devices, n, small,
+                                                    one_owner):
     """The receive buffer, its flags and the per-sender overflow flags,
-    bit for bit; a small bucket must overflow in both."""
+    bit for bit; a small bucket must overflow in both. With
+    ``one_owner`` every row has one key, so one shard takes the batch
+    (q7's step: one window)."""
     rng = np.random.default_rng(10 + n)
     local = 96
     w = 7
-    keys = _key_lanes(rng.integers(0, 40, n * local) * 1_000_003)
+    g = rng.integers(0, 40, n * local) if not one_owner \
+        else np.full(n * local, 7)
+    keys = _key_lanes(g * 1_000_003)
     rows = np.concatenate(
         [keys, rng.integers(-2**31, 2**31, (n * local, w - KW))],
         axis=1).astype(np.int32)
