@@ -28,6 +28,15 @@ phases, any failure of which exits non-zero:
      K6 (join_probe) exact, with and without degrees, including a forced
      overflow (a 2^10-row buffer) that must re-dispatch to the same pairs,
      K7 and the head remap on K4 exact;
+   - K1 (probe_insert) alone at each shape of its paths, each against the
+     plain version by the table invariants and timed beside its byte
+     bound: q7's step and q7-mesh's routed step (keys placed), q8's
+     side-epoch apply into the ~2M-key table with the keys placed and
+     fresh (a copy of the table made anew before each call, L2 flushed),
+     and q8-mesh's side-epoch apply (fresh); K8 (lookup) at q8's placed
+     keys; K6 (join_probe) split by kernel (torch.profiler) at q8's and
+     q8-mesh's epochs and the per-chunk step; and how far a probe walks
+     in q8's and q8-mesh's tables (``probe_lengths``);
    - the fused preludes (fused_chain, agg_prelude, join_prelude of
      csrc/fused.cu) bit for bit against the plain program on random
      expression trees that cover every opcode, with edge values (a NaN
@@ -116,10 +125,12 @@ The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``; ``launches`` is the sum of the main paths'
 counts) and ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --against DIR`` runs no phase: it times K2 and
-route of this checkout against the same kernels built from DIR's
-``risingwave_tpu_torch/csrc`` (the parent commit, unpacked with ``git
-archive`` into a directory git ignores), in turns, at the shapes above;
+``python3 chip_smoke.py --against DIR`` runs no phase: it times K2
+(agg_apply), route, K1 (probe_insert), K8 (lookup) and K6 (join_probe)
+of this checkout against the same
+kernels built from DIR's ``risingwave_tpu_torch/csrc`` (the parent
+commit, unpacked with ``git archive`` into a directory git ignores), in
+turns, at the shapes above, each build first held to the plain version;
 the other build is compiled and bound by this script alone.
 """
 
@@ -900,7 +911,7 @@ def _by_key(table, chains) -> tuple:
 
 
 def _k5_times(js, up, aux) -> tuple:
-    """(K1 ms, K5 ms, plain K5 ms) of one epoch's apply on copies of
+    """(K5 ms, plain K5 ms, K5 bytes) of one epoch's apply on copies of
     both sides (K5 repeated on the slots K1 gave: it never walks the
     chains it rewrites)."""
     from risingwave_tpu_torch.ops import hash_join as J
@@ -909,7 +920,6 @@ def _k5_times(js, up, aux) -> tuple:
     ins = aux[:, J.AUX_FLAGS] & J.FLAG_INS
     kt, kc, kp = _clone_side(ks.table.state, ks.chains, ks.pay)
     _t, kslots, _s = ht.probe_insert(kt, up[:, :JKW], ins)
-    k1_ms = time_ms(lambda: ht.probe_insert(kt, up[:, :JKW], ins))
     ms = time_ms(lambda: J.join_apply(kc, kp, kslots, up, aux, JKW,
                                       scratch=ks._link_scratch))
     qt, qc, qp = _clone_side(*js["plain"])
@@ -922,7 +932,7 @@ def _k5_times(js, up, aux) -> tuple:
     n_slots = len(np.unique(kslots.cpu().numpy()[insm]))
     nbytes = (len(f) * 16 + n_ins * (4 + JP * 4) + n_slots * 4
               + n_ins * (8 + JP * 4) + n_slots * 4 + n_del * 4)
-    return k1_ms, ms, plain_ms, nbytes
+    return ms, plain_ms, nbytes
 
 
 def check_join_apply(dev, js: dict) -> dict:
@@ -935,7 +945,7 @@ def check_join_apply(dev, js: dict) -> dict:
     ks = js["ks"]
     pt, pc, ppay = js["plain"]
     mu, ma, mr = js["mixed"]
-    _k1, hot_ms, hot_plain_ms, _b = _k5_times(js, mu, ma)
+    hot_ms, hot_plain_ms, _b = _k5_times(js, mu, ma)
     ks.apply_epoch(mu, ma, js["n"], mr)
     J.epoch_apply_plain(pt, pc, ppay, mu, ma, JKW)
     ks.table.sync_count()
@@ -945,13 +955,11 @@ def check_join_apply(dev, js: dict) -> dict:
     for a, b in zip((*ks.chains[1:], ks.pay), (*pc[1:], ppay)):
         err = max(err, abs_err(a.cpu().numpy(), b.cpu().numpy()))
     assert err == 0, f"join_apply differs from the plain chains: {err}"
-    k1_ms, ms, plain_ms, nbytes = _k5_times(js, *js["fresh"])
+    ms, plain_ms, nbytes = _k5_times(js, *js["fresh"])
     b, by = bound_ms(nbytes, js["n"] * 16)
     log(f"join_apply, mixed epoch with hot keys: {hot_ms} ms (plain "
-        f"{hot_plain_ms} ms); probe_insert at q8's apply shape "
-        f"({js['n']} rows, {ks.table.capacity} slots, 6 lanes, keys "
-        f"already placed): {k1_ms} ms; key table capacities while "
-        f"building: {sorted(set(js['caps']))}")
+        f"{hot_plain_ms} ms); key table capacities while building: "
+        f"{sorted(set(js['caps']))}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, epoch_apply=_epoch_apply_times(js, nbytes))
 
@@ -2088,13 +2096,13 @@ def _mesh_stage_apply(k, up, aux):
     return staged
 
 
-def build_mesh_join_states(dev) -> dict:
+def build_mesh_join_states(dev, twin: bool = True) -> dict:
     """q8-mesh's join side: a ShardedJoinKernel over MESH_SHARDS shards at
     its defaults (2^15 slots, 2^17 rows per shard) fed the ~2M stored rows
     of join_epochs through stage_epoch + apply_epoch (route, K1, K5; the
-    key tables grow 4x twice: K1 + K4), and its twin through the plain
-    versions; then both take the mixed epoch (hot keys, deletes), which
-    is K5's check."""
+    key tables grow 4x twice: K1 + K4), and, with `twin`, its twin
+    through the plain versions (without, the twin stays empty); then both
+    take the mixed epoch (hot keys, deletes), which is K5's check."""
     from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
     stored, mixed, fresh, probe, probe_hot = join_epochs(J_EPOCHS, J_N)
     mesh = ShardMesh(MESH_SHARDS, dev)
@@ -2107,7 +2115,7 @@ def build_mesh_join_states(dev) -> dict:
     ks.drain_overflows()
     built_s = time.perf_counter() - t0
     with plain_join_steps():
-        for up, aux in stored:
+        for up, aux in stored if twin else ():
             _mesh_stage_apply(kp, *(torch.from_numpy(x) for x in (up, aux)))
         kp.drain_overflows()
 
@@ -2424,8 +2432,10 @@ def check_mesh_apply_and_probe(dev) -> dict:
         f" in {checked_s:.3f} s; the last step: {m} rows, {n_probe} "
         f"probes, {n_ins} inserts, {total} pairs, {s} x {m} received rows "
         f"per kernel")
+    k6 = k6_cases_perchunk(perchunk_probe_input(ks, steps))["per_chunk"]
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, steps=len(steps), split_ms=split)
+                bound_by=by, steps=len(steps), split_ms=split,
+                join_probe_split=kernel_split(k6[0]))
 
 
 # -- phase 4: the per-chunk arm of the sharded join ---------------------------
@@ -3265,7 +3275,19 @@ def main() -> int:
         log(f"kernel {name}: " + json.dumps(results[name]))
     log("remap (head, q8's growth 2^21 -> 2^22 slots): "
         + json.dumps(check_remap_head(dev, js)))
-    del js
+    # K1 alone at q8's apply shapes, K8 at its keys, K6 by kernel
+    log("probe lengths, q8's join table: "
+        + json.dumps(probe_lengths(js["ks"].table.state)))
+    k1_shapes = {"q7_step": {k: results["probe_insert"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}}
+    k1_shapes.update(k1_readings(k1_cases_q8(js)))
+    for name, case in k8_cases_q8(js).items():
+        k8_q8 = dict(max_abs_err=k8_check(case), ms=k8_time(case))
+        log(f"lookup at {name}: " + json.dumps(k8_q8))
+    k6 = k6_cases_q8(js)
+    for name, which in (("join_probe", "q8"), ("join_probe_deg", "q8_deg")):
+        results[name]["split"] = kernel_split(k6[which][0])
+    del js, k6
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3290,6 +3312,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     for name, t in sharded["timings"].items():
         log(f"sharded {name} at q7's routed step: " + json.dumps(t))
+    k1_shapes["q7_mesh_step"] = sharded["timings"]["probe_insert"]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mj = build_mesh_join_states(dev)
@@ -3298,6 +3321,11 @@ def main() -> int:
         + json.dumps(results["route"]["q8_mesh_shape"]))
     mesh_join = {"join_apply": check_mesh_join_apply(dev, mj),
                  "join_probe": check_mesh_join_probe(dev, mj)}
+    log(f"probe lengths, q8-mesh's join tables ({MESH_SHARDS} shards): "
+        + json.dumps(probe_lengths(mj["ks"].table)))
+    k1_shapes.update(k1_readings(k1_cases_mesh(mj)))
+    mesh_join["join_probe"]["split"] = kernel_split(
+        k6_cases_mesh(mj)["q8_mesh"][0])
     for name, r in mesh_join.items():
         log(f"sharded {name} at q8-mesh's side-epoch ({MESH_SHARDS} "
             f"shards, {J_N} rows): " + json.dumps(r))
@@ -3321,6 +3349,8 @@ def main() -> int:
 
     floor = launch_floor_ms(dev)
     log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
+    for name, r in k1_shapes.items():
+        log(f"probe_insert at {name}: " + json.dumps(r))
 
     # 4. the main paths end to end, the plan checker strict
     from risingwave_tpu_torch.frontend.opt import set_strict_checker
@@ -3458,12 +3488,20 @@ def main() -> int:
             row["load_groups"] = cold["load_groups"]
         if name == "agg_apply":
             row["none_kind"] = cold["none_kind"]
+        if name == "probe_insert":
+            # K1 alone at each shape of its paths (phase 3's readings)
+            row["shapes"] = k1_shapes
+        if name == "lookup":
+            row["q8_shape"] = k8_q8
+        if name == "join_probe":
+            row["per_chunk_split"] = step["join_probe_split"]
         if name in mesh_join:
             # the shard axis (B24) at q8-mesh's side-epoch
             m = mesh_join[name]
             row["max_abs_err"] = max(row["max_abs_err"], m["max_abs_err"])
             row["sharded"] = {k: m[k] for k in ("ms", "plain_ms",
-                                                "bound_ms", "bound_by")}
+                                                "bound_ms", "bound_by",
+                                                "split") if k in m}
         if name in PERCHUNK_PATH:
             # the per-chunk step B16 that launches this kernel: its
             # device half at the per-chunk arm's chunk, all four kernels
@@ -3481,7 +3519,340 @@ def main() -> int:
     return 0
 
 
-# -- --against DIR: this checkout's K2 and route against another's ---------------
+# -- K1, K8 and K6 at the shapes their paths give them ---------------------------
+
+def time_fresh(reset, fn, samples: int = SAMPLES) -> float:
+    """Device time of one fn call on state that reset() makes anew before
+    each call (a copy of a table as it stood before a side-epoch), with
+    the L2 cache flushed after the reset, so that fn meets the table
+    cold, as a side-epoch's apply does: the median over `samples` calls,
+    each timed alone with CUDA events (two untimed calls first) and queued
+    behind a device sleep, so the host's wrapper time stays out."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+    times = []
+    for i in range(samples + 2):
+        reset()
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES // 4)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        if i >= 2:
+            times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def probe_lengths(table) -> dict:
+    """How far a probe walks in a table (keys [(S,) cap, K], occ [(S,)
+    cap]), over every shard: the load, the mean and largest number of
+    slots from a stored key's home slot to its slot, and the mean number
+    from a stored key's home slot to the first empty slot (what a fresh
+    key homed there walks)."""
+    from risingwave_tpu_torch.common.hash import hash_lanes_plain
+    keys, occ = table
+    if keys.dim() == 2:
+        keys, occ = keys[None], occ[None]
+    cap = occ.shape[1]
+    to_key, to_empty = [], []
+    for s in range(keys.shape[0]):
+        o = occ[s] != 0
+        slot = torch.nonzero(o).flatten()
+        home = hash_lanes_plain(keys[s][slot]).to(torch.int64) & (cap - 1)
+        to_key.append((slot - home) & (cap - 1))
+        empty = torch.nonzero(~o).flatten()
+        i = torch.searchsorted(empty, home)
+        nxt = torch.where(i < len(empty),
+                          empty[i.clamp(max=len(empty) - 1)], empty[0] + cap)
+        to_empty.append(nxt - home)
+    k, e = torch.cat(to_key).double(), torch.cat(to_empty).double()
+    return dict(load=float((occ != 0).double().mean()),
+                slots_to_key=float(k.mean()) + 1,
+                slots_to_key_max=int(k.max()) + 1,
+                slots_to_empty=float(e.mean()) + 1)
+
+
+def _table_copy(t):
+    from risingwave_tpu_torch.ops import hash_table as ht
+    return ht.TableState(t.keys.clone(), t.occ.clone())
+
+
+def k1_call(table, keys, valid):
+    """K1 through the port's wrapper: [S, ...] table, keys and valid."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    return ht.probe_insert_sharded(table, keys, valid)
+
+
+def k1_cases_q7(dev) -> dict:
+    """K1 at q7's step (2^15 rows on one or two windows, 2^18 slots, 3
+    lanes; keys placed) and at q7-mesh's routed step (the same batch
+    routed to 8 shards of 2^15 slots: 8 x 32,768 received rows, 1/8 of
+    them valid; placed). A case is (base, keys, valid, fresh): the table
+    before the batch and the batch, with a leading shard axis (S = 1 on
+    one device); a case that is not fresh is timed with its keys already
+    placed, a fresh one on a copy of base made anew before each call."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.parallel import exchange as X
+    from risingwave_tpu_torch.parallel.mesh import contiguous_owner_map
+    specs = make_specs(H, [("max", np.int64), ("count", None)])
+    p = torch.from_numpy(q7_batch(N, specs)).to(dev)
+    t1 = ht.make_state(CAP, KW, dev)
+    out = {"q7_step": (ht.TableState(t1.keys[None], t1.occ[None]),
+                       p[None, :, :KW], p[None, :, KW + 1], False)}
+    s = MESH_SHARDS
+    omap = torch.from_numpy(contiguous_owner_map(s)).to(dev)
+    recv, rvalid, _o = X.route(p, p[:, KW + 1], omap, s, N // s, KW)
+    tm = ht.TableState(
+        torch.zeros((s, MESH_CAP, KW), dtype=torch.int32, device=dev),
+        torch.zeros((s, MESH_CAP), dtype=torch.int32, device=dev))
+    out["q7_mesh_step"] = (tm, recv[:, :, :KW], rvalid, False)
+    return out
+
+
+def k1_cases_q8(js: dict) -> dict:
+    """K1 at q8's side-epoch apply: 2^16 new persons (6 lanes) into the
+    ~2M-key table of build_join_states (2^22 slots), with the keys placed
+    (q8_apply) and fresh (q8_fresh)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    t = js["ks"].table.state
+    base = ht.TableState(t.keys.clone()[None], t.occ.clone()[None])
+    up, aux = js["fresh"]
+    ins = (aux[:, J.AUX_FLAGS] & J.FLAG_INS)[None]
+    return {"q8_apply": (base, up[None, :, :JKW], ins, False),
+            "q8_fresh": (base, up[None, :, :JKW], ins, True)}
+
+
+def k1_cases_mesh(mj: dict) -> dict:
+    """K1 at q8-mesh's side-epoch apply: the fresh epoch of 2^16 new
+    persons routed to the 8 shards of build_mesh_join_states (fresh)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    ks = mj["ks"]
+    recv, _rv, _b = _mesh_routed(ks, *mj["fresh"], J.FLAG_INS | J.FLAG_DEL,
+                                 probe=False)
+    return {"q8_mesh_apply": (_table_copy(ks.table), recv[:, :, :JKW],
+                              recv[:, :, JKW + 2] & J.FLAG_INS, True)}
+
+
+def k1_check(case, call=k1_call) -> tuple:
+    """K1 through `call` on a copy of the case's base against the plain
+    version on another: stats exact and no overflow, invalid rows -1,
+    each valid row's slot occupied and holding its key, equal keys on one
+    slot, the slots occupied before unchanged, and the same keys newly
+    inserted. Returns (largest gap: 0, byte bound of the call)."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    base, keys, valid, _f = case
+    tk, tp = _table_copy(base), _table_copy(base)
+    slots, stats = call(tk, keys, valid)
+    _ps, pstats = ht.probe_insert_sharded_plain(tp, keys, valid)
+    err = abs_err(stats.cpu().numpy(), pstats.cpu().numpy())
+    assert err == 0 and not bool(stats[:, 1].any()), (stats, pstats)
+    s_, k_ = keys.shape[0], keys.shape[2]
+    n_valid = distinct = 0
+    for d in range(s_):
+        sl = slots[d].cpu().numpy()
+        v = valid[d].cpu().numpy() != 0
+        kk = keys[d].cpu().numpy()
+        tkk, tko = tk.keys[d].cpu().numpy(), tk.occ[d].cpu().numpy()
+        b_occ = base.occ[d].cpu().numpy() != 0
+        assert (sl[~v] == -1).all() and (sl[v] >= 0).all()
+        err = max(err, abs_err(tkk[sl[v]], kk[v]))
+        assert err == 0 and (tko[sl[v]] == 1).all(), "a slot lost its key"
+        if v.any():
+            _u, inv = np.unique(kk[v], axis=0, return_inverse=True)
+            inv = inv.reshape(-1)
+            first = np.full(inv.max() + 1, -1)
+            first[inv[::-1]] = sl[v][::-1]
+            assert (first[inv] == sl[v]).all(), "equal keys on two slots"
+        assert (tkk[b_occ] == base.keys[d].cpu().numpy()[b_occ]).all() and \
+            (tko[b_occ] == 1).all(), "an occupied slot changed"
+        assert set(np.unique(tko).tolist()) <= {0, 1}
+
+        def new_keys(t):
+            o = t.occ[d].cpu().numpy() != 0
+            x = t.keys[d].cpu().numpy()[o & ~b_occ]
+            return x[np.lexsort(x.T[::-1])]
+        err = max(err, abs_err(new_keys(tk), new_keys(tp)))
+        assert err == 0, "the tables gained different keys"
+        n_valid += int(v.sum())
+        distinct += len(np.unique(sl[v]))
+    rows = valid.numel()
+    inserted = int(stats[:, 0].sum())
+    nbytes = (rows * 4 + n_valid * k_ * 4 + rows * 4 + distinct * (k_ + 1)
+              * 4 + inserted * (k_ + 1) * 4 + s_ * 8)
+    return err, bound_ms(nbytes, n_valid * 14 * k_)
+
+
+def k1_time(case, call=k1_call, samples: int = SAMPLES,
+            per: int = PER_SAMPLE) -> float:
+    """µs-scale device time of one K1 call at the case's shape: keys
+    placed (back to back, ``time_ms``) or fresh (``time_fresh``)."""
+    base, keys, valid, fresh = case
+    t = _table_copy(base)
+    if not fresh:
+        call(t, keys, valid)
+        return time_ms(lambda: call(t, keys, valid), samples, per)
+
+    def reset():
+        t.keys.copy_(base.keys)
+        t.occ.copy_(base.occ)
+    return time_fresh(reset, lambda: call(t, keys, valid), samples)
+
+
+def k1_readings(cases: dict) -> dict:
+    """Each K1 case checked against the plain version, then timed beside
+    the plain version and its byte bound."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    out = {}
+    for name, case in cases.items():
+        err, (b, by) = k1_check(case)
+        out[name] = dict(
+            max_abs_err=err, ms=k1_time(case),
+            plain_ms=k1_time(case, ht.probe_insert_sharded_plain, 3, 1),
+            bound_ms=b, bound_by=by, rows=int(case[2].numel()))
+    return out
+
+
+def k8_call(table, keys, valid, dropped=None):
+    from risingwave_tpu_torch.ops import hash_table as ht
+    return ht.lookup(table, keys, valid, dropped)
+
+
+def k8_cases_q8(js: dict) -> dict:
+    """K8 (lookup) at q8's side-epoch: the 2^16 persons of the fresh epoch
+    looked up in the table after K1 placed them (the read-only twin of
+    K1's q8_apply case)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    t = _table_copy(js["ks"].table.state)
+    up, aux = js["fresh"]
+    ins = aux[:, J.AUX_FLAGS] & J.FLAG_INS
+    ht.probe_insert(t, up[:, :JKW], ins)
+    return {"q8_placed": (t, up[:, :JKW], ins, None)}
+
+
+def k8_cases_cold(dev) -> dict:
+    """K8 at B9's shape: 2^16 keys (7/8 resident) off 600K groups in 2^20
+    slots, with the eviction mask."""
+    _specs, st, keys = _cold_state(dev, COLD_CAP, COLD_GROUPS)
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(_evict_query(rng, keys, COLD_KEYS)).to(dev)
+    v = torch.ones(COLD_KEYS, dtype=torch.int32, device=dev)
+    return {"evict_2^16": (st.table, q, v,
+                           torch.zeros(COLD_CAP, dtype=torch.int32,
+                                       device=dev))}
+
+
+def k8_check(case, call=k8_call) -> float:
+    """K8 through `call` against lookup_plain: slots, stats and the
+    dropped mask exact."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    table, q, v, dropped = case
+    dk = None if dropped is None else torch.zeros_like(dropped)
+    dp = None if dropped is None else torch.zeros_like(dropped)
+    got, want = call(table, q, v, dk), ht.lookup_plain(table, q, v, dp)
+    err = max(abs_err(a.cpu().numpy(), b.cpu().numpy())
+              for a, b in zip(got, want))
+    if dropped is not None:
+        err = max(err, abs_err(dk.cpu().numpy(), dp.cpu().numpy()))
+    assert err == 0 and int(got[1][1]) == 0, f"lookup differs: {err}"
+    return err
+
+
+def k8_time(case, call=k8_call) -> float:
+    table, q, v, dropped = case
+    return time_ms(lambda: call(table, q, v, dropped))
+
+
+def k6_cases_q8(js: dict) -> dict:
+    """K6 at q8's probe side-epoch (2^16 rows, ~19.6K pairs, 2^16-row pair
+    buffer), at the hot-key epoch (chains of ~400 refs, ~540K pairs) and
+    with degrees (random degree arrays): name -> (kernel call, plain
+    call), both through the port's wrappers."""
+    rng = np.random.default_rng(5)
+    rows = js["ks"].row_capacity
+    dev = js["ks"].table.state.keys.device
+    degs = tuple(torch.from_numpy(rng.integers(0, 4, rows).astype(np.int32))
+                 .to(dev) for _ in range(2))
+    return {"q8": _probe_fns(js, "probe", OUT_CAP, False),
+            "q8_hot": _probe_fns(js, "probe_hot", OUT_CAP, False),
+            "q8_deg": _probe_fns(js, "probe", OUT_CAP, True, degs)}
+
+
+def k6_cases_mesh(mj: dict) -> dict:
+    """K6 with a shard axis at q8-mesh's probe side-epoch: the probe epoch
+    routed to 8 shards (8 x 16,384 received rows, 2^16 of them real), at
+    the kernel's per-shard pair buffer."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    ks = mj["ks"]
+    recv, rv, _b = _mesh_routed(ks, *mj["probe"], J.FLAG_PROBE, probe=True)
+    args = (recv[:, :, :JKW], rv, -1, recv[:, :, JKW + 1], ks.probe_capacity,
+            False)
+    kw = dict(rid=recv[:, :, JKW], rvalid=rv)
+    return {"q8_mesh": (
+        lambda: J.join_probe_sharded(ks.table, ks.chains, *args, **kw),
+        lambda: J.join_probe_sharded_plain(ks.table, ks.chains, *args,
+                                           **kw))}
+
+
+def k6_cases_perchunk(pc: dict) -> dict:
+    """K6 in the per-chunk step B16: the last recorded chunk's rows routed
+    to 8 shards (8 x 4,096 received rows), probing the other side at the
+    chunk's scalar seq with the degree block and the rid/rvalid map."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    k, recv, rv = pc["other"], pc["recv"], pc["rvalid"]
+    kw = pc["kw"]
+    args = (recv[:, :, :kw], recv[:, :, kw + 3], J.FLAG_PROBE, pc["seq"],
+            pc["out_cap"], True)
+    rid = dict(rid=recv[:, :, kw], rvalid=rv)
+    return {"per_chunk": (
+        lambda: J.join_probe_sharded(k.table, k.chains, *args, **rid),
+        lambda: J.join_probe_sharded_plain(k.table, k.chains, *args,
+                                           **rid))}
+
+
+def k6_check(fns) -> float:
+    """Every output of the kernel call equal to the plain call's."""
+    got, want = fns[0](), fns[1]()
+    err = 0.0
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            err = max(err, abs_err(a.cpu().numpy(), b.cpu().numpy()))
+    assert err == 0, f"join_probe differs from its plain version: {err}"
+    return err
+
+
+def replay_perchunk(dev, steps) -> dict:
+    """The per-chunk arm's recorded steps replayed through the kernels on
+    a fresh pair of ShardedJoinKernel; returns the last step's K6 inputs
+    (the other side, its routed receive block, seq and pair buffer)."""
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
+    mesh = ShardMesh(MESH_SHARDS, dev)
+    kw = steps[0][1][0].shape[1]
+    ks = [ShardedJoinKernel(mesh, kw) for _ in range(2)]
+    for me, args in steps:
+        ks[me].apply_and_probe(ks[1 - me], *args).collect()
+    return perchunk_probe_input(ks, steps)
+
+
+def perchunk_probe_input(ks, steps) -> dict:
+    """The last step's K6 inputs on sides `ks` (after every step)."""
+    me, args = steps[-1]
+    lanes, pvis, refs, ins, drefs, dels, seq = args
+    kc = _kernel_copy(ks[me])
+    kw = ks[me].key_width
+    rows = kc._stage_chunk(lanes, pvis, refs, ins, drefs, dels)[0]
+    m, s = int(rows.shape[0]), ks[me].n_dev
+    recv, rvalid, _o = kc._route(rows, rows[:, kw + 3] != 0, m // s)
+    return dict(other=ks[1 - me], recv=recv, rvalid=rvalid, seq=seq,
+                out_cap=ks[1 - me].probe_capacity, kw=kw)
+
+
+# -- --against DIR: this checkout's kernels against another's -------------------
 
 def _other_lib(csrc: str, name: str, argtypes: dict):
     """Library `name` built by nvcc from another checkout's ``csrc/`` with
@@ -3568,17 +3939,81 @@ def route_inputs(dev) -> dict:
     return out
 
 
+def _other_stats(chained: bool):
+    """stats(n) -> (stats, extra arguments) for another build's K1 and K8:
+    with the stats chain (``chained``: the launch sums into zeroed stats
+    and zeroes the next block), the build's own chain; without, the stats
+    its launch zeroes itself."""
+    held = {}
+
+    def stats(n, device):
+        if not chained:
+            return torch.empty(n, dtype=torch.int32, device=device), []
+        cur = held.get("next")
+        if cur is None:
+            cur = torch.zeros(64, dtype=torch.int32, device=device)
+        held["next"] = torch.empty(64, dtype=torch.int32, device=device)
+        return cur[:n], [held["next"].data_ptr(), 64]
+    return stats
+
+
+def _k1_other(lib, chained: bool):
+    """K1 through another build's rw_probe_insert (k1_call's signature,
+    [S, ...] tensors)."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    stats_of = _other_stats(chained)
+
+    def call(table, keys, valid):
+        s, n, k = keys.shape
+        valid = valid.to(torch.int32) if valid.dtype == torch.bool else valid
+        slots = torch.empty((s, n), dtype=torch.int32, device=keys.device)
+        stats, extra = stats_of(2 * s, keys.device)
+        rc = lib.rw_probe_insert(
+            keys.data_ptr(), keys.stride(1), keys.stride(0),
+            valid.data_ptr(), valid.stride(1), valid.stride(0), n, k,
+            table.keys.data_ptr(), table.occ.data_ptr(),
+            table.keys.shape[1], s, slots.data_ptr(), stats.data_ptr(),
+            *extra, kcuda.stream_ptr())
+        assert rc == 0, f"rw_probe_insert failed: CUDA error {rc}"
+        return slots, stats.view(s, 2)
+    return call
+
+
+def _k8_other(lib, chained: bool):
+    """K8 through another build's rw_lookup, as ``_k1_other``."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    stats_of = _other_stats(chained)
+
+    def call(table, keys, valid, dropped=None):
+        n, k = keys.shape
+        valid = valid.to(torch.int32) if valid.dtype == torch.bool else valid
+        slots = torch.empty(n, dtype=torch.int32, device=keys.device)
+        stats, extra = stats_of(2, keys.device)
+        rc = lib.rw_lookup(
+            keys.data_ptr(), keys.stride(0), valid.data_ptr(),
+            valid.stride(0), n, k, table.keys.data_ptr(),
+            table.occ.data_ptr(), table.keys.shape[0], slots.data_ptr(),
+            stats.data_ptr(), None if dropped is None else dropped.data_ptr(),
+            *extra, kcuda.stream_ptr())
+        assert rc == 0, f"rw_lookup failed: CUDA error {rc}"
+        return slots, stats
+    return call
+
+
 def ab_main(base: str) -> int:
-    """``python3 chip_smoke.py --against DIR``: K2 (agg_apply) and route
-    of this checkout against the same kernels built from DIR's
+    """``python3 chip_smoke.py --against DIR``: K2 (agg_apply), route, K1
+    (probe_insert), K8 (lookup) and K6 (join_probe) of this checkout
+    against the same kernels built from DIR's
     ``risingwave_tpu_torch/csrc`` (another checkout: the parent commit
     unpacked with ``git archive``), at the timed shapes of phase 3 on one
-    card. K2 runs behind this checkout's wrapper (its C interface is
-    shared); route is called through each build's own rw_route (DIR's
-    takes the three-launch design's totals where its source declares
-    them). Each build is first held to the plain version, then timed in
-    turns (DIR's, this, this, DIR's); route's per-kernel split is read
-    for both."""
+    card. K2 and K6 run behind this checkout's wrappers (their C
+    interfaces are shared); route is called through each build's own
+    entry point, and DIR's K1 and K8 through its own (DIR's route takes
+    the three-launch design's totals, and DIR's K1 and K8 go without the
+    stats chain's `next` block, where its source says so). Each build is
+    first held to the plain
+    version, then timed in turns (DIR's, this, this, DIR's); route's and
+    K6's per-kernel splits are read for both."""
     import ctypes
     import functools
     import os
@@ -3590,54 +4025,121 @@ def ab_main(base: str) -> int:
     dev = torch.device("cuda")
     kcuda.build_all()
     csrc = os.path.join(base, "risingwave_tpu_torch", "csrc")
-    with open(os.path.join(csrc, "route.cu")) as f:
-        with_total = "void* total" in f.read()
+
+    def source(name):
+        with open(os.path.join(csrc, f"{name}.cu")) as f:
+            return f.read()
+    with_total = "void* total" in source("route")
     rtypes = list(kcuda.LIBRARIES["route"]["rw_route"])
     if with_total:
         rtypes.insert(12, ctypes.c_void_p)
     k2_other = _other_lib(csrc, "agg_apply", kcuda.LIBRARIES["agg_apply"])
     route_libs = {True: kcuda.load("route"),
                   False: _other_lib(csrc, "route", {"rw_route": rtypes})}
+    chained = "int n_next" in source("probe_insert")
+    ptypes = {fn: t if chained else t[:-3] + t[-1:]
+              for fn, t in kcuda.LIBRARIES["probe_insert"].items()}
+    p_other = _other_lib(csrc, "probe_insert", ptypes)
+    k1_calls = {True: k1_call, False: _k1_other(p_other, chained)}
+    k8_calls = {True: k8_call, False: _k8_other(p_other, chained)}
+    k6_other = _other_lib(csrc, "join_probe", kcuda.LIBRARIES["join_probe"])
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True).stdout.strip())
+    log(f"launch floor (advance, 1024 slots, nothing dirty): "
+        f"{launch_floor_ms(dev)} ms")
 
-    def turns(side, check) -> dict:
-        """side(mine) -> (context, fn) of one build; each build is
-        checked with check(fn), then timed: DIR's, this, this, DIR's."""
-        err, t = 0.0, []
-        for mine in (False, True, True, False):
-            ctx, fn = side(mine)
-            with ctx:
-                if len(t) < 2:
-                    err = max(err, check(fn))
-                t.append(time_ms(fn))
+    def turns(check, timed) -> dict:
+        """check(mine) -> err, then timed(mine) -> ms in turns: DIR's,
+        this, this, DIR's."""
+        err = max(check(False), check(True))
+        t = [timed(mine) for mine in (False, True, True, False)]
         return dict(base_ms=[t[0], t[3]], ms=[t[1], t[2]], max_abs_err=err)
+
+    def k6_ctx(mine):
+        return contextlib.nullcontext() if mine \
+            else _bound_to("join_probe", k6_other)
+
+    def k6_turns(cases):
+        for name, fns in cases.items():
+            def check(mine, fns=fns):
+                with k6_ctx(mine):
+                    return k6_check(fns)
+
+            def timed(mine, fns=fns):
+                with k6_ctx(mine):
+                    return time_ms(fns[0])
+            r = turns(check, timed)
+            with k6_ctx(False):
+                r["base_split"] = kernel_split(fns[0])
+            r["split"] = kernel_split(fns[0])
+            log(f"join_probe at {name}: " + json.dumps(r))
+
+    def k1_turns(cases):
+        for name, case in cases.items():
+            r = turns(lambda mine, c=case: k1_check(c, k1_calls[mine])[0],
+                      lambda mine, c=case: k1_time(c, k1_calls[mine]))
+            r["bound_ms"], r["bound_by"] = k1_check(case)[1]
+            log(f"probe_insert at {name}: " + json.dumps(r))
+
+    def k8_turns(cases):
+        for name, case in cases.items():
+            r = turns(lambda mine, c=case: k8_check(c, k8_calls[mine]),
+                      lambda mine, c=case: k8_time(c, k8_calls[mine]))
+            log(f"lookup at {name}: " + json.dumps(r))
 
     for name, inp in k2_inputs(dev).items():
         fk = _k2_fns(inp)[2]
-        r = turns(lambda mine, fk=fk: (
-            contextlib.nullcontext() if mine
-            else _bound_to("agg_apply", k2_other), fk),
-            lambda _fn, inp=inp: k2_check(inp))
+
+        def k2_timed(mine, fk=fk):
+            with contextlib.nullcontext() if mine \
+                    else _bound_to("agg_apply", k2_other):
+                return time_ms(fk)
+
+        def k2_checked(mine, inp=inp):
+            with contextlib.nullcontext() if mine \
+                    else _bound_to("agg_apply", k2_other):
+                return k2_check(inp)
+        r = turns(k2_checked, k2_timed)
         r.update(launches_per_call=launches_of(fk, "agg_apply"))
         log(f"agg_apply at {name}: " + json.dumps(r))
     for name, args in route_inputs(dev).items():
         def side(mine, args=args):
-            return contextlib.nullcontext(), functools.partial(
-                _route_raw, route_libs[mine], with_total and not mine,
-                *args)
+            return functools.partial(_route_raw, route_libs[mine],
+                                     with_total and not mine, *args)
 
-        def check(fn, args=args):
-            got, want = fn(), X.route_plain(*args)
+        def check(mine, args=args):
+            got, want = side(mine)(), X.route_plain(*args)
             err = max(abs_err(g.cpu().numpy(), w.cpu().numpy())
                       for g, w in zip(got, want))
             assert err == 0, f"route differs from route_plain: {err}"
             return err
-        r = turns(side, check)
-        r["base_split"] = kernel_split(side(False)[1])
-        r["split"] = kernel_split(side(True)[1])
+        r = turns(check, lambda mine, side=side: time_ms(side(mine)))
+        r["base_split"] = kernel_split(side(False))
+        r["split"] = kernel_split(side(True))
         log(f"route at {name}: " + json.dumps(r))
+    torch.cuda.empty_cache()
+
+    k1_turns(k1_cases_q7(dev))
+    js = build_join_states(dev)
+    log("probe lengths, q8's join table: "
+        + json.dumps(probe_lengths(js["ks"].table.state)))
+    k1_turns(k1_cases_q8(js))
+    k8_turns(k8_cases_q8(js))
+    k6_turns(k6_cases_q8(js))
+    del js
+    torch.cuda.empty_cache()
+    mj = build_mesh_join_states(dev, twin=False)
+    log("probe lengths, q8-mesh's join tables (8 shards): "
+        + json.dumps(probe_lengths(mj["ks"].table)))
+    k1_turns(k1_cases_mesh(mj))
+    k6_turns(k6_cases_mesh(mj))
+    del mj
+    torch.cuda.empty_cache()
+    k6_turns(k6_cases_perchunk(replay_perchunk(dev,
+                                               record_perchunk_steps(dev))))
+    torch.cuda.empty_cache()
+    k8_turns(k8_cases_cold(dev))
     return 0
 
 

@@ -9,29 +9,39 @@
 // risingwave_tpu/parallel/join.py (B24: the steps at :391, :450, :717) on
 // the rows `route` delivered to each shard, mapped back to global row ids.
 //
-// One thread per probe row, two launches over 1024-row tiles, grid.y =
-// shard:
-//   count_kernel  lookup (linear probe from the row hash, KW lanes
-//                 compared, stopping at an empty slot; bounded by cap
-//                 steps, stats[1] flags a row that ran out), then a walk
-//                 of the slot's chain counting refs visible at the row's
-//                 sequence (ins_seq < seq <= del_seq). It keeps the
-//                 degree and the chain head per row and the tile's sum.
-//   emit_kernel   the exclusive scan of the degrees: each block sums the
-//                 tiles before it and scans its own tile with warp
-//                 shuffles. Then each row walks its chain again and writes
-//                 [probe_row, ref, pay[ref]..., (deg_self[ref])] at its
-//                 offsets while they are below out_cap. Block 0 writes the
-//                 header [total, 0, ...] with the TRUE total, so a caller
-//                 whose buffer overflowed re-dispatches with a larger one;
-//                 all blocks fill the pair rows at or past the total with
-//                 the reference's padding (-1, -1, 0, ...). With degrees
-//                 it also writes the degree rows [deg, 0, ...] and does the
-//                 two scatter-adds of epoch_probe: deg_self[ref] += the
-//                 probe row's sign for every written pair, and
-//                 deg_sink[ins_ref] += deg for every insert row (into
-//                 copies the wrapper made: the originals stay untouched for
-//                 a re-dispatch).
+// Two launches a call, one thread per probe row, 256-row tiles (a 2^16-row
+// epoch is 256 blocks), grid.y = shard:
+//   count_kernel  the lookup through rw::find_slot (common.cuh: a group
+//                 of 4 slots a step, their occ words and lanes loaded
+//                 together, K <= 8 lanes held in registers; a shard's
+//                 chains run ~50 slots to a stored key, ~110 to an empty
+//                 one; bounded by cap slots, a row that runs out
+//                 sets the tile's overflow flag), then one walk of the
+//                 slot's chain counting the refs visible at the row's
+//                 sequence (ins_seq < seq <= del_seq). Each row keeps
+//                 (degree, first visible ref, second visible ref, the
+//                 chain entry after the second) in one 16-byte scratch
+//                 entry; each tile keeps (sum of degrees, overflow flag).
+//   emit_kernel   every block sums the tile entries before its own and
+//                 all of them (the tiles are few: one load a thread), and
+//                 scans its tile's degrees with warp shuffles and one
+//                 barrier. Each row writes [probe_row, ref, pay[ref]...,
+//                 (deg_self[ref])] at its offsets while they are below
+//                 out_cap: its first two refs from scratch (q8's chains
+//                 hold one ref: no second walk), then the rest of a longer
+//                 chain from the kept entry on. Block 0 writes the header
+//                 [total, 0, ...] with the TRUE total, so a caller whose
+//                 buffer overflowed re-dispatches with a larger one, and
+//                 stats [0, overflow] (no memset launch). The pair rows
+//                 at or past the total get the reference's padding (-1,
+//                 -1, 0, ...): one flat range of the shard's block, cut
+//                 among all blocks and written with 16-byte stores. With
+//                 degrees it also writes the degree rows [deg, 0, ...]
+//                 and does the two scatter-adds of epoch_probe:
+//                 deg_self[ref] += the probe row's sign for every written
+//                 pair, and deg_sink[ins_ref] += deg for every insert row
+//                 (into copies the wrapper made: the originals stay
+//                 untouched for a re-dispatch).
 //
 // Shards: shard s reads its n rows at its own shard stride of every row
 // input, probes its own table and chains (cap slots, row_cap refs: refs
@@ -48,49 +58,19 @@
 // order (K5 builds the chains in the reference's order).
 //
 // What bounds it on the card: the chain walks are dependent loads
-// (latency), and bytes beyond them — each row reads its key lanes, aux
-// entries and visited chain entries, and writes its pair rows. A hot key
-// makes one thread walk a long chain twice; that is left simple. On the
-// sharded path each shard also reads the flags of its mostly empty
-// receive block and writes its degree rows.
+// (latency): a probe row costs the lookup's trip (occ and lanes), the
+// head's, and one a chain entry (next, ins_seq, del_seq together); bytes
+// beyond them — each row's key lanes, aux entries and visited chain
+// entries read, its pair rows and the padding written. A hot key makes
+// one thread walk a long chain, once to count and once past its first
+// two refs to emit; that is left simple.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 1024;
-
-__device__ __forceinline__ int lookup_slot(const int32_t* key, int k,
-                                           const int32_t* __restrict__ tkeys,
-                                           const int32_t* __restrict__ occ,
-                                           long long cap, int32_t* stats) {
-  const uint32_t mask = static_cast<uint32_t>(cap) - 1u;
-  uint32_t slot = rw::hash_lanes(key, k) & mask;
-  for (long long step = 0; step < cap; ++step) {
-    if (occ[slot] == 0) return -1;
-    const int32_t* cur = tkeys + static_cast<size_t>(slot) * k;
-    bool eq = true;
-    for (int i = 0; i < k; ++i) eq = eq && (cur[i] == key[i]);
-    if (eq) return static_cast<int>(slot);
-    slot = (slot + 1u) & mask;
-  }
-  atomicExch(&stats[1], 1);
-  return -1;
-}
-
-// Sum over the block, returned to every thread. `sh` holds 32 ints.
-__device__ int block_sum(int v, int* sh) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  int t = 0;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int i = 0; i < nwarps; ++i) t += sh[i];
-  __syncthreads();
-  return t;
-}
+constexpr int kTile = 256;
+constexpr int kWarps = kTile / 32;
+constexpr int kPadInts = kTile * 16;   // padding ints a block takes
 
 struct Probe {
   const int32_t* keys;
@@ -128,9 +108,8 @@ struct Probe {
   long long out_cap;
   int w;
   int ntiles;
-  int32_t* deg;
-  int32_t* cur0;
-  int32_t* tile_sum;
+  int4* rows;   // [S, n]: degree, ref0, ref1, the entry after ref1
+  int2* tiles;  // [S, ntiles]: degree sum, overflow flag
   int32_t* stats;
 };
 
@@ -158,95 +137,174 @@ __device__ __forceinline__ Probe shard_view(Probe q, long long s) {
   q.deg_self_out = adv(q.deg_self_out, s * q.row_cap);
   q.deg_sink_out = adv(q.deg_sink_out, s * q.sink_cap);
   q.out = adv(q.out, s * (1 + (q.deg_rows ? q.n : 0) + q.out_cap) * q.w);
-  q.deg = adv(q.deg, s * (2LL * q.n + q.ntiles));
-  q.cur0 = q.deg + q.n;
-  q.tile_sum = q.cur0 + q.n;
+  q.rows = adv(q.rows, s * q.n);
+  q.tiles = adv(q.tiles, s * q.ntiles);
   q.stats = adv(q.stats, s * 2);
   return q;
 }
 
-__global__ void count_kernel(Probe q0) {
-  __shared__ int sh[32];
+__device__ __forceinline__ bool visible(const Probe& q, int cur,
+                                        int32_t sq) {
+  return __ldg(q.ins_seq + cur) < sq && __ldg(q.del_seq + cur) >= sq;
+}
+
+// Write w ints val(0..w-1) at row: 16-byte stores where the row and w
+// allow, else 8-byte, else one by one.
+template <class F>
+__device__ __forceinline__ void store_row(int32_t* row, int w, F val) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(row);
+  if ((w & 3) == 0 && (a & 15) == 0) {
+    for (int c = 0; c < w; c += 4) {
+      reinterpret_cast<int4*>(row)[c >> 2] =
+          make_int4(val(c), val(c + 1), val(c + 2), val(c + 3));
+    }
+  } else if ((w & 1) == 0 && (a & 7) == 0) {
+    for (int c = 0; c < w; c += 2) {
+      reinterpret_cast<int2*>(row)[c >> 1] = make_int2(val(c), val(c + 1));
+    }
+  } else {
+    for (int c = 0; c < w; ++c) row[c] = val(c);
+  }
+}
+
+template <class Key>
+__global__ void __launch_bounds__(kTile) count_kernel(Probe q0) {
+  __shared__ int s_sum[kWarps];
+  __shared__ int s_ovf[kWarps];
   const Probe q = shard_view(q0, blockIdx.y);
   const int i = blockIdx.x * kTile + threadIdx.x;
   int d = 0;
+  bool ovf = false;
   if (i < q.n) {
     int c = -1;
     if ((q.vis[static_cast<long long>(i) * q.vis_stride] & q.vis_bits) != 0) {
-      const int s = lookup_slot(q.keys + static_cast<long long>(i) *
-                                             q.key_stride,
-                                q.k, q.tkeys, q.occ, q.cap, q.stats);
-      if (s >= 0) c = q.head[s];
+      Key key(q.k);
+      key.load(q.keys + static_cast<long long>(i) * q.key_stride);
+      const int s = rw::find_slot(key, q.tkeys, q.occ,
+                                  static_cast<uint32_t>(q.cap));
+      ovf = s == -2;
+      if (s >= 0) c = __ldg(q.head + s);
     }
     const int32_t sq = q.seq[static_cast<long long>(i) * q.seq_stride];
-    for (int cur = c; cur >= 0; cur = q.next[cur]) {
-      if (q.ins_seq[cur] < sq && q.del_seq[cur] >= sq) ++d;
+    int r0 = -1, r1 = -1, after = -1;
+    for (int cur = c; cur >= 0;) {
+      const int nx = __ldg(q.next + cur);
+      if (visible(q, cur, sq)) {
+        if (d == 0) {
+          r0 = cur;
+        } else if (d == 1) {
+          r1 = cur;
+          after = nx;
+        }
+        ++d;
+      }
+      cur = nx;
     }
-    q.deg[i] = d;
-    q.cur0[i] = c;
+    q.rows[i] = make_int4(d, r0, r1, after);
   }
-  const int t = block_sum(d, sh);
-  if (threadIdx.x == 0) q.tile_sum[blockIdx.x] = t;
+  const int sum = __reduce_add_sync(0xffffffffu, d);
+  const unsigned f = __ballot_sync(0xffffffffu, ovf);
+  if ((threadIdx.x & 31) == 0) {
+    s_sum[threadIdx.x >> 5] = sum;
+    s_ovf[threadIdx.x >> 5] = f != 0u;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0, o = 0;
+    for (int j = 0; j < kWarps; ++j) {
+      t += s_sum[j];
+      o |= s_ovf[j];
+    }
+    q.tiles[blockIdx.x] = make_int2(t, o);
+  }
 }
 
-__global__ void emit_kernel(Probe q0) {
-  __shared__ int sh[32];
-  __shared__ int warp_sums[kTile / 32];
+// One pair row at offset wp (dropped past out_cap), and its degree add.
+__device__ __forceinline__ void emit_pair(const Probe& q, long long pair0,
+                                          long long wp, int32_t row_id,
+                                          int cur, bool neg) {
+  if (wp >= q.out_cap) return;
+  const int32_t* src = q.pay + static_cast<long long>(cur) * q.p;
+  store_row(q.out + (pair0 + wp) * q.w, q.w, [&](int c) -> int32_t {
+    return c == 0           ? row_id
+           : c == 1         ? cur
+           : c < 2 + q.p    ? __ldg(src + c - 2)
+                            : __ldg(q.deg_self + cur);
+  });
+  if (q.scatter) atomicAdd(&q.deg_self_out[cur], neg ? -1 : 1);
+}
+
+__global__ void __launch_bounds__(kTile) emit_kernel(Probe q0) {
+  __shared__ int s_scan[kWarps], s_before[kWarps], s_all[kWarps],
+      s_ovf[kWarps];
   const Probe q = shard_view(q0, blockIdx.y);
-  // tiles before this one, and all tiles
-  int before = 0;
-  int all = 0;
-  for (int j = threadIdx.x; j < q.ntiles; j += blockDim.x) {
-    const int v = q.tile_sum[j];
-    all += v;
-    if (j < static_cast<int>(blockIdx.x)) before += v;
-  }
-  const int base = block_sum(before, sh);
-  const int total = block_sum(all, sh);
-  // exclusive scan of this tile's degrees
-  const int i = blockIdx.x * kTile + threadIdx.x;
-  const int d = i < q.n ? q.deg[i] : 0;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // the tiles before this block's, all tiles, any overflow
+  int before = 0, all = 0, ovf = 0;
+  for (int t = threadIdx.x; t < q.ntiles; t += kTile) {
+    const int2 v = q.tiles[t];
+    all += v.x;
+    ovf |= v.y;
+    if (t < static_cast<int>(blockIdx.x)) before += v.x;
+  }
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  const bool mine = static_cast<int>(blockIdx.x) < q.ntiles && i < q.n;
+  const int4 e = mine ? q.rows[i] : make_int4(0, -1, -1, -1);
+  const int d = e.x;
   int incl = d;
   for (int o = 1; o < 32; o <<= 1) {
     const int v = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += v;
   }
-  if (lane == 31) warp_sums[warp] = incl;
+  before = __reduce_add_sync(0xffffffffu, before);
+  all = __reduce_add_sync(0xffffffffu, all);
+  ovf = static_cast<int>(
+      __reduce_or_sync(0xffffffffu, static_cast<unsigned>(ovf)));
+  if (lane == 31) s_scan[warp] = incl;
+  if (lane == 0) {
+    s_before[warp] = before;
+    s_all[warp] = all;
+    s_ovf[warp] = ovf;
+  }
   __syncthreads();
-  int wbase = 0;
-  for (int j = 0; j < warp; ++j) wbase += warp_sums[j];
+  int base = 0, total = 0, any = 0, wbase = 0;
+  for (int j = 0; j < kWarps; ++j) {
+    base += s_before[j];
+    total += s_all[j];
+    any |= s_ovf[j];
+    if (j < warp) wbase += s_scan[j];
+  }
   const long long pair0 = 1 + (q.deg_rows ? q.n : 0);
-  if (i < q.n) {
-    long long wp = base + wbase + incl - d;
+  if (mine) {
+    long long wp = static_cast<long long>(base) + wbase + incl - d;
     const int32_t row_id =
         q.rid != nullptr ? q.rid[static_cast<long long>(i) * q.rid_stride]
                          : i;
     if (q.deg_rows) {
-      int32_t* row = q.out + (1 + static_cast<long long>(i)) * q.w;
-      row[0] = d;
-      for (int c = 1; c < q.w; ++c) row[c] = 0;
-      if (q.rid != nullptr) {
-        row[1] = q.rvalid[static_cast<long long>(i) * q.rvalid_stride] != 0
-                     ? row_id
-                     : -1;
-      }
+      const int32_t second =
+          q.rid == nullptr ? 0
+          : q.rvalid[static_cast<long long>(i) * q.rvalid_stride] != 0
+              ? row_id
+              : -1;
+      store_row(q.out + (1 + static_cast<long long>(i)) * q.w, q.w,
+                [&](int c) -> int32_t {
+                  return c == 0 ? d : c == 1 ? second : 0;
+                });
     }
-    const int32_t sq = q.seq[static_cast<long long>(i) * q.seq_stride];
     const bool neg = q.scatter && (q.aux[i * 4 + 2] & 8) != 0;  // FLAG_NEG
-    for (int cur = q.cur0[i]; cur >= 0; cur = q.next[cur]) {
-      if (!(q.ins_seq[cur] < sq && q.del_seq[cur] >= sq)) continue;
-      if (wp < q.out_cap) {
-        int32_t* row = q.out + (pair0 + wp) * q.w;
-        row[0] = row_id;
-        row[1] = cur;
-        const int32_t* src = q.pay + static_cast<long long>(cur) * q.p;
-        for (int c = 0; c < q.p; ++c) row[2 + c] = src[c];
-        if (q.old_col) row[2 + q.p] = q.deg_self[cur];
-        if (q.scatter) atomicAdd(&q.deg_self_out[cur], neg ? -1 : 1);
+    if (d > 0) emit_pair(q, pair0, wp++, row_id, e.y, neg);
+    if (d > 1) emit_pair(q, pair0, wp++, row_id, e.z, neg);
+    if (d > 2) {
+      const int32_t sq = q.seq[static_cast<long long>(i) * q.seq_stride];
+      for (int cur = e.w, left = d - 2; left > 0;) {
+        const int nx = __ldg(q.next + cur);
+        if (visible(q, cur, sq)) {
+          emit_pair(q, pair0, wp++, row_id, cur, neg);
+          --left;
+        }
+        cur = nx;
       }
-      ++wp;
     }
     if (q.scatter && (q.aux[i * 4 + 2] & 2) != 0) {  // FLAG_INS
       const long long r = q.aux[i * 4 + 0];
@@ -256,14 +314,39 @@ __global__ void emit_kernel(Probe q0) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     q.out[0] = total;
     for (int c = 1; c < q.w; ++c) q.out[c] = 0;
+    q.stats[0] = 0;
+    q.stats[1] = any;
   }
-  for (long long r = static_cast<long long>(blockIdx.x) * kTile + threadIdx.x;
-       r < q.out_cap; r += static_cast<long long>(gridDim.x) * kTile) {
-    if (r < total) continue;
-    int32_t* row = q.out + (pair0 + r) * q.w;
-    row[0] = -1;
-    row[1] = -1;
-    for (int c = 2; c < q.w; ++c) row[c] = 0;
+  // padding: elements [first, end) of the shard's block, column c of a
+  // row -1 for c < 2, else 0; 16-byte stores over the aligned body
+  const long long rel0 = pair0 * q.w;
+  const long long first =
+      rel0 + (total < q.out_cap ? static_cast<long long>(total) : q.out_cap) *
+                 q.w;
+  const long long end = rel0 + q.out_cap * q.w;
+  if (first >= end) return;
+  auto pad = [&](long long x) -> int32_t {
+    return (x - rel0) % q.w < 2 ? -1 : 0;
+  };
+  const long long head =
+      ((16 - (reinterpret_cast<uintptr_t>(q.out + first) & 15)) & 15) / 4;
+  const long long body0 = first + head < end ? first + head : end;
+  const long long nvec = (end - body0) / 4;
+  const long long body1 = body0 + nvec * 4;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < body0 - first) {
+      q.out[first + threadIdx.x] = pad(first + threadIdx.x);
+    }
+    if (threadIdx.x < end - body1) {
+      q.out[body1 + threadIdx.x] = pad(body1 + threadIdx.x);
+    }
+  }
+  for (long long j = static_cast<long long>(blockIdx.x) * kTile +
+                     threadIdx.x;
+       j < nvec; j += static_cast<long long>(gridDim.x) * kTile) {
+    const long long x = body0 + 4 * j;
+    reinterpret_cast<int4*>(q.out + x)[0] =
+        make_int4(pad(x), pad(x + 1), pad(x + 2), pad(x + 3));
   }
 }
 
@@ -275,9 +358,10 @@ __global__ void emit_kernel(Probe q0) {
 // degrees and aux (S = 1 only on the paths that use them) follow the same
 // shard layout. rid/rvalid: the routed row-id lane and the route's valid
 // flags, or null (pair rows then carry the local row). out: int32[S, 1 +
-// (deg_rows ? n : 0) + out_cap, w]. scratch: int32[S, 2n + ntiles]
-// (degrees, chain heads, tile sums); stats: int32[S, 2] = [0, lookup
-// overflow], zeroed here.
+// (deg_rows ? n : 0) + out_cap, w]. scratch: int32[S * (4n + 2 *
+// ceil(n / 256))] (16-byte aligned; per-row entries, then per-tile
+// entries); stats: int32[S, 2] = [0, lookup overflow], written by the
+// launches.
 RW_API int rw_join_probe(
     const void* keys, long long key_stride, long long key_ss, int k,
     const void* vis, long long vis_stride, long long vis_ss, int vis_bits,
@@ -292,10 +376,7 @@ RW_API int rw_join_probe(
     long long out_cap, int w, void* scratch, void* stats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (shards <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t e =
-      cudaMemsetAsync(stats, 0, 2 * sizeof(int32_t) * shards, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int ntiles = n > 0 ? (n + kTile - 1) / kTile : 1;
+  const int ntiles = (n + kTile - 1) / kTile;
   Probe q;
   q.keys = static_cast<const int32_t*>(keys);
   q.key_stride = key_stride;
@@ -337,17 +418,20 @@ RW_API int rw_join_probe(
   q.out_cap = out_cap;
   q.w = w;
   q.ntiles = ntiles;
-  q.deg = static_cast<int32_t*>(scratch);
-  q.cur0 = q.deg + n;
-  q.tile_sum = q.cur0 + n;
+  q.rows = static_cast<int4*>(scratch);
+  q.tiles = reinterpret_cast<int2*>(q.rows + static_cast<long long>(shards) *
+                                                 n);
   q.stats = static_cast<int32_t*>(stats);
-  const dim3 grid(ntiles, shards);
   if (n > 0) {
-    count_kernel<<<grid, kTile, 0, st>>>(q);
-  } else {
-    e = cudaMemsetAsync(scratch, 0, sizeof(int32_t) * shards, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(ntiles, shards);
+#define RW_LAUNCH(KEY) count_kernel<KEY><<<grid, kTile, 0, st>>>(q)
+    RW_LANES_SWITCH(k, rw::groups_aligned(tkeys, occ, cap), RW_LAUNCH)
+#undef RW_LAUNCH
   }
-  emit_kernel<<<grid, kTile, 0, st>>>(q);
+  const long long pad_blocks = (out_cap * w + kPadInts - 1) / kPadInts;
+  long long blocks = ntiles > pad_blocks ? ntiles : pad_blocks;
+  if (blocks < 1) blocks = 1;
+  emit_kernel<<<dim3(static_cast<unsigned>(blocks), shards), kTile, 0, st>>>(
+      q);
   return static_cast<int>(cudaGetLastError());
 }

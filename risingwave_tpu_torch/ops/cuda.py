@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,8 +46,9 @@ _L = ctypes.c_longlong
 LIBRARIES: Dict[str, Dict[str, list]] = {
     "probe_insert": {
         "rw_probe_insert": [_P, _L, _L, _P, _L, _L, _I, _I, _P, _P, _I, _I,
-                            _P, _P, _P],
-        "rw_lookup": [_P, _L, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+                            _P, _P, _P, _I, _P],
+        "rw_lookup": [_P, _L, _P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                      _I, _P],
     },
     "agg_apply": {
         "rw_agg_apply": [_I, _P, _I, _I, _I, _I, _L, _P, _L, _P, _L, _L,
@@ -94,6 +95,7 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_chain: Dict[tuple, torch.Tensor] = {}
 
 
 def nvcc_path() -> str:
@@ -193,6 +195,35 @@ def load(name: str) -> ctypes.CDLL:
 
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _chain_key(device: torch.device) -> tuple:
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return index, stream_ptr()
+
+
+def stats_chain(device: torch.device, n: int) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """(stats, next) for a kernel that sums its stats in its own launch
+    (K1, K8): ``stats`` is ``n`` zeroed int32 words to sum into, and
+    ``next`` a block the launch must zero for the launch after it on the
+    same stream, handed on by ``chain_next`` once the launch went out.
+    Launches of one stream run one after another, so each launch's stats
+    were zeroed by the one before it; the first launch, one after a
+    launch that failed, and one that needs more words than were zeroed get
+    a fresh zeroed block. Each block is handed out once."""
+    cur = _chain.pop(_chain_key(device), None)
+    if cur is None or cur.numel() < n:
+        cur = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    nxt = torch.empty(max(n, 64), dtype=torch.int32, device=device)
+    return cur[:n], nxt
+
+
+def chain_next(device: torch.device, nxt: torch.Tensor) -> None:
+    """After a launch that zeroes ``nxt``: the next launch's stats."""
+    _chain[_chain_key(device)] = nxt
 
 
 def call(name: str, fn: str, *args) -> None:

@@ -613,7 +613,7 @@ def _join_probe_launch(table: ht.TableState, chains: ChainState, *,
                        deg_self_out, deg_sink_out, out_cap: int,
                        deg_rows: bool, old_col: bool, scatter: bool,
                        name: str, shards: int = 1, rid=None, rvalid=None):
-    """One K6 launch sequence over ``shards`` shards. One shard: keys
+    """One K6 call (two launches) over ``shards`` shards. One shard: keys
     [n, K], vis [n], the table [cap, K] and chains [cap]/[row_cap];
     S shards: [S, n, K], [S, n], [S, cap, K], [S, cap]/[S, row_cap].
     ``seq`` is _seq_arg's triple. Returns (out [(S,) rows, W], stats
@@ -622,7 +622,7 @@ def _join_probe_launch(table: ht.TableState, chains: ChainState, *,
     head, nxt, ins_seq, del_seq = chains
     dev = head.device
     k = int(keys.shape[-1])
-    if k != tkeys.shape[-1] or keys.stride(-1) != 1:
+    if k != tkeys.shape[-1] or (n and keys.stride(-1) != 1):
         raise ValueError("probe key lanes must match the table's width "
                          "and be contiguous")
     if not all(t.is_contiguous() for t in (tkeys, occ, *chains)):
@@ -636,9 +636,9 @@ def _join_probe_launch(table: ht.TableState, chains: ChainState, *,
     rows = 1 + (n if deg_rows else 0) + out_cap
     lead = (shards,) if head.dim() == 2 else ()
     out = torch.empty(lead + (rows, W), dtype=torch.int32, device=dev)
-    tiles = max(1, -(-n // 1024))
-    scratch = torch.empty(shards * (2 * n + tiles), dtype=torch.int32,
-                          device=dev)
+    tiles = -(-n // 256)
+    scratch = torch.empty(shards * (4 * n + 2 * tiles + 1),
+                          dtype=torch.int32, device=dev)
     stats = torch.empty(lead + (2,), dtype=torch.int32, device=dev)
     cuda.call("join_probe", "rw_join_probe",
               *_rows(keys, lanes=True), k, *_rows(vis), vis_bits, *seq,

@@ -11,8 +11,11 @@ and its plain PyTorch version on a CPU tensor; ``probe_insert_sharded``
 launches the same kernel over S independent tables with a leading shard
 axis (the vnode-sharded agg, ``parallel/agg.py``). ``lookup`` (the read-only
 probe, B3) is kernel K8 (``rw_lookup`` in ``csrc/probe_insert.cu``), which
-the agg's cold-tier eviction (B9) launches; the join's probe runs its own
-copy of the probe inside K6 (``csrc/join_probe.cu``). Where the reference
+the agg's cold-tier eviction (B9) launches; K1, K8 and the join's probe
+inside K6 (``csrc/join_probe.cu``) share one probe helper
+(``csrc/common.cuh``). K1 and K8 are one launch each: they sum their
+stats into a block that the launch before them on the stream zeroed
+(``cuda.stats_chain``). Where the reference
 donates the state to a pure function (``donate_argnums=(0,)``), the port
 updates ``keys`` and ``occ`` in place.
 
@@ -170,7 +173,7 @@ def _probe_insert_cuda(keys: torch.Tensor, occ: torch.Tensor,
         raise ValueError(f"shape mismatch: batch {tuple(batch_keys.shape)}"
                          f", valid {tuple(valid.shape)}, table "
                          f"{tuple(keys.shape)}")
-    if batch_keys.stride(2) != 1 or not keys.is_contiguous() or \
+    if (n and batch_keys.stride(2) != 1) or not keys.is_contiguous() or \
             not occ.is_contiguous():
         raise ValueError("probe_insert needs contiguous key lanes")
     if not (keys.device == occ.device == batch_keys.device ==
@@ -179,13 +182,16 @@ def _probe_insert_cuda(keys: torch.Tensor, occ: torch.Tensor,
     if valid.dtype == torch.bool:
         valid = valid.to(torch.int32)
     slots = torch.empty((s, n), dtype=torch.int32, device=keys.device)
-    stats = torch.empty((s, 2), dtype=torch.int32, device=keys.device)
+    stats, nxt = cuda.stats_chain(keys.device, 2 * s)
     cuda.call("probe_insert", "rw_probe_insert",
               batch_keys.data_ptr(), batch_keys.stride(1),
               batch_keys.stride(0), valid.data_ptr(), valid.stride(1),
               valid.stride(0), n, k, keys.data_ptr(), occ.data_ptr(),
-              keys.shape[1], s, slots.data_ptr(), stats.data_ptr())
-    if n:
+              keys.shape[1], s, slots.data_ptr(), stats.data_ptr(),
+              nxt.data_ptr(), nxt.numel())
+    cuda.chain_next(keys.device, nxt)
+    stats = stats.view(s, 2)
+    if s:
         LAUNCHES.add("probe_insert")
     return slots, stats
 
@@ -247,7 +253,7 @@ def lookup(state: TableState, batch_keys: torch.Tensor,
         raise ValueError(f"shape mismatch: batch {tuple(batch_keys.shape)}"
                          f", valid {tuple(valid.shape)}, table "
                          f"{tuple(keys.shape)}")
-    if batch_keys.stride(1) != 1 or not keys.is_contiguous() or \
+    if (n and batch_keys.stride(1) != 1) or not keys.is_contiguous() or \
             not occ.is_contiguous():
         raise ValueError("lookup needs contiguous key lanes")
     if dropped is not None and (dropped.dtype != torch.int32
@@ -261,14 +267,15 @@ def lookup(state: TableState, batch_keys: torch.Tensor,
     if valid.dtype == torch.bool:
         valid = valid.to(torch.int32)
     slots = torch.empty(n, dtype=torch.int32, device=keys.device)
-    stats = torch.empty(2, dtype=torch.int32, device=keys.device)
+    stats, nxt = cuda.stats_chain(keys.device, 2)
     cuda.call("probe_insert", "rw_lookup", batch_keys.data_ptr(),
               batch_keys.stride(0), valid.data_ptr(), valid.stride(0), n, k,
               keys.data_ptr(), occ.data_ptr(), keys.shape[0],
               slots.data_ptr(), stats.data_ptr(),
-              None if dropped is None else dropped.data_ptr())
-    if n:
-        LAUNCHES.add("lookup")
+              None if dropped is None else dropped.data_ptr(),
+              nxt.data_ptr(), nxt.numel())
+    cuda.chain_next(keys.device, nxt)
+    LAUNCHES.add("lookup")
     return slots, stats
 
 

@@ -1,8 +1,9 @@
-"""Batches that hold K2 (``agg_apply``) and ``route`` to their plain
-versions at the shapes their warp-level designs meet at the edges.
+"""Batches that hold K2 (``agg_apply``), ``route``, K1 (``probe_insert``)
+and K6 (``join_probe``) to their plain versions at the shapes their
+designs meet at the edges.
 
-``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py`` phase 3 run
-both kernels on these on the card. K2 aggregates the lanes of a warp that
+``tests/test_torch_cuda_kernels.py`` runs the kernels on these on the
+card (``chip_smoke.py`` phase 3 K2's and route's). K2 aggregates the lanes of a warp that
 share a slot, so its cases put every row on one slot, give every lane its
 own slot, mix two or three slots a warp with invisible rows and NULL
 inputs interleaved, tie MAX/MIN on the hi lane with different lo lanes
@@ -12,15 +13,30 @@ block into tiles of 256-row chunks and counts owners per warp, so its
 cases send every row to one owner, spread owners uniformly, take 3
 shards, a block that is not a whole number of chunks and one whose tiles
 hold several chunks, an overflowing bucket, bucket 0 and empty blocks.
-Everything is numpy, made from fixed seeds.
+K1 claims slots by CAS, publishes them with a release store, lets a
+warp's and a block's equal keys probe once and sums its insert count by
+warp, so its cases race every row for one new key, give every row a new
+key, spread in-batch duplicates over warps and blocks, fill a table to
+just under MAX_LOAD, put home slots at the end of the table (the probe
+wraps), interleave invalid rows (and all-zero keys), take 1, 3 and 6
+lanes, n = 0, n that is not a multiple of 32 or of the block, and 8 and
+3 shards. K6 keeps each
+row's first two visible refs and walks longer chains from there, cuts
+256-row tiles and pads the pair buffer with 16-byte stores, so its cases
+hold chains of 0, 1 and many refs, refs invisible at the row's sequence
+on either side, a buffer that the pairs fill exactly or overflow by one,
+n that is not a multiple of the tile, n = 0, the degree branch and absent
+keys whose probe wraps. Everything is numpy, made from fixed seeds.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
+from risingwave_tpu_torch.common.hash import hash_lanes_plain
 from risingwave_tpu_torch.ops import hash_agg as H
 from risingwave_tpu_torch.ops import lanes
 
@@ -29,6 +45,13 @@ FLOAT_SUM_RTOL = 1e-6           # of Σ|terms| per group: atomic order
 AGG_CASES = ("one_slot", "own_slot", "few_slots", "ties", "limbs", "none")
 ROUTE_CASES = ("one_owner", "uniform", "three_shards", "ragged",
                "multi_chunk", "overflow", "bucket_0", "empty")
+K1_CASES = ("one_key", "all_new", "dup_warps", "near_max_load", "wrap",
+            "invalid_rows", "lanes_1", "lanes_6", "empty", "ragged")
+K1_SHARDS = (8, 3)
+K6_CASES = ("chains", "invisible", "exact_fit", "one_over", "ragged",
+            "empty", "degrees", "absent_wrap")
+J_KW, J_P = 3, 6                # the K6 cases' key and payload lanes
+FLAG_PROBE, FLAG_INS, FLAG_DEL, FLAG_NEG = 1, 2, 4, 8   # ops/hash_join.py
 # every device kind: SUM(int), SUM(float), MAX, MIN, COUNT(*), COUNT(col)
 ALL_KINDS = (("sum", np.int64), ("sum", np.float64), ("max", np.int64),
              ("min", np.int64), ("count", None), ("count", np.int64))
@@ -186,3 +209,248 @@ def agg_state_err(specs, a: np.ndarray, b: np.ndarray, packed: np.ndarray,
         assert (err <= FLOAT_SUM_RTOL * mag).all(), (row, float(err.max()))
         worst = max(worst, float(err.max()))
     return worst
+
+
+# -- K1 (probe_insert) -----------------------------------------------------------
+
+def home_slots(keys: np.ndarray, cap: int) -> np.ndarray:
+    """Each key row's home slot in a table of `cap` slots."""
+    h = hash_lanes_plain(torch.from_numpy(np.ascontiguousarray(keys)))
+    return (h & (cap - 1)).numpy()
+
+
+def _rand_keys(rng, n: int, k: int, lo: int = -2**31, hi: int = 2**31):
+    """n distinct rows of k random int32 lanes."""
+    out = np.unique(rng.integers(lo, hi, (2 * n + 16, k)).astype(np.int32),
+                    axis=0)
+    return out[rng.permutation(len(out))[:n]]
+
+
+def k1_cases() -> Dict[str, Tuple[int, List[Tuple[np.ndarray, np.ndarray]]]]:
+    """name -> (cap, batches): batches (keys int32[n, K], valid bool[n])
+    to apply in order to an empty table of cap slots."""
+    rng = np.random.default_rng(81)
+    n = 1 << 15
+    ones = np.ones
+    out = {}
+    # 32K rows racing for one new key
+    out["one_key"] = (1 << 16, [(np.tile(key_lanes([123_456_789]), (n, 1)),
+                                 ones(n, bool))])
+    # every row a new key (load 0.5)
+    out["all_new"] = (1 << 16, [(key_lanes(rng.choice(10**9, n,
+                                                      replace=False)),
+                                 ones(n, bool))])
+    # 4,096 keys, each on 8 rows that lie in different warps and blocks,
+    # half of them placed by a first batch; all-zero keys among them
+    g = (np.arange(n) * 7_919) % 4096
+    keys = key_lanes(g * 31 + 7)
+    keys[g % 512 == 0] = 0
+    first = keys[np.unique(g, return_index=True)[1]][::2]
+    out["dup_warps"] = (1 << 14, [(first, ones(len(first), bool)),
+                                  (keys, ones(n, bool))])
+    # a table filled to just under MAX_LOAD: long probe chains; the last
+    # batch mixes new keys, keys already placed and in-batch duplicates
+    cap = 1 << 12
+    total = int(0.70 * cap) - 1
+    u = key_lanes(rng.choice(10**6, total, replace=False) * 13 + 1)
+    fill, new = u[:total // 2], u[total // 2:]
+    last = np.concatenate([new, fill[:300], new[:200]])
+    out["near_max_load"] = (cap, [(fill, ones(len(fill), bool)),
+                                  (last[rng.permutation(len(last))],
+                                   ones(len(last), bool))])
+    # home slots in the last 8 of 1,024: every probe past cap - 1 wraps
+    cap = 1 << 10
+    cand = _rand_keys(rng, 40_000, KW)
+    tail = cand[home_slots(cand, cap) >= cap - 8][:48]
+    keys = np.concatenate([tail, tail[:16]])
+    out["wrap"] = (cap, [(keys[rng.permutation(len(keys))],
+                          ones(len(keys), bool))])
+    # invalid rows interleaved (every other row, and every third), with
+    # all-zero keys and duplicates
+    m = 4096
+    keys = key_lanes(rng.integers(0, 1500, m))
+    keys[::97] = 0
+    valid = (np.arange(m) % 2 == 0) | (np.arange(m) % 3 == 0)
+    out["invalid_rows"] = (1 << 13, [(keys, valid)])
+    # one lane and six lanes, with duplicates
+    out["lanes_1"] = (1 << 13, [(rng.integers(-2000, 2000, (8192, 1))
+                                 .astype(np.int32), rng.random(8192) < 0.9)])
+    six = np.concatenate([key_lanes(rng.integers(0, 900, 8192)),
+                          key_lanes(rng.integers(0, 5, 8192))], axis=1)
+    out["lanes_6"] = (1 << 14, [(six, rng.random(8192) < 0.9)])
+    # no rows; then rows that fill neither a warp nor a block evenly
+    out["empty"] = (1 << 10, [(np.zeros((0, KW), np.int32),
+                               np.zeros(0, bool))])
+    out["ragged"] = (1 << 12, [
+        (key_lanes(rng.integers(0, 700, 1000)), rng.random(1000) < 0.9),
+        (key_lanes(rng.integers(0, 900, 33)), ones(33, bool))])
+    return out
+
+
+def k1_sharded_case(n_shards: int) -> Tuple[int, List[tuple]]:
+    """(cap per shard, batches) for the shard axis: batches (keys
+    int32[S, n, K], valid bool[S, n]); per shard a hot key, warm keys,
+    singletons and invalid rows, then a second batch meeting them again
+    (3 shards: rows that fill no block evenly)."""
+    rng = np.random.default_rng(82 + n_shards)
+    n = 4096 if n_shards == 8 else 1000
+    batches = []
+    for _b in range(2):
+        keys, valid = [], []
+        for s in range(n_shards):
+            u = rng.random(n)
+            g = np.where(u < 0.3, 5, np.where(u < 0.6, rng.integers(
+                0, 50, n), rng.integers(100, 10**6, n)))
+            keys.append(key_lanes(g + s * 10**7))
+            valid.append(rng.random(n) < 0.9)
+        batches.append((np.stack(keys), np.stack(valid)))
+    return 1 << 12, batches
+
+
+def k1_invariants(before: tuple, after: tuple, plain_after: tuple,
+                  keys: np.ndarray, valid: np.ndarray, slots: np.ndarray,
+                  stats: np.ndarray, plain_stats: np.ndarray) -> None:
+    """K1 on one table against its plain version on one batch, in numpy
+    (its slot rule is not the plain version's): the stats [inserted,
+    overflow] exact and no overflow; invalid rows -1; each valid row's
+    slot occupied and holding its key; equal keys on one slot; the slots
+    occupied before unchanged; occ only 0 or 1; and the same keys newly
+    inserted. `before`, `after` and `plain_after` are (keys [cap, K], occ
+    [cap]). Raises AssertionError."""
+    assert stats.tolist() == plain_stats.tolist(), (stats, plain_stats)
+    assert int(stats[1]) == 0, "probe overflow"
+    v = valid != 0
+    assert (slots[~v] == -1).all() and (slots[v] >= 0).all()
+    assert (after[0][slots[v]] == keys[v]).all(), "a slot lost its key"
+    assert (after[1][slots[v]] == 1).all()
+    if v.any():
+        _u, inv = np.unique(keys[v], axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        first = np.full(inv.max() + 1, -1)
+        first[inv[::-1]] = slots[v][::-1]
+        assert (first[inv] == slots[v]).all(), "equal keys on two slots"
+    b_occ = before[1] != 0
+    assert (after[0][b_occ] == before[0][b_occ]).all() and \
+        (after[1][b_occ] == 1).all(), "an occupied slot changed"
+    assert set(np.unique(after[1]).tolist()) <= {0, 1}
+
+    def new_keys(t):
+        x = t[0][(t[1] != 0) & ~b_occ]
+        return x[np.lexsort(x.T[::-1])] if len(x) else x
+    np.testing.assert_array_equal(new_keys(after), new_keys(plain_after))
+
+
+# -- K6 (join_probe) -------------------------------------------------------------
+
+def _join_rows(g: np.ndarray, rng) -> np.ndarray:
+    """[key lanes | payload lanes] of one int64 key column."""
+    pay = rng.integers(-2**31, 2**31, (len(g), J_P)).astype(np.int32)
+    return np.concatenate([key_lanes(g), pay], axis=1)
+
+
+def _join_aux(n, ins_ref=None, del_ref=None, flags=0, seq=1):
+    aux = np.zeros((n, 4), np.int32)
+    if ins_ref is not None:
+        aux[:, 0] = ins_ref
+    if del_ref is not None:
+        aux[:, 1] = del_ref
+    aux[:, 2] = flags
+    aux[:, 3] = seq
+    return aux
+
+
+def k6_cases() -> Dict[str, dict]:
+    """name -> dict(cap, rows, stored=[(up, aux)], probe=(up, aux),
+    out_cap, with_degrees): `stored` epochs go through epoch_apply on an
+    empty side of cap key slots and rows refs (K_W = 3 key lanes, 6
+    payload lanes), then `probe` through epoch_probe. `out_cap` is an int,
+    or "total" / "total-1": the probe's pair count, which the caller reads
+    with a large buffer first."""
+    rng = np.random.default_rng(83)
+    cap, rows = 1 << 11, 1 << 13
+    # chains of 1 ref (300 keys) and of 60 refs (4 hot keys), inserted
+    # interleaved at seqs 1..; payload random
+    single = np.arange(300) * 11 + 1
+    hot = np.array([7_000_001, 7_000_002, 7_000_003, 7_000_004])
+    g = np.concatenate([single, np.repeat(hot, 60)])
+    g = g[rng.permutation(len(g))]
+    stored = [(_join_rows(g, rng), _join_aux(
+        len(g), ins_ref=np.arange(len(g)), flags=FLAG_PROBE | FLAG_INS,
+        seq=1 + np.arange(len(g)) // 64))]
+
+    def probe(n, seq, neg_share=0.0, ins_share=0.0):
+        u = rng.random(n)
+        pg = np.where(u < 0.3, single[rng.integers(0, 300, n)],
+                      np.where(u < 0.5, hot[rng.integers(0, 4, n)],
+                               rng.integers(10**8, 2 * 10**8, n)))
+        flags = FLAG_PROBE * (rng.random(n) < 0.9) \
+            + FLAG_NEG * (rng.random(n) < neg_share) \
+            + FLAG_INS * (rng.random(n) < ins_share)
+        return _join_rows(pg, rng), _join_aux(
+            n, ins_ref=rng.integers(-5, rows + 5, n), flags=flags, seq=seq)
+    out = {}
+
+    def case(p, out_cap=1 << 14, with_degrees=False, st=stored, c=cap):
+        return dict(cap=c, rows=rows, stored=st, probe=p, out_cap=out_cap,
+                    with_degrees=with_degrees)
+    out["chains"] = case(probe(1024, 2**31 - 1))
+    # refs invisible at the row's seq on either side: a 12-ref key and
+    # single keys inserted at seqs 10..21, half of them deleted at seq 30;
+    # probe rows at seqs on and around each edge (ins_seq < seq <= del_seq)
+    g2 = np.concatenate([np.full(12, 9_000_001), np.arange(40) * 3 + 5])
+    n2 = len(g2)
+    ins2 = _join_aux(n2, ins_ref=np.arange(n2),
+                     flags=FLAG_PROBE | FLAG_INS, seq=10 + np.arange(n2) % 12)
+    dref = np.arange(0, n2, 2)
+    del2 = _join_aux(len(dref), del_ref=dref, flags=FLAG_DEL, seq=30)
+    st2 = [(_join_rows(g2, rng), ins2),
+           (_join_rows(g2[dref], rng), del2)]
+    m = 777
+    pg = np.concatenate([g2, g2, g2])[rng.integers(0, 3 * n2, m)]
+    seqs = rng.choice([5, 10, 11, 15, 21, 22, 29, 30, 31, 2**31 - 1], m)
+    out["invisible"] = case((_join_rows(pg, rng), _join_aux(
+        m, flags=FLAG_PROBE, seq=seqs)), st=st2)
+    out["exact_fit"] = case(probe(1024, 2**31 - 1), out_cap="total")
+    out["one_over"] = case(probe(1024, 2**31 - 1), out_cap="total-1")
+    out["ragged"] = case(probe(777, 5))
+    out["empty"] = case((np.zeros((0, J_KW + J_P), np.int32),
+                         np.zeros((0, 4), np.int32)))
+    out["degrees"] = case(probe(1000, 2**31 - 1, 0.2, 0.5),
+                          with_degrees=True)
+    # absent keys whose probe wraps: the last 8 slots of a 256-slot table
+    # and its first ones hold keys homed at the end; probe keys homed there
+    # that are not stored
+    c3 = 1 << 8
+    cand = rng.choice(10**7, 20_000, replace=False) + 10**6
+    home = home_slots(key_lanes(cand), c3)
+    at_end = cand[home >= c3 - 8]
+    g3, absent = at_end[:24], at_end[24:64]
+    st3 = [(_join_rows(g3, rng), _join_aux(
+        len(g3), ins_ref=np.arange(len(g3)), flags=FLAG_PROBE | FLAG_INS))]
+    pg = np.concatenate([absent, g3])
+    out["absent_wrap"] = case((_join_rows(pg, rng), _join_aux(
+        len(pg), flags=FLAG_PROBE, seq=2**31 - 1)), st=st3, c=c3)
+    return out
+
+
+def resolve_out_cap(spec, total: int) -> int:
+    """A K6 case's pair buffer: an int as it is, "total" the probe's pair
+    count, "total-1" one row short of it."""
+    return {"total": total, "total-1": total - 1}.get(spec, spec)
+
+
+def k6_sharded_case(n_shards: int) -> dict:
+    """Inputs of the shard axis: keys stored per owner shard and a probe
+    batch whose receive blocks are mostly empty: dict(stored=(lanes
+    int32[m, K], refs), probe=(lanes int32[q, K], vis bool[q]), seqs,
+    out_cap)."""
+    rng = np.random.default_rng(84 + n_shards)
+    m = 96 * n_shards
+    g = np.concatenate([np.arange(m - 40) * 5 + 3, np.full(40, 77)])
+    q = 24 * n_shards
+    pg = np.where(rng.random(q) < 0.5, g[rng.integers(0, m, q)],
+                  rng.integers(10**6, 10**7, q))
+    return dict(stored=(key_lanes(g), np.arange(m, dtype=np.int32)),
+                probe=(key_lanes(pg), rng.random(q) < 0.1),
+                seqs=(2, 2**31 - 1), out_cap=1 << 8)
+

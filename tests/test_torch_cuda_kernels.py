@@ -18,9 +18,10 @@ cold tier's and the patch's kernels: K8 (lookup) and K4's evict mode
 exactly, B9 (evict_state) key-sorted against its plain twin, K9
 (scatter_rows) exactly with and without its shard axis, K2's kNone lane
 exactly, and a GroupedAggKernel's patch, eviction and reload on the card
-against the same kernel on the CPU. K2 and route are also held to their
-plain versions on ``ops/kernel_cases.py``'s batches, the shapes at the
-edges of their warp-level designs.
+against the same kernel on the CPU. K2, route, K1 and K6 are also held
+to their plain versions on ``ops/kernel_cases.py``'s batches, the shapes
+at the edges of their designs: K1 by the table invariants and exact
+stats (with K8 exact on the tables it built), K6 exactly.
 """
 
 import numpy as np
@@ -110,6 +111,73 @@ def test_probe_insert_invariants(dev):
         x = t.keys.cpu().numpy()[t.occ.cpu().numpy() != 0]
         return x[np.lexsort(x.T[::-1])]
     np.testing.assert_array_equal(keyset(tk), keyset(tp))
+
+
+def _k1_checked(dev, cap, batches, s=None):
+    """Each batch through K1 and through its plain version, on tables of
+    cap slots (s shards, or one table), every batch held to the table
+    invariants (``kernel_cases.k1_invariants``); returns the kernel's
+    table."""
+    k = batches[0][0].shape[-1]
+    lead = () if s is None else (s,)
+    tk, tp = (ht.TableState(
+        torch.zeros(lead + (cap, k), dtype=torch.int32, device=dev),
+        torch.zeros(lead + (cap,), dtype=torch.int32, device=dev))
+        for _ in range(2))
+    for keys, valid in batches:
+        bk = torch.from_numpy(np.ascontiguousarray(keys)).to(dev)
+        bv = torch.from_numpy(valid).to(dev)
+        before = [(tk.keys[d].cpu().numpy(), tk.occ[d].cpu().numpy())
+                  for d in range(s)] if s else \
+            [(tk.keys.cpu().numpy(), tk.occ.cpu().numpy())]
+        if s is None:
+            _t, slots, stats = ht.probe_insert(tk, bk, bv)
+            _p, pstats = ht.probe_insert_plain(tp, bk, bv)
+            slots, stats, pstats = slots[None], stats[None], pstats[None]
+            views = [(tk, tp, keys, valid)]
+        else:
+            slots, stats = ht.probe_insert_sharded(tk, bk, bv)
+            _p, pstats = ht.probe_insert_sharded_plain(tp, bk, bv)
+            views = [(ht.TableState(tk.keys[d], tk.occ[d]),
+                      ht.TableState(tp.keys[d], tp.occ[d]), keys[d],
+                      valid[d]) for d in range(s)]
+        for d, (a, b, kk, vv) in enumerate(views):
+            KC.k1_invariants(
+                before[d], (a.keys.cpu().numpy(), a.occ.cpu().numpy()),
+                (b.keys.cpu().numpy(), b.occ.cpu().numpy()), kk, vv,
+                slots[d].cpu().numpy(), stats[d].cpu().numpy(),
+                pstats[d].cpu().numpy())
+    return tk
+
+
+@pytest.mark.parametrize("case", KC.K1_CASES)
+def test_probe_insert_edge_cases_hold_invariants(dev, case):
+    """K1 on its edge cases (ops/kernel_cases.py): one key raced by 32K
+    rows, every row new, duplicates across warps and blocks, a table just
+    under MAX_LOAD, wrapping probes, interleaved invalid rows and all-zero
+    keys, 1 and 6 lanes, no rows, rows that fill no block. Each batch by
+    the table invariants with exact stats; then K8 (lookup) on the table
+    K1 built, for every batch key and as many absent ones, exact against
+    its plain version."""
+    cap, batches = KC.k1_cases()[case]
+    table = _k1_checked(dev, cap, batches)
+    keys = np.concatenate([b[0] for b in batches])
+    rng = np.random.default_rng(17)
+    q = np.concatenate([keys, rng.integers(-2**31, 2**31, keys.shape)
+                        .astype(np.int32)])
+    qd = torch.from_numpy(q).to(dev)
+    v = torch.from_numpy(rng.random(len(q)) < 0.9).to(dev)
+    got, want = ht.lookup(table, qd, v), ht.lookup_plain(table, qd, v)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("n_shards", KC.K1_SHARDS)
+def test_sharded_probe_insert_edge_cases_hold_invariants(dev, n_shards):
+    """K1's shard axis on kernel_cases' sharded batches (8 shards, and 3
+    shards of rows that fill no block), shard by shard."""
+    cap, batches = KC.k1_sharded_case(n_shards)
+    _k1_checked(dev, cap, batches, n_shards)
 
 
 def test_agg_apply_matches_plain(dev):
@@ -498,6 +566,69 @@ def test_probe_pairs_matches_plain(dev):
                                      with_degrees)
         np.testing.assert_array_equal(km.cpu().numpy(), pm.cpu().numpy())
         assert ks.tolist() == ps.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("case", KC.K6_CASES)
+def test_join_probe_edge_cases_match_plain(dev, case):
+    """K6 on its edge cases (ops/kernel_cases.py), on a side the plain
+    versions built on the card: chains of 0, 1 and 60 refs, refs
+    invisible at the row's seq on either side, a pair buffer the pairs
+    fill exactly or overflow by one, rows that fill no 256-row tile, no
+    rows, the degree branch, absent keys whose probe wraps. Matrix,
+    degree arrays and stats exact."""
+    c = KC.k6_cases()[case]
+    t = ht.make_state(c["cap"], KC.J_KW, dev)
+    ch = J.make_chains(c["cap"], c["rows"], dev)
+    pay = torch.zeros((c["rows"], KC.J_P), dtype=torch.int32, device=dev)
+    for up, aux in c["stored"]:
+        t, ch, pay, _s = J.epoch_apply_plain(
+            t, ch, pay, torch.from_numpy(up).to(dev),
+            torch.from_numpy(aux).to(dev), KC.J_KW)
+    rng = np.random.default_rng(18)
+    ds, dk = (torch.from_numpy(rng.integers(0, 5, c["rows"])
+                               .astype(np.int32)).to(dev) for _ in range(2))
+    u, a = (torch.from_numpy(x).to(dev) for x in c["probe"])
+    total = int(J.epoch_probe_plain(t, ch, pay, ds, dk, u, a, KC.J_KW,
+                                    1 << 14, False)[0][0, 0])
+    out_cap = KC.resolve_out_cap(c["out_cap"], total)
+    wd = c["with_degrees"]
+    got = J.epoch_probe(t, ch, pay, ds, dk, u, a, KC.J_KW, out_cap, wd)
+    want = J.epoch_probe_plain(t, ch, pay, ds, dk, u, a, KC.J_KW, out_cap,
+                               wd)
+    for x, y in zip(got, want):
+        assert (x is None) == (y is None)
+        if x is not None:
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    assert int(got[0][0, 0]) == total
+
+
+@pytest.mark.parametrize("n_shards", KC.K1_SHARDS)
+def test_sharded_join_probe_edge_cases_match_plain(dev, n_shards):
+    """Sharded K6 with the row-id map on receive blocks that are mostly
+    empty (one row in ten routed), rows that fill no tile (1,000 a
+    shard), a hot key's chain, with and without degree rows, at a scalar
+    and at per-row sequences, and with a pair buffer too small."""
+    rng = np.random.default_rng(34 + n_shards)
+    n = 1000
+    table, chains, _k, _v, _r = _sharded_join_state(dev, rng, s=n_shards,
+                                                    n=n)
+    keys, valid = _recv_block(rng, n_shards, n)
+    valid &= rng.random(valid.shape) < 0.15
+    keys[~valid] = 0
+    vis = torch.from_numpy(valid.astype(np.int32)).to(dev)
+    kd = torch.from_numpy(keys).to(dev)
+    rid = torch.from_numpy(rng.permutation(n_shards * n)
+                           .reshape(n_shards, n).astype(np.int32)).to(dev)
+    rseq = torch.from_numpy(rng.integers(0, 3, (n_shards, n))
+                            .astype(np.int32)).to(dev)
+    for seq, out_cap, deg in ((2, 1 << 10, True), (rseq, 1 << 10, False),
+                              (J.I32_MAX, 8, True)):
+        got = J.join_probe_sharded(table, chains, kd, vis, -1, seq, out_cap,
+                                   deg, rid=rid, rvalid=vis)
+        want = J.join_probe_sharded_plain(table, chains, kd, vis, -1, seq,
+                                          out_cap, deg, rid=rid, rvalid=vis)
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
 
 
 def test_join_maint_matches_plain(dev):

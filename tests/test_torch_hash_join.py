@@ -38,6 +38,7 @@ from risingwave_tpu_torch.common.epoch import Epoch, EpochPair
 from risingwave_tpu_torch.common.types import DataType, Schema
 from risingwave_tpu_torch.ops import hash_join as PJ
 from risingwave_tpu_torch.ops import hash_table as P_ht
+from risingwave_tpu_torch.ops import kernel_cases as KC
 from risingwave_tpu_torch.state.state_table import StateTable
 from risingwave_tpu_torch.state.store import MemoryStateStore
 from risingwave_tpu_torch.stream.executors import hash_join as PX
@@ -222,6 +223,50 @@ def test_epoch_probe(with_degrees, out_cap):
     assert total > 0
     if out_cap < 64:
         assert total > out_cap
+
+
+@pytest.mark.parametrize("case", KC.K6_CASES)
+def test_epoch_probe_kernel_cases(case):
+    """epoch_probe on K6's edge cases (``ops/kernel_cases.py``): chains of
+    0, 1 and 60 refs, refs invisible at the row's seq on either side, a
+    pair buffer the pairs fill exactly or overflow by one, rows that fill
+    no tile, no rows, the degree branch, absent keys whose probe wraps.
+    Matrix and degree arrays bit for bit."""
+    c = KC.k6_cases()[case]
+    cap, rows = c["cap"], c["rows"]
+    rt, rc = R_ht.make_state(cap, KW), _ref_chains(cap, rows)
+    rpay = jnp.zeros((rows, P), jnp.int32)
+    pt, pc = P_ht.make_state(cap, KW, CPU), PJ.make_chains(cap, rows, CPU)
+    ppay = torch.zeros((rows, P), dtype=torch.int32)
+    for up, aux in c["stored"]:
+        rt, rc, rpay, _r = RJ._epoch_apply_jit(
+            rt, rc, rpay, jnp.asarray(up), jnp.asarray(aux), KW)
+        pt, pc, ppay, _p = PJ.epoch_apply(
+            pt, pc, ppay, torch.from_numpy(up), torch.from_numpy(aux), KW)
+    _same_table(pt, rt)
+    _same_chains(pc, rc)
+    up, aux = c["probe"]
+    rng = np.random.default_rng(10)
+    ds = rng.integers(0, 5, rows).astype(np.int32)
+    dk = rng.integers(0, 5, rows).astype(np.int32)
+    args = (torch.from_numpy(ds), torch.from_numpy(dk),
+            torch.from_numpy(up), torch.from_numpy(aux), KW)
+    total = int(PJ.epoch_probe(pt, pc, ppay, *args, 1 << 14, False)[0][0, 0])
+    out_cap = KC.resolve_out_cap(c["out_cap"], total)
+    wd = c["with_degrees"]
+    r = RJ._epoch_probe_jit(rt, rc, rpay, jnp.asarray(ds), jnp.asarray(dk),
+                            jnp.asarray(up), jnp.asarray(aux), KW, out_cap,
+                            wd)
+    mat, pds, pdk, stats = PJ.epoch_probe(pt, pc, ppay, *args, out_cap, wd)
+    assert int(stats[1]) == 0
+    r_mat = r[0] if wd else r
+    np.testing.assert_array_equal(mat.numpy(), np.asarray(r_mat))
+    if wd:
+        np.testing.assert_array_equal(pds.numpy(), np.asarray(r[1]))
+        np.testing.assert_array_equal(pdk.numpy(), np.asarray(r[2]))
+    assert int(mat[0, 0]) == total
+    if case in ("exact_fit", "one_over"):
+        assert total > 0 and total - out_cap == int(case == "one_over")
 
 
 @pytest.mark.parametrize("with_degrees", [False, True])

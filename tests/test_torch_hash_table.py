@@ -15,6 +15,7 @@ import torch
 
 from risingwave_tpu.ops import hash_table as ref_ht
 from risingwave_tpu_torch.ops import hash_table as port_ht
+from risingwave_tpu_torch.ops import kernel_cases as KC
 
 # Under pytest-xdist these tests share the host's cores with timing-bound
 # tests on other workers (tests/test_chaos.py's 8 s barrier timeouts), so
@@ -48,8 +49,18 @@ def _assert_same(ref, port, outs):
 
 
 @pytest.mark.parametrize("case", ["duplicates", "invalid_rows",
-                                  "near_max_load", "existing_keys"])
+                                  "near_max_load", "existing_keys"]
+                         + [f"kernel_{c}" for c in KC.K1_CASES])
 def test_probe_insert_matches_reference(case):
+    """The port's own batches, and K1's edge cases from
+    ``ops/kernel_cases.py`` (``kernel_*``: one key raced by 32K rows,
+    every row new, duplicates across warps and blocks, a table just under
+    MAX_LOAD, wrapping probes, interleaved invalid rows and all-zero
+    keys, 1 and 6 lanes, no rows, rows that fill no block)."""
+    if case.startswith("kernel_"):
+        cap, batches = KC.k1_cases()[case[len("kernel_"):]]
+        _assert_same(*_both(cap, batches[0][0].shape[1], batches))
+        return
     rng = np.random.default_rng({"duplicates": 1, "invalid_rows": 2,
                                  "near_max_load": 3,
                                  "existing_keys": 4}[case])
@@ -77,6 +88,34 @@ def test_probe_insert_matches_reference(case):
         batches = [(keys, np.ones(256, dtype=bool)),
                    (again, np.ones(256, dtype=bool))]
     _assert_same(*_both(cap, k, batches))
+
+
+@pytest.mark.parametrize("n_shards", KC.K1_SHARDS)
+def test_probe_insert_sharded_plain_matches_reference(n_shards):
+    """The shard axis of K1's plain version against the reference's
+    probe_insert shard by shard (the sharded agg's per-shard probe), on
+    ``kernel_cases``' sharded batches: every shard's table, slots and
+    insert count."""
+    cap, batches = KC.k1_sharded_case(n_shards)
+    k = batches[0][0].shape[2]
+    port = port_ht.make_state(cap, k, torch.device("cpu"))
+    port = port_ht.TableState(port.keys[None].repeat(n_shards, 1, 1),
+                              port.occ[None].repeat(n_shards, 1))
+    refs = [ref_ht.make_state(cap, k) for _ in range(n_shards)]
+    for keys, valid in batches:
+        slots, stats = port_ht.probe_insert_sharded(
+            port, torch.from_numpy(keys), torch.from_numpy(valid))
+        for s in range(n_shards):
+            refs[s], r_slots, r_ins = ref_ht.probe_insert(
+                refs[s], jnp.asarray(keys[s]), jnp.asarray(valid[s]))
+            np.testing.assert_array_equal(slots[s].numpy(),
+                                          np.asarray(r_slots))
+            assert stats[s].tolist() == [int(r_ins), 0]
+    for s in range(n_shards):
+        np.testing.assert_array_equal(port.keys[s].numpy(),
+                                      np.asarray(refs[s].keys))
+        np.testing.assert_array_equal(port.occ[s].numpy() != 0,
+                                      np.asarray(refs[s].occ))
 
 
 def test_probe_insert_overflow_sets_flag():

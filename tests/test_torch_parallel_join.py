@@ -37,6 +37,7 @@ from risingwave_tpu.ops import hash_table as R_ht
 from risingwave_tpu.parallel.join import ShardedJoinKernel as RefKernel
 from risingwave_tpu_torch.ops import hash_join as PJ
 from risingwave_tpu_torch.ops import hash_table as P_ht
+from risingwave_tpu_torch.ops import kernel_cases as KC
 from risingwave_tpu_torch.ops import lanes
 from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
 
@@ -200,6 +201,35 @@ def test_join_probe_sharded_plain_matches_reference_steps(eight_devices,
         np.testing.assert_array_equal(got.mats.numpy(),
                                       np.asarray(want.mats))
         _same_out(got.collect(), want.collect())
+
+
+@pytest.mark.parametrize("n_shards", KC.K1_SHARDS)
+def test_join_probe_sharded_plain_edge_cases(eight_devices, n_shards):
+    """The routed probe-only step on ``kernel_cases``' sharded batch:
+    receive blocks that are mostly empty (one probe row in ten), chains
+    of 0, 1 and 40 refs, at a seq between the two inserts and after, with
+    the case's pair buffer and one too small. Every shard's matrix bit
+    for bit."""
+    c = KC.k6_sharded_case(n_shards)
+    r, p = _pair(eight_devices, n_shards, key_capacity=256,
+                 row_capacity=1024, probe_capacity=c["out_cap"])
+    kl, refs = c["stored"]
+    half = len(refs) // 2
+    every = np.ones(len(refs), bool)
+    for k in (r, p):
+        k.insert(kl[:half], refs[:half], every[:half], seq=1)
+        k.insert(kl[half:], refs[half:], every[half:], seq=2)
+    _same_state(p, r)
+    q, vis = c["probe"]
+    m = len(q)
+    for seq in c["seqs"]:
+        for out_cap in (c["out_cap"], 4):
+            step = r._build_probe_only(m // n_shards, out_cap)
+            want, _ovf = step(r.table, r.chains, jnp.asarray(q),
+                              jnp.arange(m, dtype=jnp.int32),
+                              jnp.asarray(vis), jnp.int32(seq), r.owner_map)
+            got, _povf = p._dispatch_probe(q, vis, seq, out_cap)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_apply_and_probe_plain_matches_reference():
