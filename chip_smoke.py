@@ -13,7 +13,9 @@ phases, any failure of which exits non-zero:
    calls queued behind a device sleep) and its bound:
    - the hash-agg kernels at the q7 slice's shapes (table capacity 2^18,
      2^15 rows per step, 3 key lanes, q7's MAX(price) + COUNT(*) plan,
-     plus a SUM(int) / SUM(float) / MIN / COUNT plan over ~20K groups):
+     plus a SUM(int) / SUM(float) / MIN / COUNT plan over ~20K groups;
+     K3's gather also on ``ops/kernel_cases.py``'s edge cases, three calls
+     a case, and timed with ``n_dirty`` and its split by kernel):
      integers exact, K1 (probe_insert) by the table invariants, float
      SUM's hi and lo rows each within rel 1e-6 of the group's summed
      magnitudes in that row; K2 (agg_apply) also on the batches of
@@ -44,6 +46,7 @@ phases, any failure of which exits non-zero:
      path's shapes (a 2^15-row agg backlog, 2^16-row join side-epochs,
      q1's 4096-row chunks); q7's agg prelude also in the 8 segments of
      the q7-mesh fused step, with U-/U+ pairs across every block edge;
+     and on ``ops/fused_cases.py``'s tile-edge cases;
    - the sharded path at q7-mesh's shapes: route (csrc/route.cu) bit for
      bit against route_plain on a 2^15-row step in 8 blocks (bucket =
      the block), with a forced overflow and on ``ops/kernel_cases.py``'s
@@ -125,13 +128,14 @@ The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``; ``launches`` is the sum of the main paths'
 counts) and ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --against DIR`` runs no phase: it times K2
-(agg_apply), route, K1 (probe_insert), K8 (lookup) and K6 (join_probe)
-of this checkout against the same
-kernels built from DIR's ``risingwave_tpu_torch/csrc`` (the parent
-commit, unpacked with ``git archive`` into a directory git ignores), in
-turns, at the shapes above, each build first held to the plain version;
-the other build is compiled and bound by this script alone.
+``python3 chip_smoke.py --against DIR [GROUPS]`` runs no phase: it times
+K3 (flush_gather), the three fused entries, K2 (agg_apply), route, K1
+(probe_insert), K8 (lookup) and K6 (join_probe) of this checkout against
+the same kernels built from DIR's ``risingwave_tpu_torch/csrc`` (the
+parent commit, unpacked with ``git archive`` into a directory git
+ignores), in turns, at the shapes above, each build first held to the
+plain version; the other build is compiled and bound by this script
+alone. GROUPS, comma-separated, keeps only some of ``AB_GROUPS``.
 """
 
 from __future__ import annotations
@@ -139,6 +143,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -646,10 +651,19 @@ def _q7_state(dev, cap, n):
     return specs, st
 
 
+def _maxbids_state(dev):
+    """maxbids' first agg after one applied step (kernels): a 2^20-slot
+    state, more tiles than the card holds K3 blocks."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    inp = maxbids_agg_input(dev)
+    H.agg_apply(inp["state"], inp["packed"], inp["slots"], inp["plan"])
+    return inp["state"]
+
+
 def check_flush_gather(dev, cap: int, n: int) -> dict:
     from risingwave_tpu_torch.ops import hash_agg as H
     _specs, st = _mixed_state(dev, cap, n)
-    err = 0.0
+    err = check_k3_edges(dev)
     for flush_cap in (1 << 15, 1 << 10):     # the second one overflows
         k = H.flush_gather(st, flush_cap).cpu().numpy()
         p = H.flush_gather_plain(st, flush_cap).cpu().numpy()
@@ -660,12 +674,46 @@ def check_flush_gather(dev, cap: int, n: int) -> dict:
     flush_cap = 1 << 10                        # the kernel's default
     ms = time_ms(lambda: H.flush_gather(qs, flush_cap))
     plain_ms = time_ms(lambda: H.flush_gather_plain(qs, flush_cap))
-    n_dirty = int((qs.st[H.ROW_DIRTY] != 0).sum())
-    w = H.flush_width(KW, qs.n_acc)
-    nbytes = cap * 4 * 2 + n_dirty * w * 4 + (1 + flush_cap) * w * 4
-    b, by = bound_ms(nbytes, cap * 4)
+    b, by = k3_bound(qs.st[None], qs.table.keys[None], flush_cap)
+    mbs = _maxbids_state(dev)
+    k = H.flush_gather(mbs, flush_cap)
+    err = max(err, abs_err(k.cpu().numpy(), H.flush_gather_plain(
+        mbs, flush_cap).cpu().numpy()))
+    assert err == 0, f"flush_gather differs at maxbids' state: {err}"
+    mb, mby = k3_bound(mbs.st[None], mbs.table.keys[None], flush_cap)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by)
+                bound_by=by,
+                n_dirty=int((qs.st[H.ROW_DIRTY] != 0).sum()),
+                split=kernel_split(lambda: H.flush_gather(qs, flush_cap)),
+                maxbids_shape=dict(
+                    ms=time_ms(lambda: H.flush_gather(mbs, flush_cap)),
+                    plain_ms=time_ms(lambda: H.flush_gather_plain(
+                        mbs, flush_cap)),
+                    bound_ms=mb, bound_by=mby, cap=int(mbs.st.shape[1]),
+                    n_dirty=int(k[0, 0])))
+
+
+def check_k3_edges(dev) -> float:
+    """K3's gather on ``kernel_cases``' edge cases and its shard axis at
+    1, 3 and 8 shards, three calls a case (each launch on the scan words
+    the one before it zeroed), bit for bit against the plain version."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import kernel_cases as KC
+    cases = dict(KC.k3_cases())
+    cases.update({f"{s} shards": KC.k3_sharded_case(s)
+                  for s in KC.K3_SHARDS})
+    err = 0.0
+    for name, (fc, st, keys, occ) in cases.items():
+        state = H.ShardedAggState(
+            H.ht.TableState(torch.from_numpy(keys).to(dev),
+                            torch.from_numpy(occ).to(dev)),
+            torch.from_numpy(st).to(dev))
+        want = H.flush_gather_sharded_plain(state, fc).cpu().numpy()
+        for _ in range(3):
+            err = max(err, abs_err(
+                H.flush_gather_sharded(state, fc).cpu().numpy(), want))
+        assert err == 0, f"flush_gather differs on the {name} case: {err}"
+    return err
 
 
 def check_advance(dev, cap: int, n: int) -> dict:
@@ -1008,11 +1056,12 @@ def _epoch_apply_times(js, k5_bytes: float) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
 
 
-def _probe_bytes(js, mat, with_degrees, rows) -> float:
-    """K6's byte bound on one probe epoch: the header and the pairs it
-    writes are charged, not the unwritten rest of the pair buffer."""
+def _probe_bytes(js, mat, with_degrees, rows, which="probe") -> float:
+    """K6's byte bound on one probe epoch (js[which]): the header and the
+    pairs it writes are charged, not the unwritten rest of the pair
+    buffer."""
     n = js["n"]
-    _pu, pa = js["probe"]
+    _pu, pa = js[which]
     vis = int(((pa[:, 2] & 1) != 0).sum())
     total = int(mat[0, 0])
     w = 2 + JP + int(with_degrees)
@@ -1531,6 +1580,44 @@ def check_fused_random(dev) -> dict:
     return err
 
 
+def check_fused_edges(dev) -> float:
+    """The fused kernel at its tile edges (``fused_cases.EDGE_CASES`` at
+    their card sizes, edge and subnormal values): every entry point a
+    case allows against the plain program, bit for bit (a NaN equal to a
+    NaN), stage counts exact."""
+    from risingwave_tpu_torch.ops import fused as F
+    from risingwave_tpu_torch.ops import fused_cases as FC
+    err = 0.0
+    for name in FC.EDGE_CASES:
+        fs, chunk, seg = FC.edge_case(name, True, True, subnormals=True)
+        raw = torch.from_numpy(F.encode_raw_chunk(chunk, fs.ref_cols)) \
+            .to(dev)
+        hs = torch.from_numpy(fs.host_noop_eq(chunk).astype(np.int8)) \
+            .to(dev)
+        nan_rows = FC.nan_rows_of(fs, chunk)
+        for entry, prog in FC.edge_programs(name, fs).items():
+            e = fused_err(entry, prog, raw, hs, seg, nan_rows)
+            assert e == 0, f"{entry} differs from its plain version on " \
+                f"the {name} edge case: {e}"
+            err = max(err, e)
+    return err
+
+
+def fused_err(entry, prog, raw, host_same=None, seg=0, nan_rows=None,
+              call=None) -> float:
+    """One fused entry point (through ``call``, by default this build's
+    wrapper) against the plain program on the same tensors: outputs bit
+    for bit (a NaN equal to a NaN on ``nan_rows``), stage counts
+    exact."""
+    from risingwave_tpu_torch.ops import fused_cases as FC
+    (got, ck), (want, cp) = FC.run_both(entry, prog, raw, host_same, seg,
+                                        call or FC.call_entry)
+    e = FC.mismatch(prog, got.cpu().numpy(), want.cpu().numpy(), nan_rows)
+    if ck is not None:
+        e = max(e, abs_err(ck.cpu().numpy(), cp.cpu().numpy()))
+    return e
+
+
 def _source_chunks(cfg, n_chunks: int) -> list:
     from risingwave_tpu_torch.connectors.nexmark import NexmarkSplitReader
     reader = NexmarkSplitReader(cfg)
@@ -1945,10 +2032,13 @@ def check_sharded(dev) -> dict:
     # K2 at this step: check_agg_apply's "sharded" shape
     qa = H.ShardedAggState(qk.table, qk.st.clone())
     r = qk.st.shape[1]
-    wout = H.flush_width(KW, qk.n_acc)
-    timed("flush_gather", lambda: H.flush_gather_sharded(qk, 1 << 10),
-          lambda: H.flush_gather_sharded_plain(qk, 1 << 10),
-          s * cap * 8 + s * (1 + (1 << 10)) * wout * 4, s * cap * 4)
+    t["flush_gather"] = dict(
+        ms=time_ms(lambda: H.flush_gather_sharded(qk, 1 << 10)),
+        plain_ms=time_ms(lambda: H.flush_gather_sharded_plain(qk, 1 << 10)),
+        n_dirty=(qk.st[:, H.ROW_DIRTY] != 0).sum(dim=1).tolist(),
+        split=kernel_split(lambda: H.flush_gather_sharded(qk, 1 << 10)))
+    t["flush_gather"]["bound_ms"], t["flush_gather"]["bound_by"] = \
+        k3_bound(qk.st, qk.table.keys, 1 << 10)
     timed("advance", lambda: H.advance_sharded(qa),
           lambda: [H.advance_plain(qa.shard(d)) for d in range(s)],
           s * cap * 4, s * cap)
@@ -3247,9 +3337,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.3f} s "
         + json.dumps({k: round(v, 3) for k, v in took.items()}))
     for name in kcuda.LIBRARIES:
-        for line in kcuda.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_figures(kcuda.build_log(name)):
+            log(f"  {name}: {line}")
 
     # 2. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3261,6 +3350,8 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     t_start = time.perf_counter()
+    floor = launch_floor_ms(dev)
+    log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
     results = {}
     for name, check in CHECKS.items():
         results[name] = check(dev, CAP, N)
@@ -3283,10 +3374,13 @@ def main() -> int:
     k1_shapes.update(k1_readings(k1_cases_q8(js)))
     for name, case in k8_cases_q8(js).items():
         k8_q8 = dict(max_abs_err=k8_check(case), ms=k8_time(case))
+        k8_q8["bound_ms"], k8_q8["bound_by"] = k8_bound(case)
         log(f"lookup at {name}: " + json.dumps(k8_q8))
     k6 = k6_cases_q8(js)
     for name, which in (("join_probe", "q8"), ("join_probe_deg", "q8_deg")):
         results[name]["split"] = kernel_split(k6[which][0])
+    log("join_probe byte bounds (ms) at q8's, the hot-key and the degree "
+        "epochs: " + json.dumps({w: fns[2]() for w, fns in k6.items()}))
     del js, k6
     torch.cuda.empty_cache()
 
@@ -3295,6 +3389,11 @@ def main() -> int:
     log(f"fused preludes on {FUSED_SEEDS} random programs x {FUSED_ROWS} "
         f"rows (every opcode, edge values): max_abs_err "
         f"{json.dumps(fused_err)} in {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    edge_err = check_fused_edges(dev)
+    log(f"fused preludes on the tile-edge cases: max_abs_err {edge_err} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    fused_err = {k: max(v, edge_err) for k, v in fused_err.items()}
     results.update(check_fused_paths(dev, fused_err))
     for name in ("fused_chain", "agg_prelude", "join_prelude"):
         log(f"kernel {name}: " + json.dumps(results[name]))
@@ -3313,6 +3412,7 @@ def main() -> int:
     for name, t in sharded["timings"].items():
         log(f"sharded {name} at q7's routed step: " + json.dumps(t))
     k1_shapes["q7_mesh_step"] = sharded["timings"]["probe_insert"]
+    results["flush_gather"]["sharded"] = sharded["timings"]["flush_gather"]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mj = build_mesh_join_states(dev)
@@ -3347,8 +3447,9 @@ def main() -> int:
     results["scatter_rows"] = cold["scatter_rows"]
     torch.cuda.empty_cache()
 
-    floor = launch_floor_ms(dev)
-    log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
+    for name in ("flush_gather", "fused_chain", "agg_prelude",
+                 "join_prelude"):
+        results[name]["launch_floor_ms"] = floor
     for name, r in k1_shapes.items():
         log(f"probe_insert at {name}: " + json.dumps(r))
 
@@ -3478,7 +3579,8 @@ def main() -> int:
                "library_ms": r.get("library_ms")}
         for extra in ("capped_shape", "sharded", "epoch_apply",
                       "launches_per_call", "mixed_shape", "maxbids_shape",
-                      "q8_mesh_shape", "split"):
+                      "q8_mesh_shape", "split", "n_dirty",
+                      "launch_floor_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "live_mask":
@@ -3762,6 +3864,21 @@ def k8_check(case, call=k8_call) -> float:
     return err
 
 
+def k8_bound(case) -> tuple:
+    """K8's byte bound: each key its lanes and valid flag read and its
+    slot written, each found key the table's lanes, occupancy and slot
+    at its slot, each absent one the empty slot's occupancy."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    table, q, v, _dropped = case
+    n, k = q.shape
+    slots, _s = ht.lookup_plain(table, q, v)
+    valid = int((v != 0).sum())
+    found = int((slots >= 0).sum())
+    nbytes = n * (k * 4 + 4 + 4) + found * (k * 4 + 4 + 4) \
+        + (valid - found) * 4
+    return bound_ms(nbytes, valid * 12 * k)
+
+
 def k8_time(case, call=k8_call) -> float:
     table, q, v, dropped = case
     return time_ms(lambda: call(table, q, v, dropped))
@@ -3777,9 +3894,35 @@ def k6_cases_q8(js: dict) -> dict:
     dev = js["ks"].table.state.keys.device
     degs = tuple(torch.from_numpy(rng.integers(0, 4, rows).astype(np.int32))
                  .to(dev) for _ in range(2))
-    return {"q8": _probe_fns(js, "probe", OUT_CAP, False),
-            "q8_hot": _probe_fns(js, "probe_hot", OUT_CAP, False),
-            "q8_deg": _probe_fns(js, "probe", OUT_CAP, True, degs)}
+    out = {"q8": _probe_fns(js, "probe", OUT_CAP, False),
+           "q8_hot": _probe_fns(js, "probe_hot", OUT_CAP, False),
+           "q8_deg": _probe_fns(js, "probe", OUT_CAP, True, degs)}
+    for name, which, deg in (("q8", "probe", False),
+                             ("q8_hot", "probe_hot", False),
+                             ("q8_deg", "probe", True)):
+        k = out[name][0]
+        out[name] = out[name] + (
+            lambda k=k, which=which, deg=deg: bound_ms(
+                _probe_bytes(js, k()[0], deg, rows, which), js["n"] * 64),)
+    return out
+
+
+def k6_sharded_bound(rv, mats, kw: int, with_degrees: bool) -> tuple:
+    """Sharded K6's byte bound on one receive block (rvalid [S, m], the
+    kernel's matrices [S, 1 + cap, W]): every received row its flag, each
+    probe row its key lanes, sequence and row id and the table's lanes,
+    occupancy and head at its slot, each pair its chain entry (next,
+    ins_seq, del_seq) and its two-word write, each shard's header; with
+    degrees, each probe row its degree written and each pair the build
+    side's degree updated (read and written)."""
+    s, m = rv.shape
+    valid = int(rv.sum())
+    total = int(mats[:, 0, 0].sum())
+    nbytes = (s * m * 4 + valid * (kw * 4 + 4 + 4 + kw * 4 + 4 + 4)
+              + total * 12 + s * 2 * 4 + total * 2 * 4)
+    if with_degrees:
+        nbytes += valid * 4 + total * 8
+    return bound_ms(nbytes, valid * 64)
 
 
 def k6_cases_mesh(mj: dict) -> dict:
@@ -3792,10 +3935,13 @@ def k6_cases_mesh(mj: dict) -> dict:
     args = (recv[:, :, :JKW], rv, -1, recv[:, :, JKW + 1], ks.probe_capacity,
             False)
     kw = dict(rid=recv[:, :, JKW], rvalid=rv)
+
+    def k():
+        return J.join_probe_sharded(ks.table, ks.chains, *args, **kw)
     return {"q8_mesh": (
-        lambda: J.join_probe_sharded(ks.table, ks.chains, *args, **kw),
-        lambda: J.join_probe_sharded_plain(ks.table, ks.chains, *args,
-                                           **kw))}
+        k, lambda: J.join_probe_sharded_plain(ks.table, ks.chains, *args,
+                                              **kw),
+        lambda: k6_sharded_bound(rv, k()[0], JKW, False))}
 
 
 def k6_cases_perchunk(pc: dict) -> dict:
@@ -3808,10 +3954,13 @@ def k6_cases_perchunk(pc: dict) -> dict:
     args = (recv[:, :, :kw], recv[:, :, kw + 3], J.FLAG_PROBE, pc["seq"],
             pc["out_cap"], True)
     rid = dict(rid=recv[:, :, kw], rvalid=rv)
+
+    def kern():
+        return J.join_probe_sharded(k.table, k.chains, *args, **rid)
     return {"per_chunk": (
-        lambda: J.join_probe_sharded(k.table, k.chains, *args, **rid),
-        lambda: J.join_probe_sharded_plain(k.table, k.chains, *args,
-                                           **rid))}
+        kern, lambda: J.join_probe_sharded_plain(k.table, k.chains, *args,
+                                                 **rid),
+        lambda: k6_sharded_bound(rv, kern()[0], kw, True))}
 
 
 def k6_check(fns) -> float:
@@ -3859,10 +4008,15 @@ def _other_lib(csrc: str, name: str, argtypes: dict):
     this checkout's flags (into build/kernels/, beside this checkout's
     own) and bound with `argtypes` (entry point -> argument types)."""
     import ctypes
+    import hashlib
     import os
     from risingwave_tpu_torch.ops import cuda as kcuda
     os.makedirs(kcuda.BUILD_DIR, exist_ok=True)
-    out = os.path.join(kcuda.BUILD_DIR, f"against-{name}.so")
+    # one file a source: a path dlopen has loaded is not loaded again
+    with open(os.path.join(csrc, f"{name}.cu"), "rb") as f:
+        tag = hashlib.sha256(os.path.abspath(csrc).encode() + f.read())
+    out = os.path.join(kcuda.BUILD_DIR,
+                       f"against-{name}-{tag.hexdigest()[:12]}.so")
     r = subprocess.run([kcuda.nvcc_path(), *kcuda.NVCC_FLAGS,
                         *kcuda.EXTRA_FLAGS.get(name, []), "-I", csrc, "-o",
                         out, os.path.join(csrc, f"{name}.cu")],
@@ -3870,6 +4024,8 @@ def _other_lib(csrc: str, name: str, argtypes: dict):
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed for {csrc}/{name}.cu:\n"
                            + r.stdout + r.stderr)
+    for line in ptxas_figures(r.stdout + r.stderr):
+        log(f"  DIR's {name}: {line}")
     lib = ctypes.CDLL(out)
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types
@@ -4000,7 +4156,134 @@ def _k8_other(lib, chained: bool):
     return call
 
 
-def ab_main(base: str) -> int:
+def ptxas_figures(text: str) -> list:
+    """The lines of an nvcc -Xptxas -v log that give each kernel's
+    registers, stack frame and spills, each tagged with its kernel."""
+    import re
+    out, fn = [], "?"
+    for line in text.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) "
+                      r"'?(\w+)", line)
+        if m:
+            fn = m.group(1)
+        elif "registers" in line or "stack frame" in line:
+            out.append(f"{fn}: {line.strip()}")
+    return out
+
+
+def k3_cases(dev) -> dict:
+    """K3's timed shapes: q7's state after one step (2^18 slots) and
+    q7-mesh's (MESH_SHARDS x MESH_CAP slots), each at flush_cap 1024
+    (the kernel's default) and 64 (the padding rows' share), and
+    maxbids' first agg after one step (2^20 slots: a block takes several
+    tiles) at 1024: name -> (st [S, R, cap], keys [S, cap, k], occ [S,
+    cap], flush_cap)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    _q7, qs = _q7_state(dev, CAP, N)
+    q7 = make_specs(H, [("max", np.int64), ("count", None)])
+    qk = _mesh_step(dev, q7, q7_batch(N, q7), True)[0]
+    out = {}
+    for fc in (1 << 10, 1 << 6):
+        out[f"q7 flush_cap {fc}"] = (qs.st[None], qs.table.keys[None],
+                                     qs.table.occ[None], fc)
+        out[f"q7_mesh flush_cap {fc}"] = (qk.st, qk.table.keys,
+                                          qk.table.occ, fc)
+    mb = _maxbids_state(dev)
+    out["maxbids flush_cap 1024"] = (mb.st[None], mb.table.keys[None],
+                                     mb.table.occ[None], 1 << 10)
+    return out
+
+
+def k3_bound(st, keys, fc) -> tuple:
+    """K3's bytes: dirty and occ read once, each dirty row's columns
+    read once, the [S, 1 + flush_cap, W'] matrix written once."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    s, r, cap = st.shape
+    wout = H.flush_width(keys.shape[2], (r - H.ROW_ACC0) // 2)
+    n_dirty = int((st[:, H.ROW_DIRTY] != 0).sum())
+    nbytes = s * cap * 8 + n_dirty * wout * 4 + s * (1 + fc) * wout * 4
+    return bound_ms(nbytes, s * cap * 4)
+
+
+def _k3_other(lib, chained: bool):
+    """K3 through another build's rw_flush_gather, [S, ...] tensors:
+    with the stats chain's status block (``chained``), or with the
+    two-launch design's tile counts."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    from risingwave_tpu_torch.ops import hash_agg as H
+
+    def call(st, keys, occ, fc):
+        s, r, cap = st.shape
+        k = keys.shape[2]
+        nacc = (r - H.ROW_ACC0) // 2
+        wout = H.flush_width(k, nacc)
+        out = torch.empty((s, 1 + fc, wout), dtype=torch.int32,
+                          device=st.device)
+        if chained:
+            n = H.flush_status_words(s, cap)
+            cur, nxt = kcuda.stats_chain(st.device, n, "against-flush")
+            extra = [cur.data_ptr(), nxt.data_ptr(), nxt.numel()]
+        else:
+            nb = (cap + 1023) // 1024
+            cur = torch.empty(s * 2 * nb, dtype=torch.int32,
+                              device=st.device)
+            extra = [cur.data_ptr()]
+        rc = lib.rw_flush_gather(st.data_ptr(), keys.data_ptr(),
+                                 occ.data_ptr(), cap, k, nacc, s, *extra,
+                                 fc, out.data_ptr(), wout,
+                                 kcuda.stream_ptr())
+        assert rc == 0, f"rw_flush_gather failed: CUDA error {rc}"
+        if chained:
+            kcuda.chain_next(st.device, nxt, "against-flush")
+        return out
+    return call
+
+
+def fused_cases(dev) -> dict:
+    """The fused entries' timed shapes: the five path programs of
+    ``path_programs`` and q7's agg prelude in the MESH_SHARDS segments of
+    the q7-mesh fused step: name -> (entry, program, raw, seg)."""
+    out = {}
+    for label, (prog, raw) in path_programs(dev).items():
+        out[label] = (label.split()[-1], prog, raw, 0)
+        if label == "q7 agg_prelude":
+            out[f"q7 agg_prelude in {MESH_SHARDS} segments"] = (
+                "agg_prelude", prog, raw, N // MESH_SHARDS)
+    return out
+
+
+def _fused_other(lib, with_host: bool):
+    """The fused entries through another build's rw_* entry points, with
+    ``fused_cases.call_entry``'s signature. ``with_host``: the entry
+    points take the program's host words beside its device copy."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+
+    def call(entry, prog, raw, host_same=None, counts=None, seg=0):
+        m = raw.shape[0] * prog.units
+        dt = torch.int64 if entry == "fused_chain" else torch.int32
+        out = torch.empty((m, prog.out_width), dtype=dt, device=raw.device)
+        pw = prog.on(raw.device)
+        head = [pw.data_ptr()]
+        if with_host:
+            head.append(prog.words.ctypes.data)
+        args = [*head, int(pw.shape[0]), raw.data_ptr(), int(raw.shape[0]),
+                int(raw.shape[1]),
+                None if host_same is None else host_same.data_ptr(),
+                out.data_ptr(), prog.out_width,
+                None if counts is None else counts.data_ptr()]
+        if entry == "agg_prelude":
+            args.append(int(seg))
+        rc = getattr(lib, f"rw_{entry}")(*args, kcuda.stream_ptr())
+        assert rc == 0, f"rw_{entry} failed: CUDA error {rc}"
+        return out
+    return call
+
+
+AB_GROUPS = ("agg_apply", "route", "probe_insert", "lookup", "join_probe",
+             "flush_gather", "fused")
+
+
+def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
     """``python3 chip_smoke.py --against DIR``: K2 (agg_apply), route, K1
     (probe_insert), K8 (lookup) and K6 (join_probe) of this checkout
     against the same kernels built from DIR's
@@ -4021,6 +4304,9 @@ def ab_main(base: str) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from risingwave_tpu_torch.ops import cuda as kcuda
+    from risingwave_tpu_torch.ops import fused as F
+    from risingwave_tpu_torch.ops import fused_cases as FC
+    from risingwave_tpu_torch.ops import hash_agg as H
     from risingwave_tpu_torch.parallel import exchange as X
     dev = torch.device("cuda")
     kcuda.build_all()
@@ -4043,6 +4329,30 @@ def ab_main(base: str) -> int:
     k1_calls = {True: k1_call, False: _k1_other(p_other, chained)}
     k8_calls = {True: k8_call, False: _k8_other(p_other, chained)}
     k6_other = _other_lib(csrc, "join_probe", kcuda.LIBRARIES["join_probe"])
+    # K3: the one-launch design takes a status block from the stats
+    # chain (int n_next), the two-launch one a counts scratch
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    k3_chained = "int n_next" in source("flush")
+    ftypes = {"rw_flush_gather": [P, P, P, L, I, I, I] + (
+        [P, P, I] if k3_chained else [P]) + [I, P, I, P],
+        "rw_advance": kcuda.LIBRARIES["flush"]["rw_advance"]}
+    k3_calls = {True: H._flush_gather_cuda,
+                False: _k3_other(_other_lib(csrc, "flush", ftypes),
+                                 k3_chained)}
+    # the fused entries: the tile design takes the program's host words
+    # beside its device copy (const int64_t* hprog)
+    f_host = "hprog" in source("fused")
+    head = [P, P] if f_host else [P]
+    fz = {"rw_fused_chain": head + [I, P, L, I, P, P, I, P, P],
+          "rw_agg_prelude": head + [I, P, L, I, P, P, I, P, L, P],
+          "rw_join_prelude": head + [I, P, L, I, P, P, I, P, P]}
+    fused_calls = {True: FC.call_entry,
+                   False: _fused_other(_other_lib(csrc, "fused", fz),
+                                       f_host)}
+    for name in ("flush", "fused"):
+        for line in ptxas_figures(kcuda.build_log(name)):
+            log(f"  this {name}: {line}")
+    log(f"ncu on the PATH: {shutil.which('ncu')}")
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True).stdout.strip())
@@ -4070,6 +4380,7 @@ def ab_main(base: str) -> int:
                 with k6_ctx(mine):
                     return time_ms(fns[0])
             r = turns(check, timed)
+            r["bound_ms"], r["bound_by"] = fns[2]()
             with k6_ctx(False):
                 r["base_split"] = kernel_split(fns[0])
             r["split"] = kernel_split(fns[0])
@@ -4086,9 +4397,60 @@ def ab_main(base: str) -> int:
         for name, case in cases.items():
             r = turns(lambda mine, c=case: k8_check(c, k8_calls[mine]),
                       lambda mine, c=case: k8_time(c, k8_calls[mine]))
+            r["bound_ms"], r["bound_by"] = k8_bound(case)
             log(f"lookup at {name}: " + json.dumps(r))
 
-    for name, inp in k2_inputs(dev).items():
+    if "flush_gather" in only:
+        # one 2,048-slot tile (two dirty slots): one block's latency
+        one = H.make_agg_state(2048, KW, make_specs(
+            H, [("max", np.int64), ("count", None)]), dev)
+        one.st[H.ROW_DIRTY, :2] = 1
+        log("flush_gather on one tile, flush_cap 64 (DIR's, this): " +
+            json.dumps([time_ms(lambda mine=mine: k3_calls[mine](
+                one.st[None], one.table.keys[None], one.table.occ[None], 64))
+                for mine in (False, True)]))
+        for name, (st, keys, occ, fc) in k3_cases(dev).items():
+            want = H.flush_gather_sharded_plain(H.ShardedAggState(
+                H.ht.TableState(keys, occ), st), fc)
+
+            def k3_checked(mine, a=(st, keys, occ, fc), want=want):
+                e = abs_err(k3_calls[mine](*a).cpu().numpy(),
+                            want.cpu().numpy())
+                assert e == 0, f"flush_gather differs from its plain " \
+                    f"version: {e}"
+                return e
+            r = turns(k3_checked, lambda mine, a=(st, keys, occ, fc):
+                      time_ms(lambda: k3_calls[mine](*a)))
+            r["n_dirty"] = (st[:, H.ROW_DIRTY] != 0).sum(dim=1).tolist()
+            r["bound_ms"], r["bound_by"] = k3_bound(st, keys, fc)
+            r["base_split"] = kernel_split(
+                lambda a=(st, keys, occ, fc): k3_calls[False](*a))
+            r["split"] = kernel_split(
+                lambda a=(st, keys, occ, fc): k3_calls[True](*a))
+            log(f"flush_gather at {name}: " + json.dumps(r))
+        torch.cuda.empty_cache()
+    if "fused" in only:
+        for name, (entry, prog, raw, seg) in fused_cases(dev).items():
+            def checked(mine, c=(entry, prog, raw, seg)):
+                e = fused_err(*c[:3], seg=c[3], call=fused_calls[mine])
+                assert e == 0, f"{c[0]} differs from its plain version: {e}"
+                return e
+            r = turns(checked, lambda mine, c=(entry, prog, raw, seg):
+                      time_ms(lambda: fused_calls[mine](
+                          c[0], c[1], c[2], seg=c[3])))
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                F.bound_bytes(prog, int(raw.shape[0])), 0)
+            r.update(rows=int(raw.shape[0]) * prog.units,
+                     raw_width=int(raw.shape[1]), out_width=prog.out_width)
+            # one block's work (32 rows): the latency a block's phases
+            # cost, against the path shape's time
+            one = raw[:32].contiguous()
+            r["one_block_ms"] = [time_ms(lambda mine=mine: fused_calls[mine](
+                entry, prog, one)) for mine in (False, True)]
+            log(f"{entry} at {name}: " + json.dumps(r))
+        torch.cuda.empty_cache()
+    for name, inp in (k2_inputs(dev).items() if "agg_apply" in only
+                      else ()):
         fk = _k2_fns(inp)[2]
 
         def k2_timed(mine, fk=fk):
@@ -4103,7 +4465,8 @@ def ab_main(base: str) -> int:
         r = turns(k2_checked, k2_timed)
         r.update(launches_per_call=launches_of(fk, "agg_apply"))
         log(f"agg_apply at {name}: " + json.dumps(r))
-    for name, args in route_inputs(dev).items():
+    for name, args in (route_inputs(dev).items() if "route" in only
+                       else ()):
         def side(mine, args=args):
             return functools.partial(_route_raw, route_libs[mine],
                                      with_total and not mine, *args)
@@ -4120,30 +4483,45 @@ def ab_main(base: str) -> int:
         log(f"route at {name}: " + json.dumps(r))
     torch.cuda.empty_cache()
 
-    k1_turns(k1_cases_q7(dev))
-    js = build_join_states(dev)
-    log("probe lengths, q8's join table: "
-        + json.dumps(probe_lengths(js["ks"].table.state)))
-    k1_turns(k1_cases_q8(js))
-    k8_turns(k8_cases_q8(js))
-    k6_turns(k6_cases_q8(js))
-    del js
-    torch.cuda.empty_cache()
-    mj = build_mesh_join_states(dev, twin=False)
-    log("probe lengths, q8-mesh's join tables (8 shards): "
-        + json.dumps(probe_lengths(mj["ks"].table)))
-    k1_turns(k1_cases_mesh(mj))
-    k6_turns(k6_cases_mesh(mj))
-    del mj
-    torch.cuda.empty_cache()
-    k6_turns(k6_cases_perchunk(replay_perchunk(dev,
-                                               record_perchunk_steps(dev))))
-    torch.cuda.empty_cache()
-    k8_turns(k8_cases_cold(dev))
+    k1, k8, k6 = ("probe_insert" in only, "lookup" in only,
+                  "join_probe" in only)
+    if k1:
+        k1_turns(k1_cases_q7(dev))
+    if k1 or k8 or k6:
+        js = build_join_states(dev)
+        log("probe lengths, q8's join table: "
+            + json.dumps(probe_lengths(js["ks"].table.state)))
+        if k1:
+            k1_turns(k1_cases_q8(js))
+        if k8:
+            k8_turns(k8_cases_q8(js))
+        if k6:
+            k6_turns(k6_cases_q8(js))
+        del js
+        torch.cuda.empty_cache()
+    if k1 or k6:
+        mj = build_mesh_join_states(dev, twin=False)
+        log("probe lengths, q8-mesh's join tables (8 shards): "
+            + json.dumps(probe_lengths(mj["ks"].table)))
+        if k1:
+            k1_turns(k1_cases_mesh(mj))
+        if k6:
+            k6_turns(k6_cases_mesh(mj))
+        del mj
+        torch.cuda.empty_cache()
+    if k6:
+        k6_turns(k6_cases_perchunk(replay_perchunk(
+            dev, record_perchunk_steps(dev))))
+        torch.cuda.empty_cache()
+    if k8:
+        k8_turns(k8_cases_cold(dev))
     return 0
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--against"] and len(sys.argv) == 3:
-        sys.exit(ab_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--against"] and len(sys.argv) in (3, 4):
+        groups = AB_GROUPS if len(sys.argv) == 3 \
+            else tuple(sys.argv[3].split(","))
+        assert set(groups) <= set(AB_GROUPS), groups
+        sys.exit(ab_main(sys.argv[2], groups))
     sys.exit(main())

@@ -53,6 +53,42 @@ inline int blocks_for(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
 }
 
+constexpr int kMaxDevices = 64;   // devices whose figures are cached
+
+// The current device (*dev) and its streaming multiprocessors (*sms),
+// cached a device: 0 or a CUDA error code.
+inline int sm_count(int* dev, int* sms) {
+  static int cached[kMaxDevices];
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (*dev < kMaxDevices && cached[*dev] > 0) {
+    *sms = cached[*dev];
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (*dev < kMaxDevices) cached[*dev] = *sms;
+  return 0;
+}
+
+// The block stores n ints of shared `src` to global `dst` with 16-byte
+// stores (ints only at the range's unaligned ends). `src` and `dst` must
+// be equal modulo 16 bytes: a staging tile is placed at the output's
+// offset within 16 bytes (flush_gather, the fused kernel).
+__device__ __forceinline__ void store_ints(int32_t* dst, const int32_t* src,
+                                           long long n) {
+  const long long head = min(n, static_cast<long long>(
+      ((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2));
+  const long long n4 = (n - head) >> 2;
+  for (long long i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  for (long long i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = s4[i];
+  for (long long i = head + 4 * n4 + threadIdx.x; i < n; i += blockDim.x) {
+    dst[i] = src[i];
+  }
+}
+
 // -- the open-addressing table (risingwave_tpu_torch/ops/hash_table.py) ------
 //
 // keys int32[cap, K] + occ int32[cap]: 0 empty, 1 occupied; inside K1 a

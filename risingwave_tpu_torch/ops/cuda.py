@@ -56,7 +56,8 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
         "rw_agg_carry": [_P, _L, _L, _P, _I, _I, _P],
     },
     "flush": {
-        "rw_flush_gather": [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _I, _P],
+        "rw_flush_gather": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _I, _I, _P,
+                            _I, _P],
         "rw_advance": [_P, _L, _I, _I, _P],
     },
     "rebuild": {
@@ -83,9 +84,9 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
         "rw_rebase": [_P, _P, _L, _P],
     },
     "fused": {
-        "rw_fused_chain": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
-        "rw_agg_prelude": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _L, _P],
-        "rw_join_prelude": [_P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
+        "rw_fused_chain": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
+        "rw_agg_prelude": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _P, _L, _P],
+        "rw_join_prelude": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _P, _P],
     },
     "route": {
         "rw_route": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
@@ -197,33 +198,36 @@ def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _chain_key(device: torch.device) -> tuple:
+def _chain_key(device: torch.device, tag: str) -> tuple:
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None \
         else device.index
-    return index, stream_ptr()
+    return index, stream_ptr(), tag
 
 
-def stats_chain(device: torch.device, n: int) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
+def stats_chain(device: torch.device, n: int,
+                tag: str = "stats") -> Tuple[torch.Tensor, torch.Tensor]:
     """(stats, next) for a kernel that sums its stats in its own launch
-    (K1, K8): ``stats`` is ``n`` zeroed int32 words to sum into, and
-    ``next`` a block the launch must zero for the launch after it on the
-    same stream, handed on by ``chain_next`` once the launch went out.
-    Launches of one stream run one after another, so each launch's stats
-    were zeroed by the one before it; the first launch, one after a
-    launch that failed, and one that needs more words than were zeroed get
-    a fresh zeroed block. Each block is handed out once."""
-    cur = _chain.pop(_chain_key(device), None)
+    (K1, K8), or keeps its scan's ticket and status words there (K3's
+    gather, tag "flush"): ``stats`` is ``n`` zeroed int32 words to sum
+    into, and ``next`` a block the launch must zero for the launch after
+    it on the same stream and chain, handed on by ``chain_next`` once the
+    launch went out. Launches of one stream run one after another, so each
+    launch's words were zeroed by the one before it in its chain; the
+    first launch, one after a launch that failed, and one that needs more
+    words than were zeroed get a fresh zeroed block. Each block is handed
+    out once."""
+    cur = _chain.pop(_chain_key(device, tag), None)
     if cur is None or cur.numel() < n:
         cur = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
     nxt = torch.empty(max(n, 64), dtype=torch.int32, device=device)
     return cur[:n], nxt
 
 
-def chain_next(device: torch.device, nxt: torch.Tensor) -> None:
-    """After a launch that zeroes ``nxt``: the next launch's stats."""
-    _chain[_chain_key(device)] = nxt
+def chain_next(device: torch.device, nxt: torch.Tensor,
+               tag: str = "stats") -> None:
+    """After a launch that zeroes ``nxt``: the next launch's words."""
+    _chain[_chain_key(device, tag)] = nxt
 
 
 def call(name: str, fn: str, *args) -> None:

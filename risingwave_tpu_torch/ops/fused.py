@@ -694,10 +694,12 @@ _INT_T = (T_I16, T_I32, T_I64)
 _FLOAT_T = (T_F32, T_F64)
 _BITS = {T_I16: 16, T_I32: 32, T_I64: 64}
 
-# header word positions (csrc/fused.cu enum Hdr mirrors these)
+# header word positions (csrc/fused.cu enum Hdr mirrors these); H_DEPTH
+# is the deepest stack any sub-program needs, H_ENCAT the position of the
+# encode section's lane offsets (one word an encode op)
 (H_MODE, H_NREF, H_NBODY, H_UNITS, H_HOP_TS, H_SLIDE, H_SIZE, H_WM_TS,
  H_WM_THR, H_NPRED, H_NOUT, H_DROP, H_COLTAB, H_PREDTAB, H_OUTTAB, H_ENC,
- H_NENC, H_OUTW, H_NCOUNT, H_LEN) = range(20)
+ H_NENC, H_OUTW, H_NCOUNT, H_LEN, H_DEPTH, H_ENCAT) = range(22)
 HEADER_WORDS = 24
 
 # column table kinds
@@ -1011,9 +1013,11 @@ def compile_program(fs: FusedStages, mode: int,
         raise CompileError(f"more than {MAX_PRED} composed predicates")
     code: List[int] = []
     predtab, outtab = [], []
+    depth = 1
     for p in preds:
         c = _Compiler(body)
         c.expr(p)
+        depth = max(depth, c.max_depth)
         if p.return_type != DataType.BOOLEAN:
             raise CompileError("predicate is not boolean")
         predtab.append((len(code), len(c.words) // INSN))
@@ -1023,6 +1027,7 @@ def compile_program(fs: FusedStages, mode: int,
     for j, e in outs.items():
         c = _Compiler(body)
         c.expr(e)
+        depth = max(depth, c.max_depth)
         out_pos[j] = len(outtab)
         outtab.append((len(code), len(c.words) // INSN,
                        phys_of(e.return_type)))
@@ -1085,6 +1090,11 @@ def compile_program(fs: FusedStages, mode: int,
     hdr_at[H_ENC] = len(words)
     for e, o in enc:
         words += [e, o]
+    hdr_at[H_ENCAT] = len(words)
+    at = 0
+    for e, _o in enc:
+        words.append(at)
+        at += _E_LANES[e]
     code_at = len(words)
     words += code
     for h, at in hdr_at.items():
@@ -1092,6 +1102,7 @@ def compile_program(fs: FusedStages, mode: int,
     words[H_NENC] = len(enc)
     words[H_OUTW] = out_width
     words[H_NCOUNT] = n_counts
+    words[H_DEPTH] = depth
     words[H_LEN] = len(words)
     # sub-program starts are relative to the code section
     for i in range(len(predtab)):
@@ -1102,11 +1113,18 @@ def compile_program(fs: FusedStages, mode: int,
         raise CompileError("program longer than the kernel's shared "
                            "memory copy")
     # every column a program reads must reach it through the raw matrix
-    # or the hop synthesis
-    arr = np.asarray(words, dtype=np.int64)
+    # or the hop synthesis; an OP_COL of a raw column carries its raw
+    # position and type in its spare words (kind + 1, 8 * k + phys), so the
+    # kernel reads it without the column table
     for i in range(code_at, len(words), INSN):
-        if words[i] == OP_COL and coltab[words[i + 1]][0] == C_NONE:
+        if words[i] != OP_COL:
+            continue
+        kind, k, t = coltab[words[i + 1]]
+        if kind == C_NONE:
             raise CompileError(f"column ${words[i + 1]} is not uploaded")
+        if kind == C_RAW:
+            words[i + 2], words[i + 3] = kind + 1, 8 * k + t
+    arr = np.asarray(words, dtype=np.int64)
     return Program(arr, mode, out_width, n_counts,
                    hdr[H_UNITS], out_types, list(outs))
 
@@ -1568,7 +1586,9 @@ def _launch(fn: str, prog: Program, raw: torch.Tensor,
             host_same: Optional[torch.Tensor], out: torch.Tensor,
             counts: Optional[torch.Tensor], *extra) -> None:
     pw = prog.on(raw.device)
-    cuda.call("fused", fn, pw.data_ptr(), int(pw.shape[0]), raw.data_ptr(),
+    # the device copy runs; the host copy gives the launch its shape
+    cuda.call("fused", fn, pw.data_ptr(), prog.words.ctypes.data,
+              int(pw.shape[0]), raw.data_ptr(),
               int(raw.shape[0]), int(raw.shape[1]),
               0 if host_same is None else host_same.data_ptr(),
               out.data_ptr(), int(out.shape[1]),

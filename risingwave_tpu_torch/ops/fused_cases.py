@@ -11,11 +11,19 @@ type, on chunks with NULLs, U-/U+ pairs, invisible rows and — with
 and the int16/int32 limits (wrap), negative timestamps and operands
 (floor division and modulo), zero divisors (NULL), NaN, ±inf, -0.0 and
 out-of-range floats (saturating casts).
+
+``EDGE_CASES`` are the shapes at the edges of ``csrc/fused.cu``'s tiles
+(32, 64 or 128 rows in a ring, with K + 1 halo rows each side): four
+predicates (the widest halo), 32 outputs, U-/U+ pairs and noop pairs
+straddling every tile edge and the ring's wrap, hop expansion whose
+copies cross tile edges, ``seg`` rings shorter and longer than a tile, one
+row, and a row count that is no multiple of the tile. Each has a CPU size
+and a larger card size that reaches the 64- and 128-row tiles.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -421,7 +429,8 @@ def pair_copy(cols: List[Tuple], ops: np.ndarray, seed: int) -> None:
 
 def port_case(seed: int, n: int, edges: bool, separators: int = 0,
               n_pred: int = 2, xla_safe: bool = False,
-              numpy_safe: bool = False, subnormals: bool = False):
+              numpy_safe: bool = False, subnormals: bool = False,
+              n_out: int = 6):
     """A random filter→project run of the port over COLS and one chunk of
     n rows: (FusedStages, StreamChunk); ``subnormals`` as in
     ``column_values``."""
@@ -431,8 +440,8 @@ def port_case(seed: int, n: int, edges: bool, separators: int = 0,
     )
     from risingwave_tpu_torch.expr import expr as E
     from risingwave_tpu_torch.ops.fused import FusedStage, FusedStages
-    preds, outs = random_exprs(seed, n_pred=n_pred, xla_safe=xla_safe,
-                               numpy_safe=numpy_safe)
+    preds, outs = random_exprs(seed, n_out=n_out, n_pred=n_pred,
+                               xla_safe=xla_safe, numpy_safe=numpy_safe)
     schema = Schema([Field(nm, DataType[t]) for nm, t in COLS])
     stages = [FusedStage("filter", "FilterExecutor",
                          exprs=(build(p, E, DataType, Interval),))
@@ -448,6 +457,164 @@ def port_case(seed: int, n: int, edges: bool, separators: int = 0,
     chunk = StreamChunk(schema, [Column(DataType[t], v, ok) for (_nm, t),
                                  (v, ok) in zip(COLS, cols)], vis, ops)
     return fs, chunk
+
+
+class EdgeCase(NamedTuple):
+    seed: int
+    n: int                # rows on the CPU
+    card_n: int           # rows on the card: reaches the 64/128-row tiles
+    n_pred: int = 2
+    n_out: int = 6
+    seg: int = 0          # agg_prelude rings of seg rows (0: the range)
+    hop: bool = False     # a hop window (3 copies) before the filters
+    pairs: bool = False   # U-/U+ pairs across every tile edge and wrap
+
+
+EDGE_TILE = 32            # the smallest tile: every tile edge is on it
+HOP = dict(slide_usecs=10_000_000, size_usecs=30_000_000)
+# seeds whose predicates keep a sixth of the rows or more visible after
+# every filter, on the CPU's and the card's values, so that degradation
+# and the noop-pair drop meet visible pairs
+EDGE_CASES = {
+    "four_preds": EdgeCase(136, 300, 36_000, n_pred=4, pairs=True),
+    "outputs_32": EdgeCase(132, 200, 4_000, n_out=32),
+    "pairs_at_edges": EdgeCase(104, 256, 20_000, pairs=True),
+    "hop_across_tiles": EdgeCase(105, 45, 3_001, hop=True, pairs=True),
+    "seg_small": EdgeCase(107, 256, 4_096, seg=8, pairs=True),
+    "seg_large": EdgeCase(114, 512, 32_768, seg=256, pairs=True),
+    "one_row": EdgeCase(124, 1, 1),
+    "ragged": EdgeCase(117, 1_000, 40_001, pairs=True),
+}
+
+
+def edge_exprs(case: EdgeCase, xla_safe: bool) -> Tuple[List, List]:
+    """The case's (predicates, outputs); with a hop window the outputs
+    also read window_start and window_end."""
+    preds, outs = random_exprs(case.seed, n_out=case.n_out,
+                               n_pred=case.n_pred, xla_safe=xla_safe)
+    if case.hop:
+        outs = outs + [("ref", len(COLS), "TIMESTAMP"),
+                       ("ref", len(COLS) + 1, "TIMESTAMP")]
+    return preds, outs
+
+
+def edge_stages(case: EdgeCase, E, DataType, Interval, FusedStage,
+                FusedStages, Schema, Field, xla_safe: bool = False):
+    """The case's FusedStages, built from either package's classes (the
+    port's, or the reference's for the CPU parity tests)."""
+    preds, outs = edge_exprs(case, xla_safe)
+    schema = Schema([Field(nm, DataType[t]) for nm, t in COLS])
+    stages = []
+    if case.hop:
+        stages.append(FusedStage("hop_window", "HopWindowExecutor",
+                                 time_col=_TYPED["TIMESTAMP"], **HOP))
+    stages += [FusedStage("filter", "FilterExecutor",
+                          exprs=(build(p, E, DataType, Interval),))
+               for p in preds]
+    stages.append(FusedStage(
+        "project", "ProjectExecutor",
+        exprs=tuple(build(o, E, DataType, Interval) for o in outs),
+        names=tuple(f"o{j}" for j in range(len(outs)))))
+    return FusedStages(schema, stages)
+
+
+def edge_pairs(case: EdgeCase, n: int) -> List[Tuple[int, int]]:
+    """Raw row pairs (a, b), b a's successor in its ring: every ring's
+    wrap (its last row, then its first) and every tile edge inside a
+    ring. With a hop window the ring is the expanded range, whose copies
+    follow one another: raw row n - 1's successor is row 0."""
+    ring = case.seg or n
+    out = []
+    for rs in range(0, n, ring):
+        if ring > 1:
+            out.append((rs + ring - 1, rs))
+        out += [(e - 1, e) for e in range(rs + EDGE_TILE, rs + ring,
+                                          EDGE_TILE)]
+    return out
+
+
+def edge_case(name: str, on_card: bool, edges: bool,
+              xla_safe: bool = False, subnormals: bool = False):
+    """(FusedStages, StreamChunk, seg) of the port for case `name`, at
+    its card size or its CPU size. Forced pairs are visible U-/U+ pairs,
+    every second one equal in every column (a noop pair)."""
+    from risingwave_tpu_torch.common.chunk import Column, StreamChunk
+    from risingwave_tpu_torch.common.types import (
+        DataType, Field, Interval, Schema,
+    )
+    from risingwave_tpu_torch.expr import expr as E
+    from risingwave_tpu_torch.ops.fused import FusedStage, FusedStages
+    case = EDGE_CASES[name]
+    n = case.card_n if on_card else case.n
+    fs = edge_stages(case, E, DataType, Interval, FusedStage, FusedStages,
+                     Schema, Field, xla_safe)
+    cols = column_values(n, case.seed, edges, subnormals)
+    vis, ops = chunk_meta(n, case.seed, separators=n // 64)
+    pair_copy(cols, ops, case.seed)
+    if case.pairs:
+        for k, (a, b) in enumerate(edge_pairs(case, n)):
+            ops[a], ops[b] = 3, 4
+            vis[a] = vis[b] = True
+            if k % 2:
+                for vals, ok in cols:
+                    vals[b] = vals[a]
+                    ok[b] = ok[a]
+    schema = Schema([Field(nm, DataType[t]) for nm, t in COLS])
+    chunk = StreamChunk(schema, [Column(DataType[t], v, ok) for (_nm, t),
+                                 (v, ok) in zip(COLS, cols)], vis, ops)
+    return fs, chunk, case.seg
+
+
+def edge_programs(name: str, fs) -> dict:
+    """entry point -> its program for edge case `name` (a ``seg`` ring
+    only for agg_prelude; no join prelude over a hop window)."""
+    from risingwave_tpu_torch.ops import fused as F
+    case = EDGE_CASES[name]
+    g, calls, specs = agg_plan(fs, case.seed)
+    out = {"agg_prelude": F.compile_program(
+        fs, F.MODE_AGG, group_indices=g, agg_calls=calls, specs=specs)}
+    if not case.seg:
+        out["fused_chain"] = F.compile_program(fs, F.MODE_CHAIN)
+    if not case.seg and not case.hop:
+        keys, pays = join_plan(fs, case.seed)
+        out["join_prelude"] = F.compile_program(
+            fs, F.MODE_JOIN, key_indices=keys, pay_indices=pays)
+    return out
+
+
+def call_entry(entry: str, prog, raw, host_same=None, counts=None,
+               seg: int = 0):
+    """Entry point `entry` ("fused_chain", "agg_prelude" or
+    "join_prelude") through its wrapper. ``host_same`` reaches the chain
+    step only, ``counts`` the chain step and the agg prelude, ``seg`` the
+    agg prelude only."""
+    from risingwave_tpu_torch.ops import fused as F
+    if entry == "fused_chain":
+        return F.fused_chain(prog, raw, host_same, counts)
+    if entry == "agg_prelude":
+        return F.agg_prelude(prog, raw, counts, seg=seg)
+    return F.join_prelude(prog, raw)
+
+
+def run_both(entry: str, prog, raw, host_same=None, seg: int = 0,
+             call=call_entry):
+    """Entry point `entry` through `call` (``call_entry``'s signature; by
+    default this build's wrapper) and through the plain program, on the
+    same tensors: ((out, counts), (out, counts)), counts None for the
+    join prelude."""
+    import torch
+
+    from risingwave_tpu_torch.ops import fused as F
+    ck = None if entry == "join_prelude" else torch.zeros(
+        prog.n_counts, dtype=torch.int64, device=raw.device)
+    cp = None if ck is None else ck.clone()
+    if entry != "fused_chain":
+        host_same = None
+    if entry != "agg_prelude":
+        seg = 0
+    got = call(entry, prog, raw, host_same, ck, seg)
+    want = F.run_program_plain(prog, raw, host_same, cp, seg=seg)
+    return (got, ck), (want, cp)
 
 
 def agg_plan(fs, seed: int):
@@ -488,8 +655,8 @@ def mismatch(prog, got: np.ndarray, want: np.ndarray,
     """Largest |got - want| over an entry point's output (int64 view),
     where a NaN compares equal to a NaN whatever its bits: float lanes of
     rows whose output column is NaN (``nan_rows[out-schema position]``,
-    bool per row) are compared as NaN-ness only. 0 means bit for bit
-    equal."""
+    bool per row; None: every lane bit for bit) are compared as NaN-ness
+    only. 0 means bit for bit equal."""
     from risingwave_tpu_torch.ops import fused as F
     got = np.asarray(got).astype(np.int64)
     want = np.asarray(want).astype(np.int64)
@@ -510,7 +677,8 @@ def mismatch(prog, got: np.ndarray, want: np.ndarray,
         for i in range(int(w[F.H_NENC])):
             e, o = int(w[enc_at + 2 * i]), int(w[enc_at + 2 * i + 1])
             n_l = F._E_LANES[e]
-            if e in (F.E_KEY, F.E_PAY, F.E_ORDER, F.E_SUM_FLOAT) and \
+            if nan_rows is not None and \
+                    e in (F.E_KEY, F.E_PAY, F.E_ORDER, F.E_SUM_FLOAT) and \
                     prog.out_types[o] in floats:
                 rows = np.asarray(nan_rows[prog.out_pos[o]])
                 n_rows = got.shape[0]

@@ -845,6 +845,15 @@ def flush_gather_sharded(state: ShardedAggState,
                               flush_cap)
 
 
+FLUSH_TILE = 2048             # csrc/flush.cu kTile: slots a scan tile
+
+
+def flush_status_words(n_shards: int, cap: int) -> int:
+    """int32 words of K3's gather scan: one 64-bit status word a tile of
+    each shard."""
+    return 2 * n_shards * max(1, -(-cap // FLUSH_TILE))
+
+
 def _flush_gather_cuda(st: torch.Tensor, keys: torch.Tensor,
                        occ: torch.Tensor, flush_cap: int) -> torch.Tensor:
     _check_state(st, keys, occ, "flush_gather")
@@ -852,13 +861,16 @@ def _flush_gather_cuda(st: torch.Tensor, keys: torch.Tensor,
     k = keys.shape[2]
     nacc = (r - ROW_ACC0) // 2
     wout = flush_width(k, nacc)
-    nb = (cap + 1023) // 1024
-    counts = torch.empty((ns, 2 * nb), dtype=torch.int32, device=st.device)
     out = torch.empty((ns, 1 + flush_cap, wout), dtype=torch.int32,
                       device=st.device)
+    # the scan's ticket and status words, zeroed by the flush before this
+    # one on the stream (one launch a call: csrc/flush.cu)
+    status, nxt = cuda.stats_chain(st.device,
+                                   flush_status_words(ns, cap), "flush")
     cuda.call("flush", "rw_flush_gather", st.data_ptr(), keys.data_ptr(),
-              occ.data_ptr(), cap, k, nacc, ns, counts.data_ptr(),
-              flush_cap, out.data_ptr(), wout)
+              occ.data_ptr(), cap, k, nacc, ns, status.data_ptr(),
+              nxt.data_ptr(), nxt.numel(), flush_cap, out.data_ptr(), wout)
+    cuda.chain_next(st.device, nxt, "flush")
     LAUNCHES.add("flush_gather")
     return out
 

@@ -26,7 +26,17 @@ row's first two visible refs and walks longer chains from there, cuts
 hold chains of 0, 1 and many refs, refs invisible at the row's sequence
 on either side, a buffer that the pairs fill exactly or overflow by one,
 n that is not a multiple of the tile, n = 0, the degree branch and absent
-keys whose probe wraps. Everything is numpy, made from fixed seeds.
+keys whose probe wraps. K3 (``flush_gather``) scans 2,048-slot tiles in
+one launch with a look-back between them and writes the header and the
+padding from each shard's last tile, so its cases have no dirty slot,
+every slot dirty, ``n_dirty`` equal to ``flush_cap`` and one past it (the
+header keeps the true count), dirty slots on both sides of every tile
+edge and at the last slot, a capacity smaller than one tile, 0 and 4
+accumulators, and 1, 3 and 8 shards with a different ``n_dirty`` in each;
+at maxbids' first agg's size (2^20 slots, and 8 shards of 2^17) a shard
+has more tiles than the card holds blocks, so a block takes several
+tiles in turn, and dirty slots lie in every tile.
+Everything is numpy, made from fixed seeds.
 """
 
 from __future__ import annotations
@@ -50,6 +60,11 @@ K1_CASES = ("one_key", "all_new", "dup_warps", "near_max_load", "wrap",
 K1_SHARDS = (8, 3)
 K6_CASES = ("chains", "invisible", "exact_fit", "one_over", "ragged",
             "empty", "degrees", "absent_wrap")
+K3_CASES = ("no_dirty", "all_dirty", "at_flush_cap", "past_flush_cap",
+            "tile_edges", "small_cap", "nacc_0", "nacc_4", "maxbids",
+            "maxbids_sharded")
+K3_SHARDS = (1, 3, 8)
+K3_TILE = H.FLUSH_TILE          # slots of one scan tile (csrc/flush.cu)
 J_KW, J_P = 3, 6                # the K6 cases' key and payload lanes
 FLAG_PROBE, FLAG_INS, FLAG_DEL, FLAG_NEG = 1, 2, 4, 8   # ops/hash_join.py
 # every device kind: SUM(int), SUM(float), MAX, MIN, COUNT(*), COUNT(col)
@@ -454,3 +469,97 @@ def k6_sharded_case(n_shards: int) -> dict:
                 probe=(key_lanes(pg), rng.random(q) < 0.1),
                 seqs=(2, 2**31 - 1), out_cap=1 << 8)
 
+
+
+def k3_state(rng, cap: int, nacc: int, dirty: np.ndarray,
+             k: int = KW) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(st int32[R, cap], keys int32[cap, k], occ int32[cap]) of an agg
+    state in the port's layout with `nacc` accumulator rows: the slots in
+    `dirty` dirty and occupied, ~half the others occupied, every other
+    word random (emitted_valid 0/1, as the state holds it)."""
+    r = H.ROW_ACC0 + 2 * nacc
+    st = rng.integers(-2**31, 2**31, (r, cap), dtype=np.int64) \
+        .astype(np.int32)
+    st[H.ROW_DIRTY] = 0
+    st[H.ROW_DIRTY, dirty] = 1
+    st[H.ROW_EMITTED_VALID] = rng.integers(0, 2, cap)
+    occ = (rng.random(cap) < 0.5).astype(np.int32)
+    occ[dirty] = 1
+    keys = rng.integers(-2**31, 2**31, (cap, k), dtype=np.int64) \
+        .astype(np.int32)
+    return st, keys, occ
+
+
+def k3_case(name: str) -> Tuple[int, np.ndarray, np.ndarray,
+                                np.ndarray]:
+    """(flush_cap, st [S, R, cap], keys [S, cap, k], occ [S, cap]) of
+    one of ``K3_CASES``: one shard (nacc 3, as q7's plan, unless the name
+    says otherwise) but for ``maxbids_sharded``. ``maxbids`` is maxbids'
+    first agg (2^20 slots, six key lanes, COUNT(*)) with three dirty slots
+    in every tile, two of them its edges; ``maxbids_sharded`` is 8 shards
+    of 2^17 slots with 1-3 dirty slots a tile (64, 128 and 192 a shard:
+    under, at and past the flush_cap of 128)."""
+    rng = np.random.default_rng(91 + K3_CASES.index(name))
+    t = K3_TILE
+    cap = 4 * t
+
+    def case(fc, cap, nacc, dirty, k=KW):
+        st, keys, occ = k3_state(rng, cap, nacc,
+                                 np.asarray(dirty, dtype=np.int64), k)
+        return fc, st[None], keys[None], occ[None]
+
+    def per_tile(cap, n):
+        """n dirty slots in every tile: its first, its last, then random
+        ones between them."""
+        tiles = np.arange(0, cap, t)
+        picks = [tiles, tiles + t - 1][:n]
+        for _ in range(n - 2):
+            picks.append(tiles + rng.integers(1, t - 1, len(tiles)))
+        return np.unique(np.concatenate(picks))
+
+    if name == "no_dirty":
+        return case(64, cap, 3, [])
+    if name == "all_dirty":
+        return case(2 * t, 2 * t, 3, np.arange(2 * t))
+    if name in ("at_flush_cap", "past_flush_cap"):
+        nd = 100 if name == "at_flush_cap" else 101
+        return case(100, cap, 3, np.sort(rng.choice(cap, nd, replace=False)))
+    if name == "tile_edges":
+        return case(64, cap, 3, [0, 1] + [e + d for e in range(t, cap, t)
+                                          for d in (-1, 0)] + [cap - 1])
+    if name == "small_cap":
+        return case(16, 64, 3, [0, 5, 31, 32, 63])
+    if name in ("nacc_0", "nacc_4"):
+        return case(1 << 10, 2 * t, int(name[-1]),
+                    np.flatnonzero(rng.random(2 * t) < 0.1))
+    if name == "maxbids":
+        return case(1 << 11, 1 << 20, 1, per_tile(1 << 20, 3), k=2 * KW)
+    assert name == "maxbids_sharded", name
+    cap = 1 << 17
+    parts = [k3_state(rng, cap, 3, per_tile(cap, d % 3 + 1))
+             for d in range(8)]
+    return (128,) + tuple(np.stack([p[i] for p in parts]) for i in range(3))
+
+
+def k3_cases() -> Dict[str, Tuple[int, np.ndarray, np.ndarray,
+                                  np.ndarray]]:
+    """Every one of ``K3_CASES``: name -> ``k3_case(name)``."""
+    return {name: k3_case(name) for name in K3_CASES}
+
+
+def k3_sharded_case(n_shards: int) -> Tuple[int, np.ndarray, np.ndarray,
+                                             np.ndarray]:
+    """(flush_cap, st [S, R, cap], keys [S, cap, k], occ [S, cap]): two
+    tiles a shard, a different n_dirty in each shard (13, 110, 207, 304,
+    1, ...), some past the flush_cap of 256."""
+    rng = np.random.default_rng(92 + n_shards)
+    cap = 2 * K3_TILE
+    sts, keys, occs = [], [], []
+    for d in range(n_shards):
+        nd = (d * 97 + 13) % 400
+        st, k, o = k3_state(rng, cap, 3,
+                            np.sort(rng.choice(cap, nd, replace=False)))
+        sts.append(st)
+        keys.append(k)
+        occs.append(o)
+    return 256, np.stack(sts), np.stack(keys), np.stack(occs)

@@ -18,10 +18,11 @@ cold tier's and the patch's kernels: K8 (lookup) and K4's evict mode
 exactly, B9 (evict_state) key-sorted against its plain twin, K9
 (scatter_rows) exactly with and without its shard axis, K2's kNone lane
 exactly, and a GroupedAggKernel's patch, eviction and reload on the card
-against the same kernel on the CPU. K2, route, K1 and K6 are also held
-to their plain versions on ``ops/kernel_cases.py``'s batches, the shapes
-at the edges of their designs: K1 by the table invariants and exact
-stats (with K8 exact on the tables it built), K6 exactly.
+against the same kernel on the CPU. K2, route, K1, K6 and K3's gather are
+also held to their plain versions on ``ops/kernel_cases.py``'s batches,
+the shapes at the edges of their designs: K1 by the table invariants and
+exact stats (with K8 exact on the tables it built), K6 and K3 exactly;
+the fused kernel on ``ops/fused_cases.py``'s edge cases, bit for bit.
 """
 
 import numpy as np
@@ -262,6 +263,36 @@ def test_flush_gather_and_advance_match_plain(dev):
     H.advance(a)
     H.advance_plain(st)
     np.testing.assert_array_equal(a.st.cpu().numpy(), st.st.cpu().numpy())
+
+
+def _k3_state(dev, st, keys, occ):
+    return H.ShardedAggState(
+        ht.TableState(torch.from_numpy(keys).to(dev),
+                      torch.from_numpy(occ).to(dev)),
+        torch.from_numpy(st).to(dev))
+
+
+@pytest.mark.parametrize("case", KC.K3_CASES + tuple(
+    f"shards_{s}" for s in KC.K3_SHARDS))
+def test_flush_gather_edge_cases_match_plain(dev, case):
+    """K3 on ``kernel_cases``' edge cases (and its shard axis at 1, 3 and
+    8 shards; at maxbids' sizes a block takes several tiles), three calls
+    in a row so that each launch runs on the scan words the one before it
+    zeroed: every matrix bit for bit, the true n_dirty in each header."""
+    if case.startswith("shards_"):
+        fc, st, keys, occ = KC.k3_sharded_case(int(case[len("shards_"):]))
+    else:
+        fc, st, keys, occ = KC.k3_case(case)
+    state = _k3_state(dev, st, keys, occ)
+    want = H.flush_gather_sharded_plain(state, fc).cpu().numpy()
+    for _ in range(3):
+        np.testing.assert_array_equal(
+            H.flush_gather_sharded(state, fc).cpu().numpy(), want)
+    np.testing.assert_array_equal(want[:, 0, 0],
+                                  (st[:, H.ROW_DIRTY] != 0).sum(axis=1))
+    if st.shape[0] == 1:
+        np.testing.assert_array_equal(
+            H.flush_gather(state.shard(0), fc).cpu().numpy(), want[0])
 
 
 def test_live_mask_and_remap_match_plain(dev):
@@ -711,6 +742,26 @@ def test_agg_and_join_preludes_match_plain(dev):
         want = F.run_program_plain(jp, raw)
         assert FC.mismatch(jp, got.cpu().numpy(), want.numpy(),
                            nan_rows) == 0, seed
+
+
+@pytest.mark.parametrize("name", sorted(FC.EDGE_CASES))
+def test_fused_edge_cases_match_plain(dev, name):
+    """The fused kernel at its tile edges (``fused_cases.EDGE_CASES`` at
+    their card sizes, which reach the 64- and 128-row tiles, with edge
+    and subnormal values): every entry point the case allows against the
+    plain program on the same card tensors, bit for bit (a NaN equal to a
+    NaN), the stage counts exact."""
+    fs, chunk, seg = FC.edge_case(name, True, True, subnormals=True)
+    raw = torch.from_numpy(F.encode_raw_chunk(chunk, fs.ref_cols)).to(dev)
+    nan_rows = FC.nan_rows_of(fs, chunk)
+    hs = torch.from_numpy(fs.host_noop_eq(chunk).astype(np.int8)).to(dev)
+    for entry, prog in FC.edge_programs(name, fs).items():
+        (got, ck), (want, cp) = FC.run_both(entry, prog, raw, hs, seg)
+        assert FC.mismatch(prog, got.cpu().numpy(), want.cpu().numpy(),
+                           nan_rows) == 0, entry
+        if ck is not None:
+            np.testing.assert_array_equal(ck.cpu().numpy(),
+                                          cp.cpu().numpy())
 
 
 # -- the sharded path: route and the shard axis of K1-K4 -------------------------

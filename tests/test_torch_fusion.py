@@ -380,6 +380,105 @@ def test_program_matches_numpy_chain_body(seed):
         assert _bits_equal(c.values, np.asarray(w.values))[ok].all()
 
 
+def _ref_edge_stages(name):
+    return FC.edge_stages(FC.EDGE_CASES[name], RE, RD, RInterval,
+                          RF.FusedStage, RF.FusedStages, RSchema, RField,
+                          xla_safe=True)
+
+
+@pytest.mark.parametrize("name", sorted(FC.EDGE_CASES))
+def test_edge_case_agg_prelude_plain_matches_reference(name):
+    """csrc/fused.cu's tile edges (``fused_cases.EDGE_CASES``: four
+    predicates, 32 outputs, U-/U+ and noop pairs across every tile edge
+    and ring wrap, hop copies across tiles, short and long ``seg`` rings,
+    one row, a ragged row count): the plain agg prelude equals the
+    reference's traced prelude, run ring by ring as each shard runs it on
+    its own block, outputs and stage counts."""
+    import jax
+
+    from risingwave_tpu.ops import hash_agg as RH
+    from risingwave_tpu.stream.executors.hash_agg import AggCall as RCall
+    case = FC.EDGE_CASES[name]
+    fs, _chunk, seg = FC.edge_case(name, False, False, xla_safe=True)
+    chunk = _chunk
+    rfs = _ref_edge_stages(name)
+    assert fs.ref_cols == rfs.ref_cols
+    raw = F.encode_raw_chunk(chunk, fs.ref_cols)
+    group, calls, specs = FC.agg_plan(fs, case.seed)
+    prog = F.compile_program(fs, F.MODE_AGG, group_indices=group,
+                             agg_calls=calls, specs=specs)
+    counts = torch.zeros(prog.n_counts, dtype=torch.int64)
+    got = F.agg_prelude(prog, torch.from_numpy(raw), counts, seg=seg).numpy()
+    rcalls = [RCall(RH.AggKind(c.kind.value), c.input_idx) for c in calls]
+    rspecs = [c.spec(rfs.out_schema) for c in rcalls]
+    pre = jax.jit(RF.build_agg_prelude(rfs, group, rcalls, rspecs))
+    ring = seg or len(raw)
+    want, rows = [], 0
+    for rs in range(0, len(raw), ring):
+        key_lanes, signs, vis, call_inputs, stage_rows = pre(
+            raw[rs:rs + ring])
+        inputs = [(tuple(np.asarray(x) for x in lanes_),
+                   None if ok is None else np.asarray(ok))
+                  for lanes_, ok in call_inputs]
+        want.append(H.pack_chunk(3 * len(group), specs,
+                                 np.asarray(key_lanes), np.asarray(signs),
+                                 np.asarray(vis), inputs))
+        rows = rows + np.asarray(stage_rows)
+    np.testing.assert_array_equal(got, np.concatenate(want))
+    np.testing.assert_array_equal(fs.stage_rows_of(counts.numpy()), rows)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, c in FC.EDGE_CASES.items() if not c.seg))
+def test_edge_case_chain_and_join_plain_match_reference(name):
+    """The same edge cases through the chain step (against the
+    reference's traced ``build_chain_step``: values, validities, vis, ops
+    and stage rows) and, without a hop window, the join prelude (against
+    ``build_join_prelude``)."""
+    import jax
+    case = FC.EDGE_CASES[name]
+    fs, chunk, _seg = FC.edge_case(name, False, False, xla_safe=True)
+    rfs = _ref_edge_stages(name)
+    raw = F.encode_raw_chunk(chunk, fs.ref_cols)
+    hs = fs.host_noop_eq(chunk)
+    prog = F.compile_program(fs, F.MODE_CHAIN)
+    counts = torch.zeros(prog.n_counts, dtype=torch.int64)
+    mat = F.fused_chain(prog, torch.from_numpy(raw),
+                        torch.from_numpy(hs.astype(np.int8)), counts)
+    cols, vis, ops = F.decode_chain_output(prog, fs, mat.numpy())
+    rc = _ref_chunk(chunk)
+    fv, fo, vis2, ops2, srows = RF.build_chain_step(rfs)(
+        tuple(np.asarray(rc.columns[i].values) for i in rfs.ref_cols),
+        tuple(np.asarray(rc.columns[i].validity) for i in rfs.ref_cols),
+        chunk.visibility, chunk.ops, hs)
+    np.testing.assert_array_equal(vis, np.asarray(vis2))
+    np.testing.assert_array_equal(ops, np.asarray(ops2))
+    np.testing.assert_array_equal(fs.stage_rows_of(counts.numpy()),
+                                  np.asarray(srows))
+    k = 0
+    for c in cols:
+        if c is None:
+            continue
+        ok = np.ones(len(vis), bool) if c.validity is None else c.validity
+        want_ok = np.asarray(fo[k])
+        if case.hop and len(want_ok) != len(vis):
+            # the reference's step sizes an always-valid column's mask by
+            # the unexpanded rows
+            assert want_ok.all()
+            want_ok = np.ones(len(vis), bool)
+        np.testing.assert_array_equal(ok, want_ok)
+        assert _bits_equal(c.values, np.asarray(fv[k]))[ok].all(), k
+        k += 1
+    if case.hop:
+        return                      # join preludes refuse hop expansion
+    keys, pays = FC.join_plan(fs, case.seed)
+    jp = F.compile_program(fs, F.MODE_JOIN, key_indices=keys,
+                           pay_indices=pays)
+    got = F.join_prelude(jp, torch.from_numpy(raw)).numpy()
+    want = np.asarray(jax.jit(RF.build_join_prelude(rfs, keys, pays))(raw))
+    np.testing.assert_array_equal(got, want)
+
+
 # -- hop expansion and absorbed watermark filters -----------------------------
 
 

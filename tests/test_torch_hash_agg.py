@@ -39,6 +39,7 @@ from risingwave_tpu_torch.common import epoch as port_epoch
 from risingwave_tpu_torch.common import types as port_types
 from risingwave_tpu_torch.models.nexmark import from_jax_state, to_numpy_state
 from risingwave_tpu_torch.ops import hash_agg as port_agg
+from risingwave_tpu_torch.ops import kernel_cases as KC
 from risingwave_tpu_torch.state.state_table import StateTable as PortStateTable
 from risingwave_tpu_torch.state.store import MemoryStateStore as PortStore
 from risingwave_tpu_torch.stream import message as port_msg
@@ -174,6 +175,65 @@ def test_flush_gather_and_advance_match_reference(flush_cap):
     assert got[0, 0] > flush_cap or flush_cap == 1024
     P.advance(port_state)
     _assert_state_equal(port_state, R.advance_state(ref_state), specs)
+
+
+def _ref_state_of(st, keys, occ):
+    """A reference ``AggState`` holding the port-layout arrays of one
+    shard (accumulators as int32 words, as gather_packed emits them)."""
+    from risingwave_tpu.ops import hash_table as ref_ht
+    nacc = (st.shape[0] - P.ROW_ACC0) // 2
+    acc = [jnp.asarray(st[P.ROW_ACC0 + a]) for a in range(2 * nacc)]
+    return R.AggState(
+        table=ref_ht.TableState(keys=jnp.asarray(keys),
+                                occ=jnp.asarray(occ != 0)),
+        group_rows=jnp.asarray(st[P.ROW_GROUP_ROWS]),
+        dirty=jnp.asarray(st[P.ROW_DIRTY] != 0),
+        accs=tuple(acc[:nacc]),
+        emitted_valid=jnp.asarray(st[P.ROW_EMITTED_VALID] != 0),
+        emitted_rows=jnp.asarray(st[P.ROW_EMITTED_ROWS]),
+        emitted_accs=tuple(acc[nacc:]))
+
+
+@pytest.mark.parametrize("case", KC.K3_CASES)
+def test_flush_gather_kernel_cases_match_reference(case):
+    """K3's edge cases (``ops/kernel_cases.py``: no dirty slot, all dirty,
+    n_dirty at and one past flush_cap, tile edges, a capacity under one
+    tile, 0 and 4 accumulators, maxbids' 2^20 slots and 8 shards of
+    2^17): the plain version equals gather_packed on every shard, the
+    true n_dirty in the header and slot 0's row in the padding."""
+    fc, st, keys, occ = KC.k3_case(case)
+    if st.shape[0] == 1:
+        port = P.AggState(P.ht.TableState(torch.from_numpy(keys[0]),
+                                          torch.from_numpy(occ[0])),
+                          torch.from_numpy(st[0]))
+        got = P.flush_gather(port, fc).numpy()[None]
+    else:
+        port = P.ShardedAggState(P.ht.TableState(torch.from_numpy(keys),
+                                                 torch.from_numpy(occ)),
+                                 torch.from_numpy(st))
+        got = P.flush_gather_sharded(port, fc).numpy()
+    for d in range(st.shape[0]):
+        want = np.asarray(R.gather_packed(
+            _ref_state_of(st[d], keys[d], occ[d]), fc))
+        np.testing.assert_array_equal(got[d], want)
+        assert got[d, 0, 0] == int((st[d, P.ROW_DIRTY] != 0).sum())
+
+
+@pytest.mark.parametrize("n_shards", KC.K3_SHARDS)
+def test_flush_gather_sharded_cases_match_reference(n_shards):
+    """The shard axis on K3's sharded case (a different n_dirty in each
+    shard, some past flush_cap): one [1 + flush_cap, W'] matrix a shard,
+    each equal to gather_packed on that shard."""
+    fc, st, keys, occ = KC.k3_sharded_case(n_shards)
+    port = P.ShardedAggState(P.ht.TableState(torch.from_numpy(keys),
+                                             torch.from_numpy(occ)),
+                             torch.from_numpy(st))
+    got = P.flush_gather_sharded(port, fc).numpy()
+    assert got.shape[0] == n_shards
+    for d in range(n_shards):
+        want = np.asarray(R.gather_packed(
+            _ref_state_of(st[d], keys[d], occ[d]), fc))
+        np.testing.assert_array_equal(got[d], want)
 
 
 def test_retire_and_grow_match_reference():
