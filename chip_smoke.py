@@ -15,7 +15,9 @@ phases, any failure of which exits non-zero:
      2^15 rows per step, 3 key lanes, q7's MAX(price) + COUNT(*) plan,
      plus a SUM(int) / SUM(float) / MIN / COUNT plan over ~20K groups;
      K3's gather also on ``ops/kernel_cases.py``'s edge cases, three calls
-     a case, and timed with ``n_dirty`` and its split by kernel):
+     a case, and timed with ``n_dirty`` and its split by kernel; K3's
+     advance on each flush's own list, on the advance cases and timed at
+     q7's, q7-mesh's and maxbids' states):
      integers exact, K1 (probe_insert) by the table invariants, float
      SUM's hi and lo rows each within rel 1e-6 of the group's summed
      magnitudes in that row; K2 (agg_apply) also on the batches of
@@ -26,7 +28,9 @@ phases, any failure of which exits non-zero:
    - the join kernels at q8's shapes (6 key lanes, 6 payload lanes,
      2^16 rows per side-epoch, ~2M stored rows built through the growth
      ladder 2^20 → 2^22 slots, a 2^16-row pair buffer): K5 (join_apply)
-     exact per key (each key's chain of refs, ins/del sequences, payload),
+     exact per key (each key's chain of refs, ins/del sequences, payload)
+     and on ``ops/kernel_cases.py``'s K5 batches, timed at the fresh and
+     the hot-key epochs with its launches a call and its split,
      K6 (join_probe) exact, with and without degrees, including a forced
      overflow (a 2^10-row buffer) that must re-dispatch to the same pairs,
      K7 and the head remap on K4 exact;
@@ -129,13 +133,14 @@ The last two lines of standard output are one JSON object per kernel
 counts) and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --against DIR [GROUPS]`` runs no phase: it times
-K3 (flush_gather), the three fused entries, K2 (agg_apply), route, K1
-(probe_insert), K8 (lookup) and K6 (join_probe) of this checkout against
-the same kernels built from DIR's ``risingwave_tpu_torch/csrc`` (the
-parent commit, unpacked with ``git archive`` into a directory git
-ignores), in turns, at the shapes above, each build first held to the
-plain version; the other build is compiled and bound by this script
-alone. GROUPS, comma-separated, keeps only some of ``AB_GROUPS``.
+K3 (flush_gather, advance), the three fused entries, K2 (agg_apply),
+route, K1 (probe_insert), K8 (lookup), K6 (join_probe) and K5
+(join_apply) of this checkout against the same kernels built from DIR's
+``risingwave_tpu_torch/csrc`` (the parent commit, unpacked with ``git
+archive`` into a directory git ignores), in turns, at the shapes above,
+each build first held to the plain version; the other build is compiled
+and bound by this script alone. GROUPS, comma-separated, keeps only some
+of ``AB_GROUPS``.
 """
 
 from __future__ import annotations
@@ -717,25 +722,75 @@ def check_k3_edges(dev) -> float:
 
 
 def check_advance(dev, cap: int, n: int) -> dict:
+    """K3's advance on the flush's own list: exact against the plain
+    sweep on the mixed plan's state and on ``kernel_cases``' advance
+    cases, then timed at q7's state (2^18 slots), q7-mesh's (8 x 2^15)
+    and maxbids' (2^20, ~2,200 dirty) beside the plain version of the
+    list-driven advance and the bound of its bytes."""
     from risingwave_tpu_torch.ops import hash_agg as H
     _specs, st = _mixed_state(dev, cap, n)
     k = H.AggState(st.table, st.st.clone())
     p = H.AggState(st.table, st.st.clone())
-    H.advance(k)
+    H.advance(k, H.flush_gather(k, 1 << 15))
     H.advance_plain(p)
-    err = abs_err(k.st.cpu().numpy(), p.st.cpu().numpy())
+    err = max(abs_err(k.st.cpu().numpy(), p.st.cpu().numpy()),
+              check_advance_edges(dev))
     assert err == 0, err
-    _q7, qs = _q7_state(dev, cap, n)
-    n_dirty = int((qs.st[H.ROW_DIRTY] != 0).sum())
-    # after the first call no slot is dirty; the q7 step dirties one or
-    # two, so each call still reads the whole dirty row, as on the path
-    ms = time_ms(lambda: H.advance(qs))
-    plain_ms = time_ms(lambda: H.advance_plain(qs))
-    nacc = qs.n_acc
-    nbytes = cap * 4 + n_dirty * (1 + nacc) * 4 + n_dirty * (3 + nacc) * 4
-    b, by = bound_ms(nbytes, cap)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by)
+    out = {}
+    for name, (state, mats) in advance_ab_cases(dev).items():
+        k = H.ShardedAggState(state.table, state.st.clone())
+        p = H.ShardedAggState(state.table, state.st.clone())
+        k2 = H.ShardedAggState(state.table, state.st.clone())
+        H.advance_sharded(k, mats, current=True)
+        H.advance_sharded(k2, mats)
+        H.advance_sharded(p)
+        err = max(err, abs_err(k.st.cpu().numpy(), p.st.cpu().numpy()),
+                  abs_err(k2.st.cpu().numpy(), p.st.cpu().numpy()))
+        assert err == 0, f"advance differs at {name}: {err}"
+        # timed in place: after the first call the listed slots are no
+        # longer dirty, and each call advances them again (with the
+        # matrix's values, as when no patch ran; patched_ms: from the
+        # state's rows, as after a patch)
+        ms = time_ms(lambda: H.advance_sharded(k, mats, current=True))
+        patched_ms = time_ms(lambda: H.advance_sharded(k2, mats))
+        plain_ms = time_ms(lambda: [H.advance_listed_plain(
+            p.shard(s), mats[s]) for s in range(p.n_shards)])
+        b, by = advance_bound(state)
+        out[name] = dict(ms=ms, patched_ms=patched_ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by,
+                         n_dirty=(state.st[:, H.ROW_DIRTY] != 0).sum(
+                             dim=1).tolist(),
+                         flush_cap=int(mats.shape[1]) - 1,
+                         split=kernel_split(lambda: H.advance_sharded(
+                             k, mats, current=True)))
+    q7, mesh, mb = out.values()
+    return dict(q7, max_abs_err=err, mesh_shape=mesh, maxbids_shape=mb)
+
+
+def check_advance_edges(dev) -> float:
+    """advance on ``kernel_cases``' advance cases, on each flush's own
+    list and as a sweep, against the plain sweep."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import kernel_cases as KC
+    err = 0.0
+    for name in KC.ADVANCE_CASES:
+        fc, st, keys, occ = KC.advance_case(name)
+
+        def state():
+            return H.ShardedAggState(
+                H.ht.TableState(torch.from_numpy(keys).to(dev),
+                                torch.from_numpy(occ).to(dev)),
+                torch.from_numpy(st).to(dev))
+        a, b, c, d = state(), state(), state(), state()
+        H.advance_sharded(a, H.flush_gather_sharded(a, fc))
+        H.advance_sharded(d, H.flush_gather_sharded(d, fc), current=True)
+        H.advance_sharded(b)
+        for s in range(c.n_shards):
+            H.advance_plain(c.shard(s))
+        for x in (a, b, d):
+            err = max(err, abs_err(x.st.cpu().numpy(), c.st.cpu().numpy()))
+        assert err == 0, f"advance differs on the {name} case: {err}"
+    return err
 
 
 def check_live_mask(dev, cap: int, n: int) -> dict:
@@ -958,42 +1013,59 @@ def _by_key(table, chains) -> tuple:
     return keys[order], head[order]
 
 
-def _k5_times(js, up, aux) -> tuple:
-    """(K5 ms, plain K5 ms, K5 bytes) of one epoch's apply on copies of
-    both sides (K5 repeated on the slots K1 gave: it never walks the
-    chains it rewrites)."""
+def _k5_call(js, up, aux):
+    """One K5 wrapper call of an epoch's apply, on copies of the side (K1
+    gave the slots on a copy of its table)."""
     from risingwave_tpu_torch.ops import hash_join as J
     from risingwave_tpu_torch.ops import hash_table as ht
     ks = js["ks"]
     ins = aux[:, J.AUX_FLAGS] & J.FLAG_INS
     kt, kc, kp = _clone_side(ks.table.state, ks.chains, ks.pay)
     _t, kslots, _s = ht.probe_insert(kt, up[:, :JKW], ins)
-    ms = time_ms(lambda: J.join_apply(kc, kp, kslots, up, aux, JKW,
-                                      scratch=ks._link_scratch))
+    return lambda: J.join_apply(kc, kp, kslots, up, aux, JKW,
+                                scratch=ks._link_scratch)
+
+
+def _k5_times(js, up, aux) -> tuple:
+    """(K5 ms, plain K5 ms, K5 bytes) of one epoch's apply on copies of
+    both sides (K5 repeated on the slots K1 gave: it never walks the
+    chains it rewrites)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    ins = aux[:, J.AUX_FLAGS] & J.FLAG_INS
+    ms = time_ms(_k5_call(js, up, aux))
     qt, qc, qp = _clone_side(*js["plain"])
     qslots, _s = ht.probe_insert_plain(qt, up[:, :JKW], ins != 0)
     plain_ms = time_ms(lambda: J.join_apply_plain(qc, qp, qslots, up, aux,
                                                   JKW))
-    f = aux[:, J.AUX_FLAGS].cpu().numpy()
-    insm = (f & J.FLAG_INS) != 0
-    n_ins, n_del = int(insm.sum()), int(((f & J.FLAG_DEL) != 0).sum())
-    n_slots = len(np.unique(kslots.cpu().numpy()[insm]))
-    nbytes = (len(f) * 16 + n_ins * (4 + JP * 4) + n_slots * 4
-              + n_ins * (8 + JP * 4) + n_slots * 4 + n_del * 4)
-    return ms, plain_ms, nbytes
+    return ms, plain_ms, k5_bytes(_epoch_parts(qslots, up, aux))
+
+
+def _epoch_parts(slots, up, aux) -> dict:
+    """One epoch's K5 row inputs (the aux columns, the payload lanes) on
+    the slots K1 gave."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    f = aux[:, J.AUX_FLAGS]
+    return dict(slots=slots, ins_ok=f, ins_bits=J.FLAG_INS,
+                ins_ref=aux[:, J.AUX_INS_REF], seq=aux[:, J.AUX_SEQ],
+                del_ok=f, del_bits=J.FLAG_DEL, del_ref=aux[:, J.AUX_DEL_REF],
+                pay_src=up[:, JKW:])
 
 
 def check_join_apply(dev, js: dict) -> dict:
     """K5, exact per key: after the stored epochs and the mixed epoch,
     each occupied key's head and the ref-indexed next (so each key's
-    chain of refs), ins/del sequences and payload. Timed on the fresh
-    epoch (q8's shape: every row a new key); the mixed epoch's time (hot
-    keys: ~400 rows of one key in one epoch) is logged."""
+    chain of refs), ins/del sequences and payload; and exact on
+    ``kernel_cases``' K5 batches (``check_k5_edges``). Timed on the fresh
+    epoch (q8's shape: every row a new key) and on the mixed epoch (the
+    hot-key epoch: ~400 rows of each of 8 keys in one epoch), with its
+    launches a wrapper call and its split by kernel."""
     from risingwave_tpu_torch.ops import hash_join as J
     ks = js["ks"]
     pt, pc, ppay = js["plain"]
     mu, ma, mr = js["mixed"]
-    hot_ms, hot_plain_ms, _b = _k5_times(js, mu, ma)
+    edge_err = check_k5_edges(dev)
+    hot_ms, hot_plain_ms, hot_bytes = _k5_times(js, mu, ma)
     ks.apply_epoch(mu, ma, js["n"], mr)
     J.epoch_apply_plain(pt, pc, ppay, mu, ma, JKW)
     ks.table.sync_count()
@@ -1003,13 +1075,41 @@ def check_join_apply(dev, js: dict) -> dict:
     for a, b in zip((*ks.chains[1:], ks.pay), (*pc[1:], ppay)):
         err = max(err, abs_err(a.cpu().numpy(), b.cpu().numpy()))
     assert err == 0, f"join_apply differs from the plain chains: {err}"
+    err = max(err, edge_err)
     ms, plain_ms, nbytes = _k5_times(js, *js["fresh"])
     b, by = bound_ms(nbytes, js["n"] * 16)
-    log(f"join_apply, mixed epoch with hot keys: {hot_ms} ms (plain "
-        f"{hot_plain_ms} ms); key table capacities while building: "
+    hb, hby = bound_ms(hot_bytes, js["n"] * 16)
+    log(f"join_apply key table capacities while building: "
         f"{sorted(set(js['caps']))}")
+    call = _k5_call(js, *js["fresh"])
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, epoch_apply=_epoch_apply_times(js, nbytes))
+                bound_by=by, epoch_apply=_epoch_apply_times(js, nbytes),
+                hot_key_shape=dict(ms=hot_ms, plain_ms=hot_plain_ms,
+                                   bound_ms=hb, bound_by=hby),
+                launches_per_call=launches_of(call, "join_apply"),
+                split=kernel_split(call))
+
+
+def check_k5_edges(dev) -> float:
+    """K5 on ``kernel_cases``' K5 batches, twice on one scratch (the
+    second launch's generation makes the first's bucket words stale),
+    exact against the plain version."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import kernel_cases as KC
+    err = 0.0
+    for name in KC.K5_CASES:
+        c = KC.k5_case(name)
+        chains, pay, parts = KC.k5_tensors(c, dev)
+        want_c, want_p, _p = KC.k5_tensors(c, dev)
+        scratch = J.link_scratch(chains.head)
+        for _ in range(2):
+            KC.k5_launch(chains, pay, parts, scratch)
+            KC.k5_plain(want_c, want_p, parts)
+            for x, y in zip(KC.k5_result(chains, pay),
+                            KC.k5_result(want_c, want_p)):
+                err = max(err, abs_err(x, y))
+        assert err == 0, f"join_apply differs on the {name} case: {err}"
+    return err
 
 
 def _epoch_apply_times(js, k5_bytes: float) -> dict:
@@ -1963,10 +2063,13 @@ def check_sharded(dev) -> dict:
                                H.flush_gather_sharded_plain(b, fc)
                                .cpu().numpy()))
     c = H.ShardedAggState(b.table, b.st.clone())
+    c2 = H.ShardedAggState(b.table, b.st.clone())
     H.advance_sharded(c)
+    H.advance_sharded(c2, H.flush_gather_sharded(c2, 1 << 14))
     for d in range(s):
         H.advance_plain(b.shard(d))
-    err = max(err, abs_err(c.st.cpu().numpy(), b.st.cpu().numpy()))
+    err = max(err, abs_err(c.st.cpu().numpy(), b.st.cpu().numpy()),
+              abs_err(c2.st.cpu().numpy(), b.st.cpu().numpy()))
     hi, lo = lanes_split(10_000 * 7_919)
     fill = torch.tensor(H.state_fills(mixed), dtype=torch.int32, device=dev)
     for mode in (H.LIVE_GROW, H.LIVE_RETIRE):
@@ -2039,9 +2142,11 @@ def check_sharded(dev) -> dict:
         split=kernel_split(lambda: H.flush_gather_sharded(qk, 1 << 10)))
     t["flush_gather"]["bound_ms"], t["flush_gather"]["bound_by"] = \
         k3_bound(qk.st, qk.table.keys, 1 << 10)
-    timed("advance", lambda: H.advance_sharded(qa),
-          lambda: [H.advance_plain(qa.shard(d)) for d in range(s)],
-          s * cap * 4, s * cap)
+    qmats = H.flush_gather_sharded(qa, 1 << 10)
+    timed("advance", lambda: H.advance_sharded(qa, qmats),
+          lambda: [H.advance_listed_plain(qa.shard(d), qmats[d])
+                   for d in range(s)],
+          *advance_bytes(qa))
     timed("live_mask", lambda: H.live_mask_sharded(qk, H.LIVE_RETIRE, 0),
           lambda: torch.stack([H.live_mask_plain(qk.shard(d),
                                                  H.LIVE_RETIRE, 0)
@@ -2258,10 +2363,8 @@ def check_mesh_join_apply(dev, mj: dict) -> dict:
     epoch (runs of rows on 8 hot keys, deletes of stored refs, new keys),
     each shard's per-key heads and its ref-indexed next, ins_seq and
     del_seq equal the plain twin's. Timed on the fresh epoch (q8's shape,
-    every row a new key) on the slots K1 gave, beside its byte bound:
-    every received row is charged its flags, the insert rows their slot,
-    ref, sequence and two chain writes, the delete rows their ref,
-    sequence and one write, the distinct slots a head read and write."""
+    every row a new key) on the slots K1 gave, beside its byte bound
+    (``k5_bytes``)."""
     from risingwave_tpu_torch.ops import hash_join as J
     from risingwave_tpu_torch.ops import hash_table as ht
     ks, kp = mj["ks"], mj["kp"]
@@ -2291,28 +2394,26 @@ def check_mesh_join_apply(dev, mj: dict) -> dict:
               del_ok=f, del_bits=J.FLAG_DEL, del_ref=recv[:, :, JKW + 1],
               seq=recv[:, :, JKW + 3])
     kc = J.ChainState(*(t.clone() for t in ks.chains))
-    scratch = torch.full(ks.chains.head.shape, -1, dtype=torch.int32,
-                         device=dev)
-    ms = time_ms(lambda: J.join_apply_sharded(kc, slots, scratch=scratch,
-                                              **kw))
+    scratch = J.link_scratch(kc.head)
+
+    def call():
+        J.join_apply_sharded(kc, slots, scratch=scratch, **kw)
+    ms = time_ms(call)
     pc = J.ChainState(*(t.clone() for t in kp.chains))
     plain_ms = time_ms(lambda: J.join_apply_sharded_plain(pc, slots, **kw),
                        samples=5, per=1)
     fl = f.cpu().numpy()
-    sl = slots.cpu().numpy()
-    ins = (fl & J.FLAG_INS) != 0
-    n_ins, n_del = int(ins.sum()), int(((fl & J.FLAG_DEL) != 0).sum())
-    n_slots = sum(len(np.unique(sl[d][ins[d]])) for d in range(ks.n_dev))
-    nbytes = (fl.size * 4 + n_ins * (4 + 4 + 4 + 8) + n_del * (4 + 4 + 4)
-              + n_slots * 8)
-    b, by = bound_ms(nbytes, fl.size * 4)
+    n_ins = int(((fl & J.FLAG_INS) != 0).sum())
+    b, by = bound_ms(k5_bytes(dict(kw, slots=slots, pay_src=None)),
+                     fl.size * 4)
+    split = kernel_split(call)
     log(f"sharded join_apply: {ks.n_dev} shards, bucket {bucket}, "
         f"{fl.shape[1]} received rows per shard ({n_ins} inserts); key "
         f"slots per shard while building {sorted(set(mj['caps']))}, "
         f"{ks.row_capacity} rows per shard; the stored epochs applied in "
         f"{mj['built_s']:.3f} s wall")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by)
+                bound_by=by, split=split)
 
 
 def check_mesh_join_probe(dev, mj: dict) -> dict:
@@ -2862,18 +2963,21 @@ def _check_evict(dev, specs, st, keys, n_evict: int, seed: int) -> dict:
                 evict_state=b9)
 
 
-def _check_patch(dev, st, n: int, seed: int) -> dict:
+def _check_patch(dev, st, n: int, seed: int, slots=None) -> dict:
     """K9 at a patch's shape: every accumulator row at n distinct
-    occupied slots (padding to a power of two with cap), exact against
-    its plain version; kernel, plain and ``index_put_`` times."""
+    occupied slots (or at `slots`, a flush's dirty slots; padding to a
+    power of two with cap), exact against its plain version; kernel,
+    plain and ``index_put_`` times."""
     from risingwave_tpu_torch.common.chunk import next_pow2
     from risingwave_tpu_torch.ops import hash_agg as H
     rng = np.random.default_rng(seed)
     cap = st.capacity
     occ = np.flatnonzero(st.table.occ.cpu().numpy())
+    if slots is not None:
+        n = len(slots)
     pad = next_pow2(n)
     idx = np.full(pad, cap, np.int32)
-    idx[:n] = rng.choice(occ, n, replace=False)
+    idx[:n] = rng.choice(occ, n, replace=False) if slots is None else slots
     src = rng.integers(-2**31, 2**31, (st.n_acc, pad)).astype(np.int32)
     it, srct = torch.from_numpy(idx).to(dev), torch.from_numpy(src).to(dev)
     rows = H.patch_rows(st.n_acc, dev)
@@ -3057,6 +3161,16 @@ def _check_none_kind(dev) -> dict:
                 bound_ms=nb, bound_by=nby)
 
 
+def maxbids_patch(dev) -> dict:
+    """K9 at maxbids' patch shape: one flush's dirty slots of maxbids'
+    first agg after one step (a 2^20-slot state, ~2,200 dirty) and its
+    accumulator rows."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    mb = _maxbids_state(dev)
+    dirty = np.flatnonzero(mb.st[H.ROW_DIRTY].cpu().numpy()).astype(np.int32)
+    return _check_patch(dev, mb, 0, 7, slots=dirty)
+
+
 def check_cold(dev) -> dict:
     """The cold tier's and the patch's kernels against their plain
     versions at the capped arm's shapes and at the large shape."""
@@ -3074,17 +3188,19 @@ def check_cold(dev) -> dict:
     capped["reload"] = _check_reload(dev, specs, st, keys, CAPPED_RELOAD,
                                      6)
     sharded = _check_scatter_sharded(dev)
+    maxbids = maxbids_patch(dev)
     passthrough = _check_passthrough(dev)
     err = max(large["max_abs_err"], capped["max_abs_err"],
               large["patch"]["max_abs_err"], capped["patch"]["max_abs_err"],
               large["reload"]["max_abs_err"],
               capped["reload"]["max_abs_err"],
-              sharded["max_abs_err"], passthrough)
+              sharded["max_abs_err"], maxbids["max_abs_err"],
+              passthrough)
     out["lookup"] = dict(large["lookup"], max_abs_err=err,
                          capped_shape=capped["lookup"])
     out["scatter_rows"] = dict(large["patch"], max_abs_err=err,
                                capped_shape=capped["patch"],
-                               sharded=sharded)
+                               sharded=sharded, maxbids_shape=maxbids)
     out["evict_mode"] = dict(large["evict_mode"],
                              capped_shape=capped["evict_mode"])
     out["evict_state"] = dict(large["evict_state"],
@@ -3580,7 +3696,7 @@ def main() -> int:
         for extra in ("capped_shape", "sharded", "epoch_apply",
                       "launches_per_call", "mixed_shape", "maxbids_shape",
                       "q8_mesh_shape", "split", "n_dirty",
-                      "launch_floor_ms"):
+                      "launch_floor_ms", "hot_key_shape", "mesh_shape"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "live_mask":
@@ -3997,8 +4113,8 @@ def perchunk_probe_input(ks, steps) -> dict:
     rows = kc._stage_chunk(lanes, pvis, refs, ins, drefs, dels)[0]
     m, s = int(rows.shape[0]), ks[me].n_dev
     recv, rvalid, _o = kc._route(rows, rows[:, kw + 3] != 0, m // s)
-    return dict(other=ks[1 - me], recv=recv, rvalid=rvalid, seq=seq,
-                out_cap=ks[1 - me].probe_capacity, kw=kw)
+    return dict(other=ks[1 - me], me=kc, recv=recv, rvalid=rvalid,
+                seq=seq, out_cap=ks[1 - me].probe_capacity, kw=kw)
 
 
 # -- --against DIR: this checkout's kernels against another's -------------------
@@ -4046,26 +4162,24 @@ def _bound_to(name: str, lib):
         kcuda._loaded[name] = mine
 
 
-def _route_raw(lib, with_total: bool, rows, valid, omap, s, bucket, kw):
-    """One rw_route call through `lib`, with scratch that both designs
-    take: counts for 64 tiles a sender or 1,024-row tiles, whichever is
-    more, and, `with_total`, the [S, S] totals of the three-launch
-    design (whose rw_route takes them between counts and recv)."""
+def _route_raw(lib, rows, valid, omap, s, bucket, kw):
+    """One rw_route call through `lib` (this build's or DIR's: one C
+    interface), with counts for 64 tiles a sender or 1,024-row tiles,
+    whichever is more."""
     from risingwave_tpu_torch.ops import cuda as kcuda
     n, w = rows.shape
     local = n // s
     i32 = dict(dtype=torch.int32, device=rows.device)
     own = torch.empty(n, **i32)
     counts = torch.empty(s * max(64, -(-local // 1024)) * s, **i32)
-    total = [torch.empty(s * s, **i32)] if with_total else []
     recv = torch.empty((s, s * bucket, w), **i32)
     rvalid = torch.empty((s, s * bucket), **i32)
     ovf = torch.empty(s, **i32)
     rc = lib.rw_route(rows.data_ptr(), rows.stride(0), valid.data_ptr(),
                       valid.stride(0), s, local, kw, w, omap.data_ptr(),
                       bucket, own.data_ptr(), counts.data_ptr(),
-                      *[t.data_ptr() for t in total], recv.data_ptr(),
-                      rvalid.data_ptr(), ovf.data_ptr(), kcuda.stream_ptr())
+                      recv.data_ptr(), rvalid.data_ptr(), ovf.data_ptr(),
+                      kcuda.stream_ptr())
     assert rc == 0, f"rw_route failed: CUDA error {rc}"
     return recv, rvalid, ovf
 
@@ -4095,16 +4209,13 @@ def route_inputs(dev) -> dict:
     return out
 
 
-def _other_stats(chained: bool):
+def _other_stats():
     """stats(n) -> (stats, extra arguments) for another build's K1 and K8:
-    with the stats chain (``chained``: the launch sums into zeroed stats
-    and zeroes the next block), the build's own chain; without, the stats
-    its launch zeroes itself."""
+    the launch sums into zeroed stats and zeroes the next block, the
+    build's own chain."""
     held = {}
 
     def stats(n, device):
-        if not chained:
-            return torch.empty(n, dtype=torch.int32, device=device), []
         cur = held.get("next")
         if cur is None:
             cur = torch.zeros(64, dtype=torch.int32, device=device)
@@ -4113,11 +4224,11 @@ def _other_stats(chained: bool):
     return stats
 
 
-def _k1_other(lib, chained: bool):
+def _k1_other(lib):
     """K1 through another build's rw_probe_insert (k1_call's signature,
     [S, ...] tensors)."""
     from risingwave_tpu_torch.ops import cuda as kcuda
-    stats_of = _other_stats(chained)
+    stats_of = _other_stats()
 
     def call(table, keys, valid):
         s, n, k = keys.shape
@@ -4135,10 +4246,10 @@ def _k1_other(lib, chained: bool):
     return call
 
 
-def _k8_other(lib, chained: bool):
+def _k8_other(lib):
     """K8 through another build's rw_lookup, as ``_k1_other``."""
     from risingwave_tpu_torch.ops import cuda as kcuda
-    stats_of = _other_stats(chained)
+    stats_of = _other_stats()
 
     def call(table, keys, valid, dropped=None):
         n, k = keys.shape
@@ -4205,10 +4316,9 @@ def k3_bound(st, keys, fc) -> tuple:
     return bound_ms(nbytes, s * cap * 4)
 
 
-def _k3_other(lib, chained: bool):
-    """K3 through another build's rw_flush_gather, [S, ...] tensors:
-    with the stats chain's status block (``chained``), or with the
-    two-launch design's tile counts."""
+def _k3_other(lib):
+    """K3's gather through another build's rw_flush_gather, [S, ...]
+    tensors, with a status block from a stats chain of its own."""
     from risingwave_tpu_torch.ops import cuda as kcuda
     from risingwave_tpu_torch.ops import hash_agg as H
 
@@ -4219,22 +4329,15 @@ def _k3_other(lib, chained: bool):
         wout = H.flush_width(k, nacc)
         out = torch.empty((s, 1 + fc, wout), dtype=torch.int32,
                           device=st.device)
-        if chained:
-            n = H.flush_status_words(s, cap)
-            cur, nxt = kcuda.stats_chain(st.device, n, "against-flush")
-            extra = [cur.data_ptr(), nxt.data_ptr(), nxt.numel()]
-        else:
-            nb = (cap + 1023) // 1024
-            cur = torch.empty(s * 2 * nb, dtype=torch.int32,
-                              device=st.device)
-            extra = [cur.data_ptr()]
+        n = H.flush_status_words(s, cap)
+        cur, nxt = kcuda.stats_chain(st.device, n, "against-flush")
         rc = lib.rw_flush_gather(st.data_ptr(), keys.data_ptr(),
-                                 occ.data_ptr(), cap, k, nacc, s, *extra,
+                                 occ.data_ptr(), cap, k, nacc, s,
+                                 cur.data_ptr(), nxt.data_ptr(), nxt.numel(),
                                  fc, out.data_ptr(), wout,
                                  kcuda.stream_ptr())
         assert rc == 0, f"rw_flush_gather failed: CUDA error {rc}"
-        if chained:
-            kcuda.chain_next(st.device, nxt, "against-flush")
+        kcuda.chain_next(st.device, nxt, "against-flush")
         return out
     return call
 
@@ -4252,10 +4355,10 @@ def fused_cases(dev) -> dict:
     return out
 
 
-def _fused_other(lib, with_host: bool):
-    """The fused entries through another build's rw_* entry points, with
-    ``fused_cases.call_entry``'s signature. ``with_host``: the entry
-    points take the program's host words beside its device copy."""
+def _fused_other(lib):
+    """The fused entries through another build's rw_* entry points (the
+    program's device copy and its host words), with
+    ``fused_cases.call_entry``'s signature."""
     from risingwave_tpu_torch.ops import cuda as kcuda
 
     def call(entry, prog, raw, host_same=None, counts=None, seg=0):
@@ -4263,11 +4366,8 @@ def _fused_other(lib, with_host: bool):
         dt = torch.int64 if entry == "fused_chain" else torch.int32
         out = torch.empty((m, prog.out_width), dtype=dt, device=raw.device)
         pw = prog.on(raw.device)
-        head = [pw.data_ptr()]
-        if with_host:
-            head.append(prog.words.ctypes.data)
-        args = [*head, int(pw.shape[0]), raw.data_ptr(), int(raw.shape[0]),
-                int(raw.shape[1]),
+        args = [pw.data_ptr(), prog.words.ctypes.data, int(pw.shape[0]),
+                raw.data_ptr(), int(raw.shape[0]), int(raw.shape[1]),
                 None if host_same is None else host_same.data_ptr(),
                 out.data_ptr(), prog.out_width,
                 None if counts is None else counts.data_ptr()]
@@ -4279,24 +4379,199 @@ def _fused_other(lib, with_host: bool):
     return call
 
 
+def k5_ab_cases(dev) -> dict:
+    """K5's timed shapes: q8's fresh side-epoch (2^16 rows, every row a
+    new key, 6 payload lanes), q8's mixed epoch (the hot-key epoch:
+    ~400 rows on each of 8 keys among new keys, deletes and probe-only
+    rows), q8-mesh's routed apply of the fresh epoch (8 shards, route's
+    receive block) and the per-chunk step's (the last recorded chunk, 8
+    x 4,096 received rows, a scalar seq): name -> (chains, pay, parts,
+    nbytes). ``parts`` are one launch's row inputs ([n] or [S, n], any
+    strides: aux or receive-block columns) on the slots K1 gave, on
+    copies of the side's table; the byte bound charges each received row
+    its flag word, each insert its slot, ref and sequence, its next and
+    ins_seq writes and its payload read and write, each delete its ref,
+    sequence and write, and each distinct slot a head read and write."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    out = {}
+    js = build_join_states(dev)
+    ks = js["ks"]
+    for name, (up, aux) in (("q8 fresh", js["fresh"]),
+                            ("q8 hot-key (mixed)", js["mixed"][:2])):
+        t = ht.TableState(ks.table.state.keys.clone(),
+                          ks.table.state.occ.clone())
+        _t, slots, _s = ht.probe_insert(t, up[:, :JKW],
+                                        aux[:, J.AUX_FLAGS] & J.FLAG_INS)
+        parts = _epoch_parts(slots, up, aux)
+        out[name] = (ks.chains, ks.pay, parts, k5_bytes(parts))
+    del js
+    mj = build_mesh_join_states(dev, twin=False)
+    ms = mj["ks"]
+    ms.reserve_rows(int(mj["fresh"][1][:, 0].max()))
+    recv, _rv, _b = _mesh_routed(ms, *mj["fresh"], J.FLAG_INS | J.FLAG_DEL,
+                                 probe=False)
+    out["q8-mesh routed"] = (ms.chains, None, _routed_parts(
+        ms, recv, JKW, JKW + 1, JKW + 2, recv[:, :, JKW + 3]), None)
+    del mj
+    pc = replay_perchunk(dev, record_perchunk_steps(dev))
+    me, kw = pc["me"], pc["kw"]
+    out["per-chunk step"] = (me.chains, None, _routed_parts(
+        me, pc["recv"], kw + 1, kw + 2, kw + 3, pc["seq"]), None)
+    for name in ("q8-mesh routed", "per-chunk step"):
+        c = out[name]
+        out[name] = c[:3] + (k5_bytes(c[2]),)
+    return out
+
+
+def _routed_parts(k, recv, ins_col, del_col, flag_col, seq) -> dict:
+    """One routed apply's K5 row inputs on a ShardedJoinKernel's receive
+    block, on the slots K1 gives on a copy of its table."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    f = recv[:, :, flag_col]
+    t = ht.TableState(k.table.keys.clone(), k.table.occ.clone())
+    slots, _s = ht.probe_insert_sharded(t, recv[:, :, :k.key_width],
+                                        f & J.FLAG_INS)
+    return dict(slots=slots, ins_ok=f, ins_bits=J.FLAG_INS,
+                ins_ref=recv[:, :, ins_col], seq=seq, del_ok=f,
+                del_bits=J.FLAG_DEL, del_ref=recv[:, :, del_col],
+                pay_src=None)
+
+
+def k5_bytes(parts) -> float:
+    """K5's bytes on one launch's row inputs: each received row its flag
+    word, each insert on a slot its slot, ref and sequence, its next and
+    ins_seq writes and its payload read and written, each delete its ref,
+    sequence and write, each distinct slot a head read and write."""
+    f = parts["ins_ok"].cpu().numpy()
+    ins = (f & parts["ins_bits"]) != 0
+    dels = (f & parts["del_bits"]) != 0
+    sl = parts["slots"].cpu().numpy()
+    ins &= sl >= 0
+    p = 0 if parts["pay_src"] is None else int(parts["pay_src"].shape[-1])
+    sl2, ins2 = sl.reshape(-1, sl.shape[-1]), ins.reshape(-1, sl.shape[-1])
+    n_slots = sum(len(np.unique(a[m])) for a, m in zip(sl2, ins2))
+    return (f.size * 4 + int(ins.sum()) * (12 + 8 + 8 * p)
+            + int(dels.sum()) * 12 + n_slots * 8)
+
+
+def _k5_other(lib):
+    """K5 through another build's rw_join_apply (the three-launch
+    design's interface: a per-slot bucket scratch of -1 that its third
+    launch restores, the sequence always through a pointer, 2 x S x n ints
+    of row scratch), with ``kernel_cases.k5_launch``'s signature."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    from risingwave_tpu_torch.ops import hash_join as J
+    held = {}
+
+    def call(chains, pay, parts, scratch=None):
+        head, nxt, ins_seq, del_seq = chains
+        shape = tuple(parts["slots"].shape)
+        n, s = shape[-1], 1 if len(shape) == 1 else shape[0]
+        bucket = held.get(tuple(head.shape))
+        if bucket is None:
+            bucket = held[tuple(head.shape)] = torch.full(
+                head.shape, -1, dtype=torch.int32, device=head.device)
+        rows = torch.empty(2 * s * n, dtype=torch.int32, device=head.device)
+        _keep, sq = J._seq_arg(parts["seq"], shape, head.device)
+        src = parts["pay_src"]
+        p = 0 if src is None else int(src.shape[-1])
+        rc = lib.rw_join_apply(
+            parts["slots"].data_ptr(), J._rows(parts["slots"])[2],
+            *J._rows(parts["ins_ok"]), parts["ins_bits"],
+            *J._rows(parts["ins_ref"]), *sq, *J._rows(parts["del_ok"]),
+            parts["del_bits"], *J._rows(parts["del_ref"]),
+            *J._rows(src, lanes=True), p, n, s, head.data_ptr(),
+            int(head.shape[-1]), nxt.data_ptr(), ins_seq.data_ptr(),
+            del_seq.data_ptr(), int(nxt.shape[-1]),
+            pay.data_ptr() if p else None, bucket.data_ptr(),
+            rows.data_ptr(), kcuda.stream_ptr())
+        assert rc == 0, f"rw_join_apply failed: CUDA error {rc}"
+    return call
+
+
+def advance_ab_cases(dev) -> dict:
+    """advance's timed shapes: q7's state after one step (2^18 slots),
+    q7-mesh's (8 x 2^15) and maxbids' first agg's (2^20, 2,214 dirty):
+    name -> (ShardedAggState ([S, ...] tensors), the flush matrices its
+    flush leaves: at the kernel's flush_cap, 1,024 or the power of two
+    that holds every shard's dirty slots)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    _q7, qs = _q7_state(dev, CAP, N)
+    q7 = make_specs(H, [("max", np.int64), ("count", None)])
+    qk = _mesh_step(dev, q7, q7_batch(N, q7), True)[0]
+    mb = _maxbids_state(dev)
+
+    def sharded(a):
+        return H.ShardedAggState(H.ht.TableState(a.table.keys[None],
+                                                 a.table.occ[None]),
+                                 a.st[None])
+    out = {}
+    for name, state in (("q7 (2^18 slots)", sharded(qs)),
+                        ("q7-mesh (8 x 2^15)", qk),
+                        ("maxbids (2^20)", sharded(mb))):
+        worst = int((state.st[:, H.ROW_DIRTY] != 0).sum(dim=1).max())
+        fc = max(1 << 10, 1 << max(0, worst - 1).bit_length())
+        out[name] = (state, H.flush_gather_sharded(state, fc))
+    return out
+
+
+def advance_bytes(state) -> tuple:
+    """(bytes, operations) of advance on its flush's list: each dirty
+    slot's index, group_rows and accumulators read, and its emitted
+    row, emitted accumulators and dirty word written."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    n_dirty = int((state.st[:, H.ROW_DIRTY] != 0).sum())
+    nacc = (state.st.shape[1] - H.ROW_ACC0) // 2
+    return n_dirty * (4 + (1 + nacc) * 4 + (3 + nacc) * 4), n_dirty
+
+
+def advance_bound(state) -> tuple:
+    return bound_ms(*advance_bytes(state))
+
+
+def advance_mine(state, mats, current: bool = True) -> None:
+    """advance through this checkout's wrapper on the flush's list (with
+    ``current``, nothing patched since the flush, as on q7's paths)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    H.advance_sharded(state, mats, current=current)
+
+
+def _advance_other(lib):
+    """advance through another build's rw_advance (the sweep's
+    interface: every slot, no list)."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    from risingwave_tpu_torch.ops import hash_agg as H
+
+    def call(state, mats=None):
+        st = state.st
+        rc = lib.rw_advance(st.data_ptr(), st.shape[2],
+                            (st.shape[1] - H.ROW_ACC0) // 2, st.shape[0],
+                            kcuda.stream_ptr())
+        assert rc == 0, f"rw_advance failed: CUDA error {rc}"
+    return call
+
+
 AB_GROUPS = ("agg_apply", "route", "probe_insert", "lookup", "join_probe",
-             "flush_gather", "fused")
+             "flush_gather", "fused", "join_apply", "advance")
 
 
 def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
     """``python3 chip_smoke.py --against DIR``: K2 (agg_apply), route, K1
-    (probe_insert), K8 (lookup) and K6 (join_probe) of this checkout
+    (probe_insert), K8 (lookup), K6 (join_probe), K3 (flush_gather and
+    advance), K5 (join_apply) and the fused entries of this checkout
     against the same kernels built from DIR's
-    ``risingwave_tpu_torch/csrc`` (another checkout: the parent commit
-    unpacked with ``git archive``), at the timed shapes of phase 3 on one
-    card. K2 and K6 run behind this checkout's wrappers (their C
-    interfaces are shared); route is called through each build's own
-    entry point, and DIR's K1 and K8 through its own (DIR's route takes
-    the three-launch design's totals, and DIR's K1 and K8 go without the
-    stats chain's `next` block, where its source says so). Each build is
-    first held to the plain
-    version, then timed in turns (DIR's, this, this, DIR's); route's and
-    K6's per-kernel splits are read for both."""
+    ``risingwave_tpu_torch/csrc`` (the parent commit unpacked with ``git
+    archive``), at the timed shapes of phase 3 on one card. K2 and K6 run
+    behind this checkout's wrappers (their C interfaces are shared);
+    route, K1 and K8 through each build's own entry points (one
+    interface); DIR's K3, K5 and fused entries through its own entry
+    points, at their interfaces before the one-launch K5 and the listed
+    advance. Each build is first held to the plain
+    version, then timed in turns (DIR's, this, this, DIR's); the
+    per-kernel splits of route, K3, K5 and K6 are read for both
+    (torch.profiler), and K5's launches a wrapper call."""
     import ctypes
     import functools
     import os
@@ -4307,49 +4582,39 @@ def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
     from risingwave_tpu_torch.ops import fused as F
     from risingwave_tpu_torch.ops import fused_cases as FC
     from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import kernel_cases as KC
     from risingwave_tpu_torch.parallel import exchange as X
     dev = torch.device("cuda")
     kcuda.build_all()
     csrc = os.path.join(base, "risingwave_tpu_torch", "csrc")
 
-    def source(name):
-        with open(os.path.join(csrc, f"{name}.cu")) as f:
-            return f.read()
-    with_total = "void* total" in source("route")
-    rtypes = list(kcuda.LIBRARIES["route"]["rw_route"])
-    if with_total:
-        rtypes.insert(12, ctypes.c_void_p)
     k2_other = _other_lib(csrc, "agg_apply", kcuda.LIBRARIES["agg_apply"])
     route_libs = {True: kcuda.load("route"),
-                  False: _other_lib(csrc, "route", {"rw_route": rtypes})}
-    chained = "int n_next" in source("probe_insert")
-    ptypes = {fn: t if chained else t[:-3] + t[-1:]
-              for fn, t in kcuda.LIBRARIES["probe_insert"].items()}
-    p_other = _other_lib(csrc, "probe_insert", ptypes)
-    k1_calls = {True: k1_call, False: _k1_other(p_other, chained)}
-    k8_calls = {True: k8_call, False: _k8_other(p_other, chained)}
+                  False: _other_lib(csrc, "route", kcuda.LIBRARIES["route"])}
+    p_other = _other_lib(csrc, "probe_insert", kcuda.LIBRARIES["probe_insert"])
+    k1_calls = {True: k1_call, False: _k1_other(p_other)}
+    k8_calls = {True: k8_call, False: _k8_other(p_other)}
     k6_other = _other_lib(csrc, "join_probe", kcuda.LIBRARIES["join_probe"])
-    # K3: the one-launch design takes a status block from the stats
-    # chain (int n_next), the two-launch one a counts scratch
+    # K3's gather and advance, K5 and the fused entries: DIR's through
+    # its own C entry points (the three-launch K5's and the sweeping
+    # advance's interfaces)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    k3_chained = "int n_next" in source("flush")
-    ftypes = {"rw_flush_gather": [P, P, P, L, I, I, I] + (
-        [P, P, I] if k3_chained else [P]) + [I, P, I, P],
-        "rw_advance": kcuda.LIBRARIES["flush"]["rw_advance"]}
-    k3_calls = {True: H._flush_gather_cuda,
-                False: _k3_other(_other_lib(csrc, "flush", ftypes),
-                                 k3_chained)}
-    # the fused entries: the tile design takes the program's host words
-    # beside its device copy (const int64_t* hprog)
-    f_host = "hprog" in source("fused")
-    head = [P, P] if f_host else [P]
-    fz = {"rw_fused_chain": head + [I, P, L, I, P, P, I, P, P],
-          "rw_agg_prelude": head + [I, P, L, I, P, P, I, P, L, P],
-          "rw_join_prelude": head + [I, P, L, I, P, P, I, P, P]}
+    f_other = _other_lib(csrc, "flush", {
+        "rw_flush_gather": [P, P, P, L, I, I, I, P, P, I, I, P, I, P],
+        "rw_advance": [P, L, I, I, P]})
+    k3_calls = {True: H._flush_gather_cuda, False: _k3_other(f_other)}
+    adv_calls = {True: advance_mine, False: _advance_other(f_other)}
+    k5_calls = {True: KC.k5_launch, False: _k5_other(_other_lib(
+        csrc, "join_apply", {"rw_join_apply": [
+            P, L, P, L, L, I, P, L, L, P, L, L, P, L, L, I, P, L, L, P, L,
+            L, I, I, I, P, L, P, P, P, L, P, P, P, P]}))}
+    fz = {"rw_fused_chain": [P, P, I, P, L, I, P, P, I, P, P],
+          "rw_agg_prelude": [P, P, I, P, L, I, P, P, I, P, L, P],
+          "rw_join_prelude": [P, P, I, P, L, I, P, P, I, P, P]}
     fused_calls = {True: FC.call_entry,
-                   False: _fused_other(_other_lib(csrc, "fused", fz),
-                                       f_host)}
-    for name in ("flush", "fused"):
+                   False: _fused_other(_other_lib(csrc, "fused", fz))}
+    for name in ("flush", "fused", "join_apply"):
         for line in ptxas_figures(kcuda.build_log(name)):
             log(f"  this {name}: {line}")
     log(f"ncu on the PATH: {shutil.which('ncu')}")
@@ -4468,8 +4733,7 @@ def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
     for name, args in (route_inputs(dev).items() if "route" in only
                        else ()):
         def side(mine, args=args):
-            return functools.partial(_route_raw, route_libs[mine],
-                                     with_total and not mine, *args)
+            return functools.partial(_route_raw, route_libs[mine], *args)
 
         def check(mine, args=args):
             got, want = side(mine)(), X.route_plain(*args)
@@ -4515,6 +4779,71 @@ def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
         torch.cuda.empty_cache()
     if k8:
         k8_turns(k8_cases_cold(dev))
+    if "join_apply" in only:
+        for name, (chains, pay, parts, nbytes) in k5_ab_cases(dev).items():
+            side = {mine: (J.ChainState(*(t.clone() for t in chains)),
+                           None if pay is None else pay.clone(),
+                           J.link_scratch(chains.head))
+                    for mine in (False, True)}
+
+            def k5_checked(mine, c=(chains, pay, parts)):
+                kc = J.ChainState(*(t.clone() for t in c[0]))
+                kp = None if c[1] is None else c[1].clone()
+                k5_calls[mine](kc, kp, c[2], J.link_scratch(kc.head))
+                pc = J.ChainState(*(t.clone() for t in c[0]))
+                pp = None if c[1] is None else c[1].clone()
+                KC.k5_plain(pc, pp, c[2])
+                e = max(abs_err(a.cpu().numpy(), b.cpu().numpy())
+                        for a, b in zip((*kc, *([kp] if c[1] is not None
+                                                else [])),
+                                        (*pc, *([pp] if c[1] is not None
+                                                else []))))
+                assert e == 0, f"join_apply differs from its plain " \
+                    f"version at {name}: {e}"
+                return e
+
+            def k5_call(mine, parts=parts):
+                return lambda: k5_calls[mine](*side[mine][:2], parts,
+                                              side[mine][2])
+            r = turns(k5_checked, lambda mine: time_ms(k5_call(mine)))
+            r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 0)
+            r["rows"] = list(parts["slots"].shape)
+            r["launches_per_call"] = launches_of(k5_call(True),
+                                                 "join_apply")
+            r["base_split"] = kernel_split(k5_call(False))
+            r["split"] = kernel_split(k5_call(True))
+            log(f"join_apply at {name}: " + json.dumps(r))
+        torch.cuda.empty_cache()
+    if "advance" in only:
+        for name, (state, mats) in advance_ab_cases(dev).items():
+            def adv_checked(mine, state=state, mats=mats):
+                k = H.ShardedAggState(state.table, state.st.clone())
+                p = H.ShardedAggState(state.table, state.st.clone())
+                adv_calls[mine](k, mats)
+                for s in range(p.n_shards):
+                    H.advance_plain(p.shard(s))
+                e = abs_err(k.st.cpu().numpy(), p.st.cpu().numpy())
+                assert e == 0, f"advance differs from advance_plain at " \
+                    f"{name}: {e}"
+                return e
+            # timed in place: after the first call nothing is dirty (the
+            # sweep still reads every dirty word; the list still names the
+            # slots, which are advanced again)
+            work = H.ShardedAggState(state.table, state.st.clone())
+            r = turns(adv_checked, lambda mine: time_ms(
+                lambda: adv_calls[mine](work, mats)))
+            r["n_dirty"] = (state.st[:, H.ROW_DIRTY] != 0).sum(
+                dim=1).tolist()
+            r["bound_ms"], r["bound_by"] = advance_bound(state)
+            r["flush_cap"] = int(mats.shape[1]) - 1
+            r["patched_ms"] = time_ms(lambda: advance_mine(work, mats,
+                                                           False))
+            r["base_split"] = kernel_split(
+                lambda: adv_calls[False](work, mats))
+            r["split"] = kernel_split(lambda: adv_calls[True](work, mats))
+            log(f"advance at {name}: " + json.dumps(r))
+        log("scatter_rows at maxbids' patch shape: "
+            + json.dumps(maxbids_patch(dev)))
     return 0
 
 

@@ -14,8 +14,18 @@
 // n_dirty..flush_cap-1 hold slot 0's row, as the reference's gather of a
 // zero-initialized index leaves them (the host never reads them).
 //
-// advance: one elementwise launch; for every dirty slot emitted := current
-// (emitted_valid = group_rows > 0), then dirty = 0.
+// advance: for every dirty slot emitted := current (emitted_valid =
+// group_rows > 0), then dirty = 0. It is driven by the flush's own list:
+// the host keeps the gather's device matrix with the state until the
+// advance (nothing between them dirties a slot: the patch K9 writes
+// accumulator rows only), and the kernel reads each shard's n_dirty on
+// the device and advances the listed slots, a few blocks a shard sized by
+// flush_cap, not by cap; the host skips the launch when the flush found
+// nothing dirty. When nothing wrote the state since the gather either (no
+// patch: the host knows), each matrix row already holds the group_rows and
+// accumulators to copy, so a slot costs one round trip. A truncated
+// matrix, or no matrix (tests, recovery), makes it sweep every slot's
+// dirty word as before.
 //
 // Shard axis (risingwave_tpu/parallel/agg.py:219 _shardwise, B23): state
 // is keys int32[S, cap, k], occ int32[S, cap] and st int32[S, R, cap]; the
@@ -361,12 +371,9 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const Gather g) {
   }
 }
 
-__global__ void advance_kernel(int32_t* st, long long cap, long long stshard,
-                               int nacc) {
-  st += blockIdx.y * stshard;
-  const long long j = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (j >= cap || st[rw::kRowDirty * cap + j] == 0) return;
+// emitted := current for slot j of one shard's state; dirty := 0
+__device__ __forceinline__ void advance_slot(int32_t* st, long long cap,
+                                             long long j, int nacc) {
   const int32_t gr = st[rw::kRowGroupRows * cap + j];
   st[rw::kRowEmittedValid * cap + j] = gr > 0;
   st[rw::kRowEmittedRows * cap + j] = gr;
@@ -374,6 +381,65 @@ __global__ void advance_kernel(int32_t* st, long long cap, long long stshard,
     st[(rw::kRowAcc0 + nacc + a) * cap + j] = st[(rw::kRowAcc0 + a) * cap + j];
   }
   st[rw::kRowDirty * cap + j] = 0;
+}
+
+constexpr int kAdvThreads = 256;
+
+// One listed dirty row of the flush matrix: its slot, and, when the
+// matrix is `current` (nothing wrote the state since the gather), the
+// group_rows and accumulators the advance copies, all from the row.
+__device__ __forceinline__ void advance_row(int32_t* st, long long cap,
+                                            int nacc, const int32_t* row,
+                                            int32_t slot, bool current,
+                                            int k) {
+  if (!current) {
+    advance_slot(st, cap, slot, nacc);
+    return;
+  }
+  const int32_t gr = __ldg(row + 1 + k);
+  for (int a = 0; a < nacc; ++a) {
+    st[(rw::kRowAcc0 + nacc + a) * cap + slot] = __ldg(row + 2 + k + a);
+  }
+  st[rw::kRowEmittedValid * cap + slot] = gr > 0;
+  st[rw::kRowEmittedRows * cap + slot] = gr;
+  st[rw::kRowDirty * cap + slot] = 0;
+}
+
+// With a flush matrix (`list`, the gather's [S, 1 + flush_cap, wout]
+// output for this state): shard blockIdx.y reads its header's n_dirty and
+// advances the slots of column 0 of rows 1..n_dirty (the header and a
+// thread's first row load together; with `current`, the row also holds
+// the values to copy, so a slot costs one round trip); a truncated matrix
+// (n_dirty > flush_cap) sweeps every slot's dirty word instead, decided
+// here with no host read. Without one: the sweep. Blocks stride over the
+// list (or the slots) by gridDim.x.
+__global__ void __launch_bounds__(kAdvThreads) advance_kernel(
+    int32_t* st, long long cap, long long stshard, int nacc,
+    const int32_t* __restrict__ list, int flush_cap, int wout,
+    bool current) {
+  st += blockIdx.y * stshard;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long j0 = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+  if (list != nullptr) {
+    // every row of the matrix exists; rows past n_dirty are not used
+    list += blockIdx.y * (1LL + flush_cap) * wout;
+    const int k = wout - 4 - 2 * nacc;
+    const int32_t* row = list + (1 + j0) * wout;
+    const int32_t slot0 = j0 < flush_cap ? __ldg(row) : 0;
+    const int n = __ldg(list);
+    if (n <= flush_cap) {
+      if (j0 < n) advance_row(st, cap, nacc, row, slot0, current, k);
+      for (long long r = j0 + stride; r < n; r += stride) {
+        row = list + (1 + r) * wout;
+        advance_row(st, cap, nacc, row, __ldg(row), current, k);
+      }
+      return;
+    }
+  }
+  for (long long j = j0; j < cap; j += stride) {
+    if (st[rw::kRowDirty * cap + j] != 0) advance_slot(st, cap, j, nacc);
+  }
 }
 
 
@@ -451,15 +517,24 @@ RW_API int rw_flush_gather(const void* st, const void* keys, const void* occ,
       args, smem, s));
 }
 
+// list: the flush matrix [S, 1 + flush_cap, wout] that the gather wrote
+// for this state with nothing stepped since (its dirty slots are the
+// header's n_dirty rows), or null for a sweep of every slot; current: 1
+// when nothing wrote the state since the gather either (no patch), so the
+// matrix holds the values to copy. With a list the grid covers flush_cap
+// rows a shard; a truncated list sweeps with it.
 RW_API int rw_advance(void* st, long long cap, int nacc, int nshards,
-                      void* stream) {
+                      const void* list, int flush_cap, int wout,
+                      int current, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kAdvThreads = 256;
   if (nshards > 0) {
-    const dim3 grid(rw::blocks_for(cap, kAdvThreads), nshards);
+    const long long work = list != nullptr ? flush_cap : cap;
+    const int bx = rw::blocks_for(work > 0 ? work : 1, kAdvThreads);
+    const dim3 grid(bx, nshards);
     advance_kernel<<<grid, kAdvThreads, 0, s>>>(
         static_cast<int32_t*>(st), cap, (rw::kRowAcc0 + 2LL * nacc) * cap,
-        nacc);
+        nacc, static_cast<const int32_t*>(list), flush_cap, wout,
+        current != 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

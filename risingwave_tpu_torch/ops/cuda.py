@@ -58,7 +58,7 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     "flush": {
         "rw_flush_gather": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _I, _I, _P,
                             _I, _P],
-        "rw_advance": [_P, _L, _I, _I, _P],
+        "rw_advance": [_P, _L, _I, _I, _P, _I, _I, _I, _P],
     },
     "rebuild": {
         "rw_live_mask": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I, _P,
@@ -70,8 +70,9 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     },
     "join_apply": {
         "rw_join_apply": [_P, _L, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L,
-                          _P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I, _I,
-                          _I, _P, _L, _P, _P, _P, _L, _P, _P, _P, _P],
+                          _I, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I,
+                          _I, _I, _P, _L, _P, _P, _P, _L, _P, _P,
+                          ctypes.c_uint, _P, _P],
     },
     "join_probe": {
         "rw_join_probe": [_P, _L, _L, _I, _P, _L, _L, _I, _P, _L, _L, _P,

@@ -890,31 +890,79 @@ def advance_plain(state: AggState) -> None:
     st[ROW_DIRTY] = 0
 
 
-def advance(state: AggState) -> None:
-    """Kernel K3 (advance): emitted := current for dirty slots; clear
-    dirty. In place."""
-    st = state.st
-    if st.device.type != "cuda":
+def advance_listed_plain(state: AggState, flushed: torch.Tensor) -> None:
+    """Plain version of the list-driven advance: ``advance_plain`` over the
+    slots the flush matrix ``flushed`` (``flush_gather``'s int32[1 +
+    flush_cap, W'] for this state) lists, column 0 of rows 1..n_dirty; a
+    truncated matrix (n_dirty > flush_cap) advances every dirty slot."""
+    n = int(flushed[0, 0])
+    if n > flushed.shape[0] - 1:
         advance_plain(state)
         return
-    _advance_cuda(st[None], state.table.keys[None], state.table.occ[None])
+    st, nacc = state.st, state.n_acc
+    idx = flushed[1:1 + n, 0].to(torch.int64)
+    gr = st[ROW_GROUP_ROWS, idx]
+    st[ROW_EMITTED_VALID, idx] = (gr > 0).to(torch.int32)
+    st[ROW_EMITTED_ROWS, idx] = gr
+    for a in range(nacc):
+        st[ROW_ACC0 + nacc + a, idx] = st[ROW_ACC0 + a, idx]
+    st[ROW_DIRTY, idx] = 0
 
 
-def advance_sharded(state: ShardedAggState) -> None:
-    """K3 (advance) over S shards in one launch (``parallel/agg.py:664``).
-    In place."""
+def advance(state: AggState, flushed: Optional[torch.Tensor] = None,
+            current: bool = False) -> None:
+    """Kernel K3 (advance): emitted := current for dirty slots; clear
+    dirty. In place. ``flushed``: the device matrix ``flush_gather`` wrote
+    for this state, nothing stepped since (the advance then touches the
+    slots it lists); None sweeps every slot. ``current``: nothing wrote
+    the state since that gather either (no patch), so the kernel copies
+    the matrix's own values."""
+    st = state.st
+    if st.device.type != "cuda":
+        if flushed is None:
+            advance_plain(state)
+        else:
+            advance_listed_plain(state, flushed)
+        return
+    _advance_cuda(st[None], state.table.keys[None], state.table.occ[None],
+                  None if flushed is None else flushed[None], current)
+
+
+def advance_sharded(state: ShardedAggState,
+                    flushed: Optional[torch.Tensor] = None,
+                    current: bool = False) -> None:
+    """K3 (advance) over S shards in one launch (``parallel/agg.py:664``),
+    on ``flush_gather_sharded``'s [S, 1 + flush_cap, W'] matrix when
+    given (each shard its own list; ``current`` as in ``advance``). In
+    place."""
     if state.st.device.type != "cuda":
         for s in range(state.n_shards):
-            advance_plain(state.shard(s))
+            if flushed is None:
+                advance_plain(state.shard(s))
+            else:
+                advance_listed_plain(state.shard(s), flushed[s])
         return
-    _advance_cuda(state.st, state.table.keys, state.table.occ)
+    _advance_cuda(state.st, state.table.keys, state.table.occ, flushed,
+                  current)
 
 
-def _advance_cuda(st: torch.Tensor, keys: torch.Tensor,
-                  occ: torch.Tensor) -> None:
+def _advance_cuda(st: torch.Tensor, keys: torch.Tensor, occ: torch.Tensor,
+                  flushed: Optional[torch.Tensor],
+                  current: bool = False) -> None:
     _check_state(st, keys, occ, "advance")
-    cuda.call("flush", "rw_advance", st.data_ptr(), st.shape[2],
-              (st.shape[1] - ROW_ACC0) // 2, st.shape[0])
+    ns, r, cap = st.shape
+    fc = wout = 0
+    if flushed is not None:
+        wout = flush_width(keys.shape[2], (r - ROW_ACC0) // 2)
+        if flushed.dtype != torch.int32 or not flushed.is_contiguous() or \
+                flushed.dim() != 3 or flushed.shape[0] != ns or \
+                flushed.shape[2] != wout or flushed.device != st.device:
+            raise ValueError("advance takes the flush matrix int32[S, 1 + "
+                             "flush_cap, W'] of this state")
+        fc = int(flushed.shape[1]) - 1
+    cuda.call("flush", "rw_advance", st.data_ptr(), cap, (r - ROW_ACC0) // 2,
+              ns, 0 if flushed is None else flushed.data_ptr(), fc, wout,
+              int(current and flushed is not None))
     LAUNCHES.add("advance")
 
 
@@ -1353,6 +1401,13 @@ class GroupedAggKernel:
         self._backlog: List[np.ndarray] = []
         self._backlog_rows = 0
         self._flush_idx: Optional[np.ndarray] = None
+        # the last flush's device matrix, its n_dirty and the step it saw
+        # (advance runs on its list), whether a patch wrote accumulators
+        # since, and calls that may dirty or move slots since the kernel
+        # was made
+        self._flushed: Optional[Tuple[torch.Tensor, int, int]] = None
+        self._patched = False
+        self._steps = 0
         self._prelude = prelude
         self._stage_counts = None if prelude is None else torch.zeros(
             prelude.n_counts, dtype=torch.int64, device=self.device)
@@ -1400,9 +1455,14 @@ class GroupedAggKernel:
         if self._backlog_rows >= self.BATCH_ROWS:
             self._dispatch_backlog()
 
+    def _stepped(self) -> None:
+        """A call that may dirty or move slots: a held flush is stale."""
+        self._steps += 1
+
     def _dispatch_backlog(self) -> None:
         if not self._backlog:
             return
+        self._stepped()
         mats, n = self._backlog, self._backlog_rows
         self._backlog, self._backlog_rows = [], 0
         raw_mode = self._prelude is not None
@@ -1454,6 +1514,7 @@ class GroupedAggKernel:
         """Rehash into a doubled table, reclaiming dead groups. The count
         before the grow stays a valid upper bound (a rebuild only
         reclaims); the next flush header makes it exact."""
+        self._stepped()
         self.state, stats = grow_state(self.state, self.capacity * 2,
                                        self._fill)
         self._counters.watch(stats)
@@ -1465,6 +1526,7 @@ class GroupedAggKernel:
         if self._backlog_rows:
             raise RuntimeError("retire_below with undispatched backlog")
         hi, lo = lanes.split_i64(np.asarray([wm_i64], dtype=np.int64))
+        self._stepped()
         self.state, stats = retire_state(self.state, int(hi[0]), int(lo[0]),
                                          group_pos * 3, self._fill)
         self._counters.watch(stats)
@@ -1487,6 +1549,7 @@ class GroupedAggKernel:
         keys[:n] = key_lanes
         valid = np.zeros(cap_n, dtype=np.int32)
         valid[:n] = 1
+        self._stepped()
         self.state, stats, lstats = evict_state(
             self.state, upload(keys, self.device),
             upload(valid, self.device), self._fill)
@@ -1508,6 +1571,7 @@ class GroupedAggKernel:
             return
         self._dispatch_backlog()
         self._reserve(n)
+        self._stepped()
         dev_cols = encode_host_accs(self.specs, acc_cols)
         _t, slots, stats = ht.probe_insert(
             self.state.table,
@@ -1524,7 +1588,8 @@ class GroupedAggKernel:
         read. Call ``advance`` after consuming."""
         self._dispatch_backlog()
         while True:
-            mat = fetch(flush_gather(self.state, self._flush_cap))
+            dev_mat = flush_gather(self.state, self._flush_cap)
+            mat = fetch(dev_mat)
             p = int(mat[0, 0])
             # the gather ran after every queued step, so its header count
             # subsumes all pending insert counters
@@ -1532,6 +1597,9 @@ class GroupedAggKernel:
             if p <= self._flush_cap:
                 break
             self._flush_cap = max(self._flush_cap * 2, next_pow2(p))
+        # the last gather lists every dirty slot (its n_dirty fits)
+        self._flushed = (dev_mat, p, self._steps)
+        self._patched = False
         if p == 0:
             self._flush_idx = np.zeros(0, dtype=np.int32)
             return FlushResult.empty(self.specs, self.key_width)
@@ -1555,12 +1623,22 @@ class GroupedAggKernel:
         src[:, :len(idx)] = np.stack(cols)
         patch_state(self.state, upload(idx_p, self.device),
                     upload(src, self.device))
+        self._patched = True
 
     def advance(self) -> None:
-        """Snapshot emitted := current for every dirty slot; clear dirty."""
+        """Snapshot emitted := current for every dirty slot; clear dirty:
+        K3's advance on the last flush's list of dirty slots, no launch
+        when it listed none. Only ``patch_accs`` (accumulator rows, no
+        dirty bit) may run between the flush and the advance: any other
+        step could dirty or move slots the list does not hold."""
         assert self._flush_idx is not None, "flush() first"
-        self._flush_idx = None
-        advance(self.state)
+        mat, p, steps = self._flushed
+        self._flush_idx = self._flushed = None
+        if steps != self._steps:
+            raise RuntimeError("advance after the state was stepped past "
+                               "its flush")
+        if p:
+            advance(self.state, mat, current=not self._patched)
 
     # -- recovery ---------------------------------------------------------
     def rebuild(self, keys: np.ndarray, group_rows: np.ndarray,
@@ -1571,6 +1649,7 @@ class GroupedAggKernel:
         emitted: their outputs were committed downstream."""
         n = len(group_rows)
         cap = max(self.capacity, next_pow2(int(n / ht.MAX_LOAD) + 1))
+        self._stepped()
         self.state = make_agg_state(cap, self.key_width, self.specs,
                                     self.device)
         self._counters.reset(0)

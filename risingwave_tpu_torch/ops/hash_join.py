@@ -425,16 +425,57 @@ def _seq_arg(seq, shape, device):
     return t, (t.data_ptr(), 0, 0)
 
 
-def _slot_scratch(scratch: Optional[torch.Tensor], head: torch.Tensor
-                  ) -> torch.Tensor:
-    """K5's per-slot bucket heads, shaped like ``head`` ([cap] or [S,
-    cap]): -1 on entry, restored by the kernel."""
+class LinkScratch:
+    """K5's per-slot bucket words for chain arrays with one ``head`` shape
+    ([cap] or [S, cap]): one 64-bit word a slot holding (generation << 32
+    | row), and the grid barrier's word. Each launch takes the next
+    generation, so a word an earlier launch wrote reads as empty and
+    nothing restores the words between launches; they are zeroed again
+    only when the 32-bit generation wraps."""
+
+    GEN_LIMIT = 1 << 32
+
+    def __init__(self, head: torch.Tensor):
+        self.shape = tuple(head.shape)
+        self.words = torch.zeros(head.numel() + 1, dtype=torch.int64,
+                                 device=head.device)
+        self.gen = 0
+
+    def next_gen(self) -> int:
+        self.gen += 1
+        if self.gen >= self.GEN_LIMIT:
+            self.words.zero_()
+            self.gen = 1
+        return self.gen
+
+
+def _k5_seq(seq, shape) -> Tuple[int, int, int, int]:
+    """K5's sequence argument: (pointer, row stride, shard stride,
+    value). A vector of the batch's shape keeps its strides; None or a
+    scalar goes by value, with no device copy ahead of the launch."""
+    if isinstance(seq, torch.Tensor) and seq.dim() >= 1:
+        if tuple(seq.shape) != tuple(shape):
+            raise ValueError(f"seq shape {tuple(seq.shape)} differs from "
+                             f"the batch's {tuple(shape)}")
+        if seq.dtype != torch.int32:
+            raise TypeError(f"join kernels take int32 seq, got {seq.dtype}")
+        return (*_rows(seq), 0)
+    return 0, 0, 0, 0 if seq is None else int(seq)
+
+
+def link_scratch(head: torch.Tensor) -> Optional[LinkScratch]:
+    """A side's K5 scratch for chain arrays with this ``head`` (None on
+    the CPU, where the plain versions need none)."""
+    return LinkScratch(head) if head.device.type == "cuda" else None
+
+
+def _slot_scratch(scratch: Optional[LinkScratch], head: torch.Tensor
+                  ) -> LinkScratch:
     if scratch is None:
-        return torch.full(head.shape, -1, dtype=torch.int32,
-                          device=head.device)
-    if scratch.shape != head.shape or scratch.device != head.device:
-        raise ValueError("link scratch must be int32 shaped like head on "
-                         "the device")
+        return LinkScratch(head)
+    if scratch.shape != tuple(head.shape) or \
+            scratch.words.device != head.device:
+        raise ValueError("link scratch must be made for this head")
     return scratch
 
 
@@ -456,14 +497,14 @@ def _rows(t: Optional[torch.Tensor], lanes: bool = False
 
 def _join_apply_launch(chains: ChainState, pay: Optional[torch.Tensor],
                        n: int, shards: int = 1, *, slots=None, ins_ok=None,
-                       ins_bits=-1, ins_ref=None, seq=(0, 0, 0),
-                       del_ok=None, del_bits=-1, del_ref=None, pay_src=None,
+                       ins_bits=-1, ins_ref=None, seq=None, del_ok=None,
+                       del_bits=-1, del_ref=None, pay_src=None,
                        scratch=None) -> None:
-    """One K5 launch sequence over ``shards`` shards; every part optional
-    (None → skipped). Row inputs are int32 [n] (one shard) or [S, n]
-    views with any strides (aux or receive-block columns, plain
-    vectors); ``seq`` is _seq_arg's (pointer, row stride, shard stride);
-    the chain arrays are [cap]/[row_cap], or [S, cap]/[S, row_cap]."""
+    """One K5 launch over ``shards`` shards; every part optional (None →
+    skipped). Row inputs are int32 [n] (one shard) or [S, n] views with
+    any strides (aux or receive-block columns, plain vectors); ``seq`` is
+    a vector of their shape, a scalar or None (0); the chain arrays are
+    [cap]/[row_cap], or [S, cap]/[S, row_cap]."""
     head, nxt, ins_seq, del_seq = chains
     if n == 0:
         return
@@ -482,25 +523,30 @@ def _join_apply_launch(chains: ChainState, pay: Optional[torch.Tensor],
                              "with contiguous source lanes")
     if slots is not None and slots.stride(-1) != 1:
         raise ValueError("slots must be contiguous along the rows")
-    sl = _slot_scratch(scratch, head) if slots is not None else None
-    rows = torch.empty(2 * shards * n, dtype=torch.int32, device=head.device)
+    words = gen = rows = None
+    if slots is not None:
+        sl = _slot_scratch(scratch, head)
+        words, gen = sl.words, sl.next_gen()
+        rows = torch.empty(2 * shards * n, dtype=torch.int32,
+                           device=head.device)
+    ref = ins_ref if ins_ref is not None else del_ref
     cuda.call("join_apply", "rw_join_apply",
               _ptr(slots), _rows(slots)[2], *_rows(ins_ok), ins_bits,
-              *_rows(ins_ref), *seq, *_rows(del_ok), del_bits,
-              *_rows(del_ref), *_rows(pay_src, lanes=True), P, n, shards,
+              *_rows(ins_ref), *_k5_seq(seq, ref.shape), *_rows(del_ok),
+              del_bits, *_rows(del_ref), *_rows(pay_src, lanes=True), P, n,
+              shards,
               head.data_ptr(), cap, nxt.data_ptr(), ins_seq.data_ptr(),
               del_seq.data_ptr(), row_cap, _ptr(pay if P else None),
-              _ptr(sl), rows.data_ptr())
+              _ptr(words), gen or 0, _ptr(rows))
     LAUNCHES.add("join_apply")
 
 
 def link_rows(chains: ChainState, slots: torch.Tensor,
               row_refs: torch.Tensor, vis: torch.Tensor, cap: int,
-              seq=None, scratch: Optional[torch.Tensor] = None
+              seq=None, scratch: Optional[LinkScratch] = None
               ) -> ChainState:
     """Link a batch of rows into their key chains (K5, link only).
-    ``scratch``: the side's int32[cap] bucket heads (all -1), or None to
-    allocate them."""
+    ``scratch``: the side's ``LinkScratch``, or None to make one."""
     if slots.device.type != "cuda":
         return link_rows_plain(chains, slots, row_refs, vis, cap, seq)
     n = int(slots.shape[0])
@@ -509,9 +555,8 @@ def link_rows(chains: ChainState, slots: torch.Tensor,
     _check_dev(slots, row_refs, vis, *chains)
     if cap != chains.head.shape[0]:
         raise ValueError("cap differs from the head array")
-    _keep, sq = _seq_arg(seq, (n,), slots.device)
     _join_apply_launch(chains, None, n, slots=slots, ins_ok=vis,
-                       ins_ref=row_refs, seq=sq, scratch=scratch)
+                       ins_ref=row_refs, seq=seq, scratch=scratch)
     return chains
 
 
@@ -524,15 +569,14 @@ def tombstone_rows(chains: ChainState, row_refs: torch.Tensor,
     vis = _i32(vis)
     row_refs = _i32(row_refs)
     _check_dev(row_refs, vis, *chains)
-    _keep, sq = _seq_arg(seq, (n,), row_refs.device)
     _join_apply_launch(chains, None, n, del_ok=vis, del_ref=row_refs,
-                       seq=sq)
+                       seq=seq)
     return chains
 
 
 def join_apply(chains: ChainState, pay: torch.Tensor, slots: torch.Tensor,
                up: torch.Tensor, aux: torch.Tensor, key_width: int,
-               scratch: Optional[torch.Tensor] = None) -> None:
+               scratch: Optional[LinkScratch] = None) -> None:
     """K5 over one epoch, after K1 gave the insert rows' ``slots``: link,
     tombstone and payload scatter, in place. ``up`` is [key lanes |
     payload lanes] int32[n, key_width + P], ``aux`` int32[n, 4]
@@ -551,7 +595,7 @@ def join_apply(chains: ChainState, pay: torch.Tensor, slots: torch.Tensor,
     _join_apply_launch(
         chains, pay, n, slots=slots, ins_ok=aux[:, AUX_FLAGS],
         ins_bits=FLAG_INS, ins_ref=aux[:, AUX_INS_REF],
-        seq=_rows(aux[:, AUX_SEQ]), del_ok=aux[:, AUX_FLAGS],
+        seq=aux[:, AUX_SEQ], del_ok=aux[:, AUX_FLAGS],
         del_bits=FLAG_DEL, del_ref=aux[:, AUX_DEL_REF],
         pay_src=up[:, key_width:] if P else None, scratch=scratch)
 
@@ -559,7 +603,7 @@ def join_apply(chains: ChainState, pay: torch.Tensor, slots: torch.Tensor,
 def join_apply_sharded(chains: ChainState, slots: Optional[torch.Tensor],
                        *, ins_ok=None, ins_bits: int = -1, ins_ref=None,
                        del_ok=None, del_bits: int = -1, del_ref=None,
-                       seq=None, scratch: Optional[torch.Tensor] = None
+                       seq=None, scratch: Optional[LinkScratch] = None
                        ) -> ChainState:
     """K5 over S shards in one launch sequence, in place (the per-shard
     link_rows + tombstone_rows of ``risingwave_tpu/parallel/join.py``).
@@ -568,8 +612,8 @@ def join_apply_sharded(chains: ChainState, slots: Optional[torch.Tensor],
     link); ``ins_ok``/``ins_ref``/``del_ok``/``del_ref`` are int32 [S, n]
     views with any strides (receive-block columns), a row inserting when
     ``ins_ok & ins_bits`` and tombstoning when ``del_ok & del_bits``;
-    ``seq`` is a scalar or int32[S, n]. ``scratch``: int32[S, cap] of -1,
-    or None."""
+    ``seq`` is a scalar or int32[S, n]. ``scratch``: the shards' ``LinkScratch``
+    (made for head [S, cap]), or None."""
     if chains.head.device.type != "cuda":
         return join_apply_sharded_plain(
             chains, slots, ins_ok=ins_ok, ins_bits=ins_bits,
@@ -587,9 +631,8 @@ def join_apply_sharded(chains: ChainState, slots: Optional[torch.Tensor],
         raise ValueError("sharded join_apply row inputs must be [S, n]")
     if slots is not None and (ins_ok is None or ins_ref is None):
         raise ValueError("a link needs ins_ok and ins_ref")
-    _keep, sq = _seq_arg(seq, (s, n), chains.head.device)
     _join_apply_launch(chains, None, n, s, slots=slots, ins_ok=ins_ok,
-                       ins_bits=ins_bits, ins_ref=ins_ref, seq=sq,
+                       ins_bits=ins_bits, ins_ref=ins_ref, seq=seq,
                        del_ok=del_ok, del_bits=del_bits, del_ref=del_ref,
                        scratch=scratch)
     return chains
@@ -597,7 +640,7 @@ def join_apply_sharded(chains: ChainState, slots: Optional[torch.Tensor],
 
 def epoch_apply(table: ht.TableState, chains: ChainState,
                 pay: torch.Tensor, up: torch.Tensor, aux: torch.Tensor,
-                key_width: int, scratch: Optional[torch.Tensor] = None):
+                key_width: int, scratch: Optional[LinkScratch] = None):
     """Apply a whole epoch's inserts and tombstones (K1 + K5). Returns
     (table, chains, pay, K1 stats)."""
     if up.device.type != "cuda":
@@ -749,7 +792,7 @@ def apply_and_probe(my_table: ht.TableState, my_chains: ChainState,
                     key_lanes: torch.Tensor, probe_vis: torch.Tensor,
                     ins_refs: torch.Tensor, ins_mask: torch.Tensor,
                     del_refs: torch.Tensor, del_mask: torch.Tensor, seq,
-                    out_cap: int, scratch: Optional[torch.Tensor] = None):
+                    out_cap: int, scratch: Optional[LinkScratch] = None):
     """The whole per-chunk step (B16, ``hash_join.py:415``): probe the
     OTHER side at ``seq`` (K6 with degrees, no payload), then insert this
     side's rows' keys (K1) and link and tombstone them at ``seq`` (one K5
@@ -766,9 +809,8 @@ def apply_and_probe(my_table: ht.TableState, my_chains: ChainState,
     ins_refs, del_refs = _i32(ins_refs), _i32(del_refs)
     my_table, slots, stats = ht.probe_insert(my_table, key_lanes, ins_mask)
     _check_dev(slots, ins_mask, ins_refs, del_mask, del_refs, *my_chains)
-    _keep, sq = _seq_arg(seq, (n,), key_lanes.device)
     _join_apply_launch(my_chains, None, n, slots=slots, ins_ok=ins_mask,
-                       ins_ref=ins_refs, seq=sq, del_ok=del_mask,
+                       ins_ref=ins_refs, seq=seq, del_ok=del_mask,
                        del_ref=del_refs, scratch=scratch)
     return my_table, my_chains, stats, mat
 
@@ -974,12 +1016,9 @@ class JoinSideKernel:
                                device=self.device)
         self._link_scratch = self._new_scratch()
 
-    def _new_scratch(self) -> Optional[torch.Tensor]:
-        """K5's per-slot bucket heads (kept at -1 between launches)."""
-        if self.device.type != "cuda":
-            return None
-        return torch.full((self.table.capacity,), -1, dtype=torch.int32,
-                          device=self.device)
+    def _new_scratch(self) -> Optional[LinkScratch]:
+        """K5's per-slot bucket words (no launch restores them)."""
+        return link_scratch(self.chains.head)
 
     @property
     def row_capacity(self) -> int:

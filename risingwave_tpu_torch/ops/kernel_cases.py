@@ -1,5 +1,6 @@
-"""Batches that hold K2 (``agg_apply``), ``route``, K1 (``probe_insert``)
-and K6 (``join_probe``) to their plain versions at the shapes their
+"""Batches that hold K2 (``agg_apply``), ``route``, K1 (``probe_insert``),
+K6 (``join_probe``), K3 (``flush_gather``, ``advance``) and K5
+(``join_apply``) to their plain versions at the shapes their
 designs meet at the edges.
 
 ``tests/test_torch_cuda_kernels.py`` runs the kernels on these on the
@@ -35,7 +36,17 @@ edge and at the last slot, a capacity smaller than one tile, 0 and 4
 accumulators, and 1, 3 and 8 shards with a different ``n_dirty`` in each;
 at maxbids' first agg's size (2^20 slots, and 8 shards of 2^17) a shard
 has more tiles than the card holds blocks, so a block takes several
-tiles in turn, and dirty slots lie in every tile.
+tiles in turn, and dirty slots lie in every tile. K5 (``join_apply``)
+groups a warp's rows that share a slot, pushes each group onto its
+slot's list, walks short lists and scans the batch for a slot of many
+groups, and copies payload word by word, so its cases spread one slot
+over many warps and blocks, hold q8's 400-row hot key, insert and delete
+one ref in one batch, mix slot -1 rows and refs past row_cap into shared
+slots, take P = 0 and an odd P, link only and tombstone only, 8 shards
+of mostly empty received rows and a batch past one wave of resident
+blocks. K3's advance runs on the flush's own list, so its cases
+(``advance_case``) have nothing dirty, slot 0 dirty, every slot dirty, a
+truncated list, 2^20 slots and 8 shards with uneven counts.
 Everything is numpy, made from fixed seeds.
 """
 
@@ -563,3 +574,227 @@ def k3_sharded_case(n_shards: int) -> Tuple[int, np.ndarray, np.ndarray,
         keys.append(k)
         occs.append(o)
     return 256, np.stack(sts), np.stack(keys), np.stack(occs)
+
+
+# -- K5 (join_apply) ---------------------------------------------------------------
+
+K5_CASES = ("many_warps", "hot_key", "ins_del_same_ref", "slot_minus_1",
+            "refs_out_of_range", "p0", "odd_p", "link_only",
+            "tombstone_only", "sharded_8", "past_one_wave")
+K5_SHARDS = 8                   # the sharded case's shards
+
+
+def k5_case(name: str) -> dict:
+    """One K5 launch's inputs on chain arrays that already hold rows, as
+    numpy: dict(cap, row_cap, head [S, cap], next / ins_seq / del_seq [S,
+    row_cap], pay [S, row_cap, P] or None, slots [S, n] or None (no
+    link), flags [S, n] (FLAG_INS inserts, FLAG_DEL tombstones), ins_ref,
+    del_ref [S, n], seq [S, n] or an int, pay_src [S, n, P] or None).
+    S = 1 but for ``sharded_8``. Insert refs are distinct, and so are
+    delete refs (a ref written twice in one batch has no one result)."""
+    rng = np.random.default_rng(131 + K5_CASES.index(name))
+    cap, row_cap, p, s, n = 1 << 12, 1 << 14, J_P, 1, 4096
+    link = name != "tombstone_only"
+    tomb = name != "link_only"
+    if name == "hot_key":
+        cap, n = 1 << 14, 1 << 13
+    elif name == "past_one_wave":
+        # more 32-row tiles than one wave of resident blocks takes
+        cap, row_cap, n = 1 << 20, 1 << 21, 1 << 19
+    elif name == "sharded_8":
+        s, n = K5_SHARDS, 8 * 256
+    if name in ("p0", "link_only", "tombstone_only"):
+        p = 0
+    elif name == "odd_p":
+        p = 5
+    head = np.where(rng.random((s, cap)) < 0.5,
+                    rng.integers(0, row_cap, (s, cap)), -1).astype(np.int32)
+    nxt = rng.integers(-1, row_cap, (s, row_cap)).astype(np.int32)
+    ins_seq = np.where(rng.random((s, row_cap)) < 0.5,
+                       rng.integers(0, 1000, (s, row_cap)),
+                       2**31 - 1).astype(np.int32)
+    del_seq = np.where(rng.random((s, row_cap)) < 0.9, 2**31 - 1,
+                       rng.integers(0, 1000, (s, row_cap))).astype(np.int32)
+    pay = rng.integers(-2**31, 2**31, (s, row_cap, p)).astype(np.int32) \
+        if p else None
+    # inserts take fresh refs, deletes other refs (2n <= row_cap)
+    ins = rng.random((s, n)) < 0.6
+    dels = ~ins & (rng.random((s, n)) < 0.5)
+    perm = np.stack([rng.permutation(row_cap)[:2 * n] for _ in range(s)])
+    ins_ref = perm[:, :n].astype(np.int32)
+    del_ref = perm[:, n:].astype(np.int32)
+    if name == "hot_key":
+        # q8's mixed epoch: ~400 rows of one key spread over the batch
+        # among new keys (distinct slots), deletes and probe-only rows
+        slots = rng.permutation(cap)[:n].astype(np.int32)[None]
+        slots[0, rng.choice(np.flatnonzero(ins[0]), 400,
+                            replace=False)] = 99
+    else:
+        slots = rng.integers(0, cap, (s, n)).astype(np.int32)
+    if name == "many_warps":
+        # one slot on 70% of the rows (every warp and block: more warp
+        # groups than a leader walks), one on a row in each of 12 warps,
+        # one on 3 rows of one warp
+        slots[0, rng.random(n) < 0.7] = 7
+        slots[0, np.arange(12) * 96 + 5] = 11
+        slots[0, [40, 41, 63]] = 13
+        ins[0] |= rng.random(n) < 0.8
+    elif name == "ins_del_same_ref":
+        # rows that insert and delete one ref, and rows that delete a ref
+        # another row of the batch inserts
+        both = ins & (rng.random((s, n)) < 0.15)
+        dels |= both
+        del_ref[both] = ins_ref[both]
+        other = np.flatnonzero(dels[0] & ~both[0])[:200]
+        src = np.flatnonzero(ins[0] & ~both[0])[:len(other)]
+        del_ref[0, other[:len(src)]] = ins_ref[0, src]
+    elif name == "slot_minus_1":
+        slots[rng.random((s, n)) < 0.3] = -1
+        slots[0, :64] = 5                         # shared, some -1 between
+        slots[0, 3:64:4] = -1
+    elif name == "refs_out_of_range":
+        # refs past row_cap: nothing is written at them (the reference's
+        # scatters drop them; it wraps a negative index, which the port,
+        # whose refs count up from 0, never makes)
+        bad = rng.random((s, n)) < 0.2
+        ins_ref[bad] = rng.integers(row_cap, row_cap + 50, int(bad.sum()))
+        dbad = rng.random((s, n)) < 0.2
+        del_ref[dbad] = rng.integers(row_cap, row_cap + 9, int(dbad.sum()))
+        # a shared slot whose first and last rows have such refs
+        sh = np.flatnonzero(ins[0])[:5]
+        slots[0, sh] = 17
+        ins_ref[0, sh[0]] = row_cap + 1
+        ins_ref[0, sh[-1]] = row_cap + 2
+    elif name == "sharded_8":
+        # route's receive block: each shard's rows mostly empty (flags 0,
+        # refs 0: ref 0 is a real ref), the live ones with shared slots
+        live = rng.random((s, n)) < 0.1
+        ins &= live
+        dels &= live
+        ins_ref[~live] = 0
+        del_ref[~live] = 0
+        slots[~live] = 0
+        slots[live & (rng.random((s, n)) < 0.3)] = 3
+    elif name == "past_one_wave":
+        slots[0, rng.random(n) < 0.001] = 12345   # spread over the batch
+        slots[0, 1000:1040] = 777                 # two warps
+    if not link:
+        ins[:] = False
+    if not tomb:
+        dels[:] = False
+    flags = (ins * FLAG_INS + dels * FLAG_DEL + FLAG_PROBE
+             * (rng.random(ins.shape) < 0.5)).astype(np.int32)
+    seq = rng.integers(1, 2000, ins.shape).astype(np.int32) \
+        if name != "link_only" else 1234
+    pay_src = rng.integers(-2**31, 2**31, ins.shape + (p,)).astype(
+        np.int32) if p else None
+    return dict(cap=cap, row_cap=row_cap, head=head, next=nxt,
+                ins_seq=ins_seq, del_seq=del_seq, pay=pay,
+                slots=slots if link else None, flags=flags,
+                ins_ref=ins_ref, del_ref=del_ref, seq=seq, pay_src=pay_src)
+
+
+def k5_tensors(case: dict, device) -> tuple:
+    """(chains [S, ...], pay [S, row_cap, P] or None, parts): a case on
+    `device`, ``parts`` the keyword arguments of one K5 launch ([S, n]
+    row inputs)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+
+    def t(a):                   # a copy: the case's arrays stay as made
+        return None if a is None else torch.from_numpy(
+            np.array(a, copy=True)).to(device)
+    chains = J.ChainState(*(t(case[k]) for k in ("head", "next", "ins_seq",
+                                                 "del_seq")))
+    seq = case["seq"]
+    parts = dict(slots=t(case["slots"]), ins_ok=t(case["flags"]),
+                 ins_bits=FLAG_INS, ins_ref=t(case["ins_ref"]),
+                 seq=t(seq) if isinstance(seq, np.ndarray) else seq,
+                 del_ok=t(case["flags"]), del_bits=FLAG_DEL,
+                 del_ref=t(case["del_ref"]), pay_src=t(case["pay_src"]))
+    return chains, t(case["pay"]), parts
+
+
+def k5_plain(chains, pay, parts) -> None:
+    """K5's plain version on one launch's row inputs ([n] with [cap] /
+    [row_cap] chain arrays, or [S, n] with [S, ...]), in place: each
+    shard's link_rows + tombstone_rows, then the payload scatter."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    one = chains.head.dim() == 1
+
+    def rows(x):
+        return x[None] if one and isinstance(x, torch.Tensor) else x
+    ch = J.ChainState(*(x[None] for x in chains)) if one else chains
+    J.join_apply_sharded_plain(
+        ch, rows(parts["slots"]), ins_ok=rows(parts["ins_ok"]),
+        ins_bits=parts["ins_bits"], ins_ref=rows(parts["ins_ref"]),
+        del_ok=rows(parts["del_ok"]), del_bits=parts["del_bits"],
+        del_ref=rows(parts["del_ref"]), seq=rows(parts["seq"]))
+    src = parts["pay_src"]
+    if src is not None and src.shape[-1]:
+        pays, srcs = (pay[None], src[None]) if one else (pay, src)
+        ok = rows((parts["ins_ok"] & parts["ins_bits"]) != 0)
+        refs = rows(parts["ins_ref"])
+        for d in range(pays.shape[0]):
+            J._masked_scatter_plain(pays[d], refs[d], ok[d], srcs[d])
+
+
+def k5_launch(chains, pay, parts, scratch=None) -> None:
+    """One K5 launch through the port's launch wrapper on CUDA tensors
+    (the plain version on CPU tensors), in place."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    if chains.head.device.type != "cuda":
+        k5_plain(chains, pay, parts)
+        return
+    shape = tuple(parts["ins_ref"].shape)
+    J._join_apply_launch(chains, pay, shape[-1],
+                         1 if len(shape) == 1 else shape[0],
+                         scratch=scratch, **parts)
+
+
+def k5_result(chains, pay) -> List[np.ndarray]:
+    """The arrays a K5 launch writes, as numpy."""
+    return [x.cpu().numpy() for x in (*chains, *([] if pay is None
+                                                 else [pay]))]
+
+
+# -- K3 advance ----------------------------------------------------------------------
+
+ADVANCE_CASES = ("nothing_dirty", "slot_0", "all_dirty", "truncated",
+                 "maxbids", "sharded_uneven")
+
+
+def advance_case(name: str) -> Tuple[int, np.ndarray, np.ndarray,
+                                     np.ndarray]:
+    """(flush_cap, st [S, R, cap], keys [S, cap, k], occ [S, cap]) of a
+    state the flush gathers and the advance then takes on that flush's
+    list: nothing dirty, slot 0 dirty, every slot dirty, more dirty slots
+    than flush_cap (the matrix is truncated: the advance sweeps), maxbids'
+    first agg (2^20 slots, ~2,200 dirty, one accumulator, six key lanes)
+    and 8 shards of 2^15 slots with uneven counts (0 to 600, one shard
+    past flush_cap)."""
+    rng = np.random.default_rng(141 + ADVANCE_CASES.index(name))
+    cap = 1 << 12
+
+    def case(fc, cap, nacc, dirty, k=KW):
+        st, keys, occ = k3_state(rng, cap, nacc,
+                                 np.asarray(dirty, dtype=np.int64), k)
+        return fc, st[None], keys[None], occ[None]
+    if name == "nothing_dirty":
+        return case(64, cap, 3, [])
+    if name == "slot_0":
+        return case(64, cap, 3, [0, 1, cap - 1])
+    if name == "all_dirty":
+        return case(cap, cap, 3, np.arange(cap))
+    if name == "truncated":
+        return case(128, cap, 3, np.sort(rng.choice(cap, 300,
+                                                    replace=False)))
+    if name == "maxbids":
+        return case(1 << 12, 1 << 20, 1,
+                    np.sort(rng.choice(1 << 20, 2214, replace=False)),
+                    k=2 * KW)
+    assert name == "sharded_uneven", name
+    cap = 1 << 15
+    parts = [k3_state(rng, cap, 3, np.sort(rng.choice(cap, nd,
+                                                      replace=False)))
+             for nd in (0, 1, 7, 130, 0, 600, 2, 511)]
+    return (512,) + tuple(np.stack([p[i] for p in parts]) for i in range(3))

@@ -177,6 +177,12 @@ class ShardedAggKernel:
                                   device=self.device)
         self._flush_cap = self.FLUSH_CAPACITY
         self._flush_idx: Optional[List[np.ndarray]] = None
+        # the last flush's device matrices, whether any shard listed a
+        # dirty slot and the step they saw (advance runs on their lists),
+        # and calls that may dirty or move slots since the kernel was made
+        self._flushed: Optional[Tuple[torch.Tensor, bool, int]] = None
+        self._patched = False
+        self._steps = 0
         self._counters = _ShardedCounters(self.n_dev)
         self.dispatches = 0
 
@@ -274,6 +280,7 @@ class ShardedAggKernel:
         nowhere), route every row to its owner, apply per shard."""
         if not self._backlog:
             return
+        self._steps += 1
         mats, n = self._backlog, self._backlog_rows
         owner_chunks = self._backlog_owners
         self._backlog, self._backlog_rows = [], 0
@@ -342,6 +349,7 @@ class ShardedAggKernel:
         """Re-insert the ``valid`` slots of every shard into fresh tables
         of ``new_cap`` slots (K1) and move every state row (K4). Returns
         K1's stats int32[S, 2]."""
+        self._steps += 1
         st = self.state
         table = ht.TableState(
             torch.zeros((self.n_dev, new_cap, self.key_width),
@@ -372,7 +380,8 @@ class ShardedAggKernel:
         self._counters.drain_all()
         fc = self._flush_cap
         while True:
-            mats = fetch(flush_gather_sharded(self.state, fc))
+            dev_mats = flush_gather_sharded(self.state, fc)
+            mats = fetch(dev_mats)
             self.dispatches += 1
             ps = mats[:, 0, 0]
             self._counters.reset(mats[:, 0, 1])
@@ -381,6 +390,9 @@ class ShardedAggKernel:
                 break
             fc = max(fc * 2, next_pow2(worst))
         self._flush_cap = fc
+        # the last gather lists every shard's dirty slots
+        self._flushed = (dev_mats, bool(ps.any()), self._steps)
+        self._patched = False
         if int(ps.sum()) == 0:
             self._flush_idx = [np.zeros(0, dtype=np.int32)
                                for _ in range(self.n_dev)]
@@ -391,9 +403,17 @@ class ShardedAggKernel:
                                  np.concatenate(segs, axis=0))
 
     def advance(self) -> None:
+        """K3's advance on every shard's list from the last flush, in one
+        launch; none when no shard listed a dirty slot. Only
+        ``patch_accs`` may run between the flush and the advance."""
         assert self._flush_idx is not None, "flush() first"
-        self._flush_idx = None
-        advance_sharded(self.state)
+        mats, any_dirty, steps = self._flushed
+        self._flush_idx = self._flushed = None
+        if steps != self._steps:
+            raise RuntimeError("advance after the state was stepped past "
+                               "its flush")
+        if any_dirty:
+            advance_sharded(self.state, mats, current=not self._patched)
 
     def patch_accs(self, decoded, raw_accs=None) -> None:
         """Overwrite the flushed groups' accumulators on every shard (the
@@ -419,6 +439,7 @@ class ShardedAggKernel:
         scatter_rows_sharded(self.state.st, upload(bidx, self.device),
                              patch_rows(self.state.n_acc, self.device),
                              upload(bsrc, self.device))
+        self._patched = True
 
     def retire_below(self, group_pos: int, wm_i64: int) -> None:
         """Watermark state cleaning on every shard: one live-mask launch
@@ -445,6 +466,7 @@ class ShardedAggKernel:
         if self._stage_counts is not None:
             self._stage_counts.zero_()
         cap = self.capacity
+        self._steps += 1
         self._counters.reset(np.zeros(self.n_dev, dtype=np.int64))
         owner = owners_host(np.asarray(keys, dtype=np.int32),
                             self._owner_map_host) if n else \
@@ -512,6 +534,7 @@ class ShardedAggKernel:
             torch.zeros((s, cap), dtype=torch.int32, device=self.device))
         slots, stats = ht.probe_insert_sharded(table, recv[:, :, :k], rvalid)
         src = recv[:, :, k:].transpose(1, 2).contiguous()
+        self._steps += 1
         self.state = ShardedAggState(
             table, remap_sharded(src, slots, table.occ, self._fill, cap))
         # both maps change together: the skew-exact bucket counts against

@@ -47,7 +47,7 @@ from risingwave_tpu_torch.ops.hash_agg import remap_sharded
 from risingwave_tpu_torch.ops.hash_join import (
     AUX_DEL_REF, AUX_FLAGS, AUX_INS_REF, AUX_SEQ, FLAG_DEL, FLAG_INS,
     FLAG_PROBE, I32_MAX, ChainState, _rebase, join_apply_sharded,
-    join_probe_sharded,
+    join_probe_sharded, link_scratch,
 )
 from risingwave_tpu_torch.parallel.exchange import (
     owners_host, route, skew_bucket,
@@ -223,10 +223,9 @@ class ShardedJoinKernel:
         self._new_scratch()
 
     def _new_scratch(self) -> None:
-        """K5's per-slot bucket heads [S, cap] (kept at -1 between
-        launches)."""
-        self._link_scratch = None if self.device.type != "cuda" else \
-            self._full((self.n_dev, self.key_capacity), -1)
+        """K5's per-slot bucket words for head [S, cap] (no launch
+        restores them)."""
+        self._link_scratch = link_scratch(self.chains.head)
 
     # -- capacity management -----------------------------------------------
     def owners_of(self, key_lanes: np.ndarray) -> np.ndarray:

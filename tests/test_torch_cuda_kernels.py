@@ -18,10 +18,12 @@ cold tier's and the patch's kernels: K8 (lookup) and K4's evict mode
 exactly, B9 (evict_state) key-sorted against its plain twin, K9
 (scatter_rows) exactly with and without its shard axis, K2's kNone lane
 exactly, and a GroupedAggKernel's patch, eviction and reload on the card
-against the same kernel on the CPU. K2, route, K1, K6 and K3's gather are
-also held to their plain versions on ``ops/kernel_cases.py``'s batches,
-the shapes at the edges of their designs: K1 by the table invariants and
-exact stats (with K8 exact on the tables it built), K6 and K3 exactly;
+against the same kernel on the CPU. K2, route, K1, K6, K3 (its gather
+and its advance on the flush's own list) and K5 are also held to their
+plain versions on ``ops/kernel_cases.py``'s batches, the shapes at the
+edges of their designs: K1 by the table invariants and exact stats (with
+K8 exact on the tables it built), K6, K3 and K5 exactly (K5 in one launch
+a call, twice on one scratch);
 the fused kernel on ``ops/fused_cases.py``'s edge cases, bit for bit.
 """
 
@@ -293,6 +295,74 @@ def test_flush_gather_edge_cases_match_plain(dev, case):
     if st.shape[0] == 1:
         np.testing.assert_array_equal(
             H.flush_gather(state.shard(0), fc).cpu().numpy(), want[0])
+
+
+@pytest.mark.parametrize("case", KC.ADVANCE_CASES)
+def test_advance_edge_cases_match_plain(dev, case):
+    """K3's advance on the flush's own list (``kernel_cases.advance_case``:
+    nothing dirty, slot 0 dirty, every slot dirty, a truncated matrix,
+    which sweeps, 2^20 slots, 8 shards with uneven counts, one past
+    flush_cap), reading the state's rows and (``current``) the matrix's
+    own values, against the plain version of the sweep: the whole state
+    exact; and the sweep with no matrix too."""
+    fc, st, keys, occ = KC.advance_case(case)
+    a = _k3_state(dev, st, keys, occ)
+    b = _k3_state(dev, st, keys, occ)
+    c = _k3_state(dev, st, keys, occ)
+    d = _k3_state(dev, st, keys, occ)
+    H.advance_sharded(a, H.flush_gather_sharded(a, fc))
+    H.advance_sharded(d, H.flush_gather_sharded(d, fc), current=True)
+    H.advance_sharded(c)
+    for s in range(st.shape[0]):
+        H.advance_plain(b.shard(s))
+    for x in (a, c, d):
+        np.testing.assert_array_equal(x.st.cpu().numpy(),
+                                      b.st.cpu().numpy())
+
+
+def test_grouped_kernel_advance_takes_the_flush_list(dev):
+    """GroupedAggKernel.advance launches K3's advance once on its flush's
+    list, and none after a flush that found nothing dirty."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    specs = (H.AggSpec(H.AggKind("count"), None),)
+    k = H.GroupedAggKernel(KW, specs, capacity=1 << 12, device=dev)
+    g = np.arange(500).astype(np.int64)
+    args = (_lanes(g), np.ones(500, np.int32), np.ones(500, bool),
+            [((), None)])
+    k.apply(*args)
+    LAUNCHES.reset()
+    assert k.flush().n == 500
+    k.advance()
+    assert LAUNCHES.snapshot().get("advance") == 1
+    assert int((k.state.st[H.ROW_DIRTY] != 0).sum()) == 0
+    LAUNCHES.reset()
+    assert k.flush().n == 0
+    k.advance()
+    assert "advance" not in LAUNCHES.snapshot()
+
+
+@pytest.mark.parametrize("case", KC.K5_CASES)
+def test_join_apply_edge_cases_match_plain(dev, case):
+    """K5 on ``kernel_cases.k5_case``'s batches (one slot over many warps
+    and blocks, the 400-row hot key, an insert and a delete of one ref,
+    slot -1 rows, refs past row_cap, P = 0 and an odd P, link only,
+    tombstone only, 8 shards of mostly empty received rows, a batch past
+    one wave of resident blocks), one launch a call, twice on one scratch
+    (the second launch's generation makes the first's words stale): every
+    chain array and the payload exact against the plain version."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    c = KC.k5_case(case)
+    chains, pay, parts = KC.k5_tensors(c, dev)
+    want_c, want_p, _p = KC.k5_tensors(c, dev)
+    scratch = J.link_scratch(chains.head)
+    for _ in range(2):
+        LAUNCHES.reset()
+        KC.k5_launch(chains, pay, parts, scratch)
+        assert LAUNCHES.snapshot() == {"join_apply": 1}
+        KC.k5_plain(want_c, want_p, parts)
+        for x, y in zip(KC.k5_result(chains, pay),
+                        KC.k5_result(want_c, want_p)):
+            np.testing.assert_array_equal(x, y)
 
 
 def test_live_mask_and_remap_match_plain(dev):
@@ -1003,7 +1073,8 @@ def test_sharded_join_apply_matches_plain(dev):
     """Sharded K5 (S = 8) against its plain version on the same slots:
     inserts with a hot key and in-block duplicates, tombstones of stored
     refs, empty received rows, per-row sequences; every array exact, and
-    the bucket scratch all -1 again."""
+    exact again when a second batch reuses the bucket words (no launch
+    restores them: each takes a new generation)."""
     rng = np.random.default_rng(31)
     table, chains, _k, valid0, refs0 = _sharded_join_state(dev, rng)
     keys, valid = _recv_block(rng, S, N)
@@ -1025,12 +1096,13 @@ def test_sharded_join_apply_matches_plain(dev):
               seq=seq)
     a = J.ChainState(*(t.clone() for t in chains))
     b = J.ChainState(*(t.clone() for t in chains))
-    scratch = torch.full((S, CAP), -1, dtype=torch.int32, device=dev)
-    J.join_apply_sharded(a, slots, scratch=scratch, **kw)
-    J.join_apply_sharded_plain(b, slots, **kw)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
-    assert bool((scratch == -1).all())
+    scratch = J.link_scratch(chains.head)
+    for _ in range(2):
+        J.join_apply_sharded(a, slots, scratch=scratch, **kw)
+        J.join_apply_sharded_plain(b, slots, **kw)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    assert scratch.gen == 2
 
 
 def test_sharded_join_probe_matches_plain(dev):

@@ -236,6 +236,74 @@ def test_flush_gather_sharded_cases_match_reference(n_shards):
         np.testing.assert_array_equal(got[d], want)
 
 
+def _port_layout(ref_state) -> np.ndarray:
+    """A reference state's slot rows in the port's int32[R, cap] layout
+    (accumulators as int32 words, as ``_ref_state_of`` holds them)."""
+    rows = [np.asarray(ref_state.group_rows),
+            np.asarray(ref_state.dirty).astype(np.int32),
+            np.asarray(ref_state.emitted_valid).astype(np.int32),
+            np.asarray(ref_state.emitted_rows)]
+    rows += [np.asarray(a) for a in ref_state.accs]
+    rows += [np.asarray(a) for a in ref_state.emitted_accs]
+    return np.stack(rows).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", KC.ADVANCE_CASES)
+def test_advance_on_the_flush_list_cases_match_reference(case):
+    """K3's list-driven advance (``kernel_cases.advance_case``: nothing
+    dirty, slot 0 dirty, every slot dirty, a truncated matrix, maxbids'
+    2^20 slots, 8 shards with uneven counts, one past flush_cap): the
+    plain version of the flush (``flush_gather``) and of the advance on
+    its matrix (``advance_listed_plain``, through ``advance`` /
+    ``advance_sharded``) leave every shard's state equal to the
+    reference's ``advance_state`` after its ``gather_packed``."""
+    fc, st, keys, occ = KC.advance_case(case)
+    if st.shape[0] == 1:
+        port = P.AggState(P.ht.TableState(torch.from_numpy(keys[0]),
+                                          torch.from_numpy(occ[0])),
+                          torch.from_numpy(st[0].copy()))
+        P.advance(port, P.flush_gather(port, fc))
+        got = port.st.numpy()[None]
+    else:
+        port = P.ShardedAggState(P.ht.TableState(torch.from_numpy(keys),
+                                                 torch.from_numpy(occ)),
+                                 torch.from_numpy(st.copy()))
+        P.advance_sharded(port, P.flush_gather_sharded(port, fc))
+        got = port.st.numpy()
+    for d in range(st.shape[0]):
+        ref = _ref_state_of(st[d], keys[d], occ[d])
+        mat = np.asarray(R.gather_packed(ref, fc))
+        assert mat[0, 0] == int((st[d, P.ROW_DIRTY] != 0).sum())
+        np.testing.assert_array_equal(
+            got[d], _port_layout(R.advance_state(ref)))
+
+
+def test_grouped_kernel_advance_after_a_step_raises():
+    """GroupedAggKernel.advance runs on the last flush's list: a step
+    between the flush and the advance (which could dirty a slot the list
+    does not hold) raises; a patch, which writes accumulators only, does
+    not."""
+    pairs = [("max", np.int64), ("count", None)]
+    k = P.GroupedAggKernel(KW, _specs(P, pairs), capacity=1 << 10,
+                           device=CPU)
+    packed = _packed(np.random.default_rng(4), 256, 40, _specs(R, pairs))
+    k._backlog.append(packed)
+    k._backlog_rows += len(packed)
+    fr = k.flush()
+    assert fr.n > 0
+    k.patch_accs([None, None], fr.raw_accs)
+    k.advance()
+    assert int((k.state.st[P.ROW_DIRTY] != 0).sum()) == 0
+    k._backlog.append(packed)
+    k._backlog_rows += len(packed)
+    k.flush()
+    k._backlog.append(packed)
+    k._backlog_rows += len(packed)
+    k._dispatch_backlog()
+    with pytest.raises(RuntimeError, match="stepped past its flush"):
+        k.advance()
+
+
 def test_retire_and_grow_match_reference():
     specs, port_specs, ref_state, port_state = _shared_state(groups=500)
     fills = tuple(f for _dt, f in R.dev_layout(specs))

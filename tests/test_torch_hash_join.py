@@ -139,6 +139,64 @@ def test_tombstone_rows():
         _same_chains(pc, rc)
 
 
+def k5_reference(c: dict) -> list:
+    """The reference's link_rows, tombstone_rows and _masked_scatter on
+    one of ``KC.k5_case``'s launches, shard by shard: the chain arrays
+    (and payload) they leave, stacked [S, ...], as numpy."""
+    out = []
+    for d in range(c["flags"].shape[0]):
+        ch = RJ.ChainState(*(jnp.asarray(c[k][d]) for k in (
+            "head", "next", "ins_seq", "del_seq")))
+        f = c["flags"][d]
+        seq = jnp.asarray(c["seq"][d]) if isinstance(c["seq"], np.ndarray) \
+            else jnp.int32(c["seq"])
+        ins = jnp.asarray((f & KC.FLAG_INS) != 0)
+        if c["slots"] is not None:
+            ch = RJ._link_jit(ch, jnp.asarray(c["slots"][d]),
+                              jnp.asarray(c["ins_ref"][d]), ins, c["cap"],
+                              seq)
+        ch = RJ._tombstone_jit(ch, jnp.asarray(c["del_ref"][d]),
+                               jnp.asarray((f & KC.FLAG_DEL) != 0), seq)
+        arrs = [np.asarray(x) for x in ch]
+        if c["pay"] is not None:
+            arrs.append(np.asarray(RJ._masked_scatter_jit(
+                jnp.asarray(c["pay"][d]), jnp.asarray(c["ins_ref"][d]), ins,
+                jnp.asarray(c["pay_src"][d]))))
+        out.append(arrs)
+    return [np.stack(x) for x in zip(*out)]
+
+
+@pytest.mark.parametrize("case", [c for c in KC.K5_CASES
+                                  if c != "sharded_8"])
+def test_join_apply_kernel_cases_match_reference(case):
+    """K5's edge cases (``ops/kernel_cases.py``: one slot over many warps
+    and blocks, q8's 400-row hot key, an insert and a delete of one ref,
+    slot -1 rows, refs past row_cap, P = 0 and an odd P, link only,
+    tombstone only, a batch past one wave of resident blocks) through the
+    single-device wrappers on the CPU (link_rows, tombstone_rows, the
+    payload scatter: the plain versions) equal the reference's, every
+    array exactly."""
+    c = KC.k5_case(case)
+    chains, pay, parts = KC.k5_tensors(c, CPU)
+    ch = PJ.ChainState(*(x[0] for x in chains))
+    seq = parts["seq"][0] if isinstance(parts["seq"], torch.Tensor) \
+        else parts["seq"]
+    ins = (parts["ins_ok"][0] & KC.FLAG_INS) != 0
+    if parts["slots"] is not None:
+        ch = PJ.link_rows(ch, parts["slots"][0], parts["ins_ref"][0], ins,
+                          c["cap"], seq)
+    ch = PJ.tombstone_rows(ch, parts["del_ref"][0],
+                           (parts["del_ok"][0] & KC.FLAG_DEL) != 0, seq)
+    got = [x.numpy()[None] for x in ch]
+    if pay is not None:
+        got.append(PJ._masked_scatter(pay[0], parts["ins_ref"][0], ins,
+                                      parts["pay_src"][0]).numpy()[None])
+    want = k5_reference(c)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
 def _epoch(rng, n, next_ref, live, key_range=20):
     """One side's epoch matrices: [key lanes | payload] and aux, with
     per-row seqs, inserts, deletes of live refs and negative rows."""

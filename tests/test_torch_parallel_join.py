@@ -524,3 +524,30 @@ def test_route_overflow_raises_at_collect_not_dispatch():
     # the 2 rows per sender that fit were applied
     deg, _p, _r = k.probe(kl, np.ones(m, bool))   # bucket = local: fits
     assert (deg == 2 * 4).all()
+
+
+@pytest.mark.parametrize("case", KC.K5_CASES)
+def test_join_apply_sharded_plain_kernel_cases(case):
+    """Every K5 edge case (``ops/kernel_cases.py``; ``sharded_8`` is 8
+    shards of mostly empty received rows, the rest one shard) through the
+    sharded plain version with its payload scatter (``KC.k5_plain``, the
+    oracle the kernel is held to on the card) equals the reference's
+    link_rows, tombstone_rows and _masked_scatter shard by shard, every
+    array exactly."""
+    from tests.test_torch_hash_join import k5_reference
+    c = KC.k5_case(case)
+    chains, pay, parts = KC.k5_tensors(c, torch.device("cpu"))
+    PJ.join_apply_sharded(chains, parts["slots"], ins_ok=parts["ins_ok"],
+                          ins_bits=parts["ins_bits"],
+                          ins_ref=parts["ins_ref"], del_ok=parts["del_ok"],
+                          del_bits=parts["del_bits"],
+                          del_ref=parts["del_ref"], seq=parts["seq"])
+    got = [x.numpy() for x in chains]
+    if pay is not None:
+        _c2, pay2, _p2 = KC.k5_tensors(c, torch.device("cpu"))
+        KC.k5_plain(PJ.ChainState(*(x.clone() for x in _c2)), pay2, parts)
+        got.append(pay2.numpy())
+    want = k5_reference(c)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
