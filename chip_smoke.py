@@ -20,7 +20,14 @@ phases, any failure of which exits non-zero:
      q7's, q7-mesh's and maxbids' states):
      integers exact, K1 (probe_insert) by the table invariants, float
      SUM's hi and lo rows each within rel 1e-6 of the group's summed
-     magnitudes in that row; K2 (agg_apply) also on the batches of
+     magnitudes in that row; K4's mask, which also zeroes the
+     rebuild's fresh table, in every mode with the table at cap and 2 x
+     cap, and the rebuilds it serves (retirement and growth at q7's
+     2^18 slots, eviction at the capped maxbids arm's sizes, the sharded
+     retirement at 8 x 2^15) key-sorted against their plain twins with
+     their launches counted; the patched advance (the barrier's
+     retractable MIN/MAX write-back in advance's launch) at maxbids' and
+     q7-mesh's states; K2 (agg_apply) also on the batches of
      ``ops/kernel_cases.py`` (the edges of its warp aggregation, and its
      shard axis at 8 and 3 shards), and timed at q7's step, the ~20K
      group plan, maxbids' first agg (a 2^20-slot table holding 600K
@@ -76,7 +83,8 @@ phases, any failure of which exits non-zero:
      capped maxbids arm's own sizes: K8 (lookup) and K4's evict mode
      exact, B9 (evict_state) and the reload (K1 + K9) key-sorted against
      their plain twins, K9 (scatter_rows) exact, also with its shard
-     axis at 8 x 2^15 slots, with ``index_put_`` timed beside it; a
+     axis at 8 x 2^15 slots and alone at the capped maxbids arm's and
+     q7-tier's reload shapes, with ``index_put_`` timed beside it; a
      patch_accs that must pass the integer SUM limbs and the float SUM
      (hi, lo) bits through; K2 with a kNone lane;
 4. the main paths end to end, each with every launch count reset just
@@ -109,7 +117,8 @@ phases, any failure of which exits non-zero:
      an oracle on a script with updates, deletes, NULL keys and growth;
    - Nexmark q5's MaxBids over 10 s tumbling windows (two aggs: COUNT(*)
      per (window, auction), then MAX/MIN/COUNT/SUM of the counts per
-     window, retractable MIN/MAX patched by scatter_rows every barrier)
+     window, retractable MIN/MAX patched every barrier in advance's
+     launch: the path must launch no scatter_rows)
      at 10M events, and at 2M with a tier cap of 64 groups on the first
      agg (evictions and reloads must both happen), bench_q8's chunking;
    - Nexmark q15's distinct counts per 10 s window (COUNT(*), two
@@ -134,13 +143,15 @@ counts) and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --against DIR [GROUPS]`` runs no phase: it times
 K3 (flush_gather, advance), the three fused entries, K2 (agg_apply),
-route, K1 (probe_insert), K8 (lookup), K6 (join_probe) and K5
-(join_apply) of this checkout against the same kernels built from DIR's
+route, K1 (probe_insert), K8 (lookup), K6 (join_probe), K5 (join_apply),
+the rebuild chains (K4's mask and fills or its mask-and-table launch,
+K1, K4's remap) and the patch chain (K9 then advance, or the patched
+advance) of this checkout against the same kernels built from DIR's
 ``risingwave_tpu_torch/csrc`` (the parent commit, unpacked with ``git
 archive`` into a directory git ignores), in turns, at the shapes above,
 each build first held to the plain version; the other build is compiled
 and bound by this script alone. GROUPS, comma-separated, keeps only some
-of ``AB_GROUPS``.
+of ``AB_GROUPS`` (and builds only their libraries).
 """
 
 from __future__ import annotations
@@ -250,11 +261,14 @@ Q8_MESH_PATH = ("route",) + Q8_PATH
 Q8_MESH_FUSED_PATH = Q8_MESH_PATH + ("agg_prelude", "join_prelude")
 # B16 per chunk: route, K6 on the other side, K1 + K5 on this side
 PERCHUNK_PATH = ("route", "join_probe", "probe_insert", "join_apply")
-# maxbids: the second agg's retractable MIN/MAX patch (K9) every barrier;
-# the capped arm adds the eviction (K8, K4's evict mode, K1 + K4 remap)
-MAXBIDS_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
-                "scatter_rows")
-MAXBIDS_CAPPED_PATH = MAXBIDS_PATH + ("lookup", "live_mask", "remap")
+# maxbids: the second agg's retractable MIN/MAX patch every barrier, in
+# advance's launch (no K9); the capped arm adds the eviction (K8, K4's
+# evict mode, K1 + K4 remap) and the reload (K1 + K9)
+MAXBIDS_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance")
+MAXBIDS_CAPPED_PATH = MAXBIDS_PATH + ("lookup", "live_mask", "remap",
+                                      "scatter_rows")
+# kernels a path must not launch: uncapped maxbids' patch rides in advance
+OFF_PATH = {"maxbids": ("scatter_rows",)}
 # q7 under the tier: q7's own kernels, each sweep's eviction (K8, then
 # K4 and K1 + K4 as q7 has them) and each reload (K1 + K9)
 Q7_TIER_PATH = Q7_PATH + ("lookup", "scatter_rows")
@@ -726,7 +740,10 @@ def check_advance(dev, cap: int, n: int) -> dict:
     sweep on the mixed plan's state and on ``kernel_cases``' advance
     cases, then timed at q7's state (2^18 slots), q7-mesh's (8 x 2^15)
     and maxbids' (2^20, ~2,200 dirty) beside the plain version of the
-    list-driven advance and the bound of its bytes."""
+    list-driven advance and the bound of its bytes; its patched mode at
+    q7-mesh's and maxbids' states, exact against scatter_rows_plain at
+    the list's slots then advance_listed_plain, timed alone and as the
+    barrier's chain (the columns' upload, then the launch)."""
     from risingwave_tpu_torch.ops import hash_agg as H
     _specs, st = _mixed_state(dev, cap, n)
     k = H.AggState(st.table, st.st.clone())
@@ -737,7 +754,8 @@ def check_advance(dev, cap: int, n: int) -> dict:
               check_advance_edges(dev))
     assert err == 0, err
     out = {}
-    for name, (state, mats) in advance_ab_cases(dev).items():
+    cases = advance_ab_cases(dev)
+    for name, (state, mats) in cases.items():
         k = H.ShardedAggState(state.table, state.st.clone())
         p = H.ShardedAggState(state.table, state.st.clone())
         k2 = H.ShardedAggState(state.table, state.st.clone())
@@ -750,7 +768,7 @@ def check_advance(dev, cap: int, n: int) -> dict:
         # timed in place: after the first call the listed slots are no
         # longer dirty, and each call advances them again (with the
         # matrix's values, as when no patch ran; patched_ms: from the
-        # state's rows, as after a patch)
+        # state's rows, as after a patch written alone)
         ms = time_ms(lambda: H.advance_sharded(k, mats, current=True))
         patched_ms = time_ms(lambda: H.advance_sharded(k2, mats))
         plain_ms = time_ms(lambda: [H.advance_listed_plain(
@@ -763,6 +781,27 @@ def check_advance(dev, cap: int, n: int) -> dict:
                          flush_cap=int(mats.shape[1]) - 1,
                          split=kernel_split(lambda: H.advance_sharded(
                              k, mats, current=True)))
+    # the patched mode: the list's slots take the patch's columns in the
+    # same launch, exact against K9's plain version at the list's slots
+    # followed by the listed advance's
+    for name, (state, mats, idx, src) in patch_ab_cases(dev, cases).items():
+        col = torch.from_numpy(src).to(dev)
+        k = H.ShardedAggState(state.table, state.st.clone())
+        p = H.ShardedAggState(state.table, state.st.clone())
+        H.advance_sharded(k, mats, patch=col)
+        patch_plain(p, mats, idx, src)
+        err = max(err, abs_err(k.st.cpu().numpy(), p.st.cpu().numpy()))
+        assert err == 0, f"the patched advance differs at {name}: {err}"
+        n = int(mats[:, 0, 0].sum())
+        b, by = bound_ms(src.size * 4 + n * 2 * 4
+                         + n * (2 * state.n_acc + 3) * 4, n)
+        out[name]["patch"] = dict(
+            ms=time_ms(lambda: H.advance_sharded(k, mats, patch=col)),
+            chain_ms=time_ms(lambda: patch_mine(k, mats, idx, src)),
+            plain_ms=time_ms(lambda: patch_plain(p, mats, idx, src)),
+            bound_ms=b, bound_by=by, pad=int(src.shape[2]),
+            launches_per_call=launches_of(
+                lambda: H.advance_sharded(k, mats, patch=col), "advance"))
     q7, mesh, mb = out.values()
     return dict(q7, max_abs_err=err, mesh_shape=mesh, maxbids_shape=mb)
 
@@ -794,26 +833,67 @@ def check_advance_edges(dev) -> float:
 
 
 def check_live_mask(dev, cap: int, n: int) -> dict:
+    """K4's mask launch, which also zeroes the rebuild's fresh table: in
+    every mode (growth, retirement, eviction, every occupied slot), with
+    the table at cap and at 2 x cap slots, exact against live_mask_plain
+    and a zeroed table (the launch's table memory first holds garbage);
+    timed at a q7 retirement (2^18 slots, K = 3) with the table, its
+    bound the mask's bytes and the cleared table's, and without it (the
+    mask alone)."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
     from risingwave_tpu_torch.ops import hash_agg as H
     from risingwave_tpu_torch.ops import lanes
     _specs, st = _mixed_state(dev, cap, n)
     H.advance(st)
     hi, lo = lanes.split_i64(np.asarray([10_000 * 7_919], dtype=np.int64))
+    dropped = torch.from_numpy((np.random.default_rng(9).random(cap) < 0.3)
+                               .astype(np.int32)).to(dev)
     err = 0.0
-    for mode in (H.LIVE_GROW, H.LIVE_RETIRE):
-        k = H.live_mask(st, mode, 0, int(hi[0]), int(lo[0]))
-        p = H.live_mask_plain(st, mode, 0, int(hi[0]), int(lo[0]))
-        err = max(err, abs_err(k.cpu().numpy(), p.cpu().numpy()))
+    for mode in (H.LIVE_GROW, H.LIVE_RETIRE, H.LIVE_EVICT, H.LIVE_OCCUPIED):
+        d = dropped if mode == H.LIVE_EVICT else None
+        p = H.live_mask_plain(st, mode, 0, int(hi[0]), int(lo[0]), d)
+        for new_cap in (cap, 2 * cap):
+            k, table = H.live_and_table(st, mode, new_cap, 0, int(hi[0]),
+                                        int(lo[0]), d)
+            err = max(err, abs_err(k.cpu().numpy(), p.cpu().numpy()),
+                      float(table.keys.abs().max()),
+                      float(table.occ.abs().max()))
+            if dev.type != "cuda":
+                continue
+            # the entry point on a table that holds garbage before it
+            live = torch.empty(cap, dtype=torch.int32, device=dev)
+            keys = torch.full((new_cap, KW), -7, dtype=torch.int32,
+                              device=dev)
+            occ = torch.full((new_cap,), -7, dtype=torch.int32, device=dev)
+            kcuda.call("rebuild", "rw_live_mask", mode, st.st.data_ptr(),
+                       st.table.keys.data_ptr(), st.table.occ.data_ptr(),
+                       cap, KW, 0, int(hi[0]), int(lo[0]), st.st.numel(), 1,
+                       None if d is None else d.data_ptr(), live.data_ptr(),
+                       keys.data_ptr(), occ.data_ptr(), new_cap)
+            err = max(err, abs_err(live.cpu().numpy(), p.cpu().numpy()),
+                      float(keys.abs().max()), float(occ.abs().max()))
+        err = max(err, abs_err(H.live_mask(st, mode, 0, int(hi[0]),
+                                           int(lo[0]), d).cpu().numpy(),
+                               p.cpu().numpy()))
+        if mode == H.LIVE_RETIRE:
+            assert 0 < int(k.sum()) < int((st.table.occ != 0).sum())
     assert err == 0, err
-    assert 0 < int(k.sum()) < int((st.table.occ != 0).sum())
     _q7, qs = _q7_state(dev, cap, n)
-    ms = time_ms(lambda: H.live_mask(qs, H.LIVE_RETIRE, 0, 0, 0))
-    plain_ms = time_ms(lambda: H.live_mask_plain(qs, H.LIVE_RETIRE, 0, 0, 0))
+    ms = time_ms(lambda: H.live_and_table(qs, H.LIVE_RETIRE, cap, 0, 0, 0))
+    plain_ms = time_ms(lambda: (H.live_mask_plain(qs, H.LIVE_RETIRE, 0, 0,
+                                                  0),
+                                H.ht.make_state(cap, KW, dev)))
     n_occ = int((qs.table.occ != 0).sum())
-    nbytes = cap * 4 + n_occ * (3 + KW) * 4 + cap * 4
-    b, by = bound_ms(nbytes, cap * 8)
+    mask_bytes = cap * 4 + n_occ * (3 + KW) * 4 + cap * 4
+    b, by = bound_ms(mask_bytes + cap * (KW + 1) * 4, cap * 8)
+    mb, mby = bound_ms(mask_bytes, cap * 8)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by)
+                bound_by=by, library_ms=None,
+                mask_only=dict(ms=time_ms(lambda: H.live_mask(
+                    qs, H.LIVE_RETIRE, 0, 0, 0)), bound_ms=mb,
+                    bound_by=mby),
+                split=kernel_split(lambda: H.live_and_table(
+                    qs, H.LIVE_RETIRE, cap, 0, 0, 0)))
 
 
 def check_remap(dev, cap: int, n: int) -> dict:
@@ -867,6 +947,31 @@ def check_remap(dev, cap: int, n: int) -> dict:
     b, by = bound_ms(nbytes, cap * r)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by)
+
+
+def check_rebuild_chains(dev) -> dict:
+    """retire_state and grow_state at q7's 2^18 slots (growth to 2^19),
+    evict_state at the capped maxbids arm's sizes and the sharded
+    retirement (``rebuild_sharded``) at q7-mesh's 8 x 2^15 slots, each
+    key-sorted exact against its plain twin, with its launches a call by
+    kernel (LAUNCHES, and every device activity by torch.profiler), its
+    time, its plain twin's and the bound of its bytes."""
+    out = {}
+    for name, case in rebuild_ab_cases(dev).items():
+        got, stats = rebuild_mine(case)
+        err = abs_err(_groups(got), _groups(rebuild_plain(case)))
+        assert err == 0 and not bool(stats[:, 1].any()), \
+            f"the rebuild differs from its plain twin at {name}: {err}"
+        b, by = bound_ms(rebuild_bytes(case, got), 0)
+        out[name] = dict(
+            max_abs_err=err, ms=time_ms(lambda c=case: rebuild_mine(c)),
+            plain_ms=time_ms(lambda c=case: rebuild_plain(c), 3, 1),
+            bound_ms=b, bound_by=by,
+            launches_per_call={k: launches_of(
+                lambda c=case: rebuild_mine(c), k)
+                for k in ("lookup", "live_mask", "probe_insert", "remap")},
+            split=launch_split(lambda c=case: rebuild_mine(c)))
+    return out
 
 
 def launch_floor_ms(dev) -> float:
@@ -1277,9 +1382,13 @@ def check_masked_scatter(dev, js: dict) -> dict:
                  cold=True)
     plain_ms = time_ms(lambda: J._masked_scatter_plain(arr, refs, vis,
                                                        vals), cold=True)
+    # every row visible and in range here, so one index_put_ computes
+    # the same function (its int64 index made beforehand)
+    r64 = refs.to(torch.int64)
+    library_ms = time_ms(lambda: arr.index_put_((r64,), vals), cold=True)
     b, by = bound_ms(n * (8 + JP * 4) + n * JP * 4, n * JP)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by)
+                bound_by=by, library_ms=library_ms)
 
 
 def check_rebase(dev, js: dict) -> dict:
@@ -1908,11 +2017,12 @@ def _flush_rows(H, st, fc) -> np.ndarray:
     return st_rows[np.lexsort(st_rows[:, :KW].T[::-1])]
 
 
-def kernel_split(fn, calls: int = 100) -> dict:
-    """Device time per call of each kernel that fn launches, by kernel
-    name: torch.profiler's per-kernel device time over `calls` calls (the
-    split of a wrapper that launches several kernels, which CUDA events
-    around the call cannot give)."""
+def launch_split(fn, calls: int = 100) -> dict:
+    """Every device activity one fn call makes (kernels, fills, copies),
+    by name: [ms a call, launches a call], from torch.profiler's
+    per-kernel device time over `calls` calls (the split of a wrapper or
+    a chain that launches several kernels, which CUDA events around the
+    call cannot give)."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1928,10 +2038,19 @@ def kernel_split(fn, calls: int = 100) -> dict:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
             continue
-        m = re.search(r"(\w+)\(", e.key)
+        m = re.search(r"(\w+)(<[^(]*)?\(", e.key)
         name = m.group(1) if m else e.key
-        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+        if "FillFunctor" in e.key:
+            name += ":fill"
+        ms, n = out.get(name, (0.0, 0.0))
+        out[name] = [ms + e.self_device_time_total / 1e3 / calls,
+                     n + e.count / calls]
     return out
+
+
+def kernel_split(fn, calls: int = 100) -> dict:
+    """Device time per call of each kernel that fn launches, by name."""
+    return {k: v[0] for k, v in launch_split(fn, calls).items()}
 
 
 def route_timed(rows, valid, omap, s, bucket, kw) -> dict:
@@ -2072,14 +2191,16 @@ def check_sharded(dev) -> dict:
               abs_err(c2.st.cpu().numpy(), b.st.cpu().numpy()))
     hi, lo = lanes_split(10_000 * 7_919)
     fill = torch.tensor(H.state_fills(mixed), dtype=torch.int32, device=dev)
-    for mode in (H.LIVE_GROW, H.LIVE_RETIRE):
-        live = H.live_mask_sharded(b, mode, 0, hi, lo)
+    for mode in (H.LIVE_GROW, H.LIVE_OCCUPIED, H.LIVE_RETIRE):
+        # the mask launch with the fresh tables at 2 x cap (growth)
+        live, table = H.live_and_table_sharded(b, mode, 2 * cap, 0, hi, lo)
         want = torch.stack([H.live_mask_plain(b.shard(d), mode, 0, hi, lo)
                             for d in range(s)])
-        err = max(err, abs_err(live.cpu().numpy(), want.cpu().numpy()))
-    table = H.ht.TableState(
-        torch.zeros((s, 2 * cap, KW), dtype=torch.int32, device=dev),
-        torch.zeros((s, 2 * cap), dtype=torch.int32, device=dev))
+        err = max(err, abs_err(live.cpu().numpy(), want.cpu().numpy()),
+                  abs_err(H.live_mask_sharded(b, mode, 0, hi, lo)
+                          .cpu().numpy(), want.cpu().numpy()),
+                  float(table.keys.abs().max()),
+                  float(table.occ.abs().max()))
     o2n, _st = H.ht.probe_insert_sharded(table, b.table.keys, live)
     err = max(err, abs_err(
         H.remap_sharded(b.st, o2n, table.occ, fill, 2 * cap).cpu().numpy(),
@@ -2147,15 +2268,22 @@ def check_sharded(dev) -> dict:
           lambda: [H.advance_listed_plain(qa.shard(d), qmats[d])
                    for d in range(s)],
           *advance_bytes(qa))
-    timed("live_mask", lambda: H.live_mask_sharded(qk, H.LIVE_RETIRE, 0),
-          lambda: torch.stack([H.live_mask_plain(qk.shard(d),
-                                                 H.LIVE_RETIRE, 0)
-                               for d in range(s)]),
-          s * cap * 8, s * cap * 8)
-    qlive = H.live_mask_sharded(qk, H.LIVE_RETIRE, 0)
-    qt = H.ht.TableState(
-        torch.zeros((s, cap, KW), dtype=torch.int32, device=dev),
-        torch.zeros((s, cap), dtype=torch.int32, device=dev))
+    # the retirement's mask launch with its fresh tables: the mask's
+    # bytes and the cleared (K + 1) words a slot
+    q_occ = int((qk.table.occ != 0).sum())
+    timed("live_mask", lambda: H.live_and_table_sharded(
+        qk, H.LIVE_RETIRE, cap, 0),
+        lambda: (torch.stack([H.live_mask_plain(qk.shard(d),
+                                                H.LIVE_RETIRE, 0)
+                              for d in range(s)]),
+                 H.ht.TableState(
+                     torch.zeros((s, cap, KW), dtype=torch.int32,
+                                 device=dev),
+                     torch.zeros((s, cap), dtype=torch.int32,
+                                 device=dev))),
+        s * cap * 8 + q_occ * (3 + KW) * 4 + s * cap * (KW + 1) * 4,
+        s * cap * 8)
+    qlive, qt = H.live_and_table_sharded(qk, H.LIVE_RETIRE, cap, 0)
     qo2n, _q = H.ht.probe_insert_sharded(qt, qk.table.keys, qlive)
     qfill = torch.tensor(H.state_fills(q7), dtype=torch.int32, device=dev)
     timed("remap", lambda: H.remap_sharded(qk.st, qo2n, qt.occ, qfill, cap),
@@ -2844,6 +2972,16 @@ CAPPED_GROUPS = 4_418         # resident before a sweep at 2M events (CPU
 CAPPED_SWEEP = 4_370          # rehearsal: the median sweep evicts 4,370
 CAPPED_RELOAD = 30            # groups; a reload brings back ~30)
 CAPPED_PATCH = 8              # the second agg's patch: 1-2 windows, padded
+# K9 alone: name -> (slots, accumulators, capacity, a patch (else a
+# reload)); the reloads as the capped maxbids arm (28 reloads of 21-33
+# groups, median 29, into its first agg's 2^18 slots) and q7-tier (7
+# reloads of one group) give them at 2M events (run on the CPU)
+RELOAD_SHAPES = {
+    "capped maxbids reload (29 groups, 2^18 slots)": (29, 1, 1 << 18, False),
+    "q7-tier reload (1 group, 2^18 slots)": (1, 4, 1 << 18, False),
+    "the table's patch (2^16 slots x 12 rows, 2^20 slots)": (
+        1 << 16, 12, 1 << 20, True),
+}
 MIXED_PLAN = [("sum", np.int64), ("sum", np.float64), ("min", np.int64),
               ("count", None)]
 
@@ -2914,9 +3052,10 @@ def _check_evict(dev, specs, st, keys, n_evict: int, seed: int) -> dict:
               abs_err(lk.cpu().numpy(), lp.cpu().numpy()))
     found = int((sk >= 0).sum())
     assert err == 0 and int(lk[1]) == 0 and found > n_evict // 2, err
-    lv_k = H.live_mask(st, H.LIVE_EVICT, dropped=dk)
+    lv_k, fresh = H.live_and_table(st, H.LIVE_EVICT, cap, dropped=dk)
     lv_p = H.live_mask_plain(st, H.LIVE_EVICT, dropped=dp)
-    err = max(err, abs_err(lv_k.cpu().numpy(), lv_p.cpu().numpy()))
+    err = max(err, abs_err(lv_k.cpu().numpy(), lv_p.cpu().numpy()),
+              float(fresh.keys.abs().max()), float(fresh.occ.abs().max()))
     assert err == 0, err
     new_k, stats, _ls = H.evict_state(st, q, v, fill)
 
@@ -2944,12 +3083,16 @@ def _check_evict(dev, specs, st, keys, n_evict: int, seed: int) -> dict:
                   plain_ms=time_ms(lambda: ht.lookup_plain(st.table, q, v,
                                                            dp), 5, 1),
                   bound_ms=lb, bound_by=lby, rows=n_evict, found=found)
-    mb, mby = bound_ms(cap * 4 * 3 + n_occ * 4, cap * 4)
+    # the mode's launch: the mask and the fresh table it zeroes
+    mb, mby = bound_ms(cap * 4 * 2 + n_occ * 4 * 4
+                       + cap * (KW + 1) * 4, cap * 4)
     evict_mode = dict(
-        ms=time_ms(lambda: H.live_mask(st, H.LIVE_EVICT, dropped=dk)),
-        plain_ms=time_ms(lambda: H.live_mask_plain(st, H.LIVE_EVICT,
-                                                   dropped=dp), 5, 1),
-        bound_ms=mb, bound_by=mby)
+        ms=time_ms(lambda: H.live_and_table(st, H.LIVE_EVICT, cap,
+                                            dropped=dk)),
+        plain_ms=time_ms(lambda: (H.live_mask_plain(
+            st, H.LIVE_EVICT, dropped=dp), ht.make_state(cap, KW, dev)),
+            5, 1),
+        bound_ms=mb, bound_by=mby, library_ms=None)
     r = st.st.shape[0]
     n_live = int(lv_k.sum())
     eb, eby = bound_ms(lk_bytes + cap * 4 * 3 + n_occ * 4
@@ -2990,7 +3133,10 @@ def _check_patch(dev, st, n: int, seed: int, slots=None) -> dict:
     i64 = it[:n].to(torch.int64)[None, :]
     sub = srct[:, :n].contiguous()
     nb, nby = bound_ms(pad * 4 + 2 * st.n_acc * n * 4 + st.n_acc * 4, n)
-    return dict(max_abs_err=err,
+    # each 4-byte store at a scattered slot moves a 32-byte sector
+    sector_ms = (pad * 4 + st.n_acc * n * (4 + 32) + st.n_acc * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    return dict(max_abs_err=err, sector_ms=sector_ms,
                 ms=time_ms(lambda: H.scatter_rows(a, it, rows, srct)),
                 plain_ms=time_ms(lambda: H.scatter_rows_plain(
                     b[None], it[None], rows, srct[None]), 5, 1),
@@ -3173,7 +3319,9 @@ def maxbids_patch(dev) -> dict:
 
 def check_cold(dev) -> dict:
     """The cold tier's and the patch's kernels against their plain
-    versions at the capped arm's shapes and at the large shape."""
+    versions at the capped arm's shapes and at the large shape, and K9
+    alone at the reload shapes of the capped maxbids arm and q7-tier."""
+    from risingwave_tpu_torch.ops import hash_agg as H
     t0 = time.perf_counter()
     out = {}
     specs, st, keys = _cold_state(dev, COLD_CAP, COLD_GROUPS)
@@ -3190,6 +3338,27 @@ def check_cold(dev) -> dict:
     sharded = _check_scatter_sharded(dev)
     maxbids = maxbids_patch(dev)
     passthrough = _check_passthrough(dev)
+    reload_shapes = {}
+    for name, (rst, idx, rows, src) in reload_ab_cases(dev).items():
+        a, b = rst.clone(), rst.clone()
+        H.scatter_rows_sharded(a, idx, rows, src)
+        H.scatter_rows_plain(b, idx, rows, src)
+        e = abs_err(a.cpu().numpy(), b.cpu().numpy())
+        assert e == 0, f"scatter_rows differs at {name}: {e}"
+        n, k = int(idx.shape[1]), int(rows.shape[0])
+        rb, rby = bound_ms(n * 4 + 2 * k * n * 4 + k * 4, n)
+        reload_shapes[name] = dict(
+            max_abs_err=e,
+            ms=time_ms(lambda a=(a, idx, rows, src):
+                       H.scatter_rows_sharded(*a)),
+            plain_ms=time_ms(lambda a=(b, idx, rows, src):
+                             H.scatter_rows_plain(*a), 5, 1),
+            library_ms=time_ms(lambda a=(a, idx, rows, src): a[0][
+                0].index_put_((a[2].to(torch.int64)[:, None],
+                               a[1][0].to(torch.int64)[None, :]), a[3][0])),
+            bound_ms=rb, bound_by=rby,
+            sector_ms=(n * 4 + k * n * (4 + 32) + k * 4)
+            / HBM_BYTES_PER_S * 1e3, slots=n, rows=k)
     err = max(large["max_abs_err"], capped["max_abs_err"],
               large["patch"]["max_abs_err"], capped["patch"]["max_abs_err"],
               large["reload"]["max_abs_err"],
@@ -3200,7 +3369,8 @@ def check_cold(dev) -> dict:
                          capped_shape=capped["lookup"])
     out["scatter_rows"] = dict(large["patch"], max_abs_err=err,
                                capped_shape=capped["patch"],
-                               sharded=sharded, maxbids_shape=maxbids)
+                               sharded=sharded, maxbids_shape=maxbids,
+                               reload_shapes=reload_shapes)
     out["evict_mode"] = dict(large["evict_mode"],
                              capped_shape=capped["evict_mode"])
     out["evict_state"] = dict(large["evict_state"],
@@ -3472,6 +3642,15 @@ def main() -> int:
     for name, check in CHECKS.items():
         results[name] = check(dev, CAP, N)
         log(f"kernel {name}: " + json.dumps(results[name]))
+    chains = check_rebuild_chains(dev)
+    for name, r in chains.items():
+        log(f"rebuild at {name}: " + json.dumps(r))
+    results["live_mask"]["max_abs_err"] = max(
+        results["live_mask"]["max_abs_err"],
+        max(r["max_abs_err"] for r in chains.values()))
+    results["live_mask"]["rebuild_chains"] = {
+        k: {x: r[x] for x in ("ms", "bound_ms", "launches_per_call")}
+        for k, r in chains.items()}
     t0 = time.perf_counter()
     js = build_join_states(dev)
     log(f"join state at q8's shape: {js['ks'].table.capacity} slots, "
@@ -3608,6 +3787,9 @@ def main() -> int:
         paths[label] = out
         missing = [k for k in path if out["launches"].get(k, 0) == 0]
         assert not missing, f"{label} never launched {missing}"
+        extra = [k for k in OFF_PATH.get(label, ())
+                 if out["launches"].get(k, 0)]
+        assert not extra, f"{label} launched {extra}"
         # per launch: K2's count is of its launches, its time of a call
         busy_ms = sum(n * results[k]["ms"]
                       / results[k].get("launches_per_call", 1)
@@ -3704,6 +3886,11 @@ def main() -> int:
             row["evict_state"] = cold["evict_state"]
         if name == "scatter_rows":
             row["load_groups"] = cold["load_groups"]
+            row["reload_shapes"] = r["reload_shapes"]
+            row["sector_ms"] = r["sector_ms"]
+        if name == "live_mask":
+            row["mask_only"] = r["mask_only"]
+            row["rebuild_chains"] = r["rebuild_chains"]
         if name == "agg_apply":
             row["none_kind"] = cold["none_kind"]
         if name == "probe_insert":
@@ -4456,41 +4643,6 @@ def k5_bytes(parts) -> float:
             + int(dels.sum()) * 12 + n_slots * 8)
 
 
-def _k5_other(lib):
-    """K5 through another build's rw_join_apply (the three-launch
-    design's interface: a per-slot bucket scratch of -1 that its third
-    launch restores, the sequence always through a pointer, 2 x S x n ints
-    of row scratch), with ``kernel_cases.k5_launch``'s signature."""
-    from risingwave_tpu_torch.ops import cuda as kcuda
-    from risingwave_tpu_torch.ops import hash_join as J
-    held = {}
-
-    def call(chains, pay, parts, scratch=None):
-        head, nxt, ins_seq, del_seq = chains
-        shape = tuple(parts["slots"].shape)
-        n, s = shape[-1], 1 if len(shape) == 1 else shape[0]
-        bucket = held.get(tuple(head.shape))
-        if bucket is None:
-            bucket = held[tuple(head.shape)] = torch.full(
-                head.shape, -1, dtype=torch.int32, device=head.device)
-        rows = torch.empty(2 * s * n, dtype=torch.int32, device=head.device)
-        _keep, sq = J._seq_arg(parts["seq"], shape, head.device)
-        src = parts["pay_src"]
-        p = 0 if src is None else int(src.shape[-1])
-        rc = lib.rw_join_apply(
-            parts["slots"].data_ptr(), J._rows(parts["slots"])[2],
-            *J._rows(parts["ins_ok"]), parts["ins_bits"],
-            *J._rows(parts["ins_ref"]), *sq, *J._rows(parts["del_ok"]),
-            parts["del_bits"], *J._rows(parts["del_ref"]),
-            *J._rows(src, lanes=True), p, n, s, head.data_ptr(),
-            int(head.shape[-1]), nxt.data_ptr(), ins_seq.data_ptr(),
-            del_seq.data_ptr(), int(nxt.shape[-1]),
-            pay.data_ptr() if p else None, bucket.data_ptr(),
-            rows.data_ptr(), kcuda.stream_ptr())
-        assert rc == 0, f"rw_join_apply failed: CUDA error {rc}"
-    return call
-
-
 def advance_ab_cases(dev) -> dict:
     """advance's timed shapes: q7's state after one step (2^18 slots),
     q7-mesh's (8 x 2^15) and maxbids' first agg's (2^20, 2,214 dirty):
@@ -4539,39 +4691,296 @@ def advance_mine(state, mats, current: bool = True) -> None:
 
 
 def _advance_other(lib):
-    """advance through another build's rw_advance (the sweep's
-    interface: every slot, no list)."""
+    """advance through another build's rw_advance (the listed advance's
+    interface: the flush matrix, no patch)."""
     from risingwave_tpu_torch.ops import cuda as kcuda
     from risingwave_tpu_torch.ops import hash_agg as H
 
-    def call(state, mats=None):
+    def call(state, mats, current: bool = True):
         st = state.st
         rc = lib.rw_advance(st.data_ptr(), st.shape[2],
                             (st.shape[1] - H.ROW_ACC0) // 2, st.shape[0],
+                            mats.data_ptr(), int(mats.shape[1]) - 1,
+                            int(mats.shape[2]), int(current),
                             kcuda.stream_ptr())
         assert rc == 0, f"rw_advance failed: CUDA error {rc}"
     return call
 
 
+def _live_other(lib):
+    """K4's live mask through another build's rw_live_mask (the interface
+    that writes the mask alone), on [S, ...] state."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+
+    def call(state, mode, lane_off=0, wm_hi=0, wm_lo=0, dropped=None):
+        st, keys, occ = state.st, state.table.keys, state.table.occ
+        ns, _r, cap = st.shape
+        live = torch.empty((ns, cap), dtype=torch.int32, device=st.device)
+        rc = lib.rw_live_mask(mode, st.data_ptr(), keys.data_ptr(),
+                              occ.data_ptr(), cap, keys.shape[2], lane_off,
+                              wm_hi, wm_lo, st.stride(0), ns,
+                              None if dropped is None else dropped.data_ptr(),
+                              live.data_ptr(), kcuda.stream_ptr())
+        assert rc == 0, f"rw_live_mask failed: CUDA error {rc}"
+        return live
+    return call
+
+
+def _rebuild_other(lib):
+    """The rebuild chain with another build's K4 live mask: the mask, two
+    fills of a fresh table, K1, K4 remap (K1 and remap this checkout's),
+    on [S, ...] state; the eviction first marks its keys with K8 in a
+    zeroed mask. -> (ShardedAggState, K1 stats)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    live_of = _live_other(lib)
+
+    def call(case):
+        state, new_cap, fill = case["state"], case["new_cap"], case["fill"]
+        s, _r, cap = state.st.shape
+        dropped = None
+        if case.get("evict") is not None:
+            q, v = case["evict"]
+            dropped = torch.zeros((1, cap), dtype=torch.int32,
+                                  device=state.st.device)
+            H.ht.lookup(H.ht.TableState(state.table.keys[0],
+                                        state.table.occ[0]), q, v,
+                        dropped[0])
+        live = live_of(state, case["mode"], case.get("lane_off", 0),
+                       case.get("wm_hi", 0), case.get("wm_lo", 0), dropped)
+        kw = state.table.keys.shape[2]
+        table = H.ht.TableState(
+            torch.zeros((s, new_cap, kw), dtype=torch.int32,
+                        device=state.st.device),
+            torch.zeros((s, new_cap), dtype=torch.int32,
+                        device=state.st.device))
+        o2n, stats = H.ht.probe_insert_sharded(table, state.table.keys,
+                                               live)
+        return H.ShardedAggState(table, H.remap_sharded(
+            state.st, o2n, table.occ, fill, new_cap)), stats
+    return call
+
+
+def rebuild_mine(case):
+    """The rebuild chain through this checkout's entry points: retire,
+    growth or eviction on one device, the sharded retire on [S, ...]
+    state. -> (ShardedAggState, K1 stats)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    state, new_cap, fill = case["state"], case["new_cap"], case["fill"]
+    if state.n_shards > 1:
+        return H.rebuild_sharded(state, case["mode"], new_cap, fill,
+                                 case["lane_off"], case["wm_hi"],
+                                 case["wm_lo"])
+    one = state.shard(0)
+    if case.get("evict") is not None:
+        new, stats, _l = H.evict_state(one, *case["evict"], fill)
+    elif case["mode"] == H.LIVE_RETIRE:
+        new, stats = H.retire_state(one, case["wm_hi"], case["wm_lo"],
+                                    case["lane_off"], fill)
+    else:
+        new, stats = H.grow_state(one, new_cap, fill)
+    return H.ShardedAggState(H.ht.TableState(new.table.keys[None],
+                                             new.table.occ[None]),
+                             new.st[None]), stats[None]
+
+
+def rebuild_plain(case):
+    """The same rebuild through the plain versions, shard by shard."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    state, new_cap, fill = case["state"], case["new_cap"], case["fill"]
+    outs = []
+    for d in range(state.n_shards):
+        one = state.shard(d)
+        dropped = None
+        if case.get("evict") is not None:
+            dropped = torch.zeros(one.capacity, dtype=torch.int32,
+                                  device=one.st.device)
+            H.ht.lookup_plain(one.table, *case["evict"], dropped)
+        live = H.live_mask_plain(one, case["mode"], case.get("lane_off", 0),
+                                 case.get("wm_hi", 0), case.get("wm_lo", 0),
+                                 dropped)
+        t = H.ht.make_state(new_cap, one.table.key_width, one.st.device)
+        o2n, _s = H.ht.probe_insert_plain(t, one.table.keys, live)
+        outs.append(H.AggState(t, H.remap_plain(one.st, o2n, t.occ, fill,
+                                                new_cap)))
+    return H.ShardedAggState(
+        H.ht.TableState(torch.stack([o.table.keys for o in outs]),
+                        torch.stack([o.table.occ for o in outs])),
+        torch.stack([o.st for o in outs]))
+
+
+def rebuild_bytes(case, out) -> float:
+    """Bytes the rebuild must move, as a function of its inputs and
+    outputs: every slot's occ word, the occupied slots' three rule rows
+    and key lanes (the dropped mask when evicting, and K8's query rows),
+    the live slots' state columns read, and the fresh table and state
+    matrix written whole."""
+    st = case["state"].st
+    s, r, cap = st.shape
+    kw = case["state"].table.keys.shape[2]
+    new_cap = case["new_cap"]
+    n_occ = int((case["state"].table.occ != 0).sum())
+    n_live = int((out.table.occ != 0).sum())
+    b = s * cap * 4 + n_occ * (3 + kw) * 4 + n_live * r * 4
+    b += s * new_cap * (kw + 1 + r) * 4
+    if case.get("evict") is not None:
+        b += s * cap * 4 + int(case["evict"][0].shape[0]) * (kw + 1) * 4
+    return b
+
+
+def rebuild_ab_cases(dev) -> dict:
+    """The rebuild chains' timed shapes: q7's retirement and growth at
+    2^18 slots (2^18 -> 2^19), the capped maxbids arm's eviction (2^18
+    slots, CAPPED_GROUPS groups, CAPPED_SWEEP keys) and q7-mesh's sharded
+    retirement (8 x 2^15 slots), each on an advanced state."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    q7, qs = _q7_state(dev, CAP, N)
+    H.advance(qs)
+    qfill = torch.tensor(H.state_fills(q7), dtype=torch.int32, device=dev)
+    qk = _mesh_step(dev, q7, q7_batch(N, q7), True)[0]
+    H.advance_sharded(qk)
+    specs, cs, keys = _cold_state(dev, CAPPED_CAP, CAPPED_GROUPS)
+    cfill = torch.tensor(H.state_fills(specs), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(_evict_query(rng, keys, CAPPED_SWEEP)).to(dev)
+    v = torch.ones(CAPPED_SWEEP, dtype=torch.int32, device=dev)
+
+    def sharded(a):
+        return H.ShardedAggState(H.ht.TableState(a.table.keys[None],
+                                                 a.table.occ[None]),
+                                 a.st[None])
+    retire = dict(mode=H.LIVE_RETIRE, lane_off=0, wm_hi=0, wm_lo=0)
+    return {
+        "q7 retire (2^18)": dict(retire, state=sharded(qs), new_cap=CAP,
+                                 fill=qfill),
+        "q7 growth (2^18 -> 2^19)": dict(mode=H.LIVE_GROW,
+                                         state=sharded(qs),
+                                         new_cap=2 * CAP, fill=qfill),
+        "capped maxbids evict (2^18)": dict(mode=H.LIVE_EVICT,
+                                            state=sharded(cs),
+                                            new_cap=CAPPED_CAP, fill=cfill,
+                                            evict=(q, v)),
+        "q7-mesh retire (8 x 2^15)": dict(retire, state=qk,
+                                          new_cap=MESH_CAP, fill=qfill),
+    }
+
+
+def _scatter_other(lib):
+    """K9 through another build's rw_scatter_rows, [S, ...] tensors."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+
+    def call(st, idx, rows, src):
+        rc = lib.rw_scatter_rows(st.data_ptr(), st.shape[2], st.stride(0),
+                                 idx.data_ptr(), idx.stride(0), idx.shape[1],
+                                 rows.data_ptr(), rows.shape[0],
+                                 src.data_ptr(), src.stride(0), st.shape[0],
+                                 kcuda.stream_ptr())
+        assert rc == 0, f"rw_scatter_rows failed: CUDA error {rc}"
+    return call
+
+
+def patch_ab_cases(dev, cases=None) -> dict:
+    """The patch chain's timed shapes, from ``advance_ab_cases`` (or
+    `cases`, its result): maxbids' first agg after one step (2^20 slots,
+    one accumulator, ~2,200 dirty slots) and q7-mesh's state (8 x 2^15
+    slots, four accumulators) -> (state [S, ...], its flush matrices, the
+    patch's slots int32[S, m] padded with cap, its columns int32[S,
+    n_acc, m], m the fullest shard's count, as patch_accs lays them out;
+    the last two as numpy, uploaded by each call as the barrier does)."""
+    out = {}
+    for name, (state, mats) in (cases or advance_ab_cases(dev)).items():
+        if name.startswith("q7 "):
+            continue
+        m = mats.cpu().numpy()
+        ns = [int(m[d, 0, 0]) for d in range(m.shape[0])]
+        pad = max(ns)
+        idx = np.full((m.shape[0], pad), state.capacity, np.int32)
+        for d, n in enumerate(ns):
+            idx[d, :n] = m[d, 1:1 + n, 0]
+        rng = np.random.default_rng(len(out) + 3)
+        src = rng.integers(-2**31, 2**31, (m.shape[0], state.n_acc, pad)) \
+            .astype(np.int32)
+        out[name] = (state, mats, idx, src)
+    return out
+
+
+def patch_plain(state, mats, idx, src) -> None:
+    """The patch then the listed advance through the plain versions."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    dev = state.st.device
+    H.scatter_rows_plain(state.st, torch.from_numpy(idx).to(dev),
+                         H.patch_rows(state.n_acc, dev),
+                         torch.from_numpy(src).to(dev))
+    for d in range(state.n_shards):
+        H.advance_listed_plain(state.shard(d), mats[d])
+
+
+def patch_mine(state, mats, idx, src) -> None:
+    """The patch chain through this checkout's wrappers: the upload of
+    the columns, then advance on the flush's list carrying them (one
+    launch; the slots are the list's own)."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.utils.device import upload
+    H.advance_sharded(state, mats, patch=upload(src, state.st.device))
+
+
+def _patch_other(f_lib, s_lib):
+    """The patch chain with another build's K9 and advance."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.utils.device import upload
+    adv, scat = _advance_other(f_lib), _scatter_other(s_lib)
+
+    def call(state, mats, idx, src):
+        dev = state.st.device
+        scat(state.st, upload(idx, dev), H.patch_rows(state.n_acc, dev),
+             upload(src, dev))
+        adv(state, mats, current=False)
+    return call
+
+
+def reload_ab_cases(dev) -> dict:
+    """K9 alone at the reload shapes the capped maxbids arm and q7-tier
+    give (RELOAD_SHAPES: slots, state rows written, capacity) and at the
+    table's patch shape (2^16 slots x 12 accumulator rows of 2^20): name
+    -> (st [1, R, cap], idx [1, n], rows, src [1, k, n])."""
+    from risingwave_tpu_torch.ops import hash_agg as H
+    out = {}
+    rng = np.random.default_rng(23)
+    for name, (n, nacc, cap, patch) in RELOAD_SHAPES.items():
+        r = H.ROW_ACC0 + 2 * nacc
+        st = torch.from_numpy(rng.integers(-2**31, 2**31, (1, r, cap))
+                              .astype(np.int32)).to(dev)
+        rows = (H.patch_rows(nacc, dev) if patch
+                else H.load_rows(nacc, dev))
+        idx = torch.from_numpy(rng.permutation(cap)[:n].astype(np.int32)
+                               [None]).to(dev)
+        src = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (1, int(rows.shape[0]), n)).astype(np.int32)
+        ).to(dev)
+        out[name] = (st, idx, rows, src)
+    return out
+
+
 AB_GROUPS = ("agg_apply", "route", "probe_insert", "lookup", "join_probe",
-             "flush_gather", "fused", "join_apply", "advance")
+             "flush_gather", "fused", "join_apply", "advance", "rebuild",
+             "patch")
 
 
 def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
     """``python3 chip_smoke.py --against DIR``: K2 (agg_apply), route, K1
     (probe_insert), K8 (lookup), K6 (join_probe), K3 (flush_gather and
-    advance), K5 (join_apply) and the fused entries of this checkout
+    advance), K5 (join_apply), the fused entries, the rebuild chains and
+    the patch chain (and K9 alone at the reload shapes) of this checkout
     against the same kernels built from DIR's
     ``risingwave_tpu_torch/csrc`` (the parent commit unpacked with ``git
-    archive``), at the timed shapes of phase 3 on one card. K2 and K6 run
-    behind this checkout's wrappers (their C interfaces are shared);
-    route, K1 and K8 through each build's own entry points (one
-    interface); DIR's K3, K5 and fused entries through its own entry
-    points, at their interfaces before the one-launch K5 and the listed
-    advance. Each build is first held to the plain
-    version, then timed in turns (DIR's, this, this, DIR's); the
-    per-kernel splits of route, K3, K5 and K6 are read for both
-    (torch.profiler), and K5's launches a wrapper call."""
+    archive``), at the timed shapes of phase 3 on one card. K2, K5 and
+    K6 run behind this checkout's wrappers (their C interfaces are
+    shared); route, K1 and K8 through each build's own entry points (one
+    interface); DIR's K3, K4's mask, K9 and fused entries through its own
+    entry points, at their interfaces before the mask cleared the fresh
+    table and advance carried the patch. Each build is first held to the
+    plain version, then timed in turns (DIR's, this, this, DIR's); the
+    per-kernel splits of route, K3, K5, K6 and the chains are read for
+    both (torch.profiler), and launches a wrapper call."""
     import ctypes
     import functools
     import os
@@ -4588,33 +4997,58 @@ def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
     dev = torch.device("cuda")
     kcuda.build_all()
     csrc = os.path.join(base, "risingwave_tpu_torch", "csrc")
-
-    k2_other = _other_lib(csrc, "agg_apply", kcuda.LIBRARIES["agg_apply"])
-    route_libs = {True: kcuda.load("route"),
-                  False: _other_lib(csrc, "route", kcuda.LIBRARIES["route"])}
-    p_other = _other_lib(csrc, "probe_insert", kcuda.LIBRARIES["probe_insert"])
-    k1_calls = {True: k1_call, False: _k1_other(p_other)}
-    k8_calls = {True: k8_call, False: _k8_other(p_other)}
-    k6_other = _other_lib(csrc, "join_probe", kcuda.LIBRARIES["join_probe"])
-    # K3's gather and advance, K5 and the fused entries: DIR's through
-    # its own C entry points (the three-launch K5's and the sweeping
-    # advance's interfaces)
+    need = set(only)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    f_other = _other_lib(csrc, "flush", {
-        "rw_flush_gather": [P, P, P, L, I, I, I, P, P, I, I, P, I, P],
-        "rw_advance": [P, L, I, I, P]})
-    k3_calls = {True: H._flush_gather_cuda, False: _k3_other(f_other)}
-    adv_calls = {True: advance_mine, False: _advance_other(f_other)}
-    k5_calls = {True: KC.k5_launch, False: _k5_other(_other_lib(
-        csrc, "join_apply", {"rw_join_apply": [
-            P, L, P, L, L, I, P, L, L, P, L, L, P, L, L, I, P, L, L, P, L,
-            L, I, I, I, P, L, P, P, P, L, P, P, P, P]}))}
-    fz = {"rw_fused_chain": [P, P, I, P, L, I, P, P, I, P, P],
-          "rw_agg_prelude": [P, P, I, P, L, I, P, P, I, P, L, P],
-          "rw_join_prelude": [P, P, I, P, L, I, P, P, I, P, P]}
-    fused_calls = {True: FC.call_entry,
-                   False: _fused_other(_other_lib(csrc, "fused", fz))}
-    for name in ("flush", "fused", "join_apply"):
+    if "agg_apply" in need:
+        k2_other = _other_lib(csrc, "agg_apply",
+                              kcuda.LIBRARIES["agg_apply"])
+    if "route" in need:
+        route_libs = {True: kcuda.load("route"), False: _other_lib(
+            csrc, "route", kcuda.LIBRARIES["route"])}
+    if need & {"probe_insert", "lookup"}:
+        p_other = _other_lib(csrc, "probe_insert",
+                             kcuda.LIBRARIES["probe_insert"])
+        k1_calls = {True: k1_call, False: _k1_other(p_other)}
+        k8_calls = {True: k8_call, False: _k8_other(p_other)}
+    if "join_probe" in need:
+        k6_other = _other_lib(csrc, "join_probe",
+                              kcuda.LIBRARIES["join_probe"])
+    # K3's gather and advance and the fused entries: DIR's through its
+    # own C entry points (the listed advance's interface, without a
+    # patch); K5 behind this checkout's wrapper (one interface); K4's
+    # live mask and K9 for the rebuild and patch chains
+    if need & {"flush_gather", "advance", "patch"}:
+        f_other = _other_lib(csrc, "flush", {
+            "rw_flush_gather": [P, P, P, L, I, I, I, P, P, I, I, P, I, P],
+            "rw_advance": [P, L, I, I, P, I, I, I, P]})
+        k3_calls = {True: H._flush_gather_cuda, False: _k3_other(f_other)}
+        adv_calls = {True: advance_mine, False: _advance_other(f_other)}
+    if "join_apply" in need:
+        k5_other = _other_lib(csrc, "join_apply",
+                              kcuda.LIBRARIES["join_apply"])
+
+        def k5_base(*args):
+            with _bound_to("join_apply", k5_other):
+                KC.k5_launch(*args)
+        k5_calls = {True: KC.k5_launch, False: k5_base}
+    if "fused" in need:
+        fz = {"rw_fused_chain": [P, P, I, P, L, I, P, P, I, P, P],
+              "rw_agg_prelude": [P, P, I, P, L, I, P, P, I, P, L, P],
+              "rw_join_prelude": [P, P, I, P, L, I, P, P, I, P, P]}
+        fused_calls = {True: FC.call_entry,
+                       False: _fused_other(_other_lib(csrc, "fused", fz))}
+    if "rebuild" in need:
+        rebuild_calls = {True: rebuild_mine, False: _rebuild_other(
+            _other_lib(csrc, "rebuild", {
+                "rw_live_mask": [I, P, P, P, L, I, I, I, I, L, I, P, P, P],
+                "rw_remap": [P, L, P, P, L, P, I, I, P, P]}))}
+    if "patch" in need:
+        s_other = _other_lib(csrc, "scatter", kcuda.LIBRARIES["scatter"])
+        patch_calls = {True: patch_mine,
+                       False: _patch_other(f_other, s_other)}
+        scatter_calls = {True: H.scatter_rows_sharded,
+                         False: _scatter_other(s_other)}
+    for name in ("flush", "fused", "join_apply", "rebuild", "scatter"):
         for line in ptxas_figures(kcuda.build_log(name)):
             log(f"  this {name}: {line}")
     log(f"ncu on the PATH: {shutil.which('ncu')}")
@@ -4844,6 +5278,88 @@ def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
             log(f"advance at {name}: " + json.dumps(r))
         log("scatter_rows at maxbids' patch shape: "
             + json.dumps(maxbids_patch(dev)))
+    if "rebuild" in need:
+        for name, case in rebuild_ab_cases(dev).items():
+            want = _groups(rebuild_plain(case))
+
+            def rb_checked(mine, case=case, want=want):
+                got, stats = rebuild_calls[mine](case)
+                e = abs_err(_groups(got), want)
+                assert e == 0 and not bool(stats[:, 1].any()), \
+                    f"the rebuild differs from its plain twin at {name}: {e}"
+                return e
+            r = turns(rb_checked, lambda mine, case=case: time_ms(
+                lambda: rebuild_calls[mine](case)))
+            out = rebuild_calls[True](case)[0]
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                rebuild_bytes(case, out), 0)
+            r["groups"] = [int((case["state"].table.occ != 0).sum()),
+                           int((out.table.occ != 0).sum())]
+            r["base_split"] = launch_split(lambda c=case: rebuild_calls[
+                False](c))
+            r["split"] = launch_split(lambda c=case: rebuild_calls[True](c))
+            r["launches_per_call"] = {k: launches_of(
+                lambda c=case: rebuild_calls[True](c), k)
+                for k in ("live_mask", "probe_insert", "remap", "lookup")}
+            log(f"rebuild at {name}: " + json.dumps(r))
+        torch.cuda.empty_cache()
+    if "patch" in need:
+        for name, (state, mats, idx, src) in patch_ab_cases(dev).items():
+            want = H.ShardedAggState(state.table, state.st.clone())
+            patch_plain(want, mats, idx, src)
+
+            def pt_checked(mine, a=(state, mats, idx, src), want=want):
+                k = H.ShardedAggState(a[0].table, a[0].st.clone())
+                patch_calls[mine](k, *a[1:])
+                e = abs_err(k.st.cpu().numpy(), want.st.cpu().numpy())
+                assert e == 0, f"the patch differs from its plain twin " \
+                    f"at {name}: {e}"
+                return e
+            # timed in place: each call writes the same columns and
+            # advances the listed slots again
+            work = H.ShardedAggState(state.table, state.st.clone())
+            r = turns(pt_checked, lambda mine: time_ms(
+                lambda: patch_calls[mine](work, mats, idx, src)))
+            n_dirty = [int(x) for x in mats[:, 0, 0].cpu().tolist()]
+            n = sum(n_dirty)
+            nacc = state.n_acc
+            # uploaded columns, the list's slot and group_rows read, the
+            # accumulator and emitted rows and dirty written
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                idx.size * 4 + src.size * 4 + n * 2 * 4
+                + n * (2 * nacc + 3) * 4, n)
+            r["n_dirty"] = n_dirty
+            r["base_split"] = launch_split(lambda: patch_calls[False](
+                work, mats, idx, src))
+            r["split"] = launch_split(lambda: patch_calls[True](
+                work, mats, idx, src))
+            r["launches_per_call"] = {k: launches_of(
+                lambda: patch_calls[True](work, mats, idx, src), k)
+                for k in ("scatter_rows", "advance")}
+            log(f"patch at {name}: " + json.dumps(r))
+        for name, (st, idx, rows, src) in reload_ab_cases(dev).items():
+            want = st.clone()
+            H.scatter_rows_plain(want, idx, rows, src)
+
+            def k9_checked(mine, a=(st, idx, rows, src), want=want):
+                x = a[0].clone()
+                scatter_calls[mine](x, *a[1:])
+                e = abs_err(x.cpu().numpy(), want.cpu().numpy())
+                assert e == 0, f"scatter_rows differs at {name}: {e}"
+                return e
+            r = turns(k9_checked, lambda mine, a=(st, idx, rows, src):
+                      time_ms(lambda: scatter_calls[mine](*a)))
+            n, k = int(idx.shape[1]), int(rows.shape[0])
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                n * 4 + 2 * k * n * 4 + k * 4, n)
+            # each 4-byte store at a random slot moves a 32-byte sector
+            r["sector_ms"] = (n * 4 + k * n * 4 + k * n * 32 + k * 4) \
+                / HBM_BYTES_PER_S * 1e3
+            r["library_ms"] = time_ms(lambda a=(st, idx, rows, src): a[0][
+                0].index_put_((a[2].to(torch.int64)[:, None],
+                               a[1][0].to(torch.int64)[None, :]), a[3][0]))
+            r["slots"], r["rows"] = n, k
+            log(f"scatter_rows at {name}: " + json.dumps(r))
     return 0
 
 

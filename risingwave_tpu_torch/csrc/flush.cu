@@ -17,7 +17,7 @@
 // advance: for every dirty slot emitted := current (emitted_valid =
 // group_rows > 0), then dirty = 0. It is driven by the flush's own list:
 // the host keeps the gather's device matrix with the state until the
-// advance (nothing between them dirties a slot: the patch K9 writes
+// advance (nothing between them dirties a slot: a patch writes
 // accumulator rows only), and the kernel reads each shard's n_dirty on
 // the device and advances the listed slots, a few blocks a shard sized by
 // flush_cap, not by cap; the host skips the launch when the flush found
@@ -26,6 +26,19 @@
 // accumulators to copy, so a slot costs one round trip. A truncated
 // matrix, or no matrix (tests, recovery), makes it sweep every slot's
 // dirty word as before.
+//
+// The patched mode carries the retractable MIN/MAX write-back of
+// hash_agg.py:783 build_patch (B10) in the same launch: the host uploads
+// the corrected accumulators once as columns [S, nacc, pad], column i for
+// list row i, and each listed slot takes its column as both its
+// accumulators and their emitted copy. The patch's slots are the list's
+// own, so no index array travels, and K9's launch before the advance is
+// gone. What bounds advance in every mode is one launch floor (~2.5 us):
+// its bytes are ~2,200 rows at most on the paths (under 0.03 us), so the
+// design's lever is launches, and each mode keeps a listed slot to one
+// round trip (its row, or its row and column, load together). The
+// unpatched modes are the kernel's template instance without a patch, so
+// their code is as before.
 //
 // Shard axis (risingwave_tpu/parallel/agg.py:219 _shardwise, B23): state
 // is keys int32[S, cap, k], occ int32[S, cap] and st int32[S, R, cap]; the
@@ -405,6 +418,25 @@ __device__ __forceinline__ void advance_row(int32_t* st, long long cap,
   st[rw::kRowDirty * cap + slot] = 0;
 }
 
+// One listed dirty row carrying its patch column (`col`, stride pad):
+// the accumulators and their emitted copies from the column, the
+// emitted row count and flag from the row's group_rows (the patch writes
+// accumulator rows only, so the row's group_rows is still the state's).
+__device__ __forceinline__ void patch_row(int32_t* st, long long cap,
+                                          int nacc, int32_t slot,
+                                          int32_t gr,
+                                          const int32_t* __restrict__ col,
+                                          int pad) {
+  for (int a = 0; a < nacc; ++a) {
+    const int32_t v = __ldg(col + static_cast<long long>(a) * pad);
+    st[(rw::kRowAcc0 + a) * cap + slot] = v;
+    st[(rw::kRowAcc0 + nacc + a) * cap + slot] = v;
+  }
+  st[rw::kRowEmittedValid * cap + slot] = gr > 0;
+  st[rw::kRowEmittedRows * cap + slot] = gr;
+  st[rw::kRowDirty * cap + slot] = 0;
+}
+
 // With a flush matrix (`list`, the gather's [S, 1 + flush_cap, wout]
 // output for this state): shard blockIdx.y reads its header's n_dirty and
 // advances the slots of column 0 of rows 1..n_dirty (the header and a
@@ -413,14 +445,45 @@ __device__ __forceinline__ void advance_row(int32_t* st, long long cap,
 // (n_dirty > flush_cap) sweeps every slot's dirty word instead, decided
 // here with no host read. Without one: the sweep. Blocks stride over the
 // list (or the slots) by gridDim.x.
+//
+// kPatched: the list carries a patch, patch[S, nacc, pad] (column i is
+// list row i's accumulators, the retractable MIN/MAX write-back of
+// hash_agg.py:783 build_patch): row i's slot, group_rows and column load
+// together, and the slot is patched and advanced in one pass. A list that
+// is truncated or longer than the patch writes nothing (the host never
+// passes one: its flush retries until the list fits).
+template <bool kPatched>
 __global__ void __launch_bounds__(kAdvThreads) advance_kernel(
     int32_t* st, long long cap, long long stshard, int nacc,
     const int32_t* __restrict__ list, int flush_cap, int wout,
-    bool current) {
+    bool current, const int32_t* __restrict__ patch, int pad) {
   st += blockIdx.y * stshard;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long j0 = blockIdx.x * static_cast<long long>(blockDim.x) +
                        threadIdx.x;
+  if constexpr (kPatched) {
+    list += blockIdx.y * (1LL + flush_cap) * wout;
+    patch += blockIdx.y * static_cast<long long>(nacc) * pad;
+    const int k = wout - 4 - 2 * nacc;
+    const int lim = min(flush_cap, pad);
+    const int32_t* row = list + (1 + j0) * wout;
+    int32_t slot = 0, gr = 0;
+    if (j0 < lim) {
+      slot = __ldg(row);
+      gr = __ldg(row + 1 + k);
+    }
+    const int n = __ldg(list);
+    if (n > lim) return;
+    for (long long r = j0; r < n; r += stride) {
+      if (r != j0) {
+        row = list + (1 + r) * wout;
+        slot = __ldg(row);
+        gr = __ldg(row + 1 + k);
+      }
+      patch_row(st, cap, nacc, slot, gr, patch + r, pad);
+    }
+    return;
+  }
   if (list != nullptr) {
     // every row of the matrix exists; rows past n_dirty are not used
     list += blockIdx.y * (1LL + flush_cap) * wout;
@@ -521,20 +584,38 @@ RW_API int rw_flush_gather(const void* st, const void* keys, const void* occ,
 // for this state with nothing stepped since (its dirty slots are the
 // header's n_dirty rows), or null for a sweep of every slot; current: 1
 // when nothing wrote the state since the gather either (no patch), so the
-// matrix holds the values to copy. With a list the grid covers flush_cap
-// rows a shard; a truncated list sweeps with it.
+// matrix holds the values to copy; patch: null, or the columns
+// int32[S, nacc, pad] the listed slots take as their accumulators (list
+// row i, column i), which needs a list. With a list the grid covers
+// flush_cap rows a shard (with a patch, min(flush_cap, pad)); a truncated
+// list sweeps with it, unless it carries a patch.
 RW_API int rw_advance(void* st, long long cap, int nacc, int nshards,
                       const void* list, int flush_cap, int wout,
-                      int current, void* stream) {
+                      int current, const void* patch, int pad,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (patch != nullptr && (list == nullptr || pad <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nshards > 0) {
-    const long long work = list != nullptr ? flush_cap : cap;
-    const int bx = rw::blocks_for(work > 0 ? work : 1, kAdvThreads);
-    const dim3 grid(bx, nshards);
-    advance_kernel<<<grid, kAdvThreads, 0, s>>>(
-        static_cast<int32_t*>(st), cap, (rw::kRowAcc0 + 2LL * nacc) * cap,
-        nacc, static_cast<const int32_t*>(list), flush_cap, wout,
-        current != 0);
+    const long long stshard = (rw::kRowAcc0 + 2LL * nacc) * cap;
+    int32_t* st32 = static_cast<int32_t*>(st);
+    const int32_t* list32 = static_cast<const int32_t*>(list);
+    const int32_t* patch32 = static_cast<const int32_t*>(patch);
+    if (patch != nullptr) {
+      const int rows = flush_cap < pad ? flush_cap : pad;
+      const dim3 grid(rw::blocks_for(rows > 0 ? rows : 1, kAdvThreads),
+                      nshards);
+      advance_kernel<true><<<grid, kAdvThreads, 0, s>>>(
+          st32, cap, stshard, nacc, list32, flush_cap, wout, false,
+          patch32, pad);
+    } else {
+      const long long work = list != nullptr ? flush_cap : cap;
+      const dim3 grid(rw::blocks_for(work > 0 ? work : 1, kAdvThreads),
+                      nshards);
+      advance_kernel<false><<<grid, kAdvThreads, 0, s>>>(
+          st32, cap, stshard, nacc, list32, flush_cap, wout,
+          current != 0, nullptr, 0);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,9 +20,19 @@
 // slots of one flush, or of distinct reloaded keys), so the writes never
 // race. The single-device path launches S = 1.
 //
-// What bounds it on the card: bytes — n slot indices and k * n values
-// read, k * n int32 written at scattered slots (a 32-byte sector each
-// when the slots are sparse).
+// What bounds it on the card. At a reload (1 to ~30 slots) and at
+// maxbids' patch (one row at ~2,200 slots) the launch floor (~2.5 us)
+// against a byte bound under 0.01 us: only fewer launches help, so the
+// barrier's patch no longer comes here (it rides in advance's launch,
+// csrc/flush.cu) and this kernel serves reloads, recovery and a patch
+// that meets another state operation first. At the table's shape (2^16
+// slots x 12 rows of a 2^20-slot state) bytes: 1.96 us of byte bound,
+// but each 4-byte store at a scattered slot moves a 32-byte sector,
+// 12 x 2^16 x 32 B ~ 25 MB, ~8.5 us with the reads; the kernel takes
+// ~25 us there, and a version that held 8 source values a thread in
+// flight before storing any took the same: the stores' partial sectors,
+// not the loads' round trips, set the pace, and no layout of the same
+// scattered writes has fewer sectors to touch.
 #include "common.cuh"
 
 namespace {

@@ -58,11 +58,11 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
     "flush": {
         "rw_flush_gather": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _I, _I, _P,
                             _I, _P],
-        "rw_advance": [_P, _L, _I, _I, _P, _I, _I, _I, _P],
+        "rw_advance": [_P, _L, _I, _I, _P, _I, _I, _I, _P, _I, _P],
     },
     "rebuild": {
         "rw_live_mask": [_I, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I, _P,
-                         _P, _P],
+                         _P, _P, _P, _L, _P],
         "rw_remap": [_P, _L, _P, _P, _L, _P, _I, _I, _P, _P],
     },
     "scatter": {

@@ -27,12 +27,16 @@ approx_count_distinct, string_agg and array_agg → one dummy lane (their
 values live on the host: dense HLL sketches and the materialized-input
 multisets of the executor). MIN/MAX are append-only on the device: with
 retractions the executor recomputes them on the host from the
-materialized input and writes them back with ``patch_state`` (K9, B10).
+materialized input and writes them back (B10): as a patch that K3's
+advance writes in its own launch, or, when another state operation comes
+first, with ``patch_state`` (K9).
 
-The agg's cold tier (``state/tier.py``) evicts clean groups with
-``evict_state`` (K8 lookup, K4 in its evict mode, then the K1 + K4
-rebuild: B9) and reloads them with ``GroupedAggKernel.load_groups`` (K1,
-then K9).
+A rebuild (growth, retirement, eviction) is three launches: K4's live
+mask, which also zeroes the fresh table (``live_and_table``), K1 into
+that table, and K4's remap. The agg's cold tier (``state/tier.py``)
+evicts clean groups with ``evict_state`` (K8 lookup, then the rebuild
+with K4 in its evict mode: B9) and reloads them with
+``GroupedAggKernel.load_groups`` (K1, then K9).
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (and counts
 the launch in ``LAUNCHES``) and runs its plain PyTorch version for CPU
@@ -909,60 +913,104 @@ def advance_listed_plain(state: AggState, flushed: torch.Tensor) -> None:
     st[ROW_DIRTY, idx] = 0
 
 
+def advance_patched_plain(state: AggState, flushed: torch.Tensor,
+                          patch: torch.Tensor) -> None:
+    """Plain version of the patched advance: ``build_patch``
+    (``hash_agg.py:783``) at the flush list's slots, column i of
+    ``patch`` int32[n_acc, pad] for list row i, then the listed advance.
+    A truncated list, or one longer than the patch, raises: its slots are
+    not all listed."""
+    n = int(flushed[0, 0])
+    if n > flushed.shape[0] - 1 or n > patch.shape[1]:
+        raise ValueError(f"a flush list of {n} slots cannot carry a patch "
+                         f"(flush_cap {flushed.shape[0] - 1}, patch "
+                         f"{patch.shape[1]} columns)")
+    idx = torch.full((patch.shape[1],), state.capacity, dtype=torch.int32,
+                     device=patch.device)
+    idx[:n] = flushed[1:1 + n, 0]
+    scatter_rows_plain(state.st[None], idx[None],
+                       patch_rows(state.n_acc, state.st.device),
+                       patch[None])
+    advance_listed_plain(state, flushed)
+
+
 def advance(state: AggState, flushed: Optional[torch.Tensor] = None,
-            current: bool = False) -> None:
+            current: bool = False,
+            patch: Optional[torch.Tensor] = None) -> None:
     """Kernel K3 (advance): emitted := current for dirty slots; clear
     dirty. In place. ``flushed``: the device matrix ``flush_gather`` wrote
     for this state, nothing stepped since (the advance then touches the
     slots it lists); None sweeps every slot. ``current``: nothing wrote
     the state since that gather either (no patch), so the kernel copies
-    the matrix's own values."""
+    the matrix's own values. ``patch``: int32[n_acc, pad], column i the
+    accumulators of list row i (a retractable MIN/MAX write-back, B10),
+    written in the same launch; it needs an untruncated ``flushed``."""
     st = state.st
+    if patch is not None and flushed is None:
+        raise ValueError("a patch rides on a flush list")
     if st.device.type != "cuda":
-        if flushed is None:
+        if patch is not None:
+            advance_patched_plain(state, flushed, patch)
+        elif flushed is None:
             advance_plain(state)
         else:
             advance_listed_plain(state, flushed)
         return
     _advance_cuda(st[None], state.table.keys[None], state.table.occ[None],
-                  None if flushed is None else flushed[None], current)
+                  None if flushed is None else flushed[None], current,
+                  None if patch is None else patch[None])
 
 
 def advance_sharded(state: ShardedAggState,
                     flushed: Optional[torch.Tensor] = None,
-                    current: bool = False) -> None:
+                    current: bool = False,
+                    patch: Optional[torch.Tensor] = None) -> None:
     """K3 (advance) over S shards in one launch (``parallel/agg.py:664``),
     on ``flush_gather_sharded``'s [S, 1 + flush_cap, W'] matrix when
-    given (each shard its own list; ``current`` as in ``advance``). In
-    place."""
+    given (each shard its own list; ``current`` and ``patch``
+    int32[S, n_acc, pad] as in ``advance``). In place."""
+    if patch is not None and flushed is None:
+        raise ValueError("a patch rides on a flush list")
     if state.st.device.type != "cuda":
         for s in range(state.n_shards):
-            if flushed is None:
+            if patch is not None:
+                advance_patched_plain(state.shard(s), flushed[s], patch[s])
+            elif flushed is None:
                 advance_plain(state.shard(s))
             else:
                 advance_listed_plain(state.shard(s), flushed[s])
         return
     _advance_cuda(state.st, state.table.keys, state.table.occ, flushed,
-                  current)
+                  current, patch)
 
 
 def _advance_cuda(st: torch.Tensor, keys: torch.Tensor, occ: torch.Tensor,
                   flushed: Optional[torch.Tensor],
-                  current: bool = False) -> None:
+                  current: bool = False,
+                  patch: Optional[torch.Tensor] = None) -> None:
     _check_state(st, keys, occ, "advance")
     ns, r, cap = st.shape
-    fc = wout = 0
+    nacc = (r - ROW_ACC0) // 2
+    fc = wout = pad = 0
     if flushed is not None:
-        wout = flush_width(keys.shape[2], (r - ROW_ACC0) // 2)
+        wout = flush_width(keys.shape[2], nacc)
         if flushed.dtype != torch.int32 or not flushed.is_contiguous() or \
                 flushed.dim() != 3 or flushed.shape[0] != ns or \
                 flushed.shape[2] != wout or flushed.device != st.device:
             raise ValueError("advance takes the flush matrix int32[S, 1 + "
                              "flush_cap, W'] of this state")
         fc = int(flushed.shape[1]) - 1
-    cuda.call("flush", "rw_advance", st.data_ptr(), cap, (r - ROW_ACC0) // 2,
-              ns, 0 if flushed is None else flushed.data_ptr(), fc, wout,
-              int(current and flushed is not None))
+    if patch is not None:
+        if patch.dtype != torch.int32 or not patch.is_contiguous() or \
+                patch.dim() != 3 or patch.shape[:2] != (ns, nacc) or \
+                patch.shape[2] < 1 or patch.device != st.device:
+            raise ValueError(f"a patch is int32[{ns}, {nacc}, pad], "
+                             f"contiguous, on the state's device")
+        pad = int(patch.shape[2])
+    cuda.call("flush", "rw_advance", st.data_ptr(), cap, nacc, ns,
+              0 if flushed is None else flushed.data_ptr(), fc, wout,
+              int(current and flushed is not None),
+              None if patch is None else patch.data_ptr(), pad)
     LAUNCHES.add("advance")
 
 
@@ -971,6 +1019,7 @@ def _advance_cuda(st: torch.Tensor, keys: torch.Tensor, occ: torch.Tensor,
 LIVE_GROW = 0          # also the reshard's rule (parallel/agg.py:833)
 LIVE_RETIRE = 1
 LIVE_EVICT = 2
+LIVE_OCCUPIED = 3      # the sharded growth (parallel/agg.py:603)
 _I32_SIGN_FLIP = -0x80000000
 
 
@@ -978,10 +1027,13 @@ def live_mask_plain(state: AggState, mode: int, lane_off: int = 0,
                     wm_hi: int = 0, wm_lo: int = 0,
                     dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the live masks of the growth step
-    (``hash_agg.py:968``), ``retire_state`` (:676) and ``evict_state``
-    (:727-728: the growth rule minus the ``dropped`` slots)."""
+    (``hash_agg.py:968``), ``retire_state`` (:676), ``evict_state``
+    (:727-728: the growth rule minus the ``dropped`` slots) and the
+    sharded growth (``parallel/agg.py:603``: every occupied slot)."""
     st, keys, occ = state.st, state.table.keys, state.table.occ
     occ_b = occ != 0
+    if mode == LIVE_OCCUPIED:
+        return occ_b.to(torch.int32)
     live = occ_b & ((st[ROW_GROUP_ROWS] != 0) | (st[ROW_DIRTY] != 0)
                     | (st[ROW_EMITTED_VALID] != 0))
     if mode == LIVE_EVICT:
@@ -1001,32 +1053,71 @@ def live_mask(state: AggState, mode: int, lane_off: int = 0,
               dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K4 (live mask) → int32[cap] of slots that survive a
     rebuild: the growth rule, the watermark-retirement rule on the key
-    column whose lanes start at ``lane_off``, or the eviction rule (the
-    growth rule minus the slots set in ``dropped`` int32[cap])."""
-    st, keys, occ = state.st, state.table.keys, state.table.occ
-    if st.device.type != "cuda":
-        return live_mask_plain(state, mode, lane_off, wm_hi, wm_lo, dropped)
-    return _live_mask_cuda(st[None], keys[None], occ[None], mode, lane_off,
-                           wm_hi, wm_lo,
-                           None if dropped is None else dropped[None])[0]
+    column whose lanes start at ``lane_off``, the eviction rule (the
+    growth rule minus the slots set in ``dropped`` int32[cap]) or every
+    occupied slot."""
+    return live_and_table(state, mode, 0, lane_off, wm_hi, wm_lo,
+                          dropped)[0]
 
 
 def live_mask_sharded(state: ShardedAggState, mode: int, lane_off: int = 0,
                       wm_hi: int = 0, wm_lo: int = 0) -> torch.Tensor:
-    """K4 (live mask) over S shards in one launch → int32[S, cap]: the
-    growth rule (also the reshard's) or the retirement rule."""
+    """K4 (live mask) over S shards in one launch → int32[S, cap]."""
+    return live_and_table_sharded(state, mode, 0, lane_off, wm_hi,
+                                  wm_lo)[0]
+
+
+def live_and_table(state: AggState, mode: int, new_cap: int,
+                   lane_off: int = 0, wm_hi: int = 0, wm_lo: int = 0,
+                   dropped: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[ht.TableState]]:
+    """K4 (live mask) and the rebuild's fresh table of ``new_cap`` slots
+    in one launch: (live int32[cap], the table zeroed by that launch, or
+    None when ``new_cap`` is 0). The plain version is ``live_mask_plain``
+    and ``ht.make_state``."""
+    st, keys, occ = state.st, state.table.keys, state.table.occ
+    if st.device.type != "cuda":
+        live = live_mask_plain(state, mode, lane_off, wm_hi, wm_lo, dropped)
+        return live, (ht.make_state(new_cap, state.table.key_width,
+                                    st.device) if new_cap else None)
+    live, table = _live_mask_cuda(
+        st[None], keys[None], occ[None], mode, lane_off, wm_hi, wm_lo,
+        None if dropped is None else dropped[None], new_cap)
+    return live[0], None if table is None else ht.TableState(
+        table.keys[0], table.occ[0])
+
+
+def live_and_table_sharded(state: ShardedAggState, mode: int, new_cap: int,
+                           lane_off: int = 0, wm_hi: int = 0, wm_lo: int = 0
+                           ) -> Tuple[torch.Tensor,
+                                      Optional[ht.TableState]]:
+    """``live_and_table`` over S shards in one launch: (live int32[S,
+    cap], fresh keys int32[S, new_cap, K] and occ int32[S, new_cap]
+    zeroed, or None when ``new_cap`` is 0)."""
     if state.st.device.type != "cuda":
-        return torch.stack([live_mask_plain(state.shard(s), mode, lane_off,
+        live = torch.stack([live_mask_plain(state.shard(s), mode, lane_off,
                                             wm_hi, wm_lo)
                             for s in range(state.n_shards)])
+        if not new_cap:
+            return live, None
+        dev, k = state.st.device, state.table.keys.shape[2]
+        return live, ht.TableState(
+            torch.zeros((state.n_shards, new_cap, k), dtype=torch.int32,
+                        device=dev),
+            torch.zeros((state.n_shards, new_cap), dtype=torch.int32,
+                        device=dev))
     return _live_mask_cuda(state.st, state.table.keys, state.table.occ,
-                           mode, lane_off, wm_hi, wm_lo)
+                           mode, lane_off, wm_hi, wm_lo, None, new_cap)
 
 
 def _live_mask_cuda(st: torch.Tensor, keys: torch.Tensor, occ: torch.Tensor,
                     mode: int, lane_off: int, wm_hi: int, wm_lo: int,
-                    dropped: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    dropped: Optional[torch.Tensor] = None,
+                    new_cap: int = 0
+                    ) -> Tuple[torch.Tensor, Optional[ht.TableState]]:
     _check_state(st, keys, occ, "live_mask")
+    if mode not in (LIVE_GROW, LIVE_RETIRE, LIVE_EVICT, LIVE_OCCUPIED):
+        raise ValueError(f"no live rule {mode}")
     if mode == LIVE_RETIRE and lane_off + 3 > keys.shape[2]:
         raise ValueError(f"lane_off {lane_off} past key width "
                          f"{keys.shape[2]}")
@@ -1036,15 +1127,22 @@ def _live_mask_cuda(st: torch.Tensor, keys: torch.Tensor, occ: torch.Tensor,
             or dropped.device != st.device):
         raise ValueError("the evict mode needs a contiguous int32 dropped "
                          "mask shaped like occ")
+    if new_cap < 0:
+        raise ValueError(f"new_cap {new_cap}")
     ns, _r, cap = st.shape
+    k = keys.shape[2]
     live = torch.empty((ns, cap), dtype=torch.int32, device=st.device)
+    table = None if not new_cap else ht.TableState(
+        torch.empty((ns, new_cap, k), dtype=torch.int32, device=st.device),
+        torch.empty((ns, new_cap), dtype=torch.int32, device=st.device))
     cuda.call("rebuild", "rw_live_mask", mode, st.data_ptr(),
-              keys.data_ptr(), occ.data_ptr(), cap, keys.shape[2], lane_off,
+              keys.data_ptr(), occ.data_ptr(), cap, k, lane_off,
               wm_hi, wm_lo, st.stride(0), ns,
               None if mode != LIVE_EVICT else dropped.data_ptr(),
-              live.data_ptr())
+              live.data_ptr(), None if table is None else table.keys.data_ptr(),
+              None if table is None else table.occ.data_ptr(), new_cap)
     LAUNCHES.add("live_mask")
-    return live
+    return live, table
 
 
 def remap_plain(src: torch.Tensor, old_to_new: torch.Tensor,
@@ -1106,11 +1204,12 @@ def _remap_cuda(src: torch.Tensor, old_to_new: torch.Tensor,
 
 
 def rebuild_live(state: AggState, live: torch.Tensor, new_cap: int,
-                 fill: torch.Tensor) -> Tuple[AggState, torch.Tensor]:
+                 fill: torch.Tensor, table: ht.TableState
+                 ) -> Tuple[AggState, torch.Tensor]:
     """``_rebuild_live`` (``hash_agg.py:642``): insert the live slots'
-    keys into a fresh table (K1) and move every state row (K4). Returns
+    keys into the fresh ``table`` of ``new_cap`` slots that the live
+    mask's launch zeroed (K1) and move every state row (K4). Returns
     (new state, K1 stats: [n_live, overflow])."""
-    table = ht.make_state(new_cap, state.table.key_width, state.st.device)
     table, old_to_new, stats = ht.probe_insert(table, state.table.keys,
                                                live)
     st = remap(state.st, old_to_new, table.occ, fill, new_cap)
@@ -1120,17 +1219,19 @@ def rebuild_live(state: AggState, live: torch.Tensor, new_cap: int,
 def retire_state(state: AggState, wm_hi: int, wm_lo: int, lane_off: int,
                  fill: torch.Tensor) -> Tuple[AggState, torch.Tensor]:
     """Watermark retirement (``hash_agg.py:676``): drop every group whose
-    key column at ``lane_off`` is strictly below the watermark."""
-    live = live_mask(state, LIVE_RETIRE, lane_off, wm_hi, wm_lo)
-    return rebuild_live(state, live, state.capacity, fill)
+    key column at ``lane_off`` is strictly below the watermark. Three
+    launches: K4's mask with the fresh table, K1, K4's remap."""
+    live, table = live_and_table(state, LIVE_RETIRE, state.capacity,
+                                 lane_off, wm_hi, wm_lo)
+    return rebuild_live(state, live, state.capacity, fill, table)
 
 
 def grow_state(state: AggState, new_cap: int,
                fill: torch.Tensor) -> Tuple[AggState, torch.Tensor]:
     """Growth rehash (``GroupedAggKernel._grow_step``, :968), reclaiming
     groups with no rows that are neither dirty nor still emitted."""
-    live = live_mask(state, LIVE_GROW)
-    return rebuild_live(state, live, new_cap, fill)
+    live, table = live_and_table(state, LIVE_GROW, new_cap)
+    return rebuild_live(state, live, new_cap, fill, table)
 
 
 def evict_state(state: AggState, key_lanes: torch.Tensor,
@@ -1138,17 +1239,33 @@ def evict_state(state: AggState, key_lanes: torch.Tensor,
                 ) -> Tuple[AggState, torch.Tensor, torch.Tensor]:
     """Cold-tier eviction (``evict_state``, ``hash_agg.py:714``, B9): K8
     finds the given keys' slots and marks them dropped, K4 keeps the
-    growth rule's live slots minus the dropped ones, and the K1 + K4
-    rebuild moves the survivors into a fresh table of the same capacity.
-    Keys that are not resident, duplicates and padding rows (valid = 0)
-    drop nothing. The caller guarantees the evicted groups are clean
-    (flushed and advanced). Returns (new state, K1's stats, K8's stats)."""
+    growth rule's live slots minus the dropped ones (and zeroes the
+    fresh table), and the K1 + K4 rebuild moves the survivors into it,
+    at the same capacity. Keys that are not resident, duplicates and
+    padding rows (valid = 0) drop nothing. The caller guarantees the
+    evicted groups are clean (flushed and advanced). Returns (new state,
+    K1's stats, K8's stats)."""
     dropped = torch.zeros(state.capacity, dtype=torch.int32,
                           device=state.st.device)
     _slots, lstats = ht.lookup(state.table, key_lanes, valid, dropped)
-    live = live_mask(state, LIVE_EVICT, dropped=dropped)
-    new, stats = rebuild_live(state, live, state.capacity, fill)
+    live, table = live_and_table(state, LIVE_EVICT, state.capacity,
+                                 dropped=dropped)
+    new, stats = rebuild_live(state, live, state.capacity, fill, table)
     return new, stats, lstats
+
+
+def rebuild_sharded(state: ShardedAggState, mode: int, new_cap: int,
+                    fill: torch.Tensor, lane_off: int = 0, wm_hi: int = 0,
+                    wm_lo: int = 0) -> Tuple[ShardedAggState, torch.Tensor]:
+    """The rebuild of every shard (``parallel/agg.py:603`` grow with
+    ``LIVE_OCCUPIED``, :707 retire_below with ``LIVE_RETIRE``) in three
+    launches: K4's mask with the fresh tables of ``new_cap`` slots, K1,
+    K4's remap. Returns (new state, K1 stats int32[S, 2])."""
+    live, table = live_and_table_sharded(state, mode, new_cap, lane_off,
+                                         wm_hi, wm_lo)
+    o2n, stats = ht.probe_insert_sharded(table, state.table.keys, live)
+    return ShardedAggState(table, remap_sharded(state.st, o2n, table.occ,
+                                                fill, new_cap)), stats
 
 
 # -- K9: scatter rows (the patch and the reload) --------------------------------
@@ -1357,7 +1474,8 @@ class GroupedAggKernel:
     ``apply`` per chunk (rows gather into a host backlog; one upload and
     one K1 + K2 step per ``BATCH_ROWS`` rows, no waits), ``flush`` per
     barrier (one K3 gather, one device→host read), ``patch_accs`` between
-    them for a retractable MIN/MAX (K9), ``advance`` after it,
+    them for a retractable MIN/MAX (one upload: the patch rides in the
+    advance's launch), ``advance`` after it,
     ``retire_below`` for watermark cleaning, ``evict_keys`` and
     ``load_groups`` for the cold tier (B9, B10), and ``rebuild`` on
     recovery (a fresh state and ``load_groups``).
@@ -1371,6 +1489,11 @@ class GroupedAggKernel:
     Occupancy accounting is sync-free (``PendingCounters``): each step's
     insert count is copied back asynchronously and folded in once it
     lands; growth decisions use count + rows of undrained steps.
+
+    A pending patch never meets another state operation: reading
+    ``state`` (a step, a lookup, a rebuild, a snapshot) first writes it
+    with the standalone K9 at the flushed slots; only ``advance`` takes
+    it in its own launch.
     """
 
     # pressure growth (see _reserve) stops doubling past this capacity
@@ -1407,6 +1530,8 @@ class GroupedAggKernel:
         # was made
         self._flushed: Optional[Tuple[torch.Tensor, int, int]] = None
         self._patched = False
+        # patch_accs' columns on the card until advance carries them
+        self._patch: Optional[torch.Tensor] = None
         self._steps = 0
         self._prelude = prelude
         self._stage_counts = None if prelude is None else torch.zeros(
@@ -1414,7 +1539,28 @@ class GroupedAggKernel:
 
     @property
     def capacity(self) -> int:
-        return self.state.capacity
+        return self._state.capacity
+
+    @property
+    def state(self) -> AggState:
+        """The device state, with any pending patch written first."""
+        self._patch_out()
+        return self._state
+
+    @state.setter
+    def state(self, value: AggState) -> None:
+        self._state = value
+
+    def _patch_out(self) -> None:
+        """Write a pending patch with the standalone K9 at the flushed
+        slots (padded with cap), for an operation other than advance."""
+        if self._patch is None:
+            return
+        cols, self._patch = self._patch, None
+        idx = self._flush_idx
+        idx_p = np.full(cols.shape[1], self._state.capacity, dtype=np.int32)
+        idx_p[:len(idx)] = idx
+        patch_state(self._state, upload(idx_p, self.device), cols)
 
     # -- hot path -------------------------------------------------------
     def apply(self, key_lanes: np.ndarray, signs: np.ndarray,
@@ -1456,7 +1602,9 @@ class GroupedAggKernel:
             self._dispatch_backlog()
 
     def _stepped(self) -> None:
-        """A call that may dirty or move slots: a held flush is stale."""
+        """A call that may dirty or move slots: a held flush is stale, and
+        a pending patch is written first."""
+        self._patch_out()
         self._steps += 1
 
     def _dispatch_backlog(self) -> None:
@@ -1611,34 +1759,38 @@ class GroupedAggKernel:
                                                       np.ndarray]]],
                    raw_accs: Optional[List[np.ndarray]] = None) -> None:
         """Overwrite the flushed groups' accumulators (the retractable
-        MIN/MAX recompute, ``hash_agg.py:1241``) with one K9 launch, before
-        ``advance``. See ``encode_patch_cols`` for the passthrough."""
+        MIN/MAX recompute, ``hash_agg.py:1241``) before ``advance``: one
+        upload of the columns, column i for the flush list's row i, which
+        ``advance`` writes in its own launch. See ``encode_patch_cols``
+        for the passthrough."""
         idx = self._flush_idx
         assert idx is not None and len(idx) > 0, "flush() first"
+        self._patch_out()
         cols = as_i32_cols(encode_patch_cols(self.specs, decoded, raw_accs))
-        pad = next_pow2(len(idx))
-        idx_p = np.full(pad, self.capacity, dtype=np.int32)
-        idx_p[:len(idx)] = idx
-        src = np.zeros((len(cols), pad), dtype=np.int32)
-        src[:, :len(idx)] = np.stack(cols)
-        patch_state(self.state, upload(idx_p, self.device),
-                    upload(src, self.device))
+        self._patch = upload(np.stack(cols), self.device)
         self._patched = True
 
     def advance(self) -> None:
         """Snapshot emitted := current for every dirty slot; clear dirty:
         K3's advance on the last flush's list of dirty slots, no launch
-        when it listed none. Only ``patch_accs`` (accumulator rows, no
-        dirty bit) may run between the flush and the advance: any other
-        step could dirty or move slots the list does not hold."""
+        when it listed none; a pending patch rides in the same launch.
+        Only ``patch_accs`` (accumulator rows, no dirty bit) may run
+        between the flush and the advance: any other step could dirty or
+        move slots the list does not hold."""
         assert self._flush_idx is not None, "flush() first"
         mat, p, steps = self._flushed
+        patch, self._patch = self._patch, None
         self._flush_idx = self._flushed = None
         if steps != self._steps:
             raise RuntimeError("advance after the state was stepped past "
                                "its flush")
+        if patch is not None and p > mat.shape[0] - 1:
+            raise RuntimeError(f"a truncated flush list ({p} slots, "
+                               f"flush_cap {mat.shape[0] - 1}) cannot "
+                               f"carry a patch")
         if p:
-            advance(self.state, mat, current=not self._patched)
+            advance(self._state, mat, current=not self._patched,
+                    patch=patch)
 
     # -- recovery ---------------------------------------------------------
     def rebuild(self, keys: np.ndarray, group_rows: np.ndarray,

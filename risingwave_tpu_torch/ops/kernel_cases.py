@@ -654,8 +654,10 @@ def k5_case(name: str) -> dict:
         slots[0, 3:64:4] = -1
     elif name == "refs_out_of_range":
         # refs past row_cap: nothing is written at them (the reference's
-        # scatters drop them; it wraps a negative index, which the port,
-        # whose refs count up from 0, never makes)
+        # scatters drop them; a negative ref, which the reference wraps,
+        # the port drops: a declared deviation, held by
+        # tests/test_torch_hash_join.py::
+        # test_deviation_negative_ref_dropped_where_reference_wraps)
         bad = rng.random((s, n)) < 0.2
         ins_ref[bad] = rng.integers(row_cap, row_cap + 50, int(bad.sum()))
         dbad = rng.random((s, n)) < 0.2

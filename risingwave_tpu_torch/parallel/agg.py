@@ -20,10 +20,12 @@ per epoch batch:
 One step launches ``route``, ``probe_insert`` and K2 (``agg_apply``) the
 same number of times whatever S is. The barrier flush gathers every
 shard's dirty groups in one K3 launch, and a retractable MIN/MAX
-recompute patches them back on every shard in one K9 launch
-(``patch_accs``); growth, retirement and resharding rebuild every shard
-with K1 + K4 in one launch each, and recovery loads every shard with
-K1 + K9, as the single-device ``load_groups`` does. There is no targeted
+recompute uploads its columns once (``patch_accs``) for the advance to
+write in its own launch (a pending patch that meets any other state
+operation goes out first through K9); growth, retirement and resharding
+rebuild every shard with K4 (mask and fresh tables), K1 and K4 (remap),
+one launch each, and recovery loads every shard with K1 + K9, as the
+single-device ``load_groups`` does. There is no targeted
 eviction: the cold tier runs on the single-device kernel only. On the
 CPU every wrapper runs its plain version, shard by shard, so the state is
 the reference's bit for bit (float SUM within its declared tolerance).
@@ -41,13 +43,13 @@ from risingwave_tpu_torch.common.hash import VNODE_COUNT
 from risingwave_tpu_torch.ops import hash_table as ht
 from risingwave_tpu_torch.ops import lanes
 from risingwave_tpu_torch.ops.hash_agg import (
-    LIVE_GROW, LIVE_RETIRE, ROW_ACC0, ROW_GROUP_ROWS, AggSpec, ApplyPlan,
-    FlushResult, ShardedAggState, as_i32_cols, advance_sharded,
-    agg_apply_sharded, decode_flush_data, decode_outputs, dev_layout,
-    encode_host_accs, encode_patch_cols, flush_gather_sharded,
-    live_mask_sharded, load_rows, load_src, make_sharded_agg_state,
-    pack_chunk, patch_rows, remap_sharded, scatter_rows_sharded,
-    state_fills,
+    LIVE_GROW, LIVE_OCCUPIED, LIVE_RETIRE, ROW_ACC0, ROW_GROUP_ROWS,
+    AggSpec, ApplyPlan, FlushResult, ShardedAggState, as_i32_cols,
+    advance_sharded, agg_apply_sharded, decode_flush_data, decode_outputs,
+    dev_layout, encode_host_accs, encode_patch_cols, flush_gather_sharded,
+    live_and_table_sharded, load_rows, load_src, make_sharded_agg_state,
+    pack_chunk, patch_rows, rebuild_sharded, remap_sharded,
+    scatter_rows_sharded, state_fills,
 )
 from risingwave_tpu_torch.parallel.exchange import (
     owners_host, route, skew_bucket,
@@ -182,6 +184,8 @@ class ShardedAggKernel:
         # and calls that may dirty or move slots since the kernel was made
         self._flushed: Optional[Tuple[torch.Tensor, bool, int]] = None
         self._patched = False
+        # patch_accs' columns on the card until advance carries them
+        self._patch: Optional[torch.Tensor] = None
         self._steps = 0
         self._counters = _ShardedCounters(self.n_dev)
         self.dispatches = 0
@@ -189,7 +193,38 @@ class ShardedAggKernel:
     @property
     def capacity(self) -> int:
         """Slots per shard."""
-        return self.state.capacity
+        return self._state.capacity
+
+    @property
+    def state(self) -> ShardedAggState:
+        """The device state, with any pending patch written first."""
+        self._patch_out()
+        return self._state
+
+    @state.setter
+    def state(self, value: ShardedAggState) -> None:
+        self._state = value
+
+    def _stepped(self) -> None:
+        """A call that may dirty or move slots: a held flush is stale, and
+        a pending patch is written first."""
+        self._patch_out()
+        self._steps += 1
+
+    def _patch_out(self) -> None:
+        """Write a pending patch with the standalone K9 at each shard's
+        flushed slots (padded with cap), for an operation other than
+        advance."""
+        if self._patch is None:
+            return
+        cols, self._patch = self._patch, None
+        bidx = np.full((self.n_dev, cols.shape[2]), self._state.capacity,
+                       dtype=np.int32)
+        for d, ix in enumerate(self._flush_idx):
+            bidx[d, :len(ix)] = ix
+        scatter_rows_sharded(self._state.st, upload(bidx, self.device),
+                             patch_rows(self._state.n_acc, self.device),
+                             cols)
 
     def _owner_maps(self, owners) -> Tuple[np.ndarray, torch.Tensor]:
         """A vnode → shard map, checked: (host copy, device copy)."""
@@ -280,7 +315,7 @@ class ShardedAggKernel:
         nowhere), route every row to its owner, apply per shard."""
         if not self._backlog:
             return
-        self._steps += 1
+        self._stepped()
         mats, n = self._backlog, self._backlog_rows
         owner_chunks = self._backlog_owners
         self._backlog, self._backlog_rows = [], 0
@@ -345,27 +380,23 @@ class ShardedAggKernel:
         if worst + n > ht.MAX_LOAD * self.capacity:
             self.grow(next_pow2(int((worst + n) / ht.MAX_LOAD) + 1))
 
-    def _rebuild(self, valid: torch.Tensor, new_cap: int) -> torch.Tensor:
-        """Re-insert the ``valid`` slots of every shard into fresh tables
-        of ``new_cap`` slots (K1) and move every state row (K4). Returns
-        K1's stats int32[S, 2]."""
-        self._steps += 1
-        st = self.state
-        table = ht.TableState(
-            torch.zeros((self.n_dev, new_cap, self.key_width),
-                        dtype=torch.int32, device=self.device),
-            torch.zeros((self.n_dev, new_cap), dtype=torch.int32,
-                        device=self.device))
-        o2n, stats = ht.probe_insert_sharded(table, st.table.keys, valid)
-        self.state = ShardedAggState(
-            table, remap_sharded(st.st, o2n, table.occ, self._fill, new_cap))
+    def _rebuild(self, mode: int, new_cap: int, lane_off: int = 0,
+                 wm_hi: int = 0, wm_lo: int = 0) -> torch.Tensor:
+        """Re-insert every shard's live slots (the rule ``mode``) into
+        fresh tables of ``new_cap`` slots and move every state row: K4's
+        mask with the fresh tables, K1, K4's remap. Returns K1's stats
+        int32[S, 2]."""
+        self._stepped()
+        self.state, stats = rebuild_sharded(self.state, mode, new_cap,
+                                            self._fill, lane_off, wm_hi,
+                                            wm_lo)
         return stats
 
     def grow(self, new_capacity: int) -> None:
         """Double (at least) every shard's table, keeping every occupied
         slot with its dirty flag and emitted snapshot (``agg.py:603``)."""
         new_capacity = next_pow2(max(new_capacity, self.capacity * 2))
-        stats = fetch(self._rebuild(self.state.table.occ, new_capacity))
+        stats = fetch(self._rebuild(LIVE_OCCUPIED, new_capacity))
         _check_probe(stats)
         # exact per-shard occupancy falls out of the rebuild
         self._counters.reset(stats[:, 0])
@@ -404,41 +435,47 @@ class ShardedAggKernel:
 
     def advance(self) -> None:
         """K3's advance on every shard's list from the last flush, in one
-        launch; none when no shard listed a dirty slot. Only
-        ``patch_accs`` may run between the flush and the advance."""
+        launch; none when no shard listed a dirty slot. A pending patch
+        rides in the same launch. Only ``patch_accs`` may run between the
+        flush and the advance."""
         assert self._flush_idx is not None, "flush() first"
         mats, any_dirty, steps = self._flushed
+        patch, self._patch = self._patch, None
         self._flush_idx = self._flushed = None
         if steps != self._steps:
             raise RuntimeError("advance after the state was stepped past "
                                "its flush")
         if any_dirty:
-            advance_sharded(self.state, mats, current=not self._patched)
+            advance_sharded(self._state, mats, current=not self._patched,
+                            patch=patch)
 
     def patch_accs(self, decoded, raw_accs=None) -> None:
         """Overwrite the flushed groups' accumulators on every shard (the
-        retractable MIN/MAX recompute, ``agg.py:669``) in one K9 launch:
-        the flush's per-shard slots route each corrected row back to its
-        shard, each shard's batch padded with its ``cap``; untouched calls
-        pass their gathered columns through bit for bit."""
+        retractable MIN/MAX recompute, ``agg.py:669``) before
+        ``advance``: the corrected rows go back to their shards as one
+        upload of columns int32[S, n_acc, m] (shard d's column i for its
+        flush list's row i, m the fullest shard's count), which
+        ``advance`` writes in its own
+        launch; untouched calls pass their gathered columns through bit
+        for bit. The flush retried until every shard's list fit, so no
+        list is truncated."""
         idxs = self._flush_idx
         assert idxs is not None and any(len(ix) for ix in idxs), \
             "flush() first"
+        self._patch_out()
         cols = as_i32_cols(encode_patch_cols(self.specs, decoded, raw_accs))
         counts = [len(ix) for ix in idxs]
-        m = next_pow2(max(counts))
-        bidx = np.full((self.n_dev, m), self.capacity, dtype=np.int32)
-        bsrc = np.zeros((self.n_dev, len(cols), m), dtype=np.int32)
+        if max(counts) > self._flush_cap:
+            raise RuntimeError("a truncated flush list cannot carry a "
+                               "patch")
+        bsrc = np.zeros((self.n_dev, len(cols), max(counts)),
+                        dtype=np.int32)
         flat = np.stack(cols)
         at = 0
-        for d, ix in enumerate(idxs):
-            c = len(ix)
-            bidx[d, :c] = ix
+        for d, c in enumerate(counts):
             bsrc[d, :, :c] = flat[:, at:at + c]
             at += c
-        scatter_rows_sharded(self.state.st, upload(bidx, self.device),
-                             patch_rows(self.state.n_acc, self.device),
-                             upload(bsrc, self.device))
+        self._patch = upload(bsrc, self.device)
         self._patched = True
 
     def retire_below(self, group_pos: int, wm_i64: int) -> None:
@@ -448,9 +485,9 @@ class ShardedAggKernel:
         if self._backlog_rows:
             raise RuntimeError("retire_below with undispatched backlog")
         hi, lo = lanes.split_i64(np.asarray([wm_i64], dtype=np.int64))
-        live = live_mask_sharded(self.state, LIVE_RETIRE, group_pos * 3,
-                                 int(hi[0]), int(lo[0]))
-        self._counters.watch(self._rebuild(live, self.capacity))
+        self._counters.watch(self._rebuild(LIVE_RETIRE, self.capacity,
+                                           group_pos * 3, int(hi[0]),
+                                           int(lo[0])))
 
     # -- recovery ---------------------------------------------------------
     def rebuild(self, keys: np.ndarray, group_rows: np.ndarray,
@@ -466,7 +503,7 @@ class ShardedAggKernel:
         if self._stage_counts is not None:
             self._stage_counts.zero_()
         cap = self.capacity
-        self._steps += 1
+        self._stepped()
         self._counters.reset(np.zeros(self.n_dev, dtype=np.int64))
         owner = owners_host(np.asarray(keys, dtype=np.int32),
                             self._owner_map_host) if n else \
@@ -518,7 +555,9 @@ class ShardedAggKernel:
         s, cap, k = self.n_dev, self.capacity, self.key_width
         st = self.state
         r = st.st.shape[1]
-        live = live_mask_sharded(st, LIVE_GROW)
+        # the mask's launch also zeroes the fresh tables the moved groups
+        # go into
+        live, table = live_and_table_sharded(st, LIVE_GROW, cap)
         rows = torch.cat([st.table.keys, st.st.transpose(1, 2)], dim=2) \
             .reshape(s * cap, k + r)
         recv, rvalid, _ovf = route(rows, live.reshape(-1), dev_map, s, cap,
@@ -529,12 +568,9 @@ class ShardedAggKernel:
             raise RuntimeError(
                 f"reshard overfills a shard: {worst} live groups vs "
                 f"{cap} slots — raise capacity before rescaling")
-        table = ht.TableState(
-            torch.zeros((s, cap, k), dtype=torch.int32, device=self.device),
-            torch.zeros((s, cap), dtype=torch.int32, device=self.device))
         slots, stats = ht.probe_insert_sharded(table, recv[:, :, :k], rvalid)
         src = recv[:, :, k:].transpose(1, 2).contiguous()
-        self._steps += 1
+        self._stepped()
         self.state = ShardedAggState(
             table, remap_sharded(src, slots, table.occ, self._fill, cap))
         # both maps change together: the skew-exact bucket counts against

@@ -18,7 +18,14 @@ cold tier's and the patch's kernels: K8 (lookup) and K4's evict mode
 exactly, B9 (evict_state) key-sorted against its plain twin, K9
 (scatter_rows) exactly with and without its shard axis, K2's kNone lane
 exactly, and a GroupedAggKernel's patch, eviction and reload on the card
-against the same kernel on the CPU. K2, route, K1, K6, K3 (its gather
+against the same kernel on the CPU. K4's mask launch, which also zeroes
+the rebuild's fresh table, in every mode (the table full of garbage
+before it), the three-launch rebuilds (retire, grow, evict; the sharded
+retire and growth) key-sorted against their plain twins with their
+launches counted, and the patched advance (one launch, no K9) exactly
+against K9's plain version then the listed advance's. K5 and K7 drop a
+negative ref, as the plain versions do (a declared deviation from the
+reference, which wraps it). K2, route, K1, K6, K3 (its gather
 and its advance on the flush's own list) and K5 are also held to their
 plain versions on ``ops/kernel_cases.py``'s batches, the shapes at the
 edges of their designs: K1 by the table invariants and exact stats (with
@@ -1255,3 +1262,265 @@ def test_sharded_join_kernel_on_the_card_matches_the_cpu(dev):
     assert steps[1] == steps[S]
     assert steps[S] == {"route": 1, "join_probe": 1, "probe_insert": 1,
                         "join_apply": 1}
+
+
+# -- K4's mask with the fresh table, the patched advance, the drop rule ------
+
+def _live_args(mode):
+    hi, lo = lanes.split_i64(np.asarray([1000 * 31], dtype=np.int64))
+    return (0, int(hi[0]), int(lo[0])) if mode == H.LIVE_RETIRE \
+        else (0, 0, 0)
+
+
+@pytest.mark.parametrize("grow", [False, True])
+@pytest.mark.parametrize("mode", [H.LIVE_GROW, H.LIVE_RETIRE, H.LIVE_EVICT,
+                                  H.LIVE_OCCUPIED])
+def test_live_mask_clears_the_fresh_table(dev, mode, grow):
+    """K4's mask launch in each mode, with a fresh table of cap or 2 x cap
+    slots: the mask equals live_mask_plain and the table, filled with
+    garbage before the launch, comes back zeroed, keys and occ; the
+    wrapper (``live_and_table``) agrees, in one launch."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    st, slots, packed = _applied(dev)
+    H.agg_apply(st, packed, slots, H.ApplyPlan(KW, _specs(), dev))
+    H.advance(st)
+    st.st[H.ROW_DIRTY, ::7] = 1
+    dropped = torch.from_numpy((np.random.default_rng(4).random(CAP) < 0.3)
+                               .astype(np.int32)).to(dev)
+    args = _live_args(mode)
+    d = dropped if mode == H.LIVE_EVICT else None
+    want = H.live_mask_plain(st, mode, *args, d).cpu().numpy()
+    new_cap = 2 * CAP if grow else CAP
+    live = torch.empty(CAP, dtype=torch.int32, device=dev)
+    keys = torch.full((new_cap, KW), -7, dtype=torch.int32, device=dev)
+    occ = torch.full((new_cap,), -7, dtype=torch.int32, device=dev)
+    kcuda.call("rebuild", "rw_live_mask", mode, st.st.data_ptr(),
+               st.table.keys.data_ptr(), st.table.occ.data_ptr(), CAP, KW,
+               *args, st.st.numel(), 1,
+               None if d is None else d.data_ptr(), live.data_ptr(),
+               keys.data_ptr(), occ.data_ptr(), new_cap)
+    np.testing.assert_array_equal(live.cpu().numpy(), want)
+    assert not keys.any() and not occ.any()
+    LAUNCHES.reset()
+    live2, table = H.live_and_table(st, mode, new_cap, *args, dropped=d)
+    assert LAUNCHES.snapshot() == {"live_mask": 1}
+    np.testing.assert_array_equal(live2.cpu().numpy(), want)
+    assert table.keys.shape == (new_cap, KW) and not table.keys.any()
+    assert table.occ.shape == (new_cap,) and not table.occ.any()
+    assert 0 < int(want.sum())
+    if mode in (H.LIVE_RETIRE, H.LIVE_EVICT):
+        assert int(want.sum()) < int((st.table.occ != 0).sum())
+
+
+def test_live_mask_scalar_edges(dev):
+    """K4's mask where no 16-byte access is possible (a capacity and a
+    fresh capacity that are not multiples of 4, three shards): the
+    element-wise path, each mode, against the plain version."""
+    rng = np.random.default_rng(5)
+    s, cap, new_cap, r = 3, 1030, 2062, H.ROW_ACC0 + 2
+    st = rng.integers(-2, 3, (s, r, cap)).astype(np.int32)
+    st[:, H.ROW_DIRTY] = rng.random((s, cap)) < 0.2
+    st[:, H.ROW_EMITTED_VALID] = rng.random((s, cap)) < 0.2
+    keys = rng.integers(-3, 4, (s, cap, KW)).astype(np.int32)
+    occ = (rng.random((s, cap)) < 0.6).astype(np.int32)
+    state = H.ShardedAggState(
+        ht.TableState(torch.from_numpy(keys).to(dev),
+                      torch.from_numpy(occ).to(dev)),
+        torch.from_numpy(st).to(dev))
+    for mode in (H.LIVE_GROW, H.LIVE_RETIRE, H.LIVE_OCCUPIED):
+        live, table = H.live_and_table_sharded(state, mode, new_cap, 0, 1,
+                                               -5)
+        want = np.stack([H.live_mask_plain(state.shard(d), mode, 0, 1, -5)
+                         .cpu().numpy() for d in range(s)])
+        np.testing.assert_array_equal(live.cpu().numpy(), want)
+        assert table.keys.shape == (s, new_cap, KW)
+        assert not table.keys.any() and not table.occ.any()
+
+
+@pytest.mark.parametrize("kind", ["retire", "grow", "evict"])
+def test_rebuild_in_three_launches_matches_plain(dev, kind):
+    """retire_state, grow_state and evict_state on the card: K4's mask
+    with the fresh table, K1, K4's remap (K8 first when evicting), one
+    launch each, the state key-sorted equal to the plain twin's."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    st, slots, packed = _applied(dev)
+    H.agg_apply(st, packed, slots, H.ApplyPlan(KW, _specs(), dev))
+    H.advance(st)
+    fill = torch.tensor(H.state_fills(_specs()), dtype=torch.int32,
+                        device=dev)
+    args = _live_args(H.LIVE_RETIRE)
+    rng = np.random.default_rng(6)
+    occ = np.flatnonzero(st.table.occ.cpu().numpy())
+    q = torch.from_numpy(st.table.keys.cpu().numpy()[rng.choice(occ, 500)]
+                         ).to(dev)
+    v = torch.ones(500, dtype=torch.int32, device=dev)
+    LAUNCHES.reset()
+    if kind == "retire":
+        got, stats = H.retire_state(st, args[1], args[2], 0, fill)
+        mode, new_cap, d = H.LIVE_RETIRE, CAP, None
+    elif kind == "grow":
+        got, stats = H.grow_state(st, 2 * CAP, fill)
+        mode, new_cap, d = H.LIVE_GROW, 2 * CAP, None
+    else:
+        got, stats, _l = H.evict_state(st, q, v, fill)
+        mode, new_cap = H.LIVE_EVICT, CAP
+        d = torch.zeros(CAP, dtype=torch.int32, device=dev)
+        ht.lookup_plain(st.table, q, v, d)
+    want = {"live_mask": 1, "probe_insert": 1, "remap": 1}
+    if kind == "evict":
+        want["lookup"] = 1
+    assert LAUNCHES.snapshot() == want
+    live = H.live_mask_plain(st, mode, *(args if kind == "retire"
+                                         else (0, 0, 0)), d)
+    table = ht.make_state(new_cap, KW, dev)
+    o2n, pstats = ht.probe_insert_plain(table, st.table.keys, live)
+    plain = H.AggState(table, H.remap_plain(st.st, o2n, table.occ, fill,
+                                            new_cap))
+    assert stats.tolist() == pstats.tolist()
+    assert _groups(got) == _groups(plain)
+
+
+@pytest.mark.parametrize("mode", [H.LIVE_RETIRE, H.LIVE_OCCUPIED])
+def test_sharded_rebuild_matches_plain(dev, mode):
+    """rebuild_sharded over 8 shards (retire_below's rule; growth keeping
+    every occupied slot into 2 x cap) in three launches, every shard
+    key-sorted equal to the plain versions'."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    st, slots, recv, rvalid = _sharded_applied(dev)
+    H.agg_apply_sharded(st, recv, slots, H.ApplyPlan(KW, _specs(), dev))
+    H.advance_sharded(st)
+    fill = torch.tensor(H.state_fills(_specs()), dtype=torch.int32,
+                        device=dev)
+    args = _live_args(mode)
+    new_cap = CAP if mode == H.LIVE_RETIRE else 2 * CAP
+    LAUNCHES.reset()
+    got, stats = H.rebuild_sharded(st, mode, new_cap, fill, *args)
+    assert LAUNCHES.snapshot() == {"live_mask": 1, "probe_insert": 1,
+                                   "remap": 1}
+    for d in range(S):
+        one = st.shard(d)
+        live = H.live_mask_plain(one, mode, *args)
+        table = ht.make_state(new_cap, KW, dev)
+        o2n, pstats = ht.probe_insert_plain(table, one.table.keys, live)
+        plain = H.AggState(table, H.remap_plain(one.st, o2n, table.occ,
+                                                fill, new_cap))
+        assert stats[d].tolist() == pstats.tolist()
+        assert _groups(got.shard(d)) == _groups(plain)
+
+
+@pytest.mark.parametrize("n_shards", [1, S])
+def test_patched_advance_matches_plain(dev, n_shards):
+    """advance carrying a patch (column i for list row i) in one launch,
+    against scatter_rows_plain at the list's slots (padded with cap)
+    followed by advance_listed_plain; no K9 launch."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    if n_shards == 1:
+        one, slots, packed = _applied(dev)
+        H.agg_apply(one, packed, slots, H.ApplyPlan(KW, _specs(), dev))
+        st = H.ShardedAggState(ht.TableState(one.table.keys[None],
+                                             one.table.occ[None]),
+                               one.st[None])
+    else:
+        st, slots, recv, rvalid = _sharded_applied(dev)
+        H.agg_apply_sharded(st, recv, slots, H.ApplyPlan(KW, _specs(), dev))
+    mats = H.flush_gather_sharded(st, 1 << 12)
+    ns = mats[:, 0, 0].cpu().numpy()
+    assert (ns <= 1 << 12).all() and ns.min() > 0
+    pad = 1 << int(ns.max() - 1).bit_length()
+    rng = np.random.default_rng(n_shards)
+    patch = torch.from_numpy(rng.integers(-2**31, 2**31, (
+        n_shards, st.n_acc, pad)).astype(np.int32)).to(dev)
+    idx = torch.full((n_shards, pad), CAP, dtype=torch.int32, device=dev)
+    for d in range(n_shards):
+        idx[d, :int(ns[d])] = mats[d, 1:1 + int(ns[d]), 0]
+    a = H.ShardedAggState(st.table, st.st.clone())
+    b = H.ShardedAggState(st.table, st.st.clone())
+    LAUNCHES.reset()
+    H.advance_sharded(a, mats, patch=patch)
+    assert LAUNCHES.snapshot() == {"advance": 1}
+    H.scatter_rows_plain(b.st, idx, H.patch_rows(st.n_acc, dev), patch)
+    for d in range(n_shards):
+        H.advance_listed_plain(b.shard(d), mats[d])
+    np.testing.assert_array_equal(a.st.cpu().numpy(), b.st.cpu().numpy())
+
+
+@pytest.mark.parametrize("then", ["advance", "step"])
+def test_grouped_kernel_patch_rides_in_advance(dev, then):
+    """GroupedAggKernel on the card against the same kernel on the CPU:
+    patch_accs then advance launches advance once and no scatter_rows;
+    patch_accs then a step first writes the patch with one K9 launch.
+    The decoded groups match (key-sorted)."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    specs = tuple(H.AggSpec(H.AggKind(k), None if d is None else np.dtype(d))
+                  for k, d in [("max", np.int64), ("count", None)])
+    rng = np.random.default_rng(21)
+    g = rng.integers(0, 700, 4096).astype(np.int64)
+    v = rng.integers(-10**6, 10**6, 4096)
+    args = (_lanes(g), np.ones(4096, np.int32), np.ones(4096, bool),
+            [(specs[0].encode_input(v), np.ones(4096, bool)), ((), None)])
+    out = {}
+    for d in ("cuda", "cpu"):
+        k = H.GroupedAggKernel(KW, specs, capacity=1 << 12, device=d)
+        k.apply(*args)
+        fr = k.flush()
+        LAUNCHES.reset()
+        k.patch_accs([(np.arange(fr.n) * 3 - 7, fr.nns[0]), None],
+                     fr.raw_accs)
+        if then == "advance":
+            k.advance()
+        else:
+            k.apply(*args)
+            k._dispatch_backlog()
+        if d == "cuda":
+            snap = LAUNCHES.snapshot()
+            if then == "advance":
+                assert snap == {"advance": 1}
+            else:
+                assert snap["scatter_rows"] == 1 and "advance" not in snap
+        fr2 = k.flush()
+        order = np.lexsort(fr2.keys.T[::-1])
+        out[d] = (fr2.keys[order], [o[order] for o in fr2.outs],
+                  [o[order] for o in fr2.prev_outs])
+    a, b = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(a[0], b[0])
+    for x, y in zip(a[1] + a[2], b[1] + b[2]):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_join_kernels_drop_a_negative_ref(dev):
+    """The declared deviation (ROADMAP.md queue C): K5 and K7 drop a
+    negative ref, as the port's plain versions do (the reference wraps
+    it: tests/test_torch_hash_join.py::
+    test_deviation_negative_ref_dropped_where_reference_wraps). Element
+    row_cap - 1, which no other ref of the batch names, keeps its value."""
+    c = KC.k5_case("refs_out_of_range")
+    row_cap = c["row_cap"]
+    c["ins_ref"] = np.where(c["ins_ref"] >= row_cap, -1, c["ins_ref"])
+    c["del_ref"] = np.where(c["del_ref"] >= row_cap, -1, c["del_ref"])
+    for r in ("ins_ref", "del_ref"):
+        c[r][c[r] == row_cap - 1] = -1
+    assert (c["ins_ref"] == -1).sum() > 100 and (c["del_ref"] == -1).sum()
+    chains, pay, parts = KC.k5_tensors(c, dev)
+    want_c, want_p, _p = KC.k5_tensors(c, dev)
+    KC.k5_launch(chains, pay, parts, J.link_scratch(chains.head))
+    KC.k5_plain(want_c, want_p, parts)
+    for x, y in zip(KC.k5_result(chains, pay),
+                    KC.k5_result(want_c, want_p)):
+        np.testing.assert_array_equal(x, y)
+    for name, arr in zip(("next", "ins_seq", "del_seq"), chains[1:]):
+        assert int(arr[0, row_cap - 1]) == int(c[name][0, row_cap - 1])
+    assert pay[0, row_cap - 1].tolist() == c["pay"][0, row_cap - 1].tolist()
+    rng = np.random.default_rng(12)
+    arr = torch.from_numpy(rng.integers(-9, 9, (ROWS, JP))
+                           .astype(np.int32)).to(dev)
+    refs = rng.permutation(ROWS - 1)[:N].astype(np.int32)
+    refs[::5] = -1
+    refs_t = torch.from_numpy(refs).to(dev)
+    vis = torch.ones(N, dtype=torch.int32, device=dev)
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31, (N, JP))
+                            .astype(np.int32)).to(dev)
+    a = J._masked_scatter(arr.clone(), refs_t, vis, vals)
+    b = J._masked_scatter_plain(arr.clone(), refs_t, vis, vals)
+    np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert a[ROWS - 1].tolist() == arr[ROWS - 1].tolist()

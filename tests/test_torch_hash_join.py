@@ -689,3 +689,90 @@ def test_executor_key_watermark_raises_other_watermark_dropped():
     assert not any(isinstance(m, Watermark) for m in msgs)
     with pytest.raises(NotImplementedError):
         run(0)
+
+
+def test_deviation_negative_ref_dropped_where_reference_wraps(monkeypatch):
+    """Declared deviation (ROADMAP.md queue C): a negative row ref. The
+    reference's ``link_rows``, ``tombstone_rows`` and ``_masked_scatter``
+    scatter with ``.at[ref].set(mode="drop")``, and JAX wraps a negative
+    index first, so a ref of -1 writes element row_cap - 1. The port's
+    plain versions (and K5 and K7, held to them on the card) drop it and
+    write nothing. No path reaches it: the executor's refs count up from
+    0 (``alloc_refs``), and a delete names a ref it allocated."""
+    keys = _key_lanes(np.asarray([3, 4]))
+    valid = np.ones(2, bool)
+    _rt, rs, _pt, ps = _tables(keys, valid)
+    last = ROWS - 1
+    # key 3 already heads a chain at ref 9; then a batch links ref -1 to
+    # it and ref 5 to key 4
+    first = np.asarray([9, 8], np.int32)
+    rc = RJ._link_jit(_ref_chains(), rs, jnp.asarray(first),
+                      jnp.asarray(valid), CAP, jnp.int32(2))
+    pc = PJ.link_rows(PJ.make_chains(CAP, ROWS, CPU), ps,
+                      torch.from_numpy(first), torch.from_numpy(valid), CAP,
+                      2)
+    _same_chains(pc, rc)
+    refs = np.asarray([-1, 5], np.int32)
+    rc = RJ._link_jit(rc, rs, jnp.asarray(refs), jnp.asarray(valid), CAP,
+                      jnp.int32(7))
+    pc = PJ.link_rows(pc, ps, torch.from_numpy(refs),
+                      torch.from_numpy(valid), CAP, 7)
+    assert int(rc.next[last]) == 9 and int(rc.ins_seq[last]) == 7
+    assert int(pc.next[last]) == -1 and int(pc.ins_seq[last]) == PJ.I32_MAX
+    rc = RJ._tombstone_jit(rc, jnp.asarray(refs), jnp.asarray(valid),
+                           jnp.int32(11))
+    pc = PJ.tombstone_rows(pc, torch.from_numpy(refs),
+                           torch.from_numpy(valid), 11)
+    assert int(rc.del_seq[last]) == 11
+    assert int(pc.del_seq[last]) == PJ.I32_MAX
+    # every other element is the reference's
+    for a, b in zip(pc, rc):
+        a, b = a.numpy().copy(), np.asarray(b).copy()
+        if a.shape[0] == ROWS:
+            a[last] = b[last] = 0
+        np.testing.assert_array_equal(a, b)
+    arr = np.arange(ROWS * 2, dtype=np.int32).reshape(ROWS, 2)
+    vals = np.asarray([[70, 71], [50, 51]], np.int32)
+    r = np.asarray(RJ._masked_scatter_jit(jnp.asarray(arr),
+                                          jnp.asarray(refs),
+                                          jnp.asarray(valid),
+                                          jnp.asarray(vals)))
+    p = PJ._masked_scatter(torch.from_numpy(arr.copy()),
+                           torch.from_numpy(refs), torch.from_numpy(valid),
+                           torch.from_numpy(vals)).numpy()
+    assert r[last].tolist() == [70, 71] and p[last].tolist() == arr[
+        last].tolist()
+    assert r[5].tolist() == p[5].tolist() == [50, 51]
+    # the port never makes such a ref: every visible ref its executor
+    # hands the three scatters, through inserts, deletes, updates and a
+    # compaction, is >= 0
+    seen = []
+
+    def spy(fn, ref_pos, vis_pos):
+        def wrapped(*a, **kw):
+            refs_, vis_ = a[ref_pos], a[vis_pos]
+            seen.append(refs_.to(torch.int64)[vis_.to(torch.bool)].clone())
+            return fn(*a, **kw)
+        return wrapped
+    monkeypatch.setattr(PJ, "link_rows_plain",
+                        spy(PJ.link_rows_plain, 2, 3))
+    monkeypatch.setattr(PJ, "tombstone_rows_plain",
+                        spy(PJ.tombstone_rows_plain, 1, 2))
+    monkeypatch.setattr(PJ, "_masked_scatter_plain",
+                        spy(PJ._masked_scatter_plain, 1, 2))
+    sl, sr, n = _random_scripts(5)
+    _run(sl, sr, n, True)
+    sl = [("b", 1), ([0], [5], [Op.INSERT])]
+    sr = [("b", 1), ([3], ["z"], [Op.INSERT])]
+    k_cur = 0
+    for b in range(2, 14):
+        sl.append(("b", b))
+        sr.append(("b", b))
+        sl.append(([k_cur, (k_cur + 1) % 4], [5, 5],
+                   [Op.UPDATE_DELETE, Op.UPDATE_INSERT]))
+        k_cur = (k_cur + 1) % 4
+    sl.append(("b", 14))
+    sr.append(("b", 14))
+    _run(sl, sr, 14, True, compact_min=8, monkeypatch=monkeypatch)
+    allrefs = torch.cat(seen)
+    assert allrefs.numel() > 20 and int(allrefs.min()) >= 0
