@@ -40,7 +40,9 @@ phases, any failure of which exits non-zero:
      the hot-key epochs with its launches a call and its split,
      K6 (join_probe) exact, with and without degrees, including a forced
      overflow (a 2^10-row buffer) that must re-dispatch to the same pairs,
-     K7 and the head remap on K4 exact;
+     K7 and the head remap on K4 exact, K7 also at each shape the
+     outer arms' compactions, reloads and recovery give it
+     (``MASKED_SCATTER_SHAPES``: payload rows and 1-D degree writes);
    - K1 (probe_insert) alone at each shape of its paths, each against the
      plain version by the table invariants and timed beside its byte
      bound: q7's step and q7-mesh's routed step (keys placed), q8's
@@ -96,10 +98,11 @@ phases, any failure of which exits non-zero:
      epoch, watermark retirement on), unfused and with ``fusion=True``
      (the agg absorbs the tumble projection: agg_prelude); the fused MV
      equals the unfused one;
-   - Nexmark q8 at 100M events, unfused and fused (both join sides
+   - Nexmark q8 at 100M events, and fused at 20M (both join sides
      absorb their projections: join_prelude; the dedup agg its tumble
-     projection: agg_prelude); the fused MV equals the unfused one;
-   - Nexmark q1 at 4M events (bench.py's bench_q1 shape: 4096-row
+     projection: agg_prelude), the fused MV equal to phase 5's unfused
+     20M q8 trace;
+   - Nexmark q1 at 2M events (bench.py's bench_q1 shape: 4096-row
      chunks, 16 per epoch, strings on), unfused and fused (row-id
      generation and the DECIMAL projection as one block: fused_chain),
      the MVs compared without ``_row_id``;
@@ -110,8 +113,9 @@ phases, any failure of which exits non-zero:
      to the single-device q7's; then q7-mesh at 2M events killed halfway
      and rebuilt on the same store, equal to the oracle;
    - q8 over 8 logical shards (``build_q8(mesh=ShardMesh(8))``) at 100M
-     events, unfused and fused, each MV equal to the oracle and to the
-     single-device q8's; and the per-chunk arm
+     events, its MV equal to the oracle and to the single-device q8's,
+     and fused at 20M, its MV equal to phase 5's 20M q8 trace; and the
+     per-chunk arm
      (``HashJoinExecutor(mesh=ShardMesh(8), epoch_batch=False)``, one
      apply_and_probe per chunk) equal to its epoch-batched twin and to
      an oracle on a script with updates, deletes, NULL keys and growth;
@@ -123,15 +127,36 @@ phases, any failure of which exits non-zero:
      agg (evictions and reloads must both happen), bench_q8's chunking;
    - Nexmark q15's distinct counts per 10 s window (COUNT(*), two
      COUNT(DISTINCT) and approx_count_distinct, K2 with a kNone lane) at
-     10M events, q7's chunking: exact counts equal the oracle, the
+     2M events, q7's chunking: exact counts equal the oracle, the
      estimate equals this script's own dense-HLL registers and is within
      2% of the exact count;
    - q7-core under a tier cap of 8 groups at 2M events (watermark
      retirement on), its MV equal to the oracle and to the uncapped q7's
      (phase 5's traced run at the same size);
+   - q8 FULL OUTER (``build_q8_outer``: q8's sources, projections and
+     seller dedup joined FULL OUTER, the join's whole output
+     materialized, keyed by both sides' pks): on one device at 100M
+     events (the q8 arm's join state; the stored rows and table slots
+     per side logged), over 8 shards at 20M, under a cold-tier cap of
+     2048 keys a side at 2M (evictions and reloads must both happen, and
+     K7 masked_scatter launch) and killed halfway and rebuilt on the
+     same store at 2M (degrees recomputed through K6 and K7), each MV
+     equal to a vectorized oracle, the capped and recovered MVs equal;
+     every probe of the one-device arms is K6's degree branch
+     (``join_probe_deg``);
+   - join modes: all 8 join types on one device and over 8 shards on
+     the per-chunk arm's script at 16 chunks a side, with a join-key
+     watermark after epoch 1 (state expiry on both kinds of table), each
+     view equal to its oracle; plus FULL OUTER with a 1024-row pair
+     buffer (a degree-tracked epoch overflows) and LEFT OUTER with
+     compaction forced every barrier (degrees through read_degrees and
+     K7);
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
    events, fused q7 and q8 at 2M, q7-mesh and q8-mesh at 2M unfused
-   and fused, and maxbids (uncapped and capped) and distinct at 2M,
+   and fused, q8 FULL OUTER at 2M (its MV equal to the capped arm's)
+   and under its cold-tier cap (the join's own host functions by
+   cumulative time),
+   and maxbids (uncapped and capped) and distinct at 2M,
    under torch.profiler (the device's busy time and idle share) and
    cProfile (host self-time by module; the sharded path's own host
    functions by cumulative time), after the main paths' counts were
@@ -190,7 +215,8 @@ J_EPOCHS = 31                 # ~2M stored rows: q8's persons at 100M
 J_CAP0 = 1 << 20              # build_q8's presized key/row capacity
 OUT_CAP = 1 << 16             # build_q8's probe_capacity
 OVERFLOW_CAP = 1 << 10
-Q1_EVENTS = 4_000_000         # 3.68M bids; bench.py's bench_q1 shape
+Q1_EVENTS = 2_000_000         # 1.84M bids at bench.py's bench_q1 shape
+                              # (cut from 4M: the q8-outer arms' room)
 FUSED_SEEDS = 12              # random programs: every opcode appears
 FUSED_ROWS = 1 << 15
 MESH_SHARDS = 8               # bench.py's bench_q7_mesh parallelism
@@ -201,10 +227,15 @@ Q7_MESH_EVENTS = 10_000_000
 Q7_MESH_RECOVERY_EVENTS = 2_000_000
 Q7_MESH_TRACE_EVENTS = 2_000_000
 Q8_MESH_TRACE_EVENTS = 2_000_000
+# q8-mesh unfused at q8's 100M, its MV held to q8's; q8 fused and q8-mesh
+# fused at phase 5's 20M q8 trace (cut from 100M: the q8-outer arms'
+# room), each held to that trace's
+Q8_FUSED_EVENTS = 20_000_000
 MESH_CHUNK_ROWS = 4096        # bench.py's q8 lane chunks
 PERCHUNK_CHUNKS = 96          # per side: 393,216 rows
 PERCHUNK_EPOCH = 8            # chunks per side between barriers
 PERCHUNK_STEP_CHUNKS = 16     # per side in the B16 step check: 2 epochs
+HOT_KEYS = 50_000             # perchunk_script's hot key band
 
 KERNELS = {
     # name: (source, reference program it replaces)
@@ -252,7 +283,9 @@ Q7_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
 Q8_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
            "join_apply", "join_probe", "remap")
 Q7_FUSED_PATH = Q7_PATH + ("agg_prelude",)
-Q8_FUSED_PATH = Q8_PATH + ("agg_prelude", "join_prelude")
+# fused q8 runs at 20M, where the presized join table never grows: no remap
+Q8_FUSED_PATH = tuple(k for k in Q8_PATH if k != "remap") + (
+    "agg_prelude", "join_prelude")
 Q1_FUSED_PATH = ("fused_chain",)
 Q7_MESH_PATH = ("route", "probe_insert", "agg_apply", "flush_gather",
                 "advance", "live_mask", "remap")
@@ -267,8 +300,26 @@ PERCHUNK_PATH = ("route", "join_probe", "probe_insert", "join_apply")
 MAXBIDS_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance")
 MAXBIDS_CAPPED_PATH = MAXBIDS_PATH + ("lookup", "live_mask", "remap",
                                       "scatter_rows")
-# kernels a path must not launch: uncapped maxbids' patch rides in advance
-OFF_PATH = {"maxbids": ("scatter_rows",)}
+# q8 FULL OUTER: every probe tracks degrees (K6's degree branch); the
+# capped arm's evictions compact with the degrees carried by K7, and its
+# reloads recompute degrees with K6; recovery rebuilds (K7 for the
+# payload) and recomputes degrees (K6, then K7); the mesh's probes carry
+# degree rows under the sharded K6's name
+Q8_OUTER_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+                 "join_apply", "join_probe_deg", "remap")
+Q8_OUTER_MESH_PATH = ("route", "probe_insert", "agg_apply", "flush_gather",
+                      "advance", "join_apply", "join_probe")
+Q8_OUTER_CAPPED_PATH = ("probe_insert", "agg_apply", "flush_gather",
+                        "advance", "join_apply", "join_probe_deg",
+                        "masked_scatter")
+Q8_OUTER_RECOVERY_PATH = Q8_OUTER_CAPPED_PATH
+# every join type on one device and 8 shards, expiry, a forced overflow
+# and a forced compaction
+JOIN_MODES_PATH = ("route", "probe_insert", "join_apply", "join_probe",
+                   "join_probe_deg", "masked_scatter", "remap")
+# kernels a path must not launch: uncapped maxbids' patch rides in advance;
+# a FULL OUTER join probes with degrees only
+OFF_PATH = {"maxbids": ("scatter_rows",), "q8 outer": ("join_probe",)}
 # q7 under the tier: q7's own kernels, each sweep's eviction (K8, then
 # K4 and K1 + K4 as q7 has them) and each reload (K1 + K9)
 Q7_TIER_PATH = Q7_PATH + ("lookup", "scatter_rows")
@@ -1318,7 +1369,9 @@ def check_join_probe(dev, js: dict) -> dict:
         assert km[3].tolist() == [0, 0], km[3]
         err = max(err, _same(km, pm))
         assert err == 0, f"join_probe differs on {which}: {err}"
-        times[which] = (time_ms(k), time_ms(p), km[0])
+        # the hot-key epoch's plain walk takes ~0.5 s a call: 5 calls
+        times[which] = (time_ms(k), time_ms(p, *(
+            (5, 1) if which == "probe_hot" else ())), km[0])
     k, p = _probe_fns(js, "probe", OUT_CAP, False)
     total = int(times["probe"][2][0, 0])
     assert OVERFLOW_CAP < total <= OUT_CAP, total
@@ -1345,8 +1398,11 @@ def check_join_probe(dev, js: dict) -> dict:
 
 
 def check_join_probe_deg(dev, js: dict) -> dict:
-    """K6 with degrees (outer/semi/anti; no ported join type reaches it):
-    matrix, deg_self' and deg_sink' exact on both probe epochs."""
+    """K6 with degrees, as outer, semi and anti joins probe on one device
+    (phase 4's q8-outer arm, its capped and recovered arms and the join
+    modes): at q8's degree epoch (the 2^16-row side-epoch against the
+    other side's ~2M stored rows) and its hot-key epoch, the matrix,
+    deg_self' and deg_sink' exact on both."""
     rng = np.random.default_rng(5)
     rows = js["ks"].row_capacity
     degs = tuple(torch.from_numpy(rng.integers(0, 4, rows).astype(np.int32))
@@ -1362,33 +1418,98 @@ def check_join_probe_deg(dev, js: dict) -> dict:
                 bound_ms=b, bound_by=by)
 
 
-def check_masked_scatter(dev, js: dict) -> dict:
-    """K7 masked_scatter at a q8-sized compaction: the payload lanes of
-    2^20 live rows into a fresh [row_cap, 6] store."""
+# K7 masked_scatter at each shape phase 4's paths give it: name -> (rows
+# of the array, lanes (1: the degree array), refs written, the span they
+# lie in, launches of that shape a smoke run makes). A CPU rehearsal of
+# the capped and recovered q8-outer arms and the join modes (2M events;
+# every call's refs sorted and distinct, every row visible) gives 19
+# launches: the capped arm's 4 compactions write 1,536 payload rows and
+# their degrees back and its reload's degree write 6,931 refs in 8,467
+# rows; recovery rebuilds 40,000 and 15,115 rows a side, then writes
+# their recomputed degrees; the join modes' compaction run rebuilds 2^16
+# row stores
+MASKED_SCATTER_SHAPES = {
+    "capped compaction payload": (1 << 18, JP, 1536, 1536, 4),
+    "capped compaction degrees": (1 << 18, 1, 1536, 1536, 4),
+    "capped reload degrees": (1 << 18, 1, 6931, 8467, 1),
+    "recovery payload 40,000": (1 << 18, JP, 40000, 40000, 1),
+    "recovery payload 15,115": (1 << 18, JP, 15115, 15115, 1),
+    "recovery degrees 40,000": (1 << 18, 1, 40000, 40000, 1),
+    "recovery degrees 15,115": (1 << 18, 1, 15115, 15115, 1),
+    "join modes payload 15,104": (1 << 16, JP, 15104, 15104, 1),
+    "join modes payload 15,133": (1 << 16, JP, 15133, 15133, 1),
+    "join modes payload 35,693": (1 << 16, JP, 35693, 35693, 1),
+    "join modes payload 35,712": (1 << 16, JP, 35712, 35712, 1),
+    "join modes degrees 15,104": (1 << 16, 1, 15104, 15104, 1),
+    "join modes degrees 35,693": (1 << 16, 1, 35693, 35693, 1),
+}
+
+
+def _masked_scatter_case(dev, cap: int, width: int, n: int, span: int,
+                         seed: int) -> dict:
+    """K7 against its plain version on `n` sorted distinct refs in
+    [0, span) of a [cap] (width 1) or [cap, width] array, every row
+    visible as on the paths; then exact on the same shape with a tenth
+    of the rows hidden, refs shuffled and some out of range. Its times
+    after an L2 flush, as the paths meet it after a rebuild."""
     from risingwave_tpu_torch.ops import hash_join as J
+    rng = np.random.default_rng(seed)
+    shape = (cap,) if width == 1 else (cap, width)
+    arr = torch.from_numpy(rng.integers(-2**31, 2**31, shape)
+                           .astype(np.int32)).to(dev)
+    ref_np = np.sort(rng.choice(span, n, replace=False)).astype(np.int32)
+    refs = torch.from_numpy(ref_np).to(dev)
+    vis = torch.ones(n, dtype=torch.int32, device=dev)
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31, (n,) + shape[1:])
+                            .astype(np.int32)).to(dev)
+    err = abs_err(J._masked_scatter(arr.clone(), refs, vis, vals)
+                  .cpu().numpy(),
+                  J._masked_scatter_plain(arr.clone(), refs, vis, vals)
+                  .cpu().numpy())
+    odd = rng.permutation(ref_np)
+    odd[rng.random(n) < 0.02] = -1
+    odd[rng.random(n) < 0.02] = cap + 7
+    odd_t = torch.from_numpy(odd).to(dev)
+    hid = torch.from_numpy((rng.random(n) >= 0.1).astype(np.int32)).to(dev)
+    err = max(err, abs_err(
+        J._masked_scatter(arr.clone(), odd_t, hid, vals).cpu().numpy(),
+        J._masked_scatter_plain(arr.clone(), odd_t, hid, vals)
+        .cpu().numpy()))
+    r64 = refs.to(torch.int64)
+    b, by = bound_ms(n * (8 + width * 4) + n * width * 4, n * width)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: J._masked_scatter(arr, refs, vis, vals),
+                   cold=True),
+        plain_ms=time_ms(lambda: J._masked_scatter_plain(arr, refs, vis,
+                                                         vals), cold=True),
+        # every row visible and in range: one index_put_ computes the
+        # same function (its int64 index made beforehand)
+        library_ms=time_ms(lambda: arr.index_put_((r64,), vals), cold=True),
+        bound_ms=b, bound_by=by)
+
+
+def check_masked_scatter(dev, js: dict) -> dict:
+    """K7 masked_scatter at a q8-sized compaction (the payload lanes of
+    2^20 live rows into a fresh [row_cap, 6] store), then at each shape
+    of MASKED_SCATTER_SHAPES, where ``path_loss_ms`` sums launches x (ms
+    - bound) over them: the loss its paths' launches make."""
     rows = js["ks"].row_capacity
     n = min(1 << 20, rows)
-    rng = np.random.default_rng(9)
-    refs = torch.arange(n, dtype=torch.int32, device=dev)
-    vis = torch.ones(n, dtype=torch.int32, device=dev)
-    vals = torch.from_numpy(rng.integers(-2**31, 2**31, (n, JP))
-                            .astype(np.int32)).to(dev)
-    arr = torch.zeros((rows, JP), dtype=torch.int32, device=dev)
-    k = J._masked_scatter(arr.clone(), refs, vis, vals)
-    p = J._masked_scatter_plain(arr.clone(), refs, vis, vals)
-    err = abs_err(k.cpu().numpy(), p.cpu().numpy())
-    assert err == 0, f"masked_scatter differs: {err}"
-    ms = time_ms(lambda: J._masked_scatter(arr, refs, vis, vals),
-                 cold=True)
-    plain_ms = time_ms(lambda: J._masked_scatter_plain(arr, refs, vis,
-                                                       vals), cold=True)
-    # every row visible and in range here, so one index_put_ computes
-    # the same function (its int64 index made beforehand)
-    r64 = refs.to(torch.int64)
-    library_ms = time_ms(lambda: arr.index_put_((r64,), vals), cold=True)
-    b, by = bound_ms(n * (8 + JP * 4) + n * JP * 4, n * JP)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=library_ms)
+    out = _masked_scatter_case(dev, rows, JP, n, n, 9)
+    shapes, loss = {}, 0.0
+    for i, (name, (cap, width, k, span, launches)) in enumerate(
+            MASKED_SCATTER_SHAPES.items()):
+        c = _masked_scatter_case(dev, cap, width, k, span, 40 + i)
+        assert c["max_abs_err"] == 0, \
+            f"masked_scatter differs at {name}: {c['max_abs_err']}"
+        shapes[name] = dict(c, rows=cap, width=width, refs=k,
+                            launches=launches)
+        loss += launches * (c["ms"] - c["bound_ms"])
+        log(f"masked_scatter at {name}: " + json.dumps(shapes[name]))
+    assert out["max_abs_err"] == 0, \
+        f"masked_scatter differs: {out['max_abs_err']}"
+    return dict(out, path_shapes=shapes, path_loss_ms=loss)
 
 
 def check_rebase(dev, js: dict) -> dict:
@@ -1533,6 +1654,9 @@ def drive(p, targets: dict, dev, trace: bool) -> dict:
         parallel = mesh_host_fns(stats)
         if parallel:
             traced["parallel_cum_s"] = parallel
+        joined = join_host_fns(stats)
+        if joined:
+            traced["join_cum_s"] = joined
     else:
         t0 = time.perf_counter()
         elapsed, rows = run()
@@ -1674,6 +1798,201 @@ def run_q8(dev, events: int, trace: bool = False,
                 row_capacity=[s.kernel.row_capacity for s in join.sides],
                 stored_rows=[s.next_ref for s in join.sides],
                 dead_refs=[len(s.free) for s in join.sides], **extra)
+
+
+# -- phase 4: q8 FULL OUTER (the join's other modes) --------------------------
+
+Q8_OUTER_EVENTS = 100_000_000     # the q8 arm's size: its join state
+Q8_OUTER_MESH_EVENTS = 20_000_000
+Q8_OUTER_CAPPED_EVENTS = 2_000_000
+Q8_OUTER_RECOVERY_EVENTS = 2_000_000
+Q8_OUTER_TRACE_EVENTS = 2_000_000
+Q8_OUTER_CAP = 2048               # resident keys a side: 40K persons at 2M
+
+
+def build_q8_outer(dev, store, base, state_cap=None, mesh=None,
+                   rate_limit: int = 16):
+    """q8 as build_q8 builds it (its sources, projections and seller
+    dedup, at its capacities), with the inner join replaced by a FULL
+    OUTER join over the same inputs and state tables whose whole output
+    is materialized: both sides' columns, keyed by both sides' pks, so
+    the NULL-padded rows stay distinct. In words: persons who registered
+    in a 10 s window, each with whether they opened an auction in it,
+    and each seller-window with no registration in it. Both join inputs
+    are append-only (the dedup's projection drops its no-op updates) and
+    both state tables' pks start with the join keys, so the cold tier
+    applies (``state_cap``)."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.models.nexmark import Pipeline, build_q8
+    from risingwave_tpu_torch.parallel import ShardMesh
+    from risingwave_tpu_torch.state.state_table import StateTable
+    from risingwave_tpu_torch.stream.actor import Actor
+    from risingwave_tpu_torch.stream.executors.hash_join import (
+        HashJoinExecutor, JoinType,
+    )
+    from risingwave_tpu_torch.stream.executors.materialize import (
+        MaterializeExecutor,
+    )
+    q8 = build_q8(store,
+                  NexmarkConfig(**{**base.__dict__, "table_type": "person"}),
+                  NexmarkConfig(**{**base.__dict__,
+                                   "table_type": "auction"}),
+                  rate_limit=rate_limit, min_chunks=rate_limit,
+                  mesh=ShardMesh(MESH_SHARDS, dev) if mesh else None,
+                  device=dev)
+    inner = q8.actor.consumer.input.input
+    left, right = inner.sides
+    # build_q8's presized capacities (a mesh keeps the kernel's defaults)
+    opts = None if mesh else {"key_capacity": left.kernel.table.capacity,
+                              "row_capacity": left.kernel.row_capacity,
+                              "probe_capacity": left.kernel._probe_cap}
+    join = HashJoinExecutor(
+        inner.left_in, inner.right_in, left.key_indices, right.key_indices,
+        left.table, right.table, join_type=JoinType.FULL_OUTER,
+        output_names=["id", "name", "starttime", "seller", "a_starttime"],
+        mesh=left.mesh, shard_opts=opts, state_cap=state_cap, device=dev)
+    mv = StateTable(6, join.schema, join.pk_indices, store)
+    actor = Actor(q8.actor.actor_id, MaterializeExecutor(join, mv),
+                  barrier_manager=q8.actor.barrier_manager,
+                  fragment="nexmark-q8-outer")
+    return Pipeline(actor, q8.loop, mv, q8.readers)
+
+
+def q8_outer_oracle(cfg, n_persons: int, n_auctions: int,
+                    block: int = 1 << 21) -> set:
+    """persons FULL OUTER JOIN distinct (seller, window) of auctions on id
+    = seller and the same window, vectorized per block: (id, name,
+    window, seller, window) rows, None where a side is padded; computed
+    once per size."""
+    key = ("q8 outer", cfg.event_num, n_persons, n_auctions)
+    if key in _ORACLES:
+        return _ORACLES[key]
+    from risingwave_tpu_torch.connectors.nexmark import (
+        gen_auctions, gen_persons,
+    )
+    from risingwave_tpu_torch.models.nexmark import DEFAULT_WINDOW
+    w = DEFAULT_WINDOW.usecs
+    sellers = []
+    for lo in range(0, n_auctions, block):
+        a = gen_auctions(np.arange(lo, min(lo + block, n_auctions),
+                                   dtype=np.int64), cfg)
+        sellers.append(np.unique((a["seller"] << 32)
+                                 | (a["date_time"] // w)))
+    sellers = np.unique(np.concatenate(sellers))
+    out, hit = set(), []
+    for lo in range(0, n_persons, block):
+        ps = gen_persons(np.arange(lo, min(lo + block, n_persons),
+                                   dtype=np.int64), cfg)
+        pkey = (ps["id"] << 32) | (ps["date_time"] // w)
+        m = np.isin(pkey, sellers)
+        hit.append(pkey[m])
+        win = ((ps["date_time"] // w) * w).tolist()
+        ids = ps["id"].tolist()
+        for i, nm, wi, ok in zip(ids, ps["name"].tolist(), win,
+                                 m.tolist()):
+            out.add((i, nm, wi, i, wi) if ok else (i, nm, wi, None, None))
+    alone = sellers[~np.isin(sellers, np.concatenate(hit))]
+    out.update((None, None, None, s, wi * w) for s, wi in
+               zip((alone >> 32).tolist(), (alone & 0xFFFFFFFF).tolist()))
+    _ORACLES[key] = out
+    return out
+
+
+def mv_digest_nullable(rows) -> str:
+    """mv_digest for rows that hold None (sorted by their repr)."""
+    import hashlib
+    h = hashlib.sha256()
+    for r in sorted(map(repr, rows)):
+        h.update(r.encode())
+    return h.hexdigest()[:16]
+
+
+def _q8_outer_check(p, base, n_p: int, n_a: int, what: str) -> dict:
+    """The MV against the oracle, and the join's state at the end of the
+    run: stored rows and table slots per side."""
+    rows = [tuple(r) for _pk, r in p.mv_table.iter_rows()]
+    want = q8_outer_oracle(base, n_p, n_a)
+    assert len(rows) == len(want) and set(rows) == want, \
+        f"{what} MV differs from the oracle"
+    assert p.readers[1].offset == n_p and p.readers[2].offset == n_a
+    join = p.actor.consumer.input
+    return dict(mv_rows=len(rows), mv_digest=mv_digest_nullable(rows),
+                padded_rows=sum(r[0] is None or r[3] is None for r in rows),
+                stored_rows=[len(s.pk_to_ref) for s in join.sides],
+                next_ref=[s.next_ref for s in join.sides],
+                key_capacity=[getattr(s.kernel, "key_capacity", None)
+                              or s.kernel.table.capacity
+                              for s in join.sides],
+                row_capacity=[s.kernel.row_capacity for s in join.sides])
+
+
+def run_q8_outer(dev, events: int, trace: bool = False, mesh: bool = False,
+                 state_cap=None) -> dict:
+    """q8 FULL OUTER through build_q8_outer + drive_to_completion at the
+    q8 arm's chunking (4096-row chunks, 16 a barrier per source, two
+    barriers in flight); the MV must equal the oracle exactly. With
+    ``mesh`` the join runs over MESH_SHARDS logical shards; with
+    ``state_cap`` under the cold tier, which must both evict and reload."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.parallel import ShardedJoinKernel, ShardMesh
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+
+    base = NexmarkConfig(event_num=events, max_chunk_size=4096,
+                         generate_strings=False)
+    p = build_q8_outer(dev, MemoryStateStore(), base, state_cap=state_cap,
+                       mesh=ShardMesh(MESH_SHARDS, dev) if mesh else None)
+    join = p.actor.consumer.input
+    assert all(isinstance(s.kernel, ShardedJoinKernel) == mesh
+               for s in join.sides)
+    n_p, n_a = events // 50, events * 3 // 50
+    out = drive(p, {1: n_p, 2: n_a}, dev, trace)
+    extra = _q8_outer_check(p, base, n_p, n_a, "q8-outer")
+    if state_cap is not None:
+        ev = sum(t.evicted_total for t in join._tier_parts)
+        rl = sum(t.reload_total for t in join._tier_parts)
+        assert ev > 0 and rl > 0, \
+            f"q8-outer under the tier evicted {ev} and reloaded {rl} keys"
+        extra.update(state_cap=state_cap, evicted_keys=ev,
+                     reloaded_keys=rl,
+                     cold_keys=[len(s.cold_keys) for s in join.sides])
+    return dict(out, **extra)
+
+
+def run_q8_outer_recovery(dev, events: int) -> dict:
+    """q8-outer killed halfway and rebuilt on the same store: a fresh
+    pipeline reloads both join sides and recomputes their degrees (K6 +
+    K7), runs to the end, and the MV equals the oracle. Launch counts
+    cover both halves. Its sources read 4 chunks a barrier (at the
+    arm's 16 the warmup epoch alone would read half the auctions) and
+    the first half runs to half the auctions with one barrier in flight:
+    the persons (a third of the auctions' rows) are all in by then, the
+    auctions are not."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.models.nexmark import drive_to_completion
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    base = NexmarkConfig(event_num=events, max_chunk_size=4096,
+                         generate_strings=False)
+    store = MemoryStateStore()
+    n_p, n_a = events // 50, events * 3 // 50
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    p1 = build_q8_outer(dev, store, base, rate_limit=4)
+    asyncio.run(drive_to_completion(p1, {2: n_a // 2}, in_flight=1))
+    half = [len(s.pk_to_ref) for s in p1.actor.consumer.input.sides]
+    at_kill = p1.readers[2].offset
+    assert at_kill < n_a, "the kill fell after the last auction"
+    del p1
+    p2 = build_q8_outer(dev, store, base, rate_limit=4)
+    asyncio.run(drive_to_completion(p2, {1: n_p, 2: n_a}, in_flight=2))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    extra = _q8_outer_check(p2, base, n_p, n_a, "q8-outer after recovery")
+    # both halves, set-up included: no warmup epoch is split off here
+    return dict(events=n_p + n_a, elapsed_s=wall, wall_s=wall,
+                auctions_at_kill=at_kill, stored_at_kill=half,
+                launches=LAUNCHES.snapshot(), **extra)
 
 
 def run_q1(dev, events: int, fusion: bool) -> dict:
@@ -2759,18 +3078,26 @@ def check_mesh_apply_and_probe(dev) -> dict:
 
 # -- phase 4: the per-chunk arm of the sharded join ---------------------------
 
-def perchunk_script(n_chunks: int = PERCHUNK_CHUNKS, seed: int = 41):
+def perchunk_script(n_chunks: int = PERCHUNK_CHUNKS, seed: int = 41,
+                    wm_epoch=None):
     """Both sides' streams: n_chunks chunks of 4,096 rows per side,
     PERCHUNK_EPOCH chunks per side between barriers. Each chunk deletes
     live rows, moves live rows to another key with a U-/U+ pair, and
     inserts new rows; 5% of keys are NULL, and the key range widens each
-    epoch so the sharded key tables grow. Returns (left messages, right
-    messages, barriers, the oracle's view as sorted rows [lk, lv, rk,
-    rv])."""
+    epoch so the key tables grow. With ``wm_epoch`` both sides send a
+    join-key watermark of HOT_KEYS after that epoch's chunks: the hot
+    band moves to [HOT_KEYS, 2 HOT_KEYS), so no later row has a key
+    below it, and no later delete or update touches a row below it (the
+    join expires those rows at the next barrier). Returns (left
+    messages, right messages, barriers, live rows per side as (key,
+    NULL mask, pk)); ``perchunk_oracle`` folds them to the inner join's
+    view."""
     from risingwave_tpu_torch.common.chunk import Column, Op, StreamChunk
     from risingwave_tpu_torch.common.epoch import Epoch, EpochPair
     from risingwave_tpu_torch.common.types import DataType, Schema
-    from risingwave_tpu_torch.stream.message import Barrier, BarrierKind
+    from risingwave_tpu_torch.stream.message import (
+        Barrier, BarrierKind, Watermark,
+    )
     rng = np.random.default_rng(seed)
     n = MESH_CHUNK_ROWS
     schemas = (Schema.of(lk=DataType.INT64, lv=DataType.INT64),
@@ -2779,6 +3106,7 @@ def perchunk_script(n_chunks: int = PERCHUNK_CHUNKS, seed: int = 41):
                  pk=np.zeros(0, np.int64)) for _ in range(2)]
     next_pk = [0, 10**9]
     msgs = ([], [])
+    hot = [0]                       # the hot band's first key
 
     def barrier(b):
         prev = Epoch.from_physical(b - 1) if b > 1 else Epoch.INVALID
@@ -2786,9 +3114,11 @@ def perchunk_script(n_chunks: int = PERCHUNK_CHUNKS, seed: int = 41):
                        BarrierKind.CHECKPOINT)
 
     def keys(m, hi):
-        """30% on 50K hot keys (matches), 70% over a widening range."""
-        k = np.where(rng.random(m) < 0.3, rng.integers(0, 50_000, m),
-                     50_000 + rng.integers(0, hi, m))
+        """30% on HOT_KEYS hot keys (matches), 70% over a widening
+        range."""
+        k = np.where(rng.random(m) < 0.3,
+                     hot[0] + rng.integers(0, HOT_KEYS, m),
+                     HOT_KEYS + rng.integers(0, hi, m))
         return k.astype(np.int64), rng.random(m) < 0.05
     b = 1
     for side in (0, 1):
@@ -2797,9 +3127,11 @@ def perchunk_script(n_chunks: int = PERCHUNK_CHUNKS, seed: int = 41):
         hi = 200_000 * (c // PERCHUNK_EPOCH + 1)
         for side in (0, 1):
             lv = live[side]
-            d = min(400, len(lv["pk"]) // 4)
-            u = min(300, len(lv["pk"]) // 4)
-            pick = rng.choice(len(lv["pk"]), d + u, replace=False)
+            # after the watermark only rows at or above it may change
+            elig = np.flatnonzero(lv["null"] | (lv["k"] >= hot[0]))
+            d = min(400, len(elig) // 4)
+            u = min(300, len(elig) // 4)
+            pick = elig[rng.choice(len(elig), d + u, replace=False)]
             dl, up = pick[:d], pick[d:]
             nk, nn = keys(u, hi)
             i = n - d - 2 * u
@@ -2826,23 +3158,52 @@ def perchunk_script(n_chunks: int = PERCHUNK_CHUNKS, seed: int = 41):
             for name, new in (("k", ik), ("null", inn), ("pk", ipk)):
                 lv[name] = np.concatenate([lv[name][keep], new])
         if (c + 1) % PERCHUNK_EPOCH == 0:
+            if wm_epoch is not None and (c + 1) // PERCHUNK_EPOCH == wm_epoch:
+                hot[0] = HOT_KEYS
+                for side in (0, 1):
+                    msgs[side].append(Watermark(0, DataType.INT64,
+                                                HOT_KEYS))
             b += 1
             for side in (0, 1):
                 msgs[side].append(barrier(b))
-    # the oracle: every (left, right) pair of live rows on one non-NULL key
+    return msgs[0], msgs[1], b, live
+
+
+def perchunk_oracle(live, join_type: str = "inner") -> np.ndarray:
+    """The join of perchunk_script's live rows as sorted int64 rows, -1
+    for NULL: [lk, lv, rk, rv] (both sides' columns; outer joins pad the
+    unmatched side) or the subject's [k, v] (semi and anti joins). A
+    NULL key matches nothing."""
     lk, rk = (np.where(x["null"], -1, x["k"]) for x in live)
+    lpk, rpk = live[0]["pk"], live[1]["pk"]
     order = np.argsort(rk, kind="stable")
     rs = rk[order]
     lo = np.searchsorted(rs, lk, "left")
-    hi_ = np.searchsorted(rs, lk, "right")
-    cnt = np.where(lk >= 0, hi_ - lo, 0)
-    li = np.repeat(np.arange(len(lk)), cnt)
+    cnt_l = np.where(lk >= 0, np.searchsorted(rs, lk, "right") - lo, 0)
+    ls_ = np.sort(lk)
+    cnt_r = np.where(rk >= 0, np.searchsorted(ls_, rk, "right")
+                     - np.searchsorted(ls_, rk, "left"), 0)
+    if join_type in ("left_semi", "left_anti", "right_semi", "right_anti"):
+        k, v, cnt = (lk, lpk, cnt_l) if join_type.startswith("left") \
+            else (rk, rpk, cnt_r)
+        m = (cnt > 0) if join_type.endswith("semi") else (cnt == 0)
+        view = np.stack([k[m], v[m]], axis=1)
+        return view[np.lexsort(view.T[::-1])]
+    li = np.repeat(np.arange(len(lk)), cnt_l)
     ri = order[np.concatenate([np.arange(a, a + c_) for a, c_ in
-                               zip(lo[cnt > 0], cnt[cnt > 0])])
-               if cnt.any() else np.zeros(0, np.int64)]
-    view = np.stack([lk[li], live[0]["pk"][li], rk[ri], live[1]["pk"][ri]],
-                    axis=1)
-    return msgs[0], msgs[1], b, view[np.lexsort(view.T[::-1])]
+                               zip(lo[cnt_l > 0], cnt_l[cnt_l > 0])])
+               if cnt_l.any() else np.zeros(0, np.int64)]
+    parts = [np.stack([lk[li], lpk[li], rk[ri], rpk[ri]], axis=1)]
+    if join_type in ("left_outer", "full_outer"):
+        m = cnt_l == 0
+        parts.append(np.stack([lk[m], lpk[m], np.full(m.sum(), -1),
+                               np.full(m.sum(), -1)], axis=1))
+    if join_type in ("right_outer", "full_outer"):
+        m = cnt_r == 0
+        parts.append(np.stack([np.full(m.sum(), -1), np.full(m.sum(), -1),
+                               rk[m], rpk[m]], axis=1))
+    view = np.concatenate(parts)
+    return view[np.lexsort(view.T[::-1])]
 
 
 def _chunk_arrays(c) -> tuple:
@@ -2860,14 +3221,19 @@ def _chunk_rows(c) -> np.ndarray:
     return rows[np.lexsort(rows.T[::-1])]
 
 
-def _view_of(chunks) -> np.ndarray:
-    """The join's output folded into its view (sorted rows; each joined
-    row's count must end at 0 or 1: the pks are unique)."""
+def _view_of(chunks, width: int = 4) -> np.ndarray:
+    """The join's output folded into its view as sorted int64 rows, -1
+    for NULL (each row's count must end at 0 or 1: the pks are
+    unique)."""
     rows, sign = [], []
     for c in chunks:
         a = _chunk_arrays(c)
-        rows.append(np.stack(a[1:5], axis=1))
+        vals = np.stack(a[1:1 + width], axis=1)
+        ok = np.stack(a[1 + width:1 + 2 * width], axis=1)
+        rows.append(np.where(ok, vals, -1).astype(np.int64))
         sign.append(np.where((a[0] == 1) | (a[0] == 4), 1, -1))
+    if not rows:
+        return np.zeros((0, width), np.int64)
     rows = np.concatenate(rows)
     uniq, inv = np.unique(rows, axis=0, return_inverse=True)
     cnt = np.bincount(inv.reshape(-1), weights=np.concatenate(sign),
@@ -2876,14 +3242,16 @@ def _view_of(chunks) -> np.ndarray:
     return uniq[cnt == 1]
 
 
-def _join_executor(dev, sl, sr, epoch_batch: bool):
-    """The inner join of perchunk_script's two streams over MESH_SHARDS
-    shards."""
+def _join_executor(dev, sl, sr, epoch_batch: bool = True,
+                   join_type: str = "inner", mesh: bool = True,
+                   shard_opts=None):
+    """The join of perchunk_script's two streams, over MESH_SHARDS shards
+    or on one device."""
     from risingwave_tpu_torch.parallel import ShardMesh
     from risingwave_tpu_torch.state.state_table import StateTable
     from risingwave_tpu_torch.state.store import MemoryStateStore
     from risingwave_tpu_torch.stream.executors.hash_join import (
-        HashJoinExecutor,
+        HashJoinExecutor, JoinType,
     )
     from risingwave_tpu_torch.stream.executors.test_utils import MockSource
     ls, rs = sl[1].schema, sr[1].schema
@@ -2892,8 +3260,9 @@ def _join_executor(dev, sl, sr, epoch_batch: bool):
         MockSource(ls, sl), MockSource(rs, sr), [0], [0],
         StateTable(21, ls, [1], store, dist_key_indices=[]),
         StateTable(22, rs, [1], store, dist_key_indices=[]),
-        mesh=ShardMesh(MESH_SHARDS, dev), epoch_batch=epoch_batch,
-        device=dev)
+        join_type=JoinType(join_type),
+        mesh=ShardMesh(MESH_SHARDS, dev) if mesh else None,
+        shard_opts=shard_opts, epoch_batch=epoch_batch, device=dev)
 
 
 def run_join_perchunk(dev, n_chunks: int = PERCHUNK_CHUNKS) -> dict:
@@ -2909,7 +3278,8 @@ def run_join_perchunk(dev, n_chunks: int = PERCHUNK_CHUNKS) -> dict:
         collect_until_n_barriers,
     )
     from risingwave_tpu_torch.utils.device import LAUNCHES
-    sl, sr, nb, want = perchunk_script(n_chunks)
+    sl, sr, nb, live = perchunk_script(n_chunks)
+    want = perchunk_oracle(live)
     out = {}
     for arm in ("epoch", "per-chunk"):
         ex = _join_executor(dev, sl, sr, epoch_batch=arm == "epoch")
@@ -2943,6 +3313,108 @@ def run_join_perchunk(dev, n_chunks: int = PERCHUNK_CHUNKS) -> dict:
                 epoch_arm_launches=out["epoch"]["launches"],
                 per_chunk={k: v / steps for k, v in pc["launches"].items()},
                 elapsed_s=pc["wall_s"])
+
+
+# -- phase 4: every join type on perchunk_script ---------------------------------
+
+JOIN_TYPES = ("inner", "left_outer", "right_outer", "full_outer",
+              "left_semi", "left_anti", "right_semi", "right_anti")
+MODES_CHUNKS = 16             # per side: 2 epochs of 8 chunks
+MODES_WM_EPOCH = 1            # the join-key watermark after epoch 1
+MODES_OVERFLOW_CAP = 1 << 10  # the forced pair-buffer overflow run
+MODES_COMPACT_RATIO = 0.05    # the forced compaction run's dead share
+
+
+def run_join_modes(dev) -> dict:
+    """Every JoinType on one device and over MESH_SHARDS shards (epoch
+    arm) on perchunk_script's streams at MODES_CHUNKS chunks a side,
+    with a join-key watermark after epoch MODES_WM_EPOCH (expiry on the
+    single-device and the sharded tables), each view equal to its
+    oracle; then FULL OUTER on one device with a MODES_OVERFLOW_CAP pair
+    buffer (a degree-tracked epoch overflows and re-dispatches) and LEFT
+    OUTER on one device with compaction forced at every barrier
+    (degrees through read_degrees and K7). Launch counts are the whole
+    arm's."""
+    from risingwave_tpu_torch.stream.executors.test_utils import (
+        collect_until_n_barriers,
+    )
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    sl, sr, nb, live = perchunk_script(MODES_CHUNKS, seed=43,
+                                       wm_epoch=MODES_WM_EPOCH)
+    runs = [(jt, mesh, None) for jt in JOIN_TYPES for mesh in (False, True)]
+    runs += [("full_outer", False, "overflow"),
+             ("left_outer", False, "compaction")]
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    out, views = {}, {}
+    for jt, mesh, special in runs:
+        opts = {"probe_capacity": MODES_OVERFLOW_CAP} \
+            if special == "overflow" else None
+        ex = _join_executor(dev, sl, sr, join_type=jt, mesh=mesh,
+                            shard_opts=opts)
+        compactions = [0]
+        if special == "compaction":
+            for side in ex.sides:
+                side.COMPACT_DEAD_RATIO = MODES_COMPACT_RATIO
+                real = side.compact
+
+                def counted(real=real):
+                    compactions[0] += 1
+                    real()
+                side.compact = counted
+        t1 = time.perf_counter()
+        msgs = asyncio.run(collect_until_n_barriers(ex, nb))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        width = 2 if jt.endswith(("semi", "anti")) else 4
+        got = _view_of([m for m in msgs if hasattr(m, "ops")], width)
+        want = perchunk_oracle(live, jt)
+        label = f"{jt} {special or ('mesh' if mesh else 'one')}"
+        assert got.shape == want.shape and (got == want).all(), \
+            f"join modes: {label} differs from the oracle"
+        k = ex.sides[0].kernel
+        r = dict(view_rows=len(got), wall_s=time.perf_counter() - t1,
+                 key_capacity=getattr(k, "key_capacity", None)
+                 or k.table.capacity,
+                 expired_to=[int(min(s.arena.cols[0][s.live_refs()],
+                                     default=-1)) for s in ex.sides])
+        assert all(x >= HOT_KEYS for x in r["expired_to"]), \
+            f"join modes: {label} kept rows below the watermark"
+        if special == "overflow":
+            r["probe_capacity"] = [s.kernel._probe_cap for s in ex.sides]
+            assert max(r["probe_capacity"]) > MODES_OVERFLOW_CAP, \
+                "the forced pair-buffer overflow did not happen"
+        if special == "compaction":
+            r["compactions"] = compactions[0]
+            assert compactions[0] > 0, "no compaction ran"
+        out[label] = r
+        views[label] = got
+    for jt in JOIN_TYPES:
+        assert np.array_equal(views[f"{jt} one"], views[f"{jt} mesh"])
+    wall = time.perf_counter() - t0
+    return dict(runs=out, rows_per_side=MODES_CHUNKS * MESH_CHUNK_ROWS,
+                barriers=nb, elapsed_s=wall, wall_s=wall,
+                launches=LAUNCHES.snapshot())
+
+
+def join_host_fns(stats) -> dict:
+    """Cumulative host time (s) of the join executor's own barrier work:
+    the epoch dispatch and emission (the degree replay in it), and the
+    cold tier's and expiry's state moves (a compaction's degree read
+    included)."""
+    want = {"stream/executors/hash_join.py": (
+        "_dispatch_epoch", "_emit_pending", "_emit_one", "_reload_cold",
+        "reload_keys", "evict_keys", "compact", "expire_below",
+        "_recover_degrees"),
+        "ops/hash_join.py": ("read_degrees", "write_degrees", "rebuild")}
+    out: dict = {}
+    for (path, _line, fn), (_cc, _nc, _tt, ct, _callers) in \
+            stats.stats.items():
+        for mod, fns in want.items():
+            if path.endswith(mod) and fn in fns:
+                key = f"{mod}:{fn}"
+                out[key] = out.get(key, 0.0) + ct
+    return out
 
 
 def mesh_host_fns(stats) -> dict:
@@ -3392,7 +3864,7 @@ MAXBIDS_TRACE_EVENTS = 2_000_000     # maxbids both ways, distinct: traced
 # the next barrier's bids reload some. A cap of 128 or more (2048
 # included) evicts every sweep and never reloads (CPU rehearsal at 2M)
 MAXBIDS_TIER_CAP = 64
-DISTINCT_EVENTS = 10_000_000
+DISTINCT_EVENTS = 2_000_000   # cut from 10M: the q8-outer arms' room
 Q7_TIER_EVENTS = 2_000_000
 # retirement leaves one window live at each sweep, so only a cap of 0
 # binds: every checkpoint evicts the open window, and the next barrier's
@@ -3640,8 +4112,10 @@ def main() -> int:
     log(f"launch floor (advance, 1024 slots, nothing dirty): {floor} ms")
     results = {}
     for name, check in CHECKS.items():
+        t0 = time.perf_counter()
         results[name] = check(dev, CAP, N)
-        log(f"kernel {name}: " + json.dumps(results[name]))
+        log(f"kernel {name}: " + json.dumps(
+            dict(results[name], check_s=time.perf_counter() - t0)))
     chains = check_rebuild_chains(dev)
     for name, r in chains.items():
         log(f"rebuild at {name}: " + json.dumps(r))
@@ -3657,8 +4131,10 @@ def main() -> int:
         f"{js['ks'].row_capacity} rows, built in "
         f"{time.perf_counter() - t0:.3f} s")
     for name, check in JOIN_CHECKS.items():
+        t0 = time.perf_counter()
         results[name] = check(dev, js)
-        log(f"kernel {name}: " + json.dumps(results[name]))
+        log(f"kernel {name}: " + json.dumps(
+            dict(results[name], check_s=time.perf_counter() - t0)))
     log("remap (head, q8's growth 2^21 -> 2^22 slots): "
         + json.dumps(check_remap_head(dev, js)))
     # K1 alone at q8's apply shapes, K8 at its keys, K6 by kernel
@@ -3748,7 +4224,10 @@ def main() -> int:
     for name, r in k1_shapes.items():
         log(f"probe_insert at {name}: " + json.dumps(r))
 
+    log(f"phase 3: {time.perf_counter() - t_start:.1f} s")
+
     # 4. the main paths end to end, the plan checker strict
+    t_phase = time.perf_counter()
     from risingwave_tpu_torch.frontend.opt import set_strict_checker
     set_strict_checker(True)
     paths = {}
@@ -3757,8 +4236,8 @@ def main() -> int:
             ("q8", run_q8, Q8_EVENTS, Q8_PATH),
             ("q7 fused", lambda d, e: run_q7(d, e, fusion=True), Q7_EVENTS,
              Q7_FUSED_PATH),
-            ("q8 fused", lambda d, e: run_q8(d, e, fusion=True), Q8_EVENTS,
-             Q8_FUSED_PATH),
+            ("q8 fused", lambda d, e: run_q8(d, e, fusion=True),
+             Q8_FUSED_EVENTS, Q8_FUSED_PATH),
             ("q1", lambda d, e: run_q1(d, e, fusion=False), Q1_EVENTS, ()),
             ("q1 fused", lambda d, e: run_q1(d, e, fusion=True), Q1_EVENTS,
              Q1_FUSED_PATH),
@@ -3770,8 +4249,8 @@ def main() -> int:
             ("q8 mesh", lambda d, e: run_q8(d, e, mesh=True), Q8_EVENTS,
              Q8_MESH_PATH),
             ("q8 mesh fused", lambda d, e: run_q8(d, e, fusion=True,
-                                                  mesh=True), Q8_EVENTS,
-             Q8_MESH_FUSED_PATH),
+                                                  mesh=True),
+             Q8_FUSED_EVENTS, Q8_MESH_FUSED_PATH),
             ("q8 mesh per-chunk", lambda d, e: run_join_perchunk(d), 0,
              PERCHUNK_PATH),
             ("maxbids", run_maxbids, MAXBIDS_EVENTS, MAXBIDS_PATH),
@@ -3780,7 +4259,17 @@ def main() -> int:
              MAXBIDS_CAPPED_PATH),
             ("distinct", run_distinct, DISTINCT_EVENTS, DISTINCT_PATH),
             ("q7 tier", lambda d, e: run_q7(d, e, tier_cap=Q7_TIER_CAP),
-             Q7_TIER_EVENTS, Q7_TIER_PATH)):
+             Q7_TIER_EVENTS, Q7_TIER_PATH),
+            ("q8 outer", run_q8_outer, Q8_OUTER_EVENTS, Q8_OUTER_PATH),
+            ("q8 outer mesh", lambda d, e: run_q8_outer(d, e, mesh=True),
+             Q8_OUTER_MESH_EVENTS, Q8_OUTER_MESH_PATH),
+            ("q8 outer capped", lambda d, e: run_q8_outer(
+                d, e, state_cap=Q8_OUTER_CAP), Q8_OUTER_CAPPED_EVENTS,
+             Q8_OUTER_CAPPED_PATH),
+            ("q8 outer recovery", run_q8_outer_recovery,
+             Q8_OUTER_RECOVERY_EVENTS, Q8_OUTER_RECOVERY_PATH),
+            ("join modes", lambda d, e: run_join_modes(d), 0,
+             JOIN_MODES_PATH)):
         t_path = time.perf_counter()
         out = run(dev, events)
         out["path_s"] = time.perf_counter() - t_path
@@ -3798,7 +4287,7 @@ def main() -> int:
         log(f"{label}: kernel busy estimate (launches x phase-3 medians) "
             f"{busy_ms:.3f} ms of {out['elapsed_s'] * 1e3:.3f} ms timed "
             f"wall")
-    for q in ("q7", "q8", "q1"):
+    for q in ("q7", "q1"):
         assert paths[q]["mv_digest"] == paths[f"{q} fused"]["mv_digest"], \
             f"{q}: the fused MV differs from the unfused one"
         a, b = paths[q], paths[f"{q} fused"]
@@ -3815,15 +4304,29 @@ def main() -> int:
             f"latency {m['p99_barrier_latency_s']} vs "
             f"{one['p99_barrier_latency_s']}; per routed step "
             + json.dumps({k: v / steps for k, v in m["launches"].items()}))
+    assert Q8_OUTER_CAPPED_EVENTS == Q8_OUTER_RECOVERY_EVENTS
+    assert paths["q8 outer capped"]["mv_digest"] == \
+        paths["q8 outer recovery"]["mv_digest"], \
+        "q8-outer under the tier differs from its recovered run"
+    o, q = paths["q8 outer"], paths["q8"]
+    log(f"q8 outer vs q8 (one device, {Q8_OUTER_EVENTS} events): events/s "
+        f"{o['events_per_s']} vs {q['events_per_s']}, p99 barrier latency "
+        f"{o['p99_barrier_latency_s']} vs {q['p99_barrier_latency_s']}; "
+        f"MV rows {o['mv_rows']} ({o['padded_rows']} padded) vs "
+        f"{q['mv_rows']}")
+    assert paths["q8 mesh"]["mv_digest"] == paths["q8"]["mv_digest"], \
+        "q8 mesh: the MV differs from the single-device q8's"
     for label in ("q8 mesh", "q8 mesh fused"):
+        # the fused mesh MV is held to phase 5's q8 trace at its size
         m, one = paths[label], paths[label.replace(" mesh", "")]
-        assert m["mv_digest"] == paths["q8"]["mv_digest"], \
-            f"{label}: the MV differs from the single-device q8's"
         log(f"{label}: {MESH_SHARDS} shards vs one device: events/s "
             f"{m['events_per_s']} vs {one['events_per_s']}, p99 barrier "
             f"latency {m['p99_barrier_latency_s']} vs "
             f"{one['p99_barrier_latency_s']}; per barrier "
             + json.dumps(m["per_barrier"]))
+
+    log(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # 5. where the time goes: shorter traced runs (their launches are not
     # the main paths' and are not reported)
@@ -3835,8 +4338,12 @@ def main() -> int:
     log("q7 fused traced: " + json.dumps(run_q7(dev, Q7_TRACE_EVENTS,
                                                 trace=True, fusion=True)))
     for events in Q8_TRACE_EVENTS:
-        log(f"q8 traced at {events} events: "
-            + json.dumps(run_q8(dev, events, trace=True)))
+        q8_traced = run_q8(dev, events, trace=True)
+        log(f"q8 traced at {events} events: " + json.dumps(q8_traced))
+    assert Q8_TRACE_EVENTS[-1] == Q8_FUSED_EVENTS
+    for label in ("q8 fused", "q8 mesh fused"):
+        assert paths[label]["mv_digest"] == q8_traced["mv_digest"], \
+            f"{label}: the MV differs from the single-device q8's"
     log(f"q8 fused traced at {Q8_TRACE_EVENTS[0]} events: "
         + json.dumps(run_q8(dev, Q8_TRACE_EVENTS[0], trace=True,
                             fusion=True)))
@@ -3851,6 +4358,17 @@ def main() -> int:
             + json.dumps(run_q8(dev, Q8_MESH_TRACE_EVENTS, trace=True,
                                 fusion=fusion, mesh=True)))
 
+    q8o_traced = run_q8_outer(dev, Q8_OUTER_TRACE_EVENTS, trace=True)
+    log(f"q8 outer traced at {Q8_OUTER_TRACE_EVENTS} events: "
+        + json.dumps(q8o_traced))
+    # where the cold tier's time goes (its compactions read the whole
+    # degree array to the host: read_degrees)
+    log(f"q8 outer capped traced at {Q8_OUTER_TRACE_EVENTS} events: "
+        + json.dumps(run_q8_outer(dev, Q8_OUTER_TRACE_EVENTS, trace=True,
+                                  state_cap=Q8_OUTER_CAP)))
+    assert Q8_OUTER_TRACE_EVENTS == Q8_OUTER_CAPPED_EVENTS
+    assert q8o_traced["mv_digest"] == paths["q8 outer capped"]["mv_digest"], \
+        "q8-outer under the tier differs from the uncapped q8-outer"
     for label, traced in (
             ("maxbids", lambda: run_maxbids(dev, MAXBIDS_TRACE_EVENTS,
                                             trace=True)),
@@ -3862,6 +4380,7 @@ def main() -> int:
         log(f"{label} traced at {MAXBIDS_TRACE_EVENTS} events: "
             + json.dumps(traced()))
 
+    log(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 
     rows = []
@@ -3878,7 +4397,8 @@ def main() -> int:
         for extra in ("capped_shape", "sharded", "epoch_apply",
                       "launches_per_call", "mixed_shape", "maxbids_shape",
                       "q8_mesh_shape", "split", "n_dirty",
-                      "launch_floor_ms", "hot_key_shape", "mesh_shape"):
+                      "launch_floor_ms", "hot_key_shape", "mesh_shape",
+                      "path_shapes", "path_loss_ms"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "live_mask":

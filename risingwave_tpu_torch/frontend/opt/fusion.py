@@ -112,12 +112,15 @@ def agg_fusable_reason(agg) -> Optional[str]:
 def join_side_ineligible_reason(join, side_idx: int) -> Optional[str]:
     """THE join-side eligibility predicate (rule, adopt guard and checker
     all call it): the fused path needs the epoch dispatches (the prelude
-    runs there; the sharded kernel has them too), and host-typed keys
-    would need interning on the card (the port refuses the cold tier at
-    construction)."""
+    runs there; the sharded kernel has them too), host-typed keys would
+    need interning on the card, and the cold tier reads buffered key
+    lanes the raw matrix does not carry."""
     side = join.sides[side_idx]
     if not join._epoch_batch:
         return "per-chunk dispatch path (epoch batching off)"
+    if side.state_cap is not None:
+        return ("cold-tier governed join (reload reads the buffered key "
+                "lanes)")
     for i in side.key_indices:
         if not side.schema[i].data_type.is_device:
             return (f"host-typed join key column "

@@ -1,28 +1,39 @@
-"""HashJoinExecutor: streaming inner equi-join on the device matcher.
+"""HashJoinExecutor: streaming two-sided equi-join on the device matcher.
 
-Port of the single-device, epoch-batched, inner-join path of
-``risingwave_tpu/stream/executors/hash_join.py`` (reference parity:
-src/stream/src/executor/hash_join.rs:227 executor, :697 main loop over
-barrier-aligned sides, :990 ``eq_join_oneside``; state layout
+Port of ``risingwave_tpu/stream/executors/hash_join.py`` (reference
+parity: src/stream/src/executor/hash_join.rs:227 executor, :697 main loop
+over barrier-aligned sides, :990 ``eq_join_oneside``; state layout
 managed_state/join/mod.rs:228). The device owns the MATCH structure
-(``ops/hash_join.py``: key table + row chains + payload lanes); the host
-owns row payloads of host-typed columns (varchar never ships to the
-device) and materializes output chunks with vectorized gathers.
+(``ops/hash_join.py``: key table + row chains + payload lanes + degrees);
+the host owns row payloads of host-typed columns (varchar never ships to
+the device) and materializes output chunks with vectorized gathers.
 
 Chunk lifecycle on side S (probing side O):
   1. ingest: host bookkeeping (pk → row ref, arena), and the chunk's
      [key lanes | payload lanes] and aux rows buffered for the epoch;
-  2. barrier: each side's buffered epoch ships as one upload, one apply
+  2. barrier: evicted keys the epoch's probes need reload first (the cold
+     tier); each side's buffered epoch ships as one upload, one apply
      dispatch (K1 + K5) and one probe dispatch against the other side
-     (K6); both probes are collected (sequence versioning makes every
+     (K6); the probes are collected (sequence versioning makes every
      row's result exact for its own message) and emitted in message
-     order. Update pairs degrade to Delete+Insert, as the reference
-     degrades split pairs;
-  3. both sides' StateTables commit, then compaction (a rebuild: K1 +
-     K5 + K7) once dead refs dominate. Recovery rebuilds arena + chains.
+     order: matched pairs, outer NULL-padding, semi/anti rows and
+     degree-transition flips. Update pairs degrade to Delete+Insert, as
+     the reference degrades split pairs;
+  3. join-key watermark expiry (K5 tombstones), both sides' StateTables
+     commit, then the cold tier's sweep or a compaction (a rebuild: K1 +
+     K5 + K7, degrees carried through K7) once dead refs dominate.
+     Recovery rebuilds arena + chains and recomputes degrees with one
+     batch probe (K6) and K7.
+
+Join types (``JoinType``): all 8. Outer, semi and anti joins track a
+match DEGREE per stored row of their tracked sides. On one device the
+degree array lives on the card and the epoch probe (``join_probe_deg``)
+updates it; emission replays each chunk's transitions from the probe
+matrix's pre-epoch column. With a mesh the degrees are a host array.
 
 Inner-join NULL semantics: rows whose join key contains NULL never match
-and are not stored.
+and are not stored; an outer side emits them NULL-padded, an anti join
+emits them.
 
 Fused input sides (``frontend/opt/fusion.py``): a side that absorbed its
 filter/project/row_id_gen run receives RAW chunks. The composed chain
@@ -44,17 +55,16 @@ at once and the pending probes are collected in message order at the
 barrier. ``device_payload=False`` forces the same host-gather emit on
 one device.
 
-Not ported, refused at construction with NotImplementedError: the outer,
-semi and anti join types (device degrees) and the cold tier
-(``state_cap``), with or without a mesh. Join-key watermarks (state
-expiry) raise NotImplementedError when one arrives; a watermark on any
-other column is dropped, as the reference drops it. Metrics, hot-key
-sketches and dispatch spans are left out.
+``state_cap`` (the cold tier, ``state/tier.py``) caps each side's
+resident join keys on one device for inner and outer joins whose state
+tables' pks start with the join keys, as the reference does. Metrics,
+hot-key sketches and dispatch spans are left out.
 """
 
 from __future__ import annotations
 
 import enum
+import weakref
 from typing import AsyncIterator, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,8 +86,13 @@ from risingwave_tpu_torch.utils.device import resolve_device
 
 
 class JoinType(enum.Enum):
-    """The 8 streaming join types (hash_join.rs:61-71); only INNER is
-    ported."""
+    """The 8 streaming join types (hash_join.rs:61-71 const generics).
+
+    Outer sides track per-stored-row match DEGREES. The reference
+    persists degree state tables (managed_state/join/mod.rs:228); here
+    degrees are recomputed on recovery by one batch probe of the
+    recovered keys against the other side: the degree is a pure function
+    of both sides' state."""
 
     INNER = "inner"
     LEFT_OUTER = "left_outer"
@@ -87,6 +102,44 @@ class JoinType(enum.Enum):
     LEFT_ANTI = "left_anti"
     RIGHT_SEMI = "right_semi"
     RIGHT_ANTI = "right_anti"
+
+    @property
+    def is_semi_or_anti(self) -> bool:
+        return self in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI,
+                        JoinType.RIGHT_SEMI, JoinType.RIGHT_ANTI)
+
+    @property
+    def is_anti(self) -> bool:
+        return self in (JoinType.LEFT_ANTI, JoinType.RIGHT_ANTI)
+
+    @property
+    def subject(self) -> Optional[int]:
+        """Side whose rows a semi/anti join emits (0=left, 1=right)."""
+        if self in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            return 0
+        if self in (JoinType.RIGHT_SEMI, JoinType.RIGHT_ANTI):
+            return 1
+        return None
+
+    @property
+    def tracked_sides(self) -> tuple:
+        """Sides whose stored rows need degree maintenance."""
+        if self == JoinType.LEFT_OUTER:
+            return (0,)
+        if self == JoinType.RIGHT_OUTER:
+            return (1,)
+        if self == JoinType.FULL_OUTER:
+            return (0, 1)
+        if self.is_semi_or_anti:
+            return (self.subject,)
+        return ()
+
+    def outer_on(self, side: int) -> bool:
+        """Does `side` emit NULL-padded rows when unmatched?"""
+        if self == JoinType.FULL_OUTER:
+            return True
+        return (self == JoinType.LEFT_OUTER and side == 0) or \
+            (self == JoinType.RIGHT_OUTER and side == 1)
 
 
 class _Arena:
@@ -130,6 +183,26 @@ class _Arena:
             self.valid[i][refs] = True if c.validity is None else \
                 np.asarray(c.validity)[row_idx]
 
+    def store_rows(self, refs: np.ndarray, rows: List[tuple],
+                   schema: Schema) -> None:
+        """Python rows (state-table reads) into the arena at ``refs``."""
+        self.ensure(int(refs.max()))
+        for i, f in enumerate(schema):
+            col_vals = [r[i] for r in rows]
+            if f.data_type.is_device:
+                self.cols[i][refs] = np.asarray(
+                    [0 if v is None else v for v in col_vals],
+                    dtype=f.data_type.np_dtype)
+                self.valid[i][refs] = [v is not None for v in col_vals]
+            else:
+                # host-typed columns carry NULL as the None object
+                self.cols[i][refs] = np.asarray(col_vals, dtype=object)
+                self.valid[i][refs] = True
+
+    def gather(self, refs: np.ndarray, out_cap: int) -> List[Column]:
+        return [self.gather_col(i, refs, out_cap)
+                for i in range(len(self.schema))]
+
     def gather_col(self, i: int, refs: np.ndarray,
                    out_cap: int) -> Column:
         f, c, v = self.schema[i], self.cols[i], self.valid[i]
@@ -162,6 +235,7 @@ class _JoinSide:
         self.schema = schema
         self.key_indices = list(key_indices)
         self.pk_indices = list(pk_indices)
+        self.key_types = [schema[i].data_type for i in self.key_indices]
         # SHARED with the other side: equal values must get equal
         # interned ids or varchar keys would never match
         self.key_codec = key_codec
@@ -196,6 +270,26 @@ class _JoinSide:
         # prelude program is compiled on first use
         self.fused_input = None
         self._prog = None
+        # the cold tier (state/tier.py): the tier's sweep hands this side
+        # its coldest keys, whose rows leave the arena and the card but
+        # stay durable in the state table; a later probe of an evicted
+        # key reloads it first (HashJoinExecutor._reload_cold).
+        # cold_keys: key lanes tuple → key values tuple (the values drive
+        # the state-table prefix scan on reload)
+        self.state_cap: Optional[int] = None
+        self.cold_keys: Dict[tuple, tuple] = {}
+        # lanes of keys watermark expiry dropped (resident and cold): the
+        # executor drains them into tier.forget after each sweep
+        self.expired_lanes: List[tuple] = []
+        # per-ref match degree (outer/semi/anti). On one device the
+        # authoritative copy is the kernel's device array, updated by the
+        # epoch probe (K6 with degrees); this host array then stays empty
+        # and emission replays per-chunk transitions from the matrix's
+        # pre-epoch column. The sharded path keeps the host array.
+        self.dev_degrees = mesh is None
+        self.track_degrees = False      # set by the executor (tracked
+        self.degrees = np.zeros(         # sides only)
+            0 if self.dev_degrees else self.arena.cap, dtype=np.int64)
 
     @property
     def prelude(self):
@@ -219,6 +313,40 @@ class _JoinSide:
                 m &= np.asarray(c.validity)
         return m
 
+    def _row_key_lanes(self, chunk: StreamChunk, r: int
+                       ) -> Optional[tuple]:
+        """One row's join-key lanes tuple (the cold_keys key), or None
+        when any key column is NULL: null keys are never stored, so they
+        cannot be cold. Miss path only (rare)."""
+        vals = []
+        for i in self.key_indices:
+            c = chunk.columns[i]
+            if c.validity is not None and \
+                    not bool(np.asarray(c.validity)[r]):
+                return None
+            v = np.asarray(c.values)[r]
+            vals.append(v.item() if hasattr(v, "item") else v)
+        if any(v is None for v in vals):
+            return None
+        return tuple(self.key_codec.lanes_of_values(vals).tolist())
+
+    def ensure_degrees(self, max_ref: int) -> None:
+        """Grow the host degree array (mesh) to the arena's capacity."""
+        if self.dev_degrees or max_ref < len(self.degrees):
+            return
+        grown = np.zeros(self.arena.cap, dtype=np.int64)
+        grown[:len(self.degrees)] = self.degrees
+        self.degrees = grown
+
+    def live_refs(self) -> np.ndarray:
+        return np.fromiter(self.pk_to_ref.values(), dtype=np.int64,
+                           count=len(self.pk_to_ref))
+
+    def key_cols_of(self, refs: np.ndarray) -> list:
+        """(values, valid) of each join-key column at ``refs``."""
+        return [(self.arena.cols[i][refs], self.arena.valid[i][refs])
+                for i in self.key_indices]
+
     # -- device payload lanes (ops/lanes.py payload codecs) ---------------
     def payload_rows(self, chunk: StreamChunk) -> np.ndarray:
         """int32[cap, 3*len(pay_indices)] payload lanes for every row
@@ -230,8 +358,8 @@ class _JoinSide:
              for i in self.pay_indices])
 
     def payload_from_arena(self, refs: np.ndarray) -> np.ndarray:
-        """Payload lanes of stored rows (recovery and compaction rebuild
-        the device store from the host copy)."""
+        """Payload lanes of stored rows (recovery, compaction and reload
+        rebuild the device store from the host copy)."""
         return _lanes.payload_lanes(
             [(self.arena.cols[i][refs], self.arena.valid[i][refs])
              for i in self.pay_indices])
@@ -259,6 +387,14 @@ class _JoinSide:
             out.append(Column(f.data_type, vals,
                               None if ok.all() else ok))
         return out
+
+    def row_tuple(self, ref: int) -> tuple:
+        return tuple(
+            None if not self.arena.valid[i][ref]
+            else (self.arena.cols[i][ref].item()
+                  if self.schema[i].data_type.is_device
+                  else self.arena.cols[i][ref])
+            for i in range(len(self.schema)))
 
     def alloc_refs(self, k: int) -> np.ndarray:
         """Bump allocation ONLY: a tombstoned ref stays linked in its
@@ -306,17 +442,30 @@ class _JoinSide:
             for r in st_idx.tolist():
                 if r in ins_pos:
                     self.pk_to_ref[pks[r]] = int(ins_refs[ins_pos[r]])
-                else:
-                    ref = self.pk_to_ref.pop(pks[r], None)
-                    if ref is None:
-                        continue    # inconsistent delete: ignored
-                    del_refs[r] = ref
-                    del_mask[r] = True
-                    self.free.append(ref)
+                    continue
+                ref = self.pk_to_ref.pop(pks[r], None)
+                if ref is None:
+                    # an unseen pk: an inconsistent delete (ignored, as
+                    # the reference ignores it) or, with the cold tier
+                    # on, a retraction for an EVICTED key, whose device
+                    # bookkeeping cannot be applied: the cold tier needs
+                    # append-only inputs, and failing loud beats leaving
+                    # already-emitted join outputs stale
+                    if self.cold_keys and \
+                            self._row_key_lanes(chunk, r) in self.cold_keys:
+                        raise RuntimeError(
+                            "join cold-state tier got a retraction for an "
+                            "evicted key: state_cap requires append-only "
+                            "inputs")
+                    continue
+                del_refs[r] = ref
+                del_mask[r] = True
+                self.free.append(ref)
         full_refs = np.zeros(chunk.capacity, dtype=np.int32)
         ins_mask = np.zeros(chunk.capacity, dtype=bool)
         if len(ins_idx):
             self.arena.store(ins_refs, chunk, ins_idx)
+            self.ensure_degrees(int(ins_refs.max()))
             full_refs[ins_idx] = ins_refs
             ins_mask[ins_idx] = True
         self.table.write_chunk(chunk, defer=True)
@@ -331,31 +480,170 @@ class _JoinSide:
 
     def compact(self) -> None:
         """Rebuild arena + device state with only live rows (dense
-        refs)."""
-        live = np.fromiter(self.pk_to_ref.values(), dtype=np.int64,
-                           count=len(self.pk_to_ref))
+        refs). Degrees survive: on one device they are read before the
+        rebuild resets them (``read_degrees``) and written back after it
+        (``write_degrees``: K7)."""
+        live = self.live_refs()
         n = len(live)
+        live_deg = None
+        if self.dev_degrees and self.track_degrees and n:
+            live_deg = self.kernel.read_degrees(live)
         new_arena = _Arena(self.schema,
                            capacity=max(1024, next_pow2(max(n, 1))))
         for i in range(len(self.schema)):
             new_arena.cols[i][:n] = self.arena.cols[i][live]
             new_arena.valid[i][:n] = self.arena.valid[i][live]
+        if not self.dev_degrees:
+            new_degrees = np.zeros(new_arena.cap, dtype=np.int64)
+            new_degrees[:n] = self.degrees[live]
+            self.degrees = new_degrees
         self.arena = new_arena
         new_refs = np.arange(n, dtype=np.int32)
         self.pk_to_ref = dict(zip(self.pk_to_ref.keys(), new_refs.tolist()))
         self.free = []
         self.next_ref = n
         if n:
-            key_cols = [(self.arena.cols[i][:n], self.arena.valid[i][:n])
-                        for i in self.key_indices]
             self.kernel.rebuild(
-                self.key_codec.build_arrays(key_cols), new_refs,
-                payload=self.payload_from_arena(new_refs)
+                self.key_codec.build_arrays(self.key_cols_of(new_refs)),
+                new_refs, payload=self.payload_from_arena(new_refs)
                 if self.pay_indices else None)
         else:
             self.kernel.rebuild(
                 np.zeros((0, LANES_PER_KEY * len(self.key_indices)),
                          dtype=np.int32), new_refs)
+        if live_deg is not None:
+            self.kernel.write_degrees(new_refs, live_deg)
+
+    def expire_below(self, key_pos: int, wm_physical, seq: int = 0) -> int:
+        """Watermark state expiry (hash_join.rs:860-945 analog): drop
+        every stored row whose ``key_pos``-th join-key column is below
+        the watermark: their pks leave the map, their rows the state
+        table, and their refs are tombstoned on the card at ``seq`` (K5;
+        on a mesh each tombstone routes to its key's owner shard). Cold
+        keys below the watermark expire too: their durable rows delete
+        and the cold marker drops. Returns the rows expired."""
+        n_cold = 0
+        if self.cold_keys:
+            dead_cold = [(lt, vt) for lt, vt in self.cold_keys.items()
+                         if vt[key_pos] is not None
+                         and int(vt[key_pos]) < int(wm_physical)]
+            for lt, vt in dead_cold:
+                del self.cold_keys[lt]
+                self.expired_lanes.append(lt)
+                dead_rows = [tuple(row) for _pk, row
+                             in self.table.iter_prefix(list(vt))]
+                if dead_rows:
+                    self.table.delete_rows(dead_rows)
+                    n_cold += len(dead_rows)
+        if not self.pk_to_ref:
+            return n_cold
+        col = self.key_indices[key_pos]
+        refs = self.live_refs()
+        vals = self.arena.cols[col][refs]
+        ok = self.arena.valid[col][refs]
+        dead = ok & (vals.astype(np.int64) < int(wm_physical))
+        n_dead = int(dead.sum())
+        if n_dead == 0:
+            return n_cold
+        dead_refs = refs[dead].astype(np.int32)
+        pks = list(self.pk_to_ref.keys())
+        for j, ref in zip(np.flatnonzero(dead).tolist(), dead_refs.tolist()):
+            del self.pk_to_ref[pks[j]]
+            self.free.append(ref)
+        self.table.delete_rows([self.row_tuple(r)
+                                for r in dead_refs.tolist()])
+        cap = next_pow2(n_dead)
+        del_refs = np.zeros(cap, dtype=np.int32)
+        del_refs[:n_dead] = dead_refs
+        mask = np.zeros(cap, dtype=bool)
+        mask[:n_dead] = True
+        dead_lanes = self.key_codec.build_arrays(self.key_cols_of(dead_refs))
+        if self.state_cap is not None:
+            # tier bookkeeping only: an uncapped side has nothing to forget
+            self.expired_lanes.extend(
+                map(tuple, np.unique(dead_lanes, axis=0).tolist()))
+        lanes_ = np.zeros((cap, dead_lanes.shape[1]), dtype=np.int32)
+        lanes_[:n_dead] = dead_lanes
+        self.kernel.delete(del_refs, mask, seq=seq, key_lanes=lanes_)
+        return n_dead + n_cold
+
+    def evict_keys(self, lanes_ts: Sequence[tuple]) -> Tuple[int, int]:
+        """Targeted cold-tier eviction (the tier's sweep callback): every
+        row of each given key leaves the arena and the card together (a
+        probe must see all or none) but stays durable in the state
+        table. Returns (keys evicted, rows evicted). The tier calls it at
+        this executor's own checkpoint barrier, with no probe in
+        flight."""
+        want = set(lanes_ts)
+        if not want or not self.pk_to_ref:
+            return 0, 0
+        pks = list(self.pk_to_ref.keys())
+        refs = self.live_refs()
+        key_cols = self.key_cols_of(refs)
+        lane_rows = list(map(tuple, self.key_codec.build_arrays(key_cols)
+                             .tolist()))
+        evicted = 0
+        vt_by_lane: Dict[tuple, tuple] = {}
+        for j, lt in enumerate(lane_rows):
+            if lt not in want:
+                continue
+            if lt not in vt_by_lane:
+                vt = tuple(None if not ok[j] else
+                           (v[j].item() if hasattr(v[j], "item") else v[j])
+                           for v, ok in key_cols)
+                if any(x is None for x in vt):
+                    continue       # null-key rows are never stored
+                vt_by_lane[lt] = vt
+            self.free.append(self.pk_to_ref.pop(pks[j]))
+            evicted += 1
+        self.cold_keys.update(vt_by_lane)
+        if evicted:
+            # compaction rebuilds arena and card from the survivors; the
+            # evicted rows' degrees drop with them (recomputed on reload)
+            self.compact()
+        return len(vt_by_lane), evicted
+
+    def reload_keys(self, need: Dict[tuple, tuple]) -> Optional[tuple]:
+        """Reload evicted keys' rows from the state table (arena, pk_to_ref
+        and the upload of a device insert at seq 0, visible to every
+        probe). Returns (lanes, aux, n, max_ref) for the device apply, or
+        None when nothing reloaded."""
+        rows: List[tuple] = []
+        lanes_rows: List[tuple] = []
+        for lanes_t, values_t in need.items():
+            if lanes_t not in self.cold_keys:
+                continue
+            del self.cold_keys[lanes_t]
+            for _pk, row in self.table.iter_prefix(list(values_t)):
+                row = tuple(row)
+                if tuple(row[i] for i in self.pk_indices) in self.pk_to_ref:
+                    # a row inserted AFTER the key went cold is already
+                    # resident: re-adding it would double its matches
+                    continue
+                rows.append(row)
+                lanes_rows.append(lanes_t)
+        if not rows:
+            return None
+        n = len(rows)
+        refs = self.alloc_refs(n)
+        self.arena.store_rows(refs, rows, self.schema)
+        self.ensure_degrees(int(refs.max()))
+        for row, ref in zip(rows, refs.tolist()):
+            self.pk_to_ref[tuple(row[i] for i in self.pk_indices)] = ref
+        cap = next_pow2(n)
+        w = LANES_PER_KEY * len(self.key_indices)
+        up = np.zeros((cap, w + 3 * len(self.pay_indices)), dtype=np.int32)
+        up[:n, :w] = np.asarray(lanes_rows, dtype=np.int32)
+        if self.pay_indices:
+            # the reloaded rows' payload lanes rebuild from the arena copy
+            # just stored: the same scatter shape as a live insert
+            up[:n, w:] = self.payload_from_arena(refs)
+        aux = np.zeros((cap, 4), dtype=np.int32)
+        aux[:n, 0] = refs
+        aux[:n, 2] = FLAG_INS
+        # seq 0: reloaded rows predate every live sequence, so every
+        # probe of this epoch sees them
+        return up, aux, n, int(refs.max())
 
     def recover(self) -> None:
         """Reload the arena and the device chains from the state
@@ -363,21 +651,8 @@ class _JoinSide:
         rows = [row for _pk, row in self.table.iter_rows()]
         if not rows:
             return
-        n = len(rows)
-        refs = self.alloc_refs(n)
-        self.arena.ensure(int(refs.max()))
-        for i, f in enumerate(self.schema):
-            col_vals = [r[i] for r in rows]
-            if f.data_type.is_device:
-                ok = np.asarray([v is not None for v in col_vals])
-                vals = np.asarray(
-                    [0 if v is None else v for v in col_vals],
-                    dtype=f.data_type.np_dtype)
-                self.arena.cols[i][refs] = vals
-                self.arena.valid[i][refs] = ok
-            else:
-                self.arena.cols[i][refs] = np.asarray(col_vals,
-                                                      dtype=object)
+        refs = self.alloc_refs(len(rows))
+        self.arena.store_rows(refs, rows, self.schema)
         keys_l = []
         for row, ref in zip(rows, refs.tolist()):
             self.pk_to_ref[tuple(row[i] for i in self.pk_indices)] = ref
@@ -394,7 +669,8 @@ class _JoinSide:
 
 
 class HashJoinExecutor(Executor):
-    """Streaming inner equi-join (hash_join.rs:227, device matcher)."""
+    """Streaming equi-join of all 8 join types (hash_join.rs:227, device
+    matcher)."""
 
     def __init__(self, left: Executor, right: Executor,
                  left_keys: Sequence[int], right_keys: Sequence[int],
@@ -407,12 +683,6 @@ class HashJoinExecutor(Executor):
                  device_payload: bool = True,
                  epoch_batch: Optional[bool] = None,
                  device=None):
-        if join_type != JoinType.INNER:
-            raise NotImplementedError(
-                f"{join_type.value} join is not ported (inner only)")
-        if state_cap is not None:
-            raise NotImplementedError("HashJoinExecutor state_cap (cold "
-                                      "tier) is not ported")
         if mesh is not None and not isinstance(mesh, ShardMesh):
             raise TypeError(f"HashJoinExecutor takes a ShardMesh, got "
                             f"{mesh!r}")
@@ -420,6 +690,25 @@ class HashJoinExecutor(Executor):
             raise ValueError(
                 "epoch_batch=False is the sharded per-chunk arm: it needs a "
                 "mesh (the single-device kernel is epoch-only)")
+        if state_cap is not None:
+            # the cold tier's prerequisites, as the reference's: the
+            # single-device epoch path (reload hooks the epoch dispatch),
+            # an inner or outer join (semi/anti emission depends on
+            # degree TRANSITIONS whose history an eviction would lose;
+            # outer degrees recompute on reload), and state-table pks
+            # prefixed by the join keys (reload prefix-scans by key)
+            if join_type.is_semi_or_anti or mesh is not None:
+                raise ValueError(
+                    "state_cap needs an INNER or OUTER join on the "
+                    "single-device epoch-batched path (semi/anti "
+                    "degree-transition history cannot be evicted)")
+            for keys, tbl in ((left_keys, left_table),
+                              (right_keys, right_table)):
+                if list(tbl.pk_indices[:len(keys)]) != list(keys):
+                    raise ValueError(
+                        "state_cap needs state-table pks prefixed by the "
+                        f"join keys (reload prefix-scans by key): "
+                        f"pk={list(tbl.pk_indices)} keys={list(keys)}")
         assert len(left_keys) == len(right_keys)
         device = resolve_device(device)
         if mesh is not None and mesh.device != device:
@@ -436,29 +725,57 @@ class HashJoinExecutor(Executor):
                       right_table, key_codec, shard_opts, device, mesh,
                       device_payload),
         )
+        for i, side in enumerate(self.sides):
+            side.track_degrees = i in join_type.tracked_sides
         n_left = len(left.schema)
         names = list(output_names) if output_names else None
-        fields = []
-        k = 0
-        for sch in (left.schema, right.schema):
-            for f in sch:
-                fields.append(Field(names[k] if names else f.name,
-                                    f.data_type))
-                k += 1
-        # output pk: both sides' pks (joined row identity)
-        pk = list(left_table.pk_indices) + \
-            [n_left + i for i in right_table.pk_indices]
+        subj = join_type.subject
+        if subj is not None:
+            # semi/anti: the output is the subject side's schema alone
+            src = (left if subj == 0 else right).schema
+            fields = [Field(names[i] if names else f.name, f.data_type)
+                      for i, f in enumerate(src)]
+            pk = list((left_table if subj == 0 else right_table).pk_indices)
+        else:
+            fields = []
+            k = 0
+            for sch in (left.schema, right.schema):
+                for f in sch:
+                    fields.append(Field(names[k] if names else f.name,
+                                        f.data_type))
+                    k += 1
+            # output pk: both sides' pks (joined row identity)
+            pk = list(left_table.pk_indices) + \
+                [n_left + i for i in right_table.pk_indices]
         super().__init__(ExecutorInfo(
             Schema(fields), pk,
             f"HashJoinExecutor({join_type.value}, actor={actor_id})"))
         self.n_left = n_left
         self._epoch_batch = epoch_batch is not False
+        # join-key watermarks (hash_join.rs:860-945): per side, the latest
+        # watermark per key POSITION; the forwarded and cleaning watermark
+        # is the min across sides, monotone
+        self._side_wm: List[Dict[int, object]] = [{}, {}]
+        self._combined_wm: Dict[int, object] = {}
+        self._expired_wm: Dict[int, object] = {}
         # message sequence (sequence-versioned device state) + the
         # epoch's buffered chunks (per-chunk arm: pending probes)
         self._seq = 1
         self._pending: List[tuple] = []
         self._epoch_buf: tuple = ([], [])
         self._epoch_rows = [0, 0]
+        self._deg_replay: List = [None, None]
+        # the cold tier: one participant per side, registered at execute()
+        # so plan-only executors leave no entry in the global registry
+        self._tier = None
+        self._tier_parts: Tuple = (None, None)
+        self._tier_seq = 0
+        if state_cap is not None:
+            from risingwave_tpu_torch.state import tier as _tier_mod
+            for side in self.sides:
+                side.state_cap = int(state_cap)
+            self._tier = _tier_mod.GLOBAL
+            self._tier_cap = int(state_cap)
 
     # -- emission ---------------------------------------------------------
     @staticmethod
@@ -479,16 +796,30 @@ class HashJoinExecutor(Executor):
                               None if ok.all() else ok))
         return out
 
-    def _compose(self, side_idx: int, my_cols: List[Column],
-                 other_cols: List[Column], ops: np.ndarray,
-                 t: int, cap: int) -> StreamChunk:
-        columns = my_cols + other_cols if side_idx == 0 \
-            else other_cols + my_cols
+    @staticmethod
+    def _null_cols(schema: Schema, cap: int) -> List[Column]:
+        out: List[Column] = []
+        for f in schema:
+            dt = f.data_type
+            vals = np.zeros(cap, dtype=dt.np_dtype) if dt.is_device \
+                else np.empty(cap, dtype=object)
+            out.append(Column(dt, vals, np.zeros(cap, dtype=bool)))
+        return out
+
+    def _out_chunk(self, columns: List[Column], ops: np.ndarray, t: int,
+                   cap: int) -> StreamChunk:
+        """An output chunk of `t` visible rows padded to `cap`."""
         out_vis = np.zeros(cap, dtype=bool)
         out_vis[:t] = True
         full_ops = np.full(cap, int(Op.INSERT), dtype=np.int8)
         full_ops[:t] = ops[:t]
         return StreamChunk(self.schema, columns, out_vis, full_ops)
+
+    def _compose(self, side_idx: int, my_cols: List[Column],
+                 other_cols: List[Column], ops: np.ndarray,
+                 t: int, cap: int) -> StreamChunk:
+        return self._out_chunk(my_cols + other_cols if side_idx == 0
+                               else other_cols + my_cols, ops, t, cap)
 
     @staticmethod
     def _ops_of(chunk: StreamChunk, idx: np.ndarray) -> np.ndarray:
@@ -512,11 +843,44 @@ class HashJoinExecutor(Executor):
         if pay is not None:
             other_cols = other.cols_from_payload(pay, refs, cap)
         else:
-            other_cols = [other.arena.gather_col(i, refs, cap)
-                          for i in range(len(other.schema))]
+            other_cols = other.arena.gather(refs, cap)
         return self._compose(
             side_idx, self._chunk_cols(me.schema, chunk, probe_idx, cap),
             other_cols, self._ops_of(chunk, probe_idx), t, cap)
+
+    def _padded_from_chunk(self, side_idx: int, chunk: StreamChunk,
+                           idx: np.ndarray) -> StreamChunk:
+        """(row, NULLs) for unmatched rows of an outer incoming side."""
+        cap = next_pow2(len(idx))
+        return self._compose(
+            side_idx,
+            self._chunk_cols(self.sides[side_idx].schema, chunk, idx, cap),
+            self._null_cols(self.sides[1 - side_idx].schema, cap),
+            self._ops_of(chunk, idx), len(idx), cap)
+
+    def _padded_from_arena(self, side_idx: int, refs: np.ndarray,
+                           op: Op) -> StreamChunk:
+        """(stored row, NULLs) for degree transitions of an outer side."""
+        cap = next_pow2(len(refs))
+        return self._compose(
+            side_idx, self.sides[side_idx].arena.gather(refs, cap),
+            self._null_cols(self.sides[1 - side_idx].schema, cap),
+            np.full(cap, int(op), dtype=np.int8), len(refs), cap)
+
+    def _subject_from_chunk(self, chunk: StreamChunk,
+                            idx: np.ndarray) -> StreamChunk:
+        cap = next_pow2(len(idx))
+        cols = self._chunk_cols(
+            self.sides[self.join_type.subject].schema, chunk, idx, cap)
+        return self._out_chunk(cols, self._ops_of(chunk, idx), len(idx),
+                               cap)
+
+    def _subject_from_arena(self, refs: np.ndarray, op: Op
+                            ) -> StreamChunk:
+        cap = next_pow2(len(refs))
+        cols = self.sides[self.join_type.subject].arena.gather(refs, cap)
+        return self._out_chunk(cols, np.full(cap, int(op), np.int8),
+                               len(refs), cap)
 
     # -- fragment fusion (frontend/opt/fusion.py adopts on a copy) --------
     def adopt_fused_input(self, side_idx: int, fs, base: Executor) -> None:
@@ -582,7 +946,19 @@ class HashJoinExecutor(Executor):
         seq = self._seq
         self._seq += 1
         probe_vis = np.asarray(chunk.visibility) & nonnull
-        (_ins_idx, ins_refs, full_refs, ins_mask, del_refs,
+        if self._tier is not None and key_lanes is not None:
+            rows = np.flatnonzero(probe_vis)
+            if len(rows):
+                uniq = list(map(tuple, np.unique(
+                    np.asarray(key_lanes)[rows], axis=0).tolist()))
+                # stored here: a full touch; the probe only REFRESHES the
+                # other side's recency (a probed key the other side never
+                # stored must not mint a phantom)
+                self._tier.touch(self._tier_parts[side_idx], uniq,
+                                 self._tier_seq)
+                self._tier.touch(self._tier_parts[1 - side_idx], uniq,
+                                 self._tier_seq, insert=False)
+        (ins_idx, ins_refs, full_refs, ins_mask, del_refs,
          del_mask) = me.apply_chunk_host(chunk, nonnull)
         if not self._epoch_batch:
             # ins/del entries exist only at storable (= probe-visible)
@@ -592,8 +968,8 @@ class HashJoinExecutor(Executor):
                 handle = me.kernel.apply_and_probe(
                     self.sides[1 - side_idx].kernel, key_lanes, probe_vis,
                     full_refs, ins_mask, del_refs, del_mask, seq)
-            self._pending.append((side_idx, chunk, handle, 0,
-                                  chunk.capacity))
+            self._pending.append((side_idx, chunk, nonnull, handle, ins_idx,
+                                  ins_refs, 0, chunk.capacity))
             return
         dn = chunk.capacity
         ops = np.asarray(chunk.ops)
@@ -606,7 +982,8 @@ class HashJoinExecutor(Executor):
                      + del_mask[:dn] * FLAG_DEL + neg[:dn] * FLAG_NEG)
         aux[:, 3] = seq
         off = self._epoch_rows[side_idx]
-        self._pending.append((side_idx, chunk, None, off, dn))
+        self._pending.append((side_idx, chunk, nonnull, None, ins_idx,
+                              ins_refs, off, dn))
         if raw is not None:
             # fused side: the RAW int64 matrix is the upload; the side's
             # join_prelude builds [key | payload] lanes on the card
@@ -634,6 +1011,7 @@ class HashJoinExecutor(Executor):
         one probe dispatch, then collect both probes. Returns {side:
         (deg|None, probe_idx, refs, pay, old_deg)} in the CONCATENATED
         row space; _emit_pending slices per chunk by offset."""
+        self._reload_cold()
         devs: Dict[int, tuple] = {}
         for s in (0, 1):
             buf = self._epoch_buf[s]
@@ -676,85 +1054,367 @@ class HashJoinExecutor(Executor):
         # seq s must see the other side's same-epoch rows with seq < s
         for s, (ld, ad, total, max_ref, kw) in devs.items():
             self.sides[s].kernel.apply_epoch(ld, ad, total, max_ref, **kw)
-        # inner: both probes dispatch before either collects, so the two
-        # device→host copies overlap; a probe routes by the PROBING side's
-        # bucket
-        probes = {s: self.sides[1 - s].kernel.probe_epoch(
-            ld, ad, False, sink=self.sides[s].kernel, **kw)
-            for s, (ld, ad, _t, _m, kw) in devs.items()}
-        return {s: p.collect() for s, p in probes.items()}
+        if self.join_type == JoinType.INNER:
+            # inner: both probes dispatch before either collects, so the
+            # two device→host copies overlap; a probe routes by the
+            # PROBING side's bucket
+            probes = {s: self.sides[1 - s].kernel.probe_epoch(
+                ld, ad, False, sink=self.sides[s].kernel, **kw)
+                for s, (ld, ad, _t, _m, kw) in devs.items()}
+            return {s: p.collect() for s, p in probes.items()}
+        # degree-tracked joins: each probe updates BOTH sides' device
+        # degree arrays (transitions on the probed side, inserted-row
+        # inits on the probing side), and a pair-buffer overflow
+        # re-dispatches the first probe from its entry arrays, so probe 2
+        # dispatches only after probe 1's collect installed its final
+        # arrays: one sync point an epoch, tracked joins only
+        out: Dict[int, tuple] = {}
+        for s, (ld, ad, _t, _m, kw) in devs.items():
+            out[s] = self.sides[1 - s].kernel.probe_epoch(
+                ld, ad, True, sink=self.sides[s].kernel, **kw).collect()
+        return out
+
+    def _tier_register(self) -> None:
+        """Register both sides with the global tier at execute() start:
+        only executors that actually run appear in the registry."""
+        sref = weakref.ref(self)
+        parts = []
+        for i in (0, 1):
+            def _evict_cb(keys, _i=i):
+                s = sref()
+                return 0 if s is None else s.sides[_i].evict_keys(keys)[0]
+
+            parts.append(self._tier.register(
+                f"{self.identity}/side{i}#{id(self)}", _evict_cb,
+                cap=self._tier_cap))
+        self._tier_parts = tuple(parts)
+
+    def _reload_cold(self) -> None:
+        """Reload the evicted keys this epoch's probes will need, BEFORE
+        the epoch's applies and probes dispatch (managed_state/join
+        reload-on-miss, batched per barrier). The reload inserts (K1 +
+        K5) at seq 0, so every probe of the epoch sees the reloaded rows.
+
+        Tracked (outer) joins reload a needed key on BOTH sides: the
+        reloaded rows' degrees recompute by probing the opposite side
+        (K6, then K7 writes them), and a cold twin there would
+        undercount. The recompute runs after both sides' reloads, against
+        pre-epoch state; this epoch's own chunks then layer their degree
+        deltas on top in message order (_emit_one step 3), exactly as if
+        the rows had never left."""
+        kw = LANES_PER_KEY * len(self.sides[0].key_indices)
+        need: List[Dict[tuple, tuple]] = [{}, {}]
+        for s in (0, 1):
+            other = self.sides[1 - s]
+            if not other.cold_keys or not self._epoch_buf[s]:
+                continue
+            for lan, aux, _mr, _ow in self._epoch_buf[s]:
+                rows = np.flatnonzero(aux[:, 2] & FLAG_PROBE)
+                # the buffered upload is [key lanes | payload lanes]:
+                # cold-key lookups read the key slice only
+                for t in map(tuple, lan[rows, :kw].tolist()):
+                    v = other.cold_keys.get(t)
+                    if v is not None:
+                        need[1 - s][t] = v
+        if self.join_type.tracked_sides:
+            for s in (0, 1):
+                twin = self.sides[s]
+                if not twin.cold_keys:
+                    continue
+                for t in need[1 - s]:
+                    v = twin.cold_keys.get(t)
+                    if v is not None:
+                        need[s][t] = v
+        reloaded: List[Optional[tuple]] = [None, None]
+        for s in (0, 1):
+            if not need[s]:
+                continue
+            side = self.sides[s]
+            loaded = side.reload_keys(need[s])
+            if loaded is None:
+                continue
+            up, aux2, n, max_ref = loaded
+            up_dev, aux_dev = side.kernel.stage_epoch(up, aux2, n, max_ref)
+            side.kernel.apply_epoch(up_dev, aux_dev, n, max_ref)
+            reloaded[s] = (up, aux2, n)
+            part = self._tier_parts[s]
+            uniq = np.unique(up[:n, :kw], axis=0)
+            self._tier.touch(part, map(tuple, uniq.tolist()),
+                             self._tier_seq)
+            # the tier's counters are in keys
+            self._tier.note_reload(part, len(uniq))
+        for t_side in self.join_type.tracked_sides:
+            rl = reloaded[t_side]
+            if rl is None:
+                continue
+            up, aux2, n = rl
+            refs = aux2[:n, 0]
+            deg, _pi, _refs = self.sides[1 - t_side].kernel.probe(
+                up[:n, :kw], np.ones(n, dtype=bool))
+            # the reloaded rows' degrees (the cold tier is one device
+            # only: the degree array lives on the card)
+            self.sides[t_side].kernel.write_degrees(refs, deg[:n])
 
     def _emit_pending(self) -> List[StreamChunk]:
-        """Barrier sweep: collect the epoch's probes and emit in message
-        order."""
+        """Barrier sweep: collect the epoch's probes and run emission in
+        message order. Degree bookkeeping happens here, in the order the
+        chunks were applied; on one device it replays from the probe
+        matrix's pre-epoch degree column (the device array is the
+        store; see _emit_one)."""
         outs: List[StreamChunk] = []
         results = self._dispatch_epoch() \
             if (self._epoch_buf[0] or self._epoch_buf[1]) else {}
-        for side_idx, chunk, handle, off, dn in self._pending:
+        # the epoch's replay of stored-row degrees, per side: a value
+        # array + written mask by ref, seeded lazily from the matrix's
+        # old column, written through by inserted-row inits and
+        # per-chunk transition deltas
+        self._deg_replay = [None, None]
+        for (side_idx, chunk, nonnull, handle, ins_idx, ins_refs, off,
+             dn) in self._pending:
+            n = chunk.capacity
+            deg = None
             probe_idx = np.zeros(0, dtype=np.int32)
             refs = np.zeros(0, dtype=np.int32)
-            pay = None
+            pay = old = None
             if handle is not None:
-                _d, probe_idx, refs = handle.collect()
+                deg_p, probe_idx, refs = handle.collect()
+                deg = np.zeros(n, dtype=np.int64)
+                deg[:len(deg_p)] = deg_p
             elif side_idx in results:
-                _d, p_s, r_s, pay_s, _old = results[side_idx]
+                d_s, p_s, r_s, pay_s, old_s = results[side_idx]
                 lo = np.searchsorted(p_s, off)
                 hi = np.searchsorted(p_s, off + dn)
                 probe_idx = (p_s[lo:hi] - off).astype(np.int32)
                 refs = r_s[lo:hi]
                 if pay_s is not None:
                     pay = pay_s[lo:hi]
-            outs.extend(self._emit_one(side_idx, chunk, probe_idx, refs,
-                                       pay))
+                if old_s is not None:
+                    old = old_s[lo:hi].astype(np.int64)
+                if d_s is not None:
+                    deg = np.zeros(n, dtype=np.int64)
+                    deg[:dn] = d_s[off:off + dn]
+            outs.extend(self._emit_one(side_idx, chunk, nonnull, deg,
+                                       probe_idx, refs, ins_idx, ins_refs,
+                                       pay, old))
         self._pending.clear()
         self._epoch_buf = ([], [])
         self._epoch_rows = [0, 0]
+        self._deg_replay = [None, None]
         return outs
 
+    def _deg_replay_arrays(self, side_idx: int, max_ref: int):
+        """(values, written) replay arrays for `side_idx`, grown to cover
+        `max_ref`."""
+        pair = self._deg_replay[side_idx]
+        need = max_ref + 1
+        if pair is None or len(pair[0]) < need:
+            cap = max(next_pow2(need), 1024)
+            vals = np.zeros(cap, dtype=np.int64)
+            wr = np.zeros(cap, dtype=bool)
+            if pair is not None:
+                vals[:len(pair[0])] = pair[0]
+                wr[:len(pair[1])] = pair[1]
+            pair = (vals, wr)
+            self._deg_replay[side_idx] = pair
+        return pair
+
     def _emit_one(self, side_idx: int, chunk: StreamChunk,
+                  nonnull: np.ndarray, deg: Optional[np.ndarray],
                   probe_idx: np.ndarray, refs: np.ndarray,
-                  pay: Optional[np.ndarray]) -> List[StreamChunk]:
-        """Emission per eq_join_oneside (hash_join.rs:990), inner
-        branch: the matched pairs."""
-        if not len(probe_idx):
-            return []
-        return [self._pairs_chunk(side_idx, chunk, probe_idx, refs, pay)]
+                  ins_idx: np.ndarray, ins_refs: np.ndarray,
+                  pay: Optional[np.ndarray] = None,
+                  old: Optional[np.ndarray] = None) -> List[StreamChunk]:
+        """Emission per eq_join_oneside (hash_join.rs:990) generalized to
+        the degree-transition rule: a stored outer row flips its
+        NULL-padded emission exactly when its match degree crosses zero
+        (the net per-chunk delta against the old degree: intermediate
+        flips within one chunk cancel, leaving the same multiset).
+
+        `deg` is None exactly when the join is INNER (no rule below reads
+        it). On the epoch path `pay` carries the matched refs' payload
+        lanes and `old` their pre-epoch degrees, from which the replay
+        arrays rebuild each chunk's old and new degrees."""
+        jt = self.join_type
+        me = self.sides[side_idx]
+        other = self.sides[1 - side_idx]
+        vis = np.asarray(chunk.visibility)
+        if deg is None and jt != JoinType.INNER:
+            deg = np.zeros(chunk.capacity, dtype=np.int64)
+        outs: List[StreamChunk] = []
+        # 1) matched pairs (all types except semi/anti)
+        if jt.subject is None and len(probe_idx):
+            outs.append(self._pairs_chunk(side_idx, chunk, probe_idx, refs,
+                                          pay))
+        # 2) incoming-row direct emissions
+        if jt.outer_on(side_idx):
+            # NULL-key rows of an outer side always emit padded
+            unmatched = np.flatnonzero(vis & ((deg == 0) | ~nonnull))
+            if len(unmatched):
+                outs.append(self._padded_from_chunk(side_idx, chunk,
+                                                    unmatched))
+        elif jt.subject == side_idx:
+            if jt.is_anti:
+                sel = np.flatnonzero(vis & ((deg == 0) | ~nonnull))
+            else:
+                sel = np.flatnonzero(vis & nonnull & (deg > 0))
+            if len(sel):
+                outs.append(self._subject_from_chunk(chunk, sel))
+        # 3) stored-row degree transitions on the other side
+        if (1 - side_idx) in jt.tracked_sides and len(refs):
+            sgn = np.where(self._ops_of(chunk, probe_idx) == int(Op.INSERT),
+                           1, -1)
+            uref, inv = np.unique(refs, return_inverse=True)
+            delta = np.zeros(len(uref), dtype=np.int64)
+            np.add.at(delta, inv, sgn)
+            if other.dev_degrees:
+                # seed from the matrix's pre-epoch value on first touch;
+                # later chunks read the replay arrays
+                seed = np.zeros(len(uref), dtype=np.int64)
+                if old is not None and len(old):
+                    # any pair of a ref carries the same old value
+                    seed[inv] = old
+                vals, wr = self._deg_replay_arrays(1 - side_idx,
+                                                   int(uref.max()))
+                old_v = np.where(wr[uref], vals[uref], seed)
+                new = old_v + delta
+                vals[uref] = new
+                wr[uref] = True
+            else:
+                old_v = other.degrees[uref]
+                new = old_v + delta
+                other.degrees[uref] = new
+            flip_on = uref[(old_v == 0) & (new > 0)]
+            flip_off = uref[(old_v > 0) & (new == 0)]
+            if jt.subject is not None:       # semi/anti subject = other
+                on_op = Op.DELETE if jt.is_anti else Op.INSERT
+                off_op = Op.INSERT if jt.is_anti else Op.DELETE
+                if len(flip_on):
+                    outs.append(self._subject_from_arena(flip_on, on_op))
+                if len(flip_off):
+                    outs.append(self._subject_from_arena(flip_off, off_op))
+            else:                            # outer side: padded flips
+                if len(flip_on):
+                    outs.append(self._padded_from_arena(
+                        1 - side_idx, flip_on, Op.DELETE))
+                if len(flip_off):
+                    outs.append(self._padded_from_arena(
+                        1 - side_idx, flip_off, Op.INSERT))
+        # 4) initial degrees of the rows this chunk stored (the device
+        # array already took them in the probe's scatter: only the replay
+        # arrays, or the mesh's host array, need them here)
+        if side_idx in jt.tracked_sides and len(ins_idx):
+            if me.dev_degrees:
+                vals, wr = self._deg_replay_arrays(side_idx,
+                                                   int(ins_refs.max()))
+                vals[ins_refs] = deg[ins_idx]
+                wr[ins_refs] = True
+            else:
+                me.degrees[ins_refs] = deg[ins_idx]
+        return outs
 
     # -- watermarks -------------------------------------------------------
-    def _on_watermark(self, side_idx: int, msg: Watermark) -> None:
-        """Join-key watermarks drive state expiry in the reference, which
-        is not ported; non-key watermarks are dropped (reference
-        behavior)."""
-        if msg.col_idx in self.sides[side_idx].key_indices:
-            raise NotImplementedError(
-                "join-key watermarks (state expiry) are not ported")
+    def _on_watermark(self, side_idx: int, msg: Watermark):
+        """Join-key watermarks combine as the min across sides and
+        forward on BOTH output columns of the key pair (equal by the join
+        predicate), or on the subject's key column alone for semi/anti
+        joins; non-key watermarks are dropped (reference behavior). The
+        combined watermark also drives state expiry at the next
+        barrier."""
+        me = self.sides[side_idx]
+        if msg.col_idx not in me.key_indices:
+            return
+        pos = me.key_indices.index(msg.col_idx)
+        self._side_wm[side_idx][pos] = msg.value
+        other_wm = self._side_wm[1 - side_idx].get(pos)
+        if other_wm is None:
+            return
+        combined = min(msg.value, other_wm)
+        prev = self._combined_wm.get(pos)
+        if prev is not None and combined <= prev:
+            return
+        self._combined_wm[pos] = combined
+        subj = self.join_type.subject
+        if subj is not None:
+            yield Watermark(self.sides[subj].key_indices[pos],
+                            msg.data_type, combined)
+        else:
+            yield Watermark(self.sides[0].key_indices[pos], msg.data_type,
+                            combined)
+            yield Watermark(self.n_left + self.sides[1].key_indices[pos],
+                            msg.data_type, combined)
+
+    def _expire_state(self) -> None:
+        """Expire both sides' rows below each advanced combined
+        watermark (integer keys only: float keys have no order-safe
+        expiry)."""
+        for pos, wm in self._combined_wm.items():
+            done = self._expired_wm.get(pos)
+            if done is not None and wm <= done:
+                continue
+            dt = np.dtype(self.sides[0].key_types[pos].np_dtype)
+            if not np.issubdtype(dt, np.integer):
+                continue
+            for side in self.sides:
+                side.expire_below(pos, int(wm), seq=self._seq)
+            # visibility is del_seq >= probe_seq, so the NEXT chunk's
+            # sequence must exceed the tombstones' del_seq
+            self._seq += 1
+            self._expired_wm[pos] = wm
 
     # interner GC gate: skip below this many entries, and while entries
     # ≤ 2× live refs (GC cost is O(live))
     INTERNER_GC_MIN = 4096
 
     def _maybe_gc_interner(self) -> None:
-        """Retire interner entries no stored row references."""
+        """Retire interner entries no stored row references. Cold keys
+        count as live in the gate and pin their interned values: retiring
+        an id a cold marker holds would dangle it."""
         codec = self.sides[0].key_codec
         if not codec.interners:
             return
         total = codec.interner_entries()
-        live_refs = sum(len(s.pk_to_ref) for s in self.sides)
+        live_refs = sum(len(s.pk_to_ref) + len(s.cold_keys)
+                        for s in self.sides)
         if total < self.INTERNER_GC_MIN or \
                 total <= 2 * live_refs * len(codec.interners):
             return
         for pos, it in codec.interners.items():
             vals: List[object] = []
             for side in self.sides:
-                col = side.key_indices[pos]
-                if not side.pk_to_ref:
-                    continue
-                refs = np.fromiter(side.pk_to_ref.values(),
-                                   dtype=np.int64,
-                                   count=len(side.pk_to_ref))
-                ok = side.arena.valid[col][refs]
-                vals.extend(side.arena.cols[col][refs][ok].tolist())
+                if side.pk_to_ref:
+                    col = side.key_indices[pos]
+                    refs = side.live_refs()
+                    ok = side.arena.valid[col][refs]
+                    vals.extend(side.arena.cols[col][refs][ok].tolist())
+                # vt is ordered by key position, like the interners
+                vals.extend(vt[pos] for vt in side.cold_keys.values()
+                            if vt[pos] is not None)
             it.gc(vals)
+
+    def _recover_degrees(self) -> None:
+        """Degrees are a pure function of both sides' recovered state:
+        ONE batch probe of the tracked side's keys against the other
+        side's matcher (K6), then a write by ref (K7 on one device)."""
+        for t in self.join_type.tracked_sides:
+            side = self.sides[t]
+            other = self.sides[1 - t]
+            if not side.pk_to_ref:
+                continue
+            refs = side.live_refs()
+            key_cols = side.key_cols_of(refs)
+            # host-typed arena key columns hold None for NULL keys:
+            # build_arrays reads them as NULL
+            lanes_ = side.key_codec.build_arrays(key_cols)
+            nonnull = np.ones(len(refs), dtype=bool)
+            for j in range(len(key_cols)):
+                nonnull &= lanes_[:, LANES_PER_KEY * j + 2] != 0
+            deg, _pi, _refs = other.kernel.probe(lanes_, nonnull)
+            vals = np.where(nonnull, deg[:len(refs)], 0)
+            if side.dev_degrees:
+                side.kernel.write_degrees(refs.astype(np.int32), vals)
+            else:
+                side.ensure_degrees(int(refs.max()))
+                side.degrees[refs] = vals
 
     # -- main loop --------------------------------------------------------
     async def execute(self) -> AsyncIterator[Message]:
@@ -764,35 +1424,63 @@ class HashJoinExecutor(Executor):
         first_r = await rit.__anext__()
         assert is_barrier(first_l) and is_barrier(first_r)
         assert first_l.epoch == first_r.epoch
-        for side in self.sides:
+        if self._tier is not None:
+            self._tier_register()
+        for i, side in enumerate(self.sides):
             side.table.init_epoch(first_l.epoch)
             side.recover()
+            if self._tier_parts[i] is not None and side.pk_to_ref:
+                # recovery rebuilds everything RESIDENT (cold markers do
+                # not survive a crash); seed the tier clock so the first
+                # checkpoint sweep re-applies the cap
+                lanes_all = side.key_codec.build_arrays(
+                    side.key_cols_of(side.live_refs()))
+                self._tier.touch(
+                    self._tier_parts[i],
+                    map(tuple, np.unique(lanes_all, axis=0).tolist()),
+                    self._tier_seq)
+        self._recover_degrees()
         yield first_l
-        async for tag, msg in barrier_align_2(lit, rit):
-            if tag == "barrier":
-                # consume pending probes FIRST: compaction rebuilds device
-                # state a re-dispatched probe would need
-                for out in self._emit_pending():
-                    yield out
-                for side in self.sides:
-                    if side.mesh is not None:
-                        # the apply steps' lazily fetched overflow flags
-                        side.kernel.drain_overflows()
-                    side.table.commit(msg.epoch)
-                    side.maybe_compact()
-                    if side.fused_input is not None:
-                        # absorbed-runtime barrier work (row-id counters
-                        # rebase to the epoch floor)
-                        side.fused_input.on_barrier(msg)
-                self._maybe_gc_interner()
-                if self._seq > (1 << 30):
-                    # int32 sequence headroom: with no probes in flight,
-                    # rebase every finite seq to 0 and restart
-                    for side in self.sides:
-                        side.kernel.rebase_seq()
-                    self._seq = 1
-                yield msg
-            else:
+        try:
+            async for tag, msg in barrier_align_2(lit, rit):
+                if tag == "barrier":
+                    # consume pending probes FIRST: expiry and compaction
+                    # rebuild device state a re-dispatched probe would need
+                    for out in self._emit_pending():
+                        yield out
+                    self._expire_state()
+                    self._tier_seq += 1
+                    for i, side in enumerate(self.sides):
+                        if side.mesh is not None:
+                            # the apply steps' lazily fetched overflow flags
+                            side.kernel.drain_overflows()
+                        side.table.commit(msg.epoch)
+                        part = self._tier_parts[i]
+                        swept = 0
+                        if side.expired_lanes:
+                            if part is not None:
+                                self._tier.forget(part, side.expired_lanes)
+                            side.expired_lanes = []
+                        if part is not None and msg.kind.is_checkpoint:
+                            # sweep at checkpoints only, after the commit:
+                            # evicted rows are durable and no probe is in
+                            # flight
+                            swept = self._tier.sweep(part, self._tier_seq)
+                        if not swept:
+                            side.maybe_compact()
+                        if side.fused_input is not None:
+                            # absorbed-runtime barrier work (row-id
+                            # counters rebase to the epoch floor)
+                            side.fused_input.on_barrier(msg)
+                    self._maybe_gc_interner()
+                    if self._seq > (1 << 30):
+                        # int32 sequence headroom: with no probes in
+                        # flight, rebase every finite seq to 0 and restart
+                        for side in self.sides:
+                            side.kernel.rebase_seq()
+                        self._seq = 1
+                    yield msg
+                    continue
                 i = 0 if tag == "left" else 1
                 side = self.sides[i]
                 if isinstance(msg, StreamChunk):
@@ -812,5 +1500,18 @@ class HashJoinExecutor(Executor):
                     # space: derive them through the absorbed stages
                     derived = [msg] if side.fused_input is None \
                         else side.fused_input.derive_watermarks(msg)
+                    wms: List[Watermark] = []
                     for one in derived:
-                        self._on_watermark(i, one)
+                        wms.extend(self._on_watermark(i, one))
+                    if wms:
+                        # buffered join outputs must precede any watermark
+                        # that could close windows over them
+                        for out in self._emit_pending():
+                            yield out
+                    for wm in wms:
+                        yield wm
+        finally:
+            if self._tier is not None:
+                for p in self._tier_parts:
+                    if p is not None:
+                        self._tier.unregister(p)

@@ -1450,7 +1450,9 @@ def test_grouped_kernel_patch_rides_in_advance(dev, then):
     """GroupedAggKernel on the card against the same kernel on the CPU:
     patch_accs then advance launches advance once and no scatter_rows;
     patch_accs then a step first writes the patch with one K9 launch.
-    The decoded groups match (key-sorted)."""
+    The decoded groups match (key-sorted). Each group's patched value is
+    a function of its key, not of its flush row: K1 may give the card's
+    flush another row order than the CPU's (queue C)."""
     from risingwave_tpu_torch.utils.device import LAUNCHES
     specs = tuple(H.AggSpec(H.AggKind(k), None if d is None else np.dtype(d))
                   for k, d in [("max", np.int64), ("count", None)])
@@ -1465,8 +1467,8 @@ def test_grouped_kernel_patch_rides_in_advance(dev, then):
         k.apply(*args)
         fr = k.flush()
         LAUNCHES.reset()
-        k.patch_accs([(np.arange(fr.n) * 3 - 7, fr.nns[0]), None],
-                     fr.raw_accs)
+        k.patch_accs([(fr.keys[:, 1].astype(np.int64) * 3 - 7,
+                       fr.nns[0]), None], fr.raw_accs)
         if then == "advance":
             k.advance()
         else:
@@ -1524,3 +1526,180 @@ def test_join_kernels_drop_a_negative_ref(dev):
     b = J._masked_scatter_plain(arr.clone(), refs_t, vis, vals)
     np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
     assert a[ROWS - 1].tolist() == arr[ROWS - 1].tolist()
+
+
+# -- the join's other modes on the card: outer, degrees, compaction, reload ---
+
+def _join_stream(seed, n_epochs=4, rows=1500, key_range=400, null_p=0.05,
+                 wide=False, kill_share=0.2):
+    """Both sides' messages for an executor run: each epoch a chunk a
+    side of deletes of live rows (``kill_share`` of them) and inserts,
+    NULL keys included (columns k, v, id; the state-table pk is (id,) or
+    (k, id)). ``wide`` widens the key range each epoch."""
+    from risingwave_tpu_torch.common.chunk import Column, Op, StreamChunk
+    from risingwave_tpu_torch.common.epoch import Epoch, EpochPair
+    from risingwave_tpu_torch.common.types import DataType, Schema
+    from risingwave_tpu_torch.stream.message import Barrier, BarrierKind
+    rng = np.random.default_rng(seed)
+    schema = Schema.of(k=DataType.INT64, v=DataType.INT64,
+                       id=DataType.INT64)
+
+    def barrier(b):
+        prev = Epoch.from_physical(b - 1) if b > 1 else Epoch.INVALID
+        return Barrier(EpochPair(Epoch.from_physical(b), prev),
+                       BarrierKind.CHECKPOINT)
+    msgs = ([barrier(1)], [barrier(1)])
+    live = [[], []]
+    next_id = [0, 10**6]
+    for b in range(2, n_epochs + 2):
+        for side in (0, 1):
+            ks, vs, ids, ops, nulls = [], [], [], [], []
+            kill = rng.permutation(len(live[side]))[
+                :int(len(live[side]) * kill_share)]
+            for j in sorted(kill.tolist(), reverse=True):
+                k, i, nul = live[side].pop(j)
+                ks.append(k)
+                nulls.append(nul)
+                ids.append(i)
+                vs.append(i * 3)
+                ops.append(int(Op.DELETE))
+            hi = key_range * (b if wide else 1)
+            for _ in range(rows - len(ks)):
+                k = int(rng.integers(0, hi))
+                nul = bool(rng.random() < null_p)
+                i = next_id[side]
+                next_id[side] += 1
+                live[side].append((k, i, nul))
+                ks.append(k)
+                nulls.append(nul)
+                ids.append(i)
+                vs.append(i * 3)
+                ops.append(int(Op.INSERT))
+            null = np.asarray(nulls)
+            msgs[side].append(StreamChunk(schema, [
+                Column(DataType.INT64, np.where(null, 0, ks), ~null),
+                Column(DataType.INT64, np.asarray(vs, np.int64)),
+                Column(DataType.INT64, np.asarray(ids, np.int64))],
+                np.ones(len(ks), bool), np.asarray(ops, np.int8)))
+            msgs[side].append(barrier(b))
+    return msgs, schema, n_epochs + 1
+
+
+def _run_join_on(device, msgs, schema, nb, join_type, pks=([2], [2]),
+                 **kw):
+    """One HashJoinExecutor run: (records per chunk, executor, state
+    rows)."""
+    import asyncio
+    from risingwave_tpu_torch.state.state_table import StateTable
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    from risingwave_tpu_torch.stream.executors.hash_join import (
+        HashJoinExecutor, JoinType,
+    )
+    from risingwave_tpu_torch.stream.executors.test_utils import (
+        MockSource, collect_until_n_barriers,
+    )
+    store = MemoryStateStore()
+    lt = StateTable(21, schema, pks[0], store, dist_key_indices=[])
+    rt = StateTable(22, schema, pks[1], store, dist_key_indices=[])
+    ex = HashJoinExecutor(
+        MockSource(schema, list(msgs[0])), MockSource(schema, list(msgs[1])),
+        [0], [0], lt, rt, join_type=JoinType(join_type), device=device,
+        **kw)
+    out = asyncio.run(collect_until_n_barriers(ex, nb))
+    recs = [[(int(op), tuple(r)) for op, r in m.to_records()]
+            for m in out if hasattr(m, "to_records")]
+    return recs, ex, (list(lt.iter_rows()), list(rt.iter_rows()))
+
+
+def _live_degrees(ex):
+    return [s.kernel.read_degrees(s.live_refs()) if s.track_degrees
+            else None for s in ex.sides]
+
+
+def _same_runs(a, b):
+    assert a[0] == b[0]
+    assert a[2] == b[2]
+    for x, y in zip(_live_degrees(a[1]), _live_degrees(b[1])):
+        assert (x is None) == (y is None)
+        if x is not None:
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("join_type", ["left_outer", "full_outer",
+                                       "right_semi", "left_anti"])
+def test_outer_join_executor_on_the_card_matches_the_cpu(dev, join_type):
+    """A degree-tracked HashJoinExecutor on the card (K1, K5, K6 with
+    degrees) against the same executor on the CPU (the plain versions):
+    the same messages record for record, the same state tables and the
+    same device degrees of every live row; the card's run launched
+    join_probe_deg, not join_probe."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    msgs, schema, nb = _join_stream(51)
+    LAUNCHES.reset()
+    card = _run_join_on(dev, msgs, schema, nb, join_type)
+    launched = LAUNCHES.snapshot()
+    _same_runs(card, _run_join_on("cpu", msgs, schema, nb, join_type))
+    assert launched.get("join_probe_deg", 0) == 2 * (nb - 1)
+    assert launched.get("join_probe", 0) == 0
+
+
+def test_degree_epoch_pair_buffer_overflow_on_the_card(dev):
+    """FULL OUTER with a 64-row pair buffer: each degree-tracked epoch
+    probe overflows, re-dispatches from the degree arrays it started
+    from and installs them only after its collect; the card equals the
+    CPU."""
+    msgs, schema, nb = _join_stream(52, key_range=200, null_p=0.0)
+    card = _run_join_on(dev, msgs, schema, nb, "full_outer",
+                        shard_opts={"probe_capacity": 64})
+    assert all(s.kernel._probe_cap > 64 for s in card[1].sides)
+    _same_runs(card, _run_join_on("cpu", msgs, schema, nb, "full_outer",
+                                  shard_opts={"probe_capacity": 64}))
+
+
+def test_outer_compaction_carries_degrees_on_the_card(dev):
+    """LEFT OUTER with compaction at every barrier: read_degrees before
+    the rebuild, K7 (masked_scatter) writing them and the payload back
+    after it; the card equals the CPU and launched masked_scatter."""
+    from risingwave_tpu_torch.stream.executors import hash_join as X
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    msgs, schema, nb = _join_stream(53)
+    runs = []
+    for d in (dev, "cpu"):
+        old = (X._JoinSide.COMPACT_DEAD_RATIO, X._JoinSide.COMPACT_MIN_REFS)
+        X._JoinSide.COMPACT_DEAD_RATIO, X._JoinSide.COMPACT_MIN_REFS = \
+            0.05, 64
+        try:
+            LAUNCHES.reset()
+            runs.append(_run_join_on(d, msgs, schema, nb, "left_outer"))
+            runs[-1] += (LAUNCHES.snapshot(),)
+        finally:
+            X._JoinSide.COMPACT_DEAD_RATIO, X._JoinSide.COMPACT_MIN_REFS = old
+    _same_runs(runs[0][:3], runs[1][:3])
+    assert runs[0][3].get("masked_scatter", 0) > 0
+    assert runs[0][1].sides[0].next_ref < sum(
+        m.capacity for m in msgs[0] if hasattr(m, "ops"))
+
+
+def test_cold_reload_recomputes_degrees_on_the_card(dev):
+    """FULL OUTER under a 64-key cold tier: keys evict (compaction with
+    K7) and reload (K1 + K5 at seq 0), and the reloaded rows' degrees
+    recompute by one probe of the other side (join_probe_deg) written by
+    K7; the card equals the CPU, eviction and reload counts included."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    msgs, schema, nb = _join_stream(54, n_epochs=6, rows=400,
+                                    key_range=300, null_p=0.0, wide=True,
+                                    kill_share=0.0)
+    LAUNCHES.reset()
+    card = _run_join_on(dev, msgs, schema, nb, "full_outer",
+                        pks=([0, 2], [0, 2]), state_cap=64)
+    launched = LAUNCHES.snapshot()
+    cpu = _run_join_on("cpu", msgs, schema, nb, "full_outer",
+                       pks=([0, 2], [0, 2]), state_cap=64)
+    assert card[0] == cpu[0] and card[2] == cpu[2]
+    counts = [[(p.evicted_total, p.reload_total) for p in r[1]._tier_parts]
+              for r in (card, cpu)]
+    assert counts[0] == counts[1]
+    assert sum(e for e, _r in counts[0]) > 0
+    assert sum(r for _e, r in counts[0]) > 0
+    assert launched.get("masked_scatter", 0) > 0
+    assert launched.get("join_probe_deg", 0) > 2 * (nb - 1)

@@ -166,6 +166,11 @@ def test_q8_fused_matches_reference_and_unfused():
 
 
 def test_q8_port_refuses_unported_options():
+    """build_q8's argument checks and its store guard stand; q8's join
+    inputs build as every join type, and with the cold tier, on one
+    device and over 8 shards, except where the reference refuses:
+    ``state_cap`` on a mesh, and ``state_cap`` with a semi or anti
+    join."""
     from risingwave_tpu_torch.parallel import ShardMesh
     cfg = NexmarkConfig(event_num=1000)
     with pytest.raises(TypeError):          # a mesh is a ShardMesh
@@ -176,11 +181,20 @@ def test_q8_port_refuses_unported_options():
                  NexmarkConfig(table_type="auction"), device="cpu")
     join = p.actor.consumer.input.input
     mesh = ShardMesh(8, "cpu")
-    for kw in (dict(join_type=port_hj.JoinType.FULL_OUTER),
-               dict(join_type=port_hj.JoinType.FULL_OUTER, mesh=mesh),
-               dict(state_cap=1 << 10), dict(state_cap=1 << 10, mesh=mesh)):
-        with pytest.raises(NotImplementedError):
-            port_hj.HashJoinExecutor(
-                join.left_in, join.right_in, [0, 2], [0, 1],
-                join.sides[0].table, join.sides[1].table, device="cpu",
-                **kw)
+
+    def build(**kw):
+        return port_hj.HashJoinExecutor(
+            join.left_in, join.right_in, [0, 2], [0, 1],
+            join.sides[0].table, join.sides[1].table, device="cpu", **kw)
+    for jt in port_hj.JoinType:
+        for m in (None, mesh):
+            assert build(join_type=jt, mesh=m).join_type is jt
+        if not jt.is_semi_or_anti:
+            # both state tables' pks start with the join keys
+            ex = build(join_type=jt, state_cap=1 << 10)
+            assert [s.state_cap for s in ex.sides] == [1 << 10] * 2
+    for kw in (dict(state_cap=1 << 10, mesh=mesh),
+               dict(state_cap=1 << 10,
+                    join_type=port_hj.JoinType.LEFT_SEMI)):
+        with pytest.raises(ValueError):
+            build(**kw)

@@ -394,10 +394,20 @@ def test_mesh_join_epoch_arm_equals_per_chunk_arm(eight_devices):
 
 
 def test_mesh_join_refuses_what_is_not_ported():
-    for kw in (dict(join_type=port_hj.JoinType.FULL_OUTER),
-               dict(join_type=port_hj.JoinType.LEFT_SEMI),
-               dict(state_cap=1 << 10)):
-        with pytest.raises(NotImplementedError):
+    """Over 8 shards every join type builds, on both arms; the cold tier
+    is refused there (ValueError, as the reference refuses it), as are a
+    mesh that is not a ShardMesh, the per-chunk arm without a mesh and a
+    mesh on another device."""
+    for jt in port_hj.JoinType:
+        for arm in (None, False):
+            _r, ex, _s = run_join("port", [("b", 1)], [("b", 1)], 1,
+                                  join_type=jt, epoch_batch=arm)
+            assert all(isinstance(s.kernel, ShardedJoinKernel)
+                       for s in ex.sides)
+    for kw in (dict(state_cap=1 << 10),
+               dict(state_cap=1 << 10,
+                    join_type=port_hj.JoinType.FULL_OUTER)):
+        with pytest.raises(ValueError):
             run_join("port", [], [], 0, **kw)
     with pytest.raises(TypeError):
         run_join("port", [], [], 0, mesh=object())

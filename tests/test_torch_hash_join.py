@@ -651,44 +651,57 @@ def test_executor_recovery_resumes():
 
 
 def test_executor_refuses_unported_options():
+    """Every join type and the cold tier now build; the reference's own
+    ValueErrors for ``state_cap`` stand (a semi or anti join, state-table
+    pks the join keys do not prefix), as do the port's argument checks."""
     ls, rs = Schema.of(**L_COLS), Schema.of(**R_COLS)
     store = MemoryStateStore()
 
-    def build(**kw):
+    def build(lpk=(0, 1), **kw):
         return PX.HashJoinExecutor(
             MockSource(ls, []), MockSource(rs, []), [0], [0],
-            StateTable(21, ls, [1], store), StateTable(22, rs, [1], store),
-            device="cpu", **kw)
-    for kw in (dict(join_type=PX.JoinType.LEFT_OUTER),
-               dict(join_type=PX.JoinType.LEFT_SEMI),
-               dict(join_type=PX.JoinType.RIGHT_ANTI),
-               dict(state_cap=8)):
-        with pytest.raises(NotImplementedError):
-            build(**kw)
+            StateTable(21, ls, list(lpk), store),
+            StateTable(22, rs, [0, 1], store), device="cpu", **kw)
+    for jt in PX.JoinType:
+        ex = build(join_type=jt)
+        assert ex.join_type is jt
+        assert len(ex.schema) == (2 if jt.is_semi_or_anti else 4)
+        if not jt.is_semi_or_anti:
+            assert [s.state_cap for s in build(join_type=jt,
+                                               state_cap=8).sides] == [8, 8]
+    for jt in (PX.JoinType.LEFT_SEMI, PX.JoinType.RIGHT_ANTI):
+        with pytest.raises(ValueError, match="semi"):
+            build(join_type=jt, state_cap=8)
+    with pytest.raises(ValueError, match="prefixed"):
+        build(lpk=(1,), state_cap=8)
     with pytest.raises(TypeError):          # a mesh is a ShardMesh
         build(mesh=object())
     with pytest.raises(ValueError):         # the per-chunk arm needs a mesh
         build(epoch_batch=False)
-    build()     # inner is ported
     build(device_payload=False)
 
 
 def test_executor_key_watermark_raises_other_watermark_dropped():
+    """A join-key watermark on both sides forwards their min on BOTH
+    output key columns (left 0, right 2), as the reference's does; a
+    watermark on a non-key column is still dropped."""
     ls, rs = Schema.of(**L_COLS), Schema.of(**R_COLS)
-    store = MemoryStateStore()
 
-    def run(col):
+    def run(col, both_sides):
+        store = MemoryStateStore()
         wm = Watermark(col, DataType.INT64, 5)
+        rwm = [Watermark(col, DataType.INT64, 7)] if both_sides else []
         ex = PX.HashJoinExecutor(
             MockSource(ls, [_barrier(1), wm, _barrier(2)]),
-            MockSource(rs, [_barrier(1), _barrier(2)]), [0], [0],
+            MockSource(rs, [_barrier(1), *rwm, _barrier(2)]), [0], [0],
             StateTable(21, ls, [1], store), StateTable(22, rs, [1], store),
             device="cpu")
-        return asyncio.run(collect_until_n_barriers(ex, 2))
-    msgs = run(1)
-    assert not any(isinstance(m, Watermark) for m in msgs)
-    with pytest.raises(NotImplementedError):
-        run(0)
+        return [(m.col_idx, m.value) for m in
+                asyncio.run(collect_until_n_barriers(ex, 2))
+                if isinstance(m, Watermark)]
+    assert run(1, True) == []
+    assert run(0, False) == []              # the other side has none yet
+    assert run(0, True) == [(0, 5), (2, 5)]
 
 
 def test_deviation_negative_ref_dropped_where_reference_wraps(monkeypatch):
