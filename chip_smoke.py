@@ -40,9 +40,12 @@ phases, any failure of which exits non-zero:
      the hot-key epochs with its launches a call and its split,
      K6 (join_probe) exact, with and without degrees, including a forced
      overflow (a 2^10-row buffer) that must re-dispatch to the same pairs,
-     K7 and the head remap on K4 exact, K7 also at each shape the
-     outer arms' compactions, reloads and recovery give it
-     (``MASKED_SCATTER_SHAPES``: payload rows and 1-D degree writes);
+     K7's masked mode and the head remap on K4 exact, K7's scatter and
+     gather-carry at each shape the outer arms' compactions, reloads and
+     recovery give it (``MASKED_SCATTER_SHAPES``: 1-D degree writes and
+     carries with no vis array, from strided columns), and each rebuild
+     those paths make (``REBUILD_SHAPES``: K1 + K5 with the payload in
+     K5's launch, and K7's carry) against the plain versions;
    - K1 (probe_insert) alone at each shape of its paths, each against the
      plain version by the table invariants and timed beside its byte
      bound: q7's step and q7-mesh's routed step (keys placed), q8's
@@ -138,9 +141,10 @@ phases, any failure of which exits non-zero:
      materialized, keyed by both sides' pks): on one device at 100M
      events (the q8 arm's join state; the stored rows and table slots
      per side logged), over 8 shards at 20M, under a cold-tier cap of
-     2048 keys a side at 2M (evictions and reloads must both happen, and
-     K7 masked_scatter launch) and killed halfway and rebuilt on the
-     same store at 2M (degrees recomputed through K6 and K7), each MV
+     2048 keys a side at 2M (evictions and reloads must both happen;
+     K7 masked_scatter carries the compactions' degrees and writes the
+     reloads') and killed halfway and rebuilt on the same store at 2M
+     (degrees recomputed through K6 and written by K7), each MV
      equal to a vectorized oracle, the capped and recovered MVs equal;
      every probe of the one-device arms is K6's degree branch
      (``join_probe_deg``);
@@ -149,8 +153,10 @@ phases, any failure of which exits non-zero:
      watermark after epoch 1 (state expiry on both kinds of table), each
      view equal to its oracle; plus FULL OUTER with a 1024-row pair
      buffer (a degree-tracked epoch overflows) and LEFT OUTER with
-     compaction forced every barrier (degrees through read_degrees and
-     K7);
+     compaction forced every barrier (degrees carried by K7's gather);
+     K7's launches on the three arms must be the rehearsal's
+     (``K7_PATH_LAUNCHES``), and no phase-4 path reads the degree array
+     to the host (``read_degrees``);
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
    events, fused q7 and q8 at 2M, q7-mesh and q8-mesh at 2M unfused
    and fused, q8 FULL OUTER at 2M (its MV equal to the capped arm's)
@@ -170,8 +176,11 @@ counts) and ``{"ok": true, "device": {...}}``.
 K3 (flush_gather, advance), the three fused entries, K2 (agg_apply),
 route, K1 (probe_insert), K8 (lookup), K6 (join_probe), K5 (join_apply),
 the rebuild chains (K4's mask and fills or its mask-and-table launch,
-K1, K4's remap) and the patch chain (K9 then advance, or the patched
-advance) of this checkout against the same kernels built from DIR's
+K1, K4's remap), the patch chain (K9 then advance, or the patched
+advance) and the chains K7 serves (a join compaction, recovery's and a
+reload's degree write, as host wall time in alternating pairs, DIR's
+K7 inside the parent's host code written out) of this checkout against
+the same kernels built from DIR's
 ``risingwave_tpu_torch/csrc`` (the parent commit, unpacked with ``git
 archive`` into a directory git ignores), in turns, at the shapes above,
 each build first held to the plain version; the other build is compiled
@@ -301,10 +310,11 @@ MAXBIDS_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance")
 MAXBIDS_CAPPED_PATH = MAXBIDS_PATH + ("lookup", "live_mask", "remap",
                                       "scatter_rows")
 # q8 FULL OUTER: every probe tracks degrees (K6's degree branch); the
-# capped arm's evictions compact with the degrees carried by K7, and its
-# reloads recompute degrees with K6; recovery rebuilds (K7 for the
-# payload) and recomputes degrees (K6, then K7); the mesh's probes carry
-# degree rows under the sharded K6's name
+# capped arm's evictions compact (K1 + K5, the payload in K5's launch)
+# with the degrees carried by K7's gather, and its reloads recompute
+# degrees with K6 written by K7; recovery rebuilds (K1 + K5) and
+# recomputes degrees (K6, then K7); the mesh's probes carry degree rows
+# under the sharded K6's name
 Q8_OUTER_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
                  "join_apply", "join_probe_deg", "remap")
 Q8_OUTER_MESH_PATH = ("route", "probe_insert", "agg_apply", "flush_gather",
@@ -314,9 +324,13 @@ Q8_OUTER_CAPPED_PATH = ("probe_insert", "agg_apply", "flush_gather",
                         "masked_scatter")
 Q8_OUTER_RECOVERY_PATH = Q8_OUTER_CAPPED_PATH
 # every join type on one device and 8 shards, expiry, a forced overflow
-# and a forced compaction
+# and a forced compaction (its degrees carried by K7)
 JOIN_MODES_PATH = ("route", "probe_insert", "join_apply", "join_probe",
                    "join_probe_deg", "masked_scatter", "remap")
+# K7 masked_scatter's launches on the arms that make any: degree writes
+# and carries only (MASKED_SCATTER_SHAPES), the payload riding in K5
+K7_PATH_LAUNCHES = {"q8 outer capped": 5, "q8 outer recovery": 2,
+                    "join modes": 2}
 # kernels a path must not launch: uncapped maxbids' patch rides in advance;
 # a FULL OUTER join probes with degrees only
 OFF_PATH = {"maxbids": ("scatter_rows",), "q8 outer": ("join_probe",)}
@@ -1418,49 +1432,74 @@ def check_join_probe_deg(dev, js: dict) -> dict:
                 bound_ms=b, bound_by=by)
 
 
-# K7 masked_scatter at each shape phase 4's paths give it: name -> (rows
-# of the array, lanes (1: the degree array), refs written, the span they
-# lie in, launches of that shape a smoke run makes). A CPU rehearsal of
-# the capped and recovered q8-outer arms and the join modes (2M events;
-# every call's refs sorted and distinct, every row visible) gives 19
-# launches: the capped arm's 4 compactions write 1,536 payload rows and
-# their degrees back and its reload's degree write 6,931 refs in 8,467
-# rows; recovery rebuilds 40,000 and 15,115 rows a side, then writes
-# their recomputed degrees; the join modes' compaction run rebuilds 2^16
-# row stores
+# K7 masked_scatter at each shape phase 4's paths give it: name -> (mode,
+# rows of the array written, rows of the array read (the carry's old
+# degree array; a scatter reads its n values), refs, the span they lie
+# in, the index's and the values' row strides as the path passes them,
+# launches of that shape a smoke run makes). A CPU rehearsal of the
+# capped and recovered q8-outer arms and the join modes (2M events; every
+# call's refs sorted and distinct, every row visible: no vis array)
+# gives 9 launches: the capped arm's 4 compactions carry 1,536 live
+# rows' degrees (the index the 17th lane of the rebuild's one upload),
+# its reload writes 6,931 degrees in 8,467 rows (refs the staged aux's
+# column, values K6's degree column); recovery writes 40,000 and 15,115
+# degrees a side (K6's column); the join modes' compaction run carries
+# 15,104 and 35,693 rows of 2^16 (14 lanes a row). The payload goes
+# with K5 (REBUILD_SHAPES).
 MASKED_SCATTER_SHAPES = {
-    "capped compaction payload": (1 << 18, JP, 1536, 1536, 4),
-    "capped compaction degrees": (1 << 18, 1, 1536, 1536, 4),
-    "capped reload degrees": (1 << 18, 1, 6931, 8467, 1),
-    "recovery payload 40,000": (1 << 18, JP, 40000, 40000, 1),
-    "recovery payload 15,115": (1 << 18, JP, 15115, 15115, 1),
-    "recovery degrees 40,000": (1 << 18, 1, 40000, 40000, 1),
-    "recovery degrees 15,115": (1 << 18, 1, 15115, 15115, 1),
-    "join modes payload 15,104": (1 << 16, JP, 15104, 15104, 1),
-    "join modes payload 15,133": (1 << 16, JP, 15133, 15133, 1),
-    "join modes payload 35,693": (1 << 16, JP, 35693, 35693, 1),
-    "join modes payload 35,712": (1 << 16, JP, 35712, 35712, 1),
-    "join modes degrees 15,104": (1 << 16, 1, 15104, 15104, 1),
-    "join modes degrees 35,693": (1 << 16, 1, 35693, 35693, 1),
+    "capped compaction carry": ("gather", 1 << 18, 1 << 18, 1536, 40000,
+                                17, 1, 4),
+    "capped reload degrees": ("scatter", 1 << 18, 6931, 6931, 8467, 4, 2,
+                              1),
+    "recovery degrees 40,000": ("scatter", 1 << 18, 40000, 40000, 40000,
+                                1, 2, 1),
+    "recovery degrees 15,115": ("scatter", 1 << 18, 15115, 15115, 15115,
+                                1, 2, 1),
+    "join modes carry 15,104": ("gather", 1 << 16, 1 << 16, 15104, 26456,
+                                14, 1, 1),
+    "join modes carry 35,693": ("gather", 1 << 16, 1 << 16, 35693, 40934,
+                                14, 1, 1),
+}
+# JoinSideKernel.rebuild at each rebuild phase 4's paths make (the same
+# rehearsal): name -> (rows rebuilt, the side's row capacity, whether it
+# carries degrees, launches). Each is one K1 + one K5, the payload lanes
+# written in K5's launch: 10 rebuilds, none launching K7 for payload
+REBUILD_SHAPES = {
+    "capped compaction 1,536": (1536, 1 << 18, True, 4),
+    "recovery 40,000": (40000, 1 << 18, False, 1),
+    "recovery 15,115": (15115, 1 << 18, False, 1),
+    "join modes 15,104": (15104, 1 << 16, True, 1),
+    "join modes 15,133": (15133, 1 << 16, False, 1),
+    "join modes 35,693": (35693, 1 << 16, True, 1),
+    "join modes 35,712": (35712, 1 << 16, False, 1),
 }
 
 
-def _masked_scatter_case(dev, cap: int, width: int, n: int, span: int,
-                         seed: int) -> dict:
-    """K7 against its plain version on `n` sorted distinct refs in
-    [0, span) of a [cap] (width 1) or [cap, width] array, every row
-    visible as on the paths; then exact on the same shape with a tenth
-    of the rows hidden, refs shuffled and some out of range. Its times
-    after an L2 flush, as the paths meet it after a rebuild."""
+def _column(t: torch.Tensor, stride: int) -> torch.Tensor:
+    """t ([n]) as the last column of an [n, stride] matrix, rows `stride`
+    ints apart (1: t itself)."""
+    if stride == 1:
+        return t.contiguous()
+    m = torch.zeros((int(t.shape[0]), stride), dtype=torch.int32,
+                    device=t.device)
+    m[:, -1] = t
+    return m[:, -1]
+
+
+def _payload_scatter_case(dev, cap: int, width: int, n: int, seed: int
+                          ) -> dict:
+    """K7's masked mode (a vis array) on payload rows against its plain
+    version: n sorted distinct refs of a [cap, width] array with every
+    row visible, then a tenth hidden, refs shuffled and some out of
+    range. Its times after an L2 flush."""
     from risingwave_tpu_torch.ops import hash_join as J
     rng = np.random.default_rng(seed)
-    shape = (cap,) if width == 1 else (cap, width)
-    arr = torch.from_numpy(rng.integers(-2**31, 2**31, shape)
+    arr = torch.from_numpy(rng.integers(-2**31, 2**31, (cap, width))
                            .astype(np.int32)).to(dev)
-    ref_np = np.sort(rng.choice(span, n, replace=False)).astype(np.int32)
+    ref_np = np.sort(rng.choice(n, n, replace=False)).astype(np.int32)
     refs = torch.from_numpy(ref_np).to(dev)
     vis = torch.ones(n, dtype=torch.int32, device=dev)
-    vals = torch.from_numpy(rng.integers(-2**31, 2**31, (n,) + shape[1:])
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31, (n, width))
                             .astype(np.int32)).to(dev)
     err = abs_err(J._masked_scatter(arr.clone(), refs, vis, vals)
                   .cpu().numpy(),
@@ -1483,33 +1522,152 @@ def _masked_scatter_case(dev, cap: int, width: int, n: int, span: int,
                    cold=True),
         plain_ms=time_ms(lambda: J._masked_scatter_plain(arr, refs, vis,
                                                          vals), cold=True),
-        # every row visible and in range: one index_put_ computes the
-        # same function (its int64 index made beforehand)
         library_ms=time_ms(lambda: arr.index_put_((r64,), vals), cold=True),
         bound_ms=b, bound_by=by)
 
 
+def _k7_path_case(dev, mode: str, rows: int, src_rows: int, n: int,
+                  span: int, i_stride: int, v_stride: int, seed: int
+                  ) -> dict:
+    """K7 in one mode against its plain version as a path calls it: n
+    sorted distinct refs in [0, span), no vis array, the index and the
+    values at the path's row strides; then exact with a tenth of the rows
+    hidden (a vis array), refs shuffled and some negative or out of
+    range. Its times after an L2 flush (the paths meet it after a
+    rebuild or a probe), its byte bound (each index and value read once,
+    each value written once) and the one PyTorch call that computes the
+    same function: index_put_ for the scatter, index_select into the
+    fresh array for the carry (their int64 index made beforehand)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    rng = np.random.default_rng(seed)
+    gather = mode == "gather"
+    dst = torch.from_numpy(rng.integers(-2**31, 2**31, rows)
+                           .astype(np.int32)).to(dev)
+    src = _column(torch.from_numpy(rng.integers(-2**31, 2**31, src_rows)
+                                   .astype(np.int32)).to(dev), v_stride)
+    ref_np = np.sort(rng.choice(span, n, replace=False)).astype(np.int32)
+    idx = _column(torch.from_numpy(ref_np).to(dev), i_stride)
+
+    def kern(d, i, v=None):
+        return J._gather_carry(d, src, i, v) if gather \
+            else J._masked_scatter(d, i, v, src)
+
+    def plain(d, i, v=None):
+        return J._gather_carry_plain(d, src, i, v) if gather \
+            else J._masked_scatter_plain(d, i, v, src)
+    err = abs_err(kern(dst.clone(), idx).cpu().numpy(),
+                  plain(dst.clone(), idx).cpu().numpy())
+    odd = rng.permutation(ref_np)
+    odd[rng.random(n) < 0.02] = -1
+    odd[rng.random(n) < 0.02] = (src_rows if gather else rows) + 7
+    odd_t = _column(torch.from_numpy(odd).to(dev), i_stride)
+    hid = torch.from_numpy((rng.random(n) >= 0.1).astype(np.int32)).to(dev)
+    err = max(err, abs_err(kern(dst.clone(), odd_t, hid).cpu().numpy(),
+                           plain(dst.clone(), odd_t, hid).cpu().numpy()))
+    i64 = torch.from_numpy(ref_np.astype(np.int64)).to(dev)
+    head = dst[:n]
+    b, by = bound_ms(3 * n * 4, n)
+    return dict(
+        mode=mode, max_abs_err=err,
+        ms=time_ms(lambda: kern(dst, idx), cold=True),
+        plain_ms=time_ms(lambda: plain(dst, idx), cold=True),
+        library_ms=time_ms(
+            (lambda: torch.index_select(src, 0, i64, out=head)) if gather
+            else (lambda: dst.index_put_((i64,), src)), cold=True),
+        bound_ms=b, bound_by=by)
+
+
+def check_rebuild_payload(dev) -> dict:
+    """JoinSideKernel.rebuild at each shape of REBUILD_SHAPES on the card
+    (q8-outer's 6 key and 6 payload lanes): one K1 and one K5 (the
+    payload lanes in K5's launch), plus one K7 gather when it carries
+    degrees, and no other launch; heads per key, next, the sequences, the
+    payload and the degrees exact against the plain versions on the same
+    upload (K1, K5 and K7's carry written out), on the card. Timed as a
+    wrapper call (the chain's device time, its upload included)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    out = {}
+    for i, (name, (n, row_cap, carry, launches)) in enumerate(
+            REBUILD_SHAPES.items()):
+        rng = np.random.default_rng(60 + i)
+        up = _join_up(*_person(rng.permutation(4 * n)[:n]))
+        keys, pay = up[:, :JKW], rng.integers(-2**31, 2**31, (n, JP)) \
+            .astype(np.int32)
+        refs = np.arange(n, dtype=np.int32)
+        live = np.sort(rng.choice(min(row_cap, 41000), n,
+                                  replace=False)) \
+            .astype(np.int32) if carry else None
+        k = J.JoinSideKernel(JKW, key_capacity=ht.MIN_CAPACITY,
+                             row_capacity=row_cap, payload_width=JP,
+                             device=dev)
+        old = torch.from_numpy(rng.integers(0, 50, row_cap)
+                               .astype(np.int32)).to(dev)
+        k.deg = old.clone()
+        LAUNCHES.reset()
+        k.rebuild(keys, refs, pay, carry=live)
+        got = LAUNCHES.snapshot()
+        want = {"probe_insert": 1, "join_apply": 1}
+        if carry:
+            want["masked_scatter"] = 1
+        assert got == want, f"rebuild at {name} launched {got}"
+        cap = k.table.capacity
+        table = ht.make_state(cap, JKW, dev)
+        chains = J.make_chains(cap, k.row_capacity, dev)
+        ppay = torch.zeros((k.row_capacity, JP), dtype=torch.int32,
+                           device=dev)
+        aux = np.zeros((n, 4), np.int32)
+        aux[:, J.AUX_INS_REF] = refs
+        aux[:, J.AUX_DEL_REF] = -1
+        aux[:, J.AUX_FLAGS] = J.FLAG_INS
+        J.epoch_apply_plain(table, chains, ppay, torch.from_numpy(
+            np.concatenate([keys, pay], axis=1)).to(dev),
+            torch.from_numpy(aux).to(dev), JKW)
+        pdeg = torch.zeros(k.row_capacity, dtype=torch.int32, device=dev)
+        if carry:
+            J._gather_carry_plain(pdeg, old, torch.from_numpy(live).to(dev))
+        err = max(abs_err(a, b) for a, b in zip(_by_key(k.table.state,
+                                                        k.chains),
+                                                _by_key(table, chains)))
+        for a, b in zip((*k.chains[1:], k.pay, k.deg),
+                        (*chains[1:], ppay, pdeg)):
+            err = max(err, abs_err(a.cpu().numpy(), b.cpu().numpy()))
+        assert err == 0, f"the rebuild differs at {name}: {err}"
+        out[name] = dict(
+            rows=n, row_capacity=row_cap, carry=carry, launches=launches,
+            max_abs_err=err, launches_per_call=got,
+            ms=time_ms(lambda: k.rebuild(keys, refs, pay, carry=live)))
+        log(f"rebuild at {name}: " + json.dumps(out[name]))
+    return out
+
+
 def check_masked_scatter(dev, js: dict) -> dict:
-    """K7 masked_scatter at a q8-sized compaction (the payload lanes of
-    2^20 live rows into a fresh [row_cap, 6] store), then at each shape
-    of MASKED_SCATTER_SHAPES, where ``path_loss_ms`` sums launches x (ms
-    - bound) over them: the loss its paths' launches make."""
+    """K7 masked_scatter's masked mode at a q8-sized compaction of payload
+    lanes (2^20 live rows into a fresh [row_cap, 6] store: on no path
+    since the payload rides in K5, kept as the masked mode's check), then
+    each mode at each shape of MASKED_SCATTER_SHAPES, where
+    ``path_loss_ms`` sums launches x (ms - bound) over them: the loss its
+    paths' launches make; and the rebuilds (K5's payload) of
+    REBUILD_SHAPES."""
     rows = js["ks"].row_capacity
     n = min(1 << 20, rows)
-    out = _masked_scatter_case(dev, rows, JP, n, n, 9)
+    out = _payload_scatter_case(dev, rows, JP, n, 9)
     shapes, loss = {}, 0.0
-    for i, (name, (cap, width, k, span, launches)) in enumerate(
-            MASKED_SCATTER_SHAPES.items()):
-        c = _masked_scatter_case(dev, cap, width, k, span, 40 + i)
+    for i, (name, (mode, cap, src_rows, k, span, i_stride, v_stride,
+                   launches)) in enumerate(MASKED_SCATTER_SHAPES.items()):
+        c = _k7_path_case(dev, mode, cap, src_rows, k, span, i_stride,
+                          v_stride, 40 + i)
         assert c["max_abs_err"] == 0, \
             f"masked_scatter differs at {name}: {c['max_abs_err']}"
-        shapes[name] = dict(c, rows=cap, width=width, refs=k,
-                            launches=launches)
+        shapes[name] = dict(c, rows=cap, refs=k, span=span,
+                            strides=[i_stride, v_stride], launches=launches)
         loss += launches * (c["ms"] - c["bound_ms"])
         log(f"masked_scatter at {name}: " + json.dumps(shapes[name]))
     assert out["max_abs_err"] == 0, \
         f"masked_scatter differs: {out['max_abs_err']}"
-    return dict(out, path_shapes=shapes, path_loss_ms=loss)
+    return dict(out, path_shapes=shapes, path_loss_ms=loss,
+                rebuild_payload=check_rebuild_payload(dev))
 
 
 def check_rebase(dev, js: dict) -> dict:
@@ -3333,7 +3491,7 @@ def run_join_modes(dev) -> dict:
     oracle; then FULL OUTER on one device with a MODES_OVERFLOW_CAP pair
     buffer (a degree-tracked epoch overflows and re-dispatches) and LEFT
     OUTER on one device with compaction forced at every barrier
-    (degrees through read_degrees and K7). Launch counts are the whole
+    (degrees carried by K7's gather). Launch counts are the whole
     arm's."""
     from risingwave_tpu_torch.stream.executors.test_utils import (
         collect_until_n_barriers,
@@ -4229,7 +4387,16 @@ def main() -> int:
     # 4. the main paths end to end, the plan checker strict
     t_phase = time.perf_counter()
     from risingwave_tpu_torch.frontend.opt import set_strict_checker
+    from risingwave_tpu_torch.ops import hash_join as J
     set_strict_checker(True)
+    # a read of the degree array to the host counts here: no path makes
+    # one (compaction carries degrees on the card, recovery and reloads
+    # write K6's degree column)
+    degree_reads = []
+    host_read = J.JoinSideKernel.read_degrees
+    J.JoinSideKernel.read_degrees = \
+        lambda self, refs: degree_reads.append(len(refs)) or \
+        host_read(self, refs)
     paths = {}
     for label, run, events, path in (
             ("q7", run_q7, Q7_EVENTS, Q7_PATH),
@@ -4279,6 +4446,9 @@ def main() -> int:
         extra = [k for k in OFF_PATH.get(label, ())
                  if out["launches"].get(k, 0)]
         assert not extra, f"{label} launched {extra}"
+        k7 = out["launches"].get("masked_scatter", 0)
+        assert k7 == K7_PATH_LAUNCHES.get(label, 0), \
+            f"{label} launched masked_scatter {k7} times"
         # per launch: K2's count is of its launches, its time of a call
         busy_ms = sum(n * results[k]["ms"]
                       / results[k].get("launches_per_call", 1)
@@ -4325,6 +4495,9 @@ def main() -> int:
             f"{one['p99_barrier_latency_s']}; per barrier "
             + json.dumps(m["per_barrier"]))
 
+    J.JoinSideKernel.read_degrees = host_read
+    assert not degree_reads, \
+        f"phase 4 read degrees to the host {len(degree_reads)} times"
     log(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
 
@@ -4361,8 +4534,8 @@ def main() -> int:
     q8o_traced = run_q8_outer(dev, Q8_OUTER_TRACE_EVENTS, trace=True)
     log(f"q8 outer traced at {Q8_OUTER_TRACE_EVENTS} events: "
         + json.dumps(q8o_traced))
-    # where the cold tier's time goes (its compactions read the whole
-    # degree array to the host: read_degrees)
+    # where the cold tier's time goes (its compactions carry degrees on
+    # the card: no read_degrees)
     log(f"q8 outer capped traced at {Q8_OUTER_TRACE_EVENTS} events: "
         + json.dumps(run_q8_outer(dev, Q8_OUTER_TRACE_EVENTS, trace=True,
                                   state_cap=Q8_OUTER_CAP)))
@@ -4398,7 +4571,7 @@ def main() -> int:
                       "launches_per_call", "mixed_shape", "maxbids_shape",
                       "q8_mesh_shape", "split", "n_dirty",
                       "launch_floor_ms", "hot_key_shape", "mesh_shape",
-                      "path_shapes", "path_loss_ms"):
+                      "path_shapes", "path_loss_ms", "rebuild_payload"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "live_mask":
@@ -5480,17 +5653,224 @@ def reload_ab_cases(dev) -> dict:
     return out
 
 
+def _k7_other(lib):
+    """K7 through another build's rw_masked_scatter at the interface
+    before the null vis, the row strides and the carry (contiguous refs,
+    vis array and values): (arr, refs, vis, vals) -> arr."""
+    from risingwave_tpu_torch.ops import cuda as kcuda
+
+    def call(arr, refs, vis, vals):
+        n = int(refs.shape[0])
+        if n:
+            rc = lib.rw_masked_scatter(
+                arr.data_ptr(), arr.shape[0],
+                1 if arr.dim() == 1 else arr.shape[1], refs.data_ptr(),
+                vis.data_ptr(), vals.data_ptr(), n, kcuda.stream_ptr())
+            assert rc == 0, f"rw_masked_scatter failed: CUDA error {rc}"
+        return arr
+    return call
+
+
+def _k7_parent_rebuild(k, key_lanes, row_refs, payload, k7) -> None:
+    """The parent's JoinSideKernel.rebuild written out: a fresh state,
+    the insert at seq 0 (uploads of the key lanes and the refs, a ones
+    fill, K1 + K5 link), then the payload by K7 (uploads of the refs and
+    the payload lanes)."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.utils.device import upload
+    n = len(row_refs)
+    key_cap = max(k.table.capacity, 1 << int(np.ceil(np.log2(max(
+        n / ht.MAX_LOAD, 1)))))
+    row_cap = max(k.row_capacity, 1 << int(np.ceil(np.log2(max(n + 1,
+                                                                2)))))
+    k._init_state(key_cap, row_cap)
+    ones = torch.ones(n, dtype=torch.int32, device=k.device)
+    k.insert(upload(np.asarray(key_lanes, np.int32), k.device), row_refs,
+             ones, seq=0)
+    k.pay = k7(k.pay, upload(np.asarray(row_refs, np.int32), k.device),
+               ones, upload(np.asarray(payload, np.int32), k.device))
+
+
+def _k7_parent_write(k, refs, vals, k7) -> None:
+    """The parent's write_degrees: uploads of the refs and the values, a
+    ones fill, K7."""
+    from risingwave_tpu_torch.utils.device import upload
+    n = len(refs)
+    k.deg = k7(k.deg, upload(np.asarray(refs, np.int32), k.device),
+               torch.ones(n, dtype=torch.int32, device=k.device),
+               upload(np.asarray(vals, np.int32), k.device))
+
+
+# the chains K7 serves, at the paths' shapes (MASKED_SCATTER_SHAPES,
+# REBUILD_SHAPES): compactions -> (live rows, row capacity, the span of
+# the live refs, carries degrees)
+K7_COMPACTIONS = {
+    "capped compaction 1,536 of 2^18": (1536, 1 << 18, 40000, True),
+    "join modes compaction 35,693 of 2^16": (35693, 1 << 16, 40934, True),
+    "join modes compaction 35,712 of 2^16": (35712, 1 << 16, 40934,
+                                             False),
+}
+
+
+def _k7_side(dev, n: int, row_cap: int, seed: int, keys=None):
+    """A JoinSideKernel on the card holding n rows (refs 0..n-1) keyed as
+    q8's persons (6 key lanes, 6 payload lanes), or by the given `keys`
+    lanes, its degrees random; -> (kernel, key lanes, payload)."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    rng = np.random.default_rng(seed)
+    up = _join_up(*_person(rng.permutation(4 * n)[:n]))
+    if keys is not None:
+        up[:, :JKW] = keys
+    k = J.JoinSideKernel(JKW, key_capacity=1 << 10, row_capacity=row_cap,
+                         probe_capacity=OUT_CAP, payload_width=JP,
+                         device=dev)
+    k.rebuild(up[:, :JKW], np.arange(n, dtype=np.int32), up[:, JKW:])
+    k.deg = torch.from_numpy(rng.integers(0, 50, k.row_capacity)
+                             .astype(np.int32)).to(dev)
+    return k, up[:, :JKW], up[:, JKW:]
+
+
+def k7_chain_cases(dev, k7) -> dict:
+    """name -> make(mine) -> (chain, result): the three chains K7 serves,
+    this checkout's (``mine``) or the parent's (its host code written out
+    around DIR's K7 through `k7`), each on state built the same way from
+    a seed; result() reads what the chain wrote. Compactions at
+    K7_COMPACTIONS; recovery's degree write for 40,000 rows probed
+    against the other side's 15,115; the capped arm's reload: 6,931 rows
+    reloaded into 8,467 (refs 1,536-8,466, staged as the executor stages
+    them) probed against the other side's 8,467."""
+    from risingwave_tpu_torch.ops import hash_join as J
+    from risingwave_tpu_torch.utils.device import fetch, upload
+    cases = {}
+    for i, (name, (n, row_cap, span, carry)) in enumerate(
+            K7_COMPACTIONS.items()):
+        def make(mine, n=n, row_cap=row_cap, span=span, carry=carry,
+                 seed=70 + i):
+            k, keys, pay = _k7_side(dev, span, row_cap, seed)
+            rng = np.random.default_rng(seed + 1)
+            live = np.sort(rng.choice(span, n, replace=False)) \
+                .astype(np.int32)
+            keys, pay = keys[live], pay[live]
+            dense = np.arange(n, dtype=np.int32)
+
+            def chain():
+                if mine:
+                    k.rebuild(keys, dense, pay,
+                              carry=live if carry else None)
+                    return
+                deg = fetch(k.deg)[live] if carry else None
+                _k7_parent_rebuild(k, keys, dense, pay, k7)
+                if carry:
+                    _k7_parent_write(k, dense, deg, k7)
+            return chain, lambda: [*_by_key(k.table.state, k.chains),
+                                   *(a.cpu().numpy() for a in (
+                                       *k.chains[1:], k.pay, k.deg))]
+        cases[name] = make
+
+    def recovery(mine):
+        a, lanes_a, _p = _k7_side(dev, 40000, 1 << 18, 80)
+        rng = np.random.default_rng(81)
+        # the other side keyed by persons the first side holds: some rows
+        # match several, most none
+        b, _l, _p = _k7_side(dev, 15115, 1 << 18, 82,
+                             keys=lanes_a[rng.choice(40000, 15115)])
+        refs = np.arange(40000, dtype=np.int32)
+        nonnull = np.ones(40000, dtype=bool)
+        a.deg.zero_()
+
+        def chain():
+            if mine:
+                a.write_degrees(upload(refs, dev),
+                                b.probe_degrees(lanes_a, nonnull))
+                return
+            deg, _pi, _r = b.probe(lanes_a, nonnull)
+            _k7_parent_write(a, refs, np.where(nonnull, deg[:40000], 0), k7)
+        return chain, lambda: [a.deg.cpu().numpy()]
+    cases["recovery degrees 40,000 against 15,115"] = recovery
+
+    def reload(mine):
+        t, lanes_t, _p = _k7_side(dev, 8467, 1 << 18, 90)
+        t.deg.zero_()
+        rng = np.random.default_rng(92)
+        o, _l, _p = _k7_side(dev, 8467, 1 << 18, 91,
+                             keys=lanes_t[rng.choice(8467, 8467)])
+        n = 6931
+        refs = np.arange(8467 - n, 8467, dtype=np.int32)
+        cap = 8192
+        up = np.zeros((cap, JKW + JP), np.int32)
+        up[:n, :JKW] = lanes_t[refs]
+        aux = np.zeros((cap, 4), np.int32)
+        aux[:n, J.AUX_INS_REF] = refs
+        aux[:n, J.AUX_FLAGS] = J.FLAG_INS
+        up_dev, aux_dev = upload(up, dev), upload(aux, dev)
+
+        def chain():
+            if mine:
+                t.write_degrees(aux_dev[:n, J.AUX_INS_REF], o.probe_degrees(
+                    up_dev[:n, :JKW], aux_dev[:n, J.AUX_FLAGS]))
+                return
+            deg, _pi, _r = o.probe(up[:n, :JKW], np.ones(n, dtype=bool))
+            _k7_parent_write(t, aux[:n, J.AUX_INS_REF], deg[:n], k7)
+        return chain, lambda: [t.deg.cpu().numpy()]
+    cases["reload degrees 6,931 of 8,467"] = reload
+    return cases
+
+
+def chain_host_fns(fn, calls: int = 20, top: int = 10) -> dict:
+    """Host self-time of one chain call by function (ms a call, the `top`
+    largest) from cProfile over `calls` calls, each synchronized: where a
+    host-bound chain's wall time goes."""
+    import cProfile
+    import os
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    prof.disable()
+    out = {}
+    for (path, _line, name), (_cc, _nc, tt, _ct, _callers) in \
+            pstats.Stats(prof).stats.items():
+        key = name if path == "~" else f"{os.path.basename(path)}:{name}"
+        out[key] = out.get(key, 0.0) + tt * 1e3 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
+
+
+def paired_wall_ms(fa, fb, rounds: int = 41) -> tuple:
+    """Host wall time of two chains to their end (the card idle before
+    each call, synchronized after it), in `rounds` pairs whose order
+    alternates (a then b, b then a, ...): the measure of chains whose
+    parts wait on the host (uploads, fills, a fetch), paired so that the
+    host's drift falls on both. -> (median ms of a, of b, the share of
+    pairs in which b took less time)."""
+    for _ in range(3):
+        fa()
+        fb()
+    ta, tb = [], []
+    for i in range(rounds):
+        for f, t in ((fa, ta), (fb, tb))[::1 if i % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            t.append((time.perf_counter() - t0) * 1e3)
+    return (statistics.median(ta), statistics.median(tb),
+            sum(b < a for a, b in zip(ta, tb)) / rounds)
+
+
 AB_GROUPS = ("agg_apply", "route", "probe_insert", "lookup", "join_probe",
              "flush_gather", "fused", "join_apply", "advance", "rebuild",
-             "patch")
+             "patch", "masked_scatter")
 
 
 def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
     """``python3 chip_smoke.py --against DIR``: K2 (agg_apply), route, K1
     (probe_insert), K8 (lookup), K6 (join_probe), K3 (flush_gather and
-    advance), K5 (join_apply), the fused entries, the rebuild chains and
-    the patch chain (and K9 alone at the reload shapes) of this checkout
-    against the same kernels built from DIR's
+    advance), K5 (join_apply), the fused entries, the rebuild chains,
+    the patch chain (and K9 alone at the reload shapes) and the chains
+    K7 serves (``k7_chain_cases``) of this checkout against the same
+    kernels built from DIR's
     ``risingwave_tpu_torch/csrc`` (the parent commit unpacked with ``git
     archive``), at the timed shapes of phase 3 on one card. K2, K5 and
     K6 run behind this checkout's wrappers (their C interfaces are
@@ -5568,7 +5948,12 @@ def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
                        False: _patch_other(f_other, s_other)}
         scatter_calls = {True: H.scatter_rows_sharded,
                          False: _scatter_other(s_other)}
-    for name in ("flush", "fused", "join_apply", "rebuild", "scatter"):
+    if "masked_scatter" in need:
+        k7_other = _k7_other(_other_lib(csrc, "join_maint", {
+            "rw_masked_scatter": [P, L, I, P, P, P, I, P],
+            "rw_rebase": [P, P, L, P]}))
+    for name in ("flush", "fused", "join_apply", "rebuild", "scatter",
+                 "join_maint"):
         for line in ptxas_figures(kcuda.build_log(name)):
             log(f"  this {name}: {line}")
     log(f"ncu on the PATH: {shutil.which('ncu')}")
@@ -5880,6 +6265,34 @@ def ab_main(base: str, only: tuple = AB_GROUPS) -> int:
                                a[1][0].to(torch.int64)[None, :]), a[3][0]))
             r["slots"], r["rows"] = n, k
             log(f"scatter_rows at {name}: " + json.dumps(r))
+    if "masked_scatter" in need:
+        for name, make in k7_chain_cases(dev, k7_other).items():
+            # each build's chain once from the same state: equal results
+            results = []
+            for mine in (True, False):
+                chain, result = make(mine)
+                chain()
+                results.append(result())
+            err = max(abs_err(a, b) for a, b in zip(*results))
+            assert err == 0, f"the K7 chain differs from the other " \
+                f"build's at {name}: {err}"
+            runs = {mine: make(mine) for mine in (False, True)}
+            base, ms, won = paired_wall_ms(runs[False][0], runs[True][0])
+            r = dict(base_ms=base, ms=ms, pairs_won=won, max_abs_err=err,
+                     unit="host wall ms a chain, synchronized, median "
+                          "of 41 alternating pairs")
+            r["base_split"] = launch_split(runs[False][0], calls=20)
+            r["split"] = launch_split(runs[True][0], calls=20)
+            r["base_host"] = chain_host_fns(runs[False][0])
+            r["host"] = chain_host_fns(runs[True][0])
+            r["launches_per_call"] = {k: launches_of(runs[True][0], k)
+                                      for k in ("masked_scatter",
+                                                "join_apply",
+                                                "probe_insert",
+                                                "join_probe_deg")}
+            log(f"masked_scatter chain at {name}: " + json.dumps(r))
+            del runs
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -81,7 +81,8 @@ LIBRARIES: Dict[str, Dict[str, list]] = {
                           _I, _P, _L, _I, _P, _P, _P],
     },
     "join_maint": {
-        "rw_masked_scatter": [_P, _L, _I, _P, _P, _P, _I, _P],
+        "rw_masked_scatter": [_I, _P, _L, _I, _P, _L, _P, _L, _P, _L, _L,
+                              _I, _P],
         "rw_rebase": [_P, _P, _L, _P],
     },
     "fused": {

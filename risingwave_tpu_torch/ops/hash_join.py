@@ -54,7 +54,7 @@ from risingwave_tpu_torch.ops import cuda
 from risingwave_tpu_torch.ops import hash_table as ht
 from risingwave_tpu_torch.ops.hash_agg import remap
 from risingwave_tpu_torch.utils.device import (
-    LAUNCHES, fetch, resolve_device, start_fetch, upload,
+    LAUNCHES, fetch, resolve_device, send, staging, start_fetch, upload,
 )
 
 I32_MAX = (1 << 31) - 1
@@ -252,7 +252,8 @@ def epoch_probe_plain(table: ht.TableState, chains: ChainState,
 
 def join_apply_plain(chains: ChainState, pay: torch.Tensor,
                      slots: torch.Tensor, up: torch.Tensor, aux: torch.Tensor,
-                     key_width: int) -> None:
+                     key_width: int,
+                     pay_src: Optional[torch.Tensor] = None) -> None:
     """The rest of ``epoch_apply`` (:203) after the key probe-insert:
     link the insert rows, tombstone the delete rows, scatter the insert
     rows' payload lanes (in place)."""
@@ -265,29 +266,51 @@ def join_apply_plain(chains: ChainState, pay: torch.Tensor,
                          (flags & FLAG_DEL) != 0, seq)
     if pay.shape[1]:
         _masked_scatter_plain(pay, aux[:, AUX_INS_REF], ins_mask,
-                              up[:, key_width:])
+                              up[:, key_width:] if pay_src is None
+                              else pay_src)
 
 
 def epoch_apply_plain(table: ht.TableState, chains: ChainState,
                       pay: torch.Tensor, up: torch.Tensor, aux: torch.Tensor,
-                      key_width: int):
+                      key_width: int, pay_src: Optional[torch.Tensor] = None):
     """``epoch_apply`` (:203): probe-insert the insert rows' keys, then
-    join_apply_plain. Returns (table, chains, pay, K1 stats)."""
+    join_apply_plain. Returns (table, chains, pay, K1 stats). With
+    ``pay_src`` the payload lanes come from there, not from ``up``."""
     slots, stats = ht.probe_insert_plain(
         table, up[:, :key_width], (aux[:, AUX_FLAGS] & FLAG_INS) != 0)
-    join_apply_plain(chains, pay, slots, up, aux, key_width)
+    join_apply_plain(chains, pay, slots, up, aux, key_width, pay_src)
     return table, chains, pay, stats
 
 
 def _masked_scatter_plain(arr: torch.Tensor, refs: torch.Tensor,
-                          vis: torch.Tensor, vals: torch.Tensor
+                          vis: Optional[torch.Tensor], vals: torch.Tensor
                           ) -> torch.Tensor:
     """``_masked_scatter`` (:361): arr[ref] := val for visible rows (in
-    place; out-of-range refs dropped)."""
+    place; out-of-range and negative refs dropped). ``vis`` None: every
+    row is visible."""
     r = refs.to(torch.int64)
-    m = vis.to(torch.bool) & (r >= 0) & (r < arr.shape[0])
+    m = (r >= 0) & (r < arr.shape[0])
+    if vis is not None:
+        m &= vis.to(torch.bool)
     arr[r[m]] = vals[m].to(arr.dtype)
     return arr
+
+
+def _gather_carry_plain(dst: torch.Tensor, src: torch.Tensor,
+                        idx: torch.Tensor,
+                        vis: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7's carry, the reference's read-then-write of compaction
+    (``stream/executors/hash_join.py:504-543``: ``read_degrees`` at the
+    live refs, then ``_masked_scatter`` at the dense new refs):
+    dst[i] := src[idx[i]] for the visible rows i < len(idx), in place; an
+    idx outside src's rows is dropped."""
+    s = idx.to(torch.int64)
+    m = (s >= 0) & (s < src.shape[0])
+    if vis is not None:
+        m &= vis.to(torch.bool)
+    rows = torch.arange(int(idx.shape[0]), device=dst.device)[m]
+    dst[rows] = src[s[m]].to(dst.dtype)
+    return dst
 
 
 def _remap_head_plain(head: torch.Tensor, old_to_new: torch.Tensor,
@@ -576,28 +599,30 @@ def tombstone_rows(chains: ChainState, row_refs: torch.Tensor,
 
 def join_apply(chains: ChainState, pay: torch.Tensor, slots: torch.Tensor,
                up: torch.Tensor, aux: torch.Tensor, key_width: int,
-               scratch: Optional[LinkScratch] = None) -> None:
+               scratch: Optional[LinkScratch] = None,
+               pay_src: Optional[torch.Tensor] = None) -> None:
     """K5 over one epoch, after K1 gave the insert rows' ``slots``: link,
     tombstone and payload scatter, in place. ``up`` is [key lanes |
-    payload lanes] int32[n, key_width + P], ``aux`` int32[n, 4]
-    (AUX_*)."""
+    payload lanes] int32[n, key_width + P], or the key lanes alone with
+    the payload lanes in ``pay_src`` int32[n, P]; ``aux`` int32[n, 4]
+    (AUX_*), its columns any stride (K5 reads each as a row input)."""
     if up.device.type != "cuda":
-        return join_apply_plain(chains, pay, slots, up, aux, key_width)
+        return join_apply_plain(chains, pay, slots, up, aux, key_width,
+                                pay_src)
     n = int(up.shape[0])
-    _check_dev(up, aux, pay, slots, *chains)
-    if aux.shape != (n, 4) or not aux.is_contiguous() or \
-            up.stride(1) != 1 or slots.shape != (n,):
+    src = up[:, key_width:] if pay_src is None else pay_src
+    _check_dev(up, aux, pay, slots, src, *chains)
+    if aux.shape != (n, 4) or up.stride(1) != 1 or slots.shape != (n,) \
+            or tuple(src.shape) != (n, pay.shape[1]):
         raise ValueError("join_apply takes aux int32[n, 4], slots "
-                         "int32[n] and contiguous upload lanes")
-    P = int(up.shape[1]) - key_width
-    if P != pay.shape[1]:
-        raise ValueError("payload width differs from the upload's")
+                         "int32[n], contiguous lanes in each row and "
+                         "the payload store's width")
     _join_apply_launch(
         chains, pay, n, slots=slots, ins_ok=aux[:, AUX_FLAGS],
         ins_bits=FLAG_INS, ins_ref=aux[:, AUX_INS_REF],
         seq=aux[:, AUX_SEQ], del_ok=aux[:, AUX_FLAGS],
         del_bits=FLAG_DEL, del_ref=aux[:, AUX_DEL_REF],
-        pay_src=up[:, key_width:] if P else None, scratch=scratch)
+        pay_src=src if pay.shape[1] else None, scratch=scratch)
 
 
 def join_apply_sharded(chains: ChainState, slots: Optional[torch.Tensor],
@@ -640,14 +665,16 @@ def join_apply_sharded(chains: ChainState, slots: Optional[torch.Tensor],
 
 def epoch_apply(table: ht.TableState, chains: ChainState,
                 pay: torch.Tensor, up: torch.Tensor, aux: torch.Tensor,
-                key_width: int, scratch: Optional[LinkScratch] = None):
+                key_width: int, scratch: Optional[LinkScratch] = None,
+                pay_src: Optional[torch.Tensor] = None):
     """Apply a whole epoch's inserts and tombstones (K1 + K5). Returns
-    (table, chains, pay, K1 stats)."""
+    (table, chains, pay, K1 stats). ``pay_src``: see join_apply."""
     if up.device.type != "cuda":
-        return epoch_apply_plain(table, chains, pay, up, aux, key_width)
+        return epoch_apply_plain(table, chains, pay, up, aux, key_width,
+                                 pay_src)
     table, slots, stats = ht.probe_insert(table, up[:, :key_width],
                                           aux[:, AUX_FLAGS] & FLAG_INS)
-    join_apply(chains, pay, slots, up, aux, key_width, scratch)
+    join_apply(chains, pay, slots, up, aux, key_width, scratch, pay_src)
     return table, chains, pay, stats
 
 
@@ -815,27 +842,58 @@ def apply_and_probe(my_table: ht.TableState, my_chains: ChainState,
     return my_table, my_chains, stats, mat
 
 
+def _k7_launch(gather: bool, dst: torch.Tensor, idx: torch.Tensor,
+               vis: Optional[torch.Tensor], src: torch.Tensor
+               ) -> torch.Tensor:
+    """One K7 masked_scatter launch: dst[idx[i]] := src[i] (scatter) or
+    dst[i] := src[idx[i]] (gather) over the visible rows i < len(idx)."""
+    n = int(idx.shape[0])
+    _check_dev(dst, idx, src, *(() if vis is None else (vis,)))
+    width = 1 if dst.dim() == 1 else int(dst.shape[1])
+    if not dst.is_contiguous() or src.dim() != dst.dim() or \
+            (dst.dim() == 2 and (src.shape[1] != width or
+                                 src.stride(1) != 1)):
+        raise ValueError("masked_scatter takes a contiguous int32 [rows] "
+                         "or [rows, P] array and a source of its lanes "
+                         "with a unit lane stride")
+    if idx.dim() != 1 or (vis is not None and tuple(vis.shape) != (n,)):
+        raise ValueError("masked_scatter takes int32 [n] refs and vis")
+    if (n > dst.shape[0]) if gather else (src.shape[0] != n):
+        raise ValueError("masked_scatter shape mismatch")
+    if n and width:
+        cuda.call("join_maint", "rw_masked_scatter", int(gather),
+                  dst.data_ptr(), int(dst.shape[0]), width, idx.data_ptr(),
+                  idx.stride(0), _ptr(vis),
+                  0 if vis is None else vis.stride(0), src.data_ptr(),
+                  src.stride(0), int(src.shape[0]), n)
+        LAUNCHES.add("masked_scatter")
+    return dst
+
+
 def _masked_scatter(arr: torch.Tensor, refs: torch.Tensor,
-                    vis: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Masked write by ref into ``arr`` [cap] or [cap, P], in place (K7
-    masked_scatter): payload rows and degree values share it."""
+                    vis: Optional[torch.Tensor], vals: torch.Tensor
+                    ) -> torch.Tensor:
+    """arr[ref] := val for the visible rows, in place (K7 masked_scatter):
+    ``arr`` int32 [rows] (degrees) or [rows, P] (payload lanes),
+    contiguous; ``refs`` and ``vis`` int32 [n], ``vis`` None when every
+    row is visible (no all-ones array); ``vals`` [n] or [n, P]. Refs, vis
+    and vals may be strided views (a column of a matrix already on the
+    card); vals' lanes are contiguous."""
     if arr.device.type != "cuda":
         return _masked_scatter_plain(arr, refs, vis, vals)
-    n = int(refs.shape[0])
-    refs, vis, vals = _i32(refs), _i32(vis), _i32(vals)
-    _check_dev(arr, refs, vis, vals)
-    width = 1 if arr.dim() == 1 else int(arr.shape[1])
-    if vals.shape[0] != n or (vals.numel() != n * width) or \
-            vis.shape != (n,):
-        raise ValueError("masked_scatter shape mismatch")
-    if not all(t.is_contiguous() for t in (arr, refs, vis, vals)):
-        raise ValueError("masked_scatter needs contiguous tensors")
-    if n:
-        cuda.call("join_maint", "rw_masked_scatter", arr.data_ptr(),
-                  int(arr.shape[0]), width, refs.data_ptr(),
-                  vis.data_ptr(), vals.data_ptr(), n)
-        LAUNCHES.add("masked_scatter")
-    return arr
+    return _k7_launch(False, arr, refs, vis, vals)
+
+
+def _gather_carry(dst: torch.Tensor, src: torch.Tensor, idx: torch.Tensor,
+                  vis: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dst[i] := src[idx[i]] for the visible rows i < len(idx), in place
+    (K7 masked_scatter's gather mode): a compaction carries the live
+    rows' degrees from the old array into the fresh one on the card.
+    ``dst`` and ``src`` are int32 [rows] (or [rows, P]) arrays, ``idx``
+    and ``vis`` int32 [n] with any stride, ``vis`` None: every row."""
+    if dst.device.type != "cuda":
+        return _gather_carry_plain(dst, src, idx, vis)
+    return _k7_launch(True, dst, idx, vis, src)
 
 
 def _remap_head(head: torch.Tensor, old_to_new: torch.Tensor,
@@ -1140,15 +1198,17 @@ class JoinSideKernel:
         return upload(up, self.device), upload(aux, self.device)
 
     def apply_epoch(self, up_dev: torch.Tensor, aux_dev: torch.Tensor,
-                    n_rows: int, max_ins_ref: int) -> None:
+                    n_rows: int, max_ins_ref: int,
+                    pay_src: Optional[torch.Tensor] = None) -> None:
         """Apply a whole epoch's concatenated inserts/tombstones (and
-        their payload lanes) in one dispatch (K1 + K5)."""
+        their payload lanes, in ``up_dev`` or in ``pay_src``) in one
+        dispatch (K1 + K5)."""
         if max_ins_ref >= 0:
             self.reserve_rows(max_ins_ref)
         self.table.reserve(n_rows)
         self.table.state, self.chains, self.pay, stats = epoch_apply(
             self.table.state, self.chains, self.pay, up_dev, aux_dev,
-            self.key_width, scratch=self._link_scratch)
+            self.key_width, scratch=self._link_scratch, pay_src=pay_src)
         self.table._counters.push(stats, n_rows)
 
     def probe_epoch(self, up_dev: torch.Tensor, aux_dev: torch.Tensor,
@@ -1192,19 +1252,31 @@ class JoinSideKernel:
         return pending
 
     # -- degrees (device-resident; recovery/reload writes) ---------------
-    def write_degrees(self, refs: np.ndarray, vals: np.ndarray) -> None:
-        """Scatter exact degree values by ref."""
-        if len(refs) == 0:
-            return
-        n = len(refs)
-        self.deg = _masked_scatter(
-            self.deg, upload(np.asarray(refs, np.int32), self.device),
-            torch.ones(n, dtype=torch.int32, device=self.device),
-            upload(np.asarray(vals, np.int32), self.device))
+    def write_degrees(self, refs: torch.Tensor, vals: torch.Tensor) -> None:
+        """Scatter exact degree values by ref on the device (K7, every row
+        visible): ``refs`` and ``vals`` are int32 [n] tensors on this
+        side's device with any stride (the refs column of a staged aux
+        matrix, K6's degree column)."""
+        if int(refs.shape[0]):
+            self.deg = _masked_scatter(self.deg, refs, None, vals)
 
     def read_degrees(self, refs: np.ndarray) -> np.ndarray:
-        """Degree values by ref (host fetch; compaction-only path)."""
+        """Degree values by ref, fetched to the host (a whole-array read
+        and a sync: for checks; the executor's paths keep degrees on the
+        device)."""
         return fetch(self.deg)[refs].astype(np.int64)
+
+    def probe_degrees(self, key_lanes, vis) -> torch.Tensor:
+        """Each row's match degree against THIS side at the latest
+        sequence, left on the device: K6's degree branch with no pair
+        buffer, and its degree column ``mat[1:1+n, 0]`` returned as a
+        strided view (0 where a row is not visible). Arguments are host
+        arrays or device tensors (views of a staged matrix); nothing is
+        fetched."""
+        lanes, vis_d = self._dev(key_lanes), self._dev(vis)
+        mat, _stats = probe_pairs(self.table.state, self.chains, lanes,
+                                  vis_d, I32_MAX, 0, True)
+        return mat[1:1 + int(lanes.shape[0]), 0]
 
     def rebase_seq(self) -> None:
         """Reset every finite ins/del sequence to 0 (a safe point with
@@ -1214,23 +1286,51 @@ class JoinSideKernel:
 
     # -- recovery / compaction ---------------------------------------------
     def rebuild(self, key_lanes: np.ndarray, row_refs: np.ndarray,
-                payload: Optional[np.ndarray] = None) -> None:
-        """Reload all live rows: one batched insert (K1 + K5 link), and
-        the payload lanes by ref (K7). Degrees reset to zero."""
+                payload: Optional[np.ndarray] = None,
+                carry: Optional[np.ndarray] = None) -> None:
+        """Reload all live rows (recovery, compaction): a fresh state, then
+        one upload applied as an epoch at seq 0 (K1 + K5, the payload
+        lanes written in K5's launch). The upload is one buffer of
+        contiguous blocks, [key lanes | payload lanes | aux columns (|
+        carry)], written in place on the host (interleaving lanes into
+        rows costs more host time than it saves). Degrees reset to zero;
+        with ``carry`` (compaction: ``row_refs`` dense 0..n-1,
+        ``carry[i]`` the old ref of new ref i) each row's degree moves
+        from the old array into the fresh one on the card (K7's
+        gather)."""
         n = len(row_refs)
         key_cap = max(self.table.capacity,
                       ht.MIN_CAPACITY if n == 0 else
                       1 << int(np.ceil(np.log2(max(n / ht.MAX_LOAD, 1)))))
         row_cap = max(self.row_capacity,
                       1 << int(np.ceil(np.log2(max(n + 1, 2)))))
+        if carry is not None and (len(carry) != n or not np.array_equal(
+                row_refs, np.arange(n))):
+            raise ValueError("a carry rebuilds dense refs 0..n-1, one old "
+                             "ref each")
+        old_deg = self.deg
         self._init_state(key_cap, row_cap)
         if n == 0:
             return
-        ones = torch.ones(n, dtype=torch.int32, device=self.device)
-        self.insert(upload(np.asarray(key_lanes, np.int32), self.device),
-                    row_refs, ones, seq=0)
-        if payload is not None and self.payload_width:
-            self.pay = _masked_scatter(
-                self.pay, upload(np.asarray(row_refs, np.int32),
-                                 self.device),
-                ones, upload(np.asarray(payload, np.int32), self.device))
+        kw, P = self.key_width, self.payload_width
+        at = np.cumsum([0, n * kw, n * P, 4 * n,
+                        0 if carry is None else n])
+        host = staging(int(at[-1]), self.device)
+        h = host.numpy()
+        h[:at[1]] = np.asarray(key_lanes, np.int32).reshape(-1)
+        h[at[1]:at[2]] = 0 if payload is None else \
+            np.asarray(payload, np.int32).reshape(-1)
+        aux = h[at[2]:at[3]].reshape(4, n)
+        aux[AUX_INS_REF] = row_refs
+        aux[AUX_DEL_REF] = -1
+        aux[AUX_FLAGS] = FLAG_INS
+        aux[AUX_SEQ] = 0        # rebuilt rows predate every live sequence
+        if carry is not None:
+            h[at[3]:] = carry
+        dev = send(host, self.device)
+        self.apply_epoch(dev[:at[1]].view(n, kw),
+                         dev[at[2]:at[3]].view(4, n).t(), n,
+                         int(np.max(row_refs)),
+                         pay_src=dev[at[1]:at[2]].view(n, P))
+        if carry is not None:
+            self.deg = _gather_carry(self.deg, old_deg, dev[at[3]:])

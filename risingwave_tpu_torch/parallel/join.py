@@ -501,13 +501,17 @@ class ShardedJoinKernel:
                            c.ins_seq.view(-1), c.del_seq.view(-1)))
 
     def rebuild(self, key_lanes: np.ndarray, row_refs: np.ndarray,
-                payload: Optional[np.ndarray] = None) -> None:
+                payload: Optional[np.ndarray] = None,
+                carry: Optional[np.ndarray] = None) -> None:
         """Reload all live rows (recovery, compaction): fresh state and
         one routed insert at seq 0. Each shard's key capacity is sized for
         ALL n keys (worst skew: one shard owns every key). There is no
-        payload store: matched rows gather from the host arena."""
-        if payload is not None:
-            raise ValueError("the sharded join keeps no payload lanes")
+        payload store (matched rows gather from the host arena) and no
+        degree array to carry (the executor keeps a mesh's degrees on the
+        host)."""
+        if payload is not None or carry is not None:
+            raise ValueError("the sharded join keeps no payload lanes or "
+                             "device degrees")
         n = len(row_refs)
         while n and int(np.max(row_refs)) >= self._row_capacity:
             self._row_capacity *= 2

@@ -73,7 +73,8 @@ from risingwave_tpu_torch.common.chunk import Column, Op, StreamChunk, next_pow2
 from risingwave_tpu_torch.common.types import Field, Schema
 from risingwave_tpu_torch.ops import lanes as _lanes
 from risingwave_tpu_torch.ops.hash_join import (
-    FLAG_DEL, FLAG_INS, FLAG_NEG, FLAG_PROBE, JoinSideKernel,
+    AUX_FLAGS, AUX_INS_REF, FLAG_DEL, FLAG_INS, FLAG_NEG, FLAG_PROBE,
+    JoinSideKernel,
 )
 from risingwave_tpu_torch.parallel.join import ShardedJoinKernel
 from risingwave_tpu_torch.parallel.mesh import ShardMesh
@@ -82,7 +83,7 @@ from risingwave_tpu_torch.stream.executor import Executor, ExecutorInfo
 from risingwave_tpu_torch.stream.executors.keys import LANES_PER_KEY, KeyCodec
 from risingwave_tpu_torch.stream.merge import barrier_align_2
 from risingwave_tpu_torch.stream.message import Message, Watermark, is_barrier
-from risingwave_tpu_torch.utils.device import resolve_device
+from risingwave_tpu_torch.utils.device import resolve_device, upload
 
 
 class JoinType(enum.Enum):
@@ -480,14 +481,12 @@ class _JoinSide:
 
     def compact(self) -> None:
         """Rebuild arena + device state with only live rows (dense
-        refs). Degrees survive: on one device they are read before the
-        rebuild resets them (``read_degrees``) and written back after it
-        (``write_degrees``: K7)."""
+        refs). Degrees survive: on one device the rebuild carries them on
+        the card from the old degree array into the fresh one (K7's
+        gather at the live refs, no host round trip); a mesh moves its
+        host array."""
         live = self.live_refs()
         n = len(live)
-        live_deg = None
-        if self.dev_degrees and self.track_degrees and n:
-            live_deg = self.kernel.read_degrees(live)
         new_arena = _Arena(self.schema,
                            capacity=max(1024, next_pow2(max(n, 1))))
         for i in range(len(self.schema)):
@@ -506,13 +505,13 @@ class _JoinSide:
             self.kernel.rebuild(
                 self.key_codec.build_arrays(self.key_cols_of(new_refs)),
                 new_refs, payload=self.payload_from_arena(new_refs)
-                if self.pay_indices else None)
+                if self.pay_indices else None,
+                carry=live if self.dev_degrees and self.track_degrees
+                else None)
         else:
             self.kernel.rebuild(
                 np.zeros((0, LANES_PER_KEY * len(self.key_indices)),
                          dtype=np.int32), new_refs)
-        if live_deg is not None:
-            self.kernel.write_degrees(new_refs, live_deg)
 
     def expire_below(self, key_pos: int, wm_physical, seq: int = 0) -> int:
         """Watermark state expiry (hash_join.rs:860-945 analog): drop
@@ -1136,7 +1135,7 @@ class HashJoinExecutor(Executor):
             up, aux2, n, max_ref = loaded
             up_dev, aux_dev = side.kernel.stage_epoch(up, aux2, n, max_ref)
             side.kernel.apply_epoch(up_dev, aux_dev, n, max_ref)
-            reloaded[s] = (up, aux2, n)
+            reloaded[s] = (up_dev, aux_dev, n)
             part = self._tier_parts[s]
             uniq = np.unique(up[:n, :kw], axis=0)
             self._tier.touch(part, map(tuple, uniq.tolist()),
@@ -1147,13 +1146,16 @@ class HashJoinExecutor(Executor):
             rl = reloaded[t_side]
             if rl is None:
                 continue
-            up, aux2, n = rl
-            refs = aux2[:n, 0]
-            deg, _pi, _refs = self.sides[1 - t_side].kernel.probe(
-                up[:n, :kw], np.ones(n, dtype=bool))
-            # the reloaded rows' degrees (the cold tier is one device
-            # only: the degree array lives on the card)
-            self.sides[t_side].kernel.write_degrees(refs, deg[:n])
+            up_dev, aux_dev, n = rl
+            # the reloaded rows' degrees, on the card from end to end (the
+            # cold tier is one device only): the staged key lanes probe
+            # the other side (every reloaded row's flags are FLAG_INS, so
+            # the flags column is their visibility), and K6's degree
+            # column is written at the staged refs
+            deg = self.sides[1 - t_side].kernel.probe_degrees(
+                up_dev[:n, :kw], aux_dev[:n, AUX_FLAGS])
+            self.sides[t_side].kernel.write_degrees(
+                aux_dev[:n, AUX_INS_REF], deg)
 
     def _emit_pending(self) -> List[StreamChunk]:
         """Barrier sweep: collect the epoch's probes and run emission in
@@ -1408,13 +1410,17 @@ class HashJoinExecutor(Executor):
             nonnull = np.ones(len(refs), dtype=bool)
             for j in range(len(key_cols)):
                 nonnull &= lanes_[:, LANES_PER_KEY * j + 2] != 0
-            deg, _pi, _refs = other.kernel.probe(lanes_, nonnull)
-            vals = np.where(nonnull, deg[:len(refs)], 0)
             if side.dev_degrees:
-                side.kernel.write_degrees(refs.astype(np.int32), vals)
+                # K6 gives a row it does not see (a NULL key) degree 0 in
+                # its degree column, which K7 writes as it lies: the
+                # zeroing and the write stay on the card
+                side.kernel.write_degrees(
+                    upload(refs.astype(np.int32), side.kernel.device),
+                    other.kernel.probe_degrees(lanes_, nonnull))
             else:
+                deg, _pi, _refs = other.kernel.probe(lanes_, nonnull)
                 side.ensure_degrees(int(refs.max()))
-                side.degrees[refs] = vals
+                side.degrees[refs] = np.where(nonnull, deg[:len(refs)], 0)
 
     # -- main loop --------------------------------------------------------
     async def execute(self) -> AsyncIterator[Message]:

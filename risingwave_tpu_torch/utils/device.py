@@ -64,6 +64,23 @@ def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def staging(n: int, device: torch.device) -> torch.Tensor:
+    """A 1-D int32 host tensor to write an upload into in place, then
+    send with ``send``: pinned for a CUDA device (no second host copy),
+    a plain tensor on the CPU (which ``send`` returns as it is)."""
+    return torch.empty(n, dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+
+
+def send(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A ``staging`` tensor on `device`: an asynchronous copy on the
+    current stream on CUDA (the pinned allocator keeps the buffer alive
+    until it lands)."""
+    if device.type != "cuda":
+        return host
+    return host.to(device, non_blocking=True)
+
+
 class Fetch:
     """A started device->host copy; ``result()`` waits for it."""
 

@@ -25,7 +25,10 @@ retire and growth) key-sorted against their plain twins with their
 launches counted, and the patched advance (one launch, no K9) exactly
 against K9's plain version then the listed advance's. K5 and K7 drop a
 negative ref, as the plain versions do (a declared deviation from the
-reference, which wraps it). K2, route, K1, K6, K3 (its gather
+reference, which wraps it). K7's scatter and gather-carry, with and
+without a visibility array, on dense, misaligned and strided operands,
+and a rebuild (K1 + K5, the payload in K5's launch, with K7's carry)
+exactly against the plain versions, with their launches counted. K2, route, K1, K6, K3 (its gather
 and its advance on the flush's own list) and K5 are also held to their
 plain versions on ``ops/kernel_cases.py``'s batches, the shapes at the
 edges of their designs: K1 by the table invariants and exact stats (with
@@ -773,6 +776,119 @@ def test_join_maint_matches_plain(dev):
 
 
 # -- the fused preludes (csrc/fused.cu) ----------------------------------------
+
+
+def _k7_operand(dev, host: np.ndarray, layout: str, rng) -> torch.Tensor:
+    """``host`` on the card as K7 meets it: dense, as a view that starts
+    one int past an allocation (off every 16-byte boundary), or as a
+    column (lanes) of a wider matrix, rows 3 + lanes ints apart."""
+    t = torch.from_numpy(host).to(dev)
+    if layout == "dense":
+        return t
+    lanes_ = 1 if host.ndim == 1 else host.shape[1]
+    if layout == "offset":
+        buf = torch.from_numpy(rng.integers(-9, 9, host.size + 1)
+                               .astype(np.int32)).to(dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(host.shape)
+    wide = torch.from_numpy(rng.integers(-9, 9, (host.shape[0], lanes_ + 3))
+                            .astype(np.int32)).to(dev)
+    wide[:, 1:1 + lanes_] = t.reshape(host.shape[0], lanes_)
+    return wide[:, 1] if host.ndim == 1 else wide[:, 1:1 + lanes_]
+
+
+@pytest.mark.parametrize("layout", ["dense", "offset", "strided"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("width", [1, JP])
+@pytest.mark.parametrize("mode", ["scatter", "gather"])
+def test_masked_scatter_modes_match_plain(dev, mode, width, masked,
+                                          layout):
+    """K7's scatter by ref and its gather-carry, with no visibility array
+    and with a mask, against their plain versions on the same inputs: refs,
+    vis and values dense, off a 16-byte boundary, or strided columns (an
+    aux column, K6's degree column, payload lanes inside wider rows), at
+    the paths' 1,536, 6,931 and 40,000 rows and at counts that are not a
+    multiple of 4; negative and out-of-range refs dropped; one launch a
+    call."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    rng = np.random.default_rng(31 + width)
+    rows = 1 << 16
+    shape = (rows,) if width == 1 else (rows, width)
+    for n in (1, 3, 1536, 6931, 40_000, 40_001):
+        idx = rng.permutation(rows)[:n].astype(np.int32)
+        bad = np.flatnonzero(rng.random(n) < 0.05)
+        idx[bad] = np.where(rng.random(len(bad)) < 0.5, -1 - bad,
+                            rows + bad).astype(np.int32)
+        vis = (rng.random(n) < 0.8).astype(np.int32) if masked else None
+        arr = torch.from_numpy(rng.integers(-2**31, 2**31, shape)
+                               .astype(np.int32)).to(dev)
+        src_rows = n if mode == "scatter" else rows
+        src = _k7_operand(dev, rng.integers(-2**31, 2**31, (src_rows,)
+                                            + shape[1:]).astype(np.int32),
+                          layout, rng)
+        i_t = _k7_operand(dev, idx, layout, rng)
+        v_t = None if vis is None else _k7_operand(dev, vis, layout, rng)
+        LAUNCHES.reset()
+        if mode == "scatter":
+            got = J._masked_scatter(arr.clone(), i_t, v_t, src)
+            want = J._masked_scatter_plain(arr.clone(), i_t, v_t, src)
+        else:
+            got = J._gather_carry(arr.clone(), src, i_t, v_t)
+            want = J._gather_carry_plain(arr.clone(), src, i_t, v_t)
+        assert LAUNCHES.snapshot().get("masked_scatter", 0) == 1
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        assert n < 4 or not torch.equal(got, arr)
+
+
+def test_rebuild_payload_rides_in_join_apply(dev):
+    """JoinSideKernel.rebuild on the card against the same rebuild on the
+    CPU (the plain versions): a recovery's rebuild (refs in any order)
+    launches K1 + K5 once each, its payload lanes written in K5's launch,
+    and no K7; a compaction's rebuild adds one K7 gather that carries the
+    live rows' degrees on the card. Heads per key, next, sequences,
+    payload and degrees equal; K6's degree column (probe_degrees, no pair
+    buffer) equals the CPU's too."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+    rng = np.random.default_rng(33)
+    n0, n1 = 6000, 2500
+    keys0 = np.concatenate([_lanes(rng.integers(0, 900, n0)),
+                            _lanes(rng.integers(0, 3, n0))], axis=1)
+    refs0 = rng.permutation(3 * n0)[:n0].astype(np.int32)
+    pay0 = rng.integers(-2**31, 2**31, (n0, JP)).astype(np.int32)
+    degv = rng.integers(0, 50, n0).astype(np.int32)
+    live = np.sort(rng.choice(refs0, n1, replace=False)).astype(np.int32)
+    pos = {int(r): i for i, r in enumerate(refs0)}
+    at = np.asarray([pos[int(r)] for r in live])
+    probe_keys = np.concatenate([keys0[:500], keys0[:500] + 7])
+    probe_vis = (rng.random(1000) < 0.8).astype(np.int32)
+    sides, counts = {}, []
+    for d in (dev, torch.device("cpu")):
+        k = J.JoinSideKernel(JKW, key_capacity=1 << 12,
+                             row_capacity=1 << 12, payload_width=JP,
+                             device=d)
+        LAUNCHES.reset()
+        k.rebuild(keys0, refs0, pay0)
+        counts.append(LAUNCHES.snapshot())
+        k.write_degrees(torch.from_numpy(refs0).to(d),
+                        torch.from_numpy(degv).to(d))
+        LAUNCHES.reset()
+        k.rebuild(keys0[at], np.arange(n1, dtype=np.int32), pay0[at],
+                  carry=live)
+        counts.append(LAUNCHES.snapshot())
+        sides[d.type] = (k, k.probe_degrees(probe_keys, probe_vis).cpu())
+    (kc, dc), (kp, dp) = sides["cuda"], sides["cpu"]
+    for a, b in zip(_head_by_key(kc.table.state, kc.chains),
+                    _head_by_key(kp.table.state, kp.chains)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip((*kc.chains[1:], kc.pay, kc.deg),
+                    (*kp.chains[1:], kp.pay, kp.deg)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    np.testing.assert_array_equal(kc.deg[:n1].cpu().numpy(), degv[at])
+    np.testing.assert_array_equal(dc.numpy(), dp.numpy())
+    assert dc.numpy().any() and not dc.numpy()[probe_vis == 0].any()
+    for c, k7 in zip(counts[:2], (0, 1)):
+        assert c.get("join_apply", 0) == 1 and c.get("probe_insert", 0) == 1
+        assert c.get("masked_scatter", 0) == k7
 
 
 def _fused_case(dev, seed, edges, n=1 << 12):
@@ -1656,35 +1772,52 @@ def test_degree_epoch_pair_buffer_overflow_on_the_card(dev):
                                   shard_opts={"probe_capacity": 64}))
 
 
-def test_outer_compaction_carries_degrees_on_the_card(dev):
-    """LEFT OUTER with compaction at every barrier: read_degrees before
-    the rebuild, K7 (masked_scatter) writing them and the payload back
-    after it; the card equals the CPU and launched masked_scatter."""
+def test_outer_compaction_carries_degrees_on_the_card(dev, monkeypatch):
+    """LEFT OUTER with compaction at every barrier: each rebuild writes
+    its payload lanes in K5's launch (join_apply) and carries the live
+    rows' degrees from the old array into the fresh one with K7's gather
+    (masked_scatter), with no read of the degree array to the host; the
+    card equals the CPU."""
     from risingwave_tpu_torch.stream.executors import hash_join as X
     from risingwave_tpu_torch.utils.device import LAUNCHES
     msgs, schema, nb = _join_stream(53)
+    monkeypatch.setattr(X._JoinSide, "COMPACT_DEAD_RATIO", 0.05)
+    monkeypatch.setattr(X._JoinSide, "COMPACT_MIN_REFS", 64)
+    rebuilds = []
+    real = J.JoinSideKernel.rebuild
+
+    def spy(self, key_lanes, row_refs, payload=None, carry=None):
+        before = LAUNCHES.snapshot()
+        real(self, key_lanes, row_refs, payload, carry)
+        after = LAUNCHES.snapshot()
+        rebuilds.append((self.device.type, len(row_refs), carry is not None,
+                         {k: after.get(k, 0) - before.get(k, 0)
+                          for k in ("join_apply", "masked_scatter")}))
+    monkeypatch.setattr(J.JoinSideKernel, "rebuild", spy)
     runs = []
     for d in (dev, "cpu"):
-        old = (X._JoinSide.COMPACT_DEAD_RATIO, X._JoinSide.COMPACT_MIN_REFS)
-        X._JoinSide.COMPACT_DEAD_RATIO, X._JoinSide.COMPACT_MIN_REFS = \
-            0.05, 64
-        try:
-            LAUNCHES.reset()
-            runs.append(_run_join_on(d, msgs, schema, nb, "left_outer"))
-            runs[-1] += (LAUNCHES.snapshot(),)
-        finally:
-            X._JoinSide.COMPACT_DEAD_RATIO, X._JoinSide.COMPACT_MIN_REFS = old
+        LAUNCHES.reset()
+        runs.append(_run_join_on(d, msgs, schema, nb, "left_outer"))
+        runs[-1] += (LAUNCHES.snapshot(),)
     _same_runs(runs[0][:3], runs[1][:3])
-    assert runs[0][3].get("masked_scatter", 0) > 0
+    card = [r for r in rebuilds if r[0] == "cuda" and r[1]]
+    # the payload in K5's launch, the degrees in K7's carry, nothing else
+    for _t, _n, carried, d in card:
+        assert d == {"join_apply": 1, "masked_scatter": int(carried)}
+    assert sum(c for _t, _n, c, _d in card) > 0
+    assert runs[0][3].get("masked_scatter", 0) == \
+        sum(c for _t, _n, c, _d in card)
     assert runs[0][1].sides[0].next_ref < sum(
         m.capacity for m in msgs[0] if hasattr(m, "ops"))
 
 
 def test_cold_reload_recomputes_degrees_on_the_card(dev):
-    """FULL OUTER under a 64-key cold tier: keys evict (compaction with
-    K7) and reload (K1 + K5 at seq 0), and the reloaded rows' degrees
-    recompute by one probe of the other side (join_probe_deg) written by
-    K7; the card equals the CPU, eviction and reload counts included."""
+    """FULL OUTER under a 64-key cold tier: keys evict (compaction: the
+    payload in K5's launch, the degrees carried by K7's gather) and reload
+    (K1 + K5 at seq 0), and the reloaded rows' degrees recompute by one
+    probe of the other side (join_probe_deg) whose degree column K7
+    writes at the staged refs; the card equals the CPU, eviction and
+    reload counts included."""
     from risingwave_tpu_torch.utils.device import LAUNCHES
     msgs, schema, nb = _join_stream(54, n_epochs=6, rows=400,
                                     key_range=300, null_p=0.0, wide=True,

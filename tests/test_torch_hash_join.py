@@ -462,7 +462,9 @@ def test_join_side_kernel_insert_delete_rebuild_degrees_rebase():
     drefs = rng.choice(192, 50, replace=False).astype(np.int32)
     dvals = rng.integers(0, 9, 50).astype(np.int32)
     ref.write_degrees(drefs, dvals)
-    port.write_degrees(drefs, dvals)
+    # the port's write takes device tensors (a staged column, K6's
+    # degree column); on the CPU they are CPU tensors
+    port.write_degrees(torch.from_numpy(drefs), torch.from_numpy(dvals))
     same()
     np.testing.assert_array_equal(port.read_degrees(drefs),
                                   ref.read_degrees(drefs))
