@@ -62,7 +62,13 @@ phases, any failure of which exits non-zero:
      path's shapes (a 2^15-row agg backlog, 2^16-row join side-epochs,
      q1's 4096-row chunks); q7's agg prelude also in the 8 segments of
      the q7-mesh fused step, with U-/U+ pairs across every block edge;
-     and on ``ops/fused_cases.py``'s tile-edge cases;
+     on ``ops/fused_cases.py``'s tile-edge cases; and agg_prelude on
+     q5-hot's own program (a hop of 5 copies, then (window_start,
+     auction)) over a 2^15-row bid batch (163,840 expanded rows) and on
+     q3's DECIMAL revenue program (OP_DECMUL) over its second join's
+     whole SF1 output, stage counts exact; K2 also exact at q3's DECIMAL
+     SUM step (nine key lanes, a 2^20-slot table, the second join's SF1
+     output in one 2^15-row step);
    - the sharded path at q7-mesh's shapes: route (csrc/route.cu) bit for
      bit against route_plain on a 2^15-row step in 8 blocks (bucket =
      the block), with a forced overflow and on ``ops/kernel_cases.py``'s
@@ -138,16 +144,17 @@ phases, any failure of which exits non-zero:
      (phase 5's traced run at the same size);
    - q8 FULL OUTER (``build_q8_outer``: q8's sources, projections and
      seller dedup joined FULL OUTER, the join's whole output
-     materialized, keyed by both sides' pks): on one device at 100M
-     events (the q8 arm's join state; the stored rows and table slots
-     per side logged), over 8 shards at 20M, under a cold-tier cap of
-     2048 keys a side at 2M (evictions and reloads must both happen;
-     K7 masked_scatter carries the compactions' degrees and writes the
-     reloads') and killed halfway and rebuilt on the same store at 2M
-     (degrees recomputed through K6 and written by K7), each MV
-     equal to a vectorized oracle, the capped and recovered MVs equal;
-     every probe of the one-device arms is K6's degree branch
-     (``join_probe_deg``);
+     materialized, keyed by both sides' pks): on one device at 20M
+     events (cut from 100M for q5-hot's and q3's room; the stored rows
+     and table slots per side logged), over 8 shards at 20M, under a
+     cold-tier cap of 2048 keys a side at 2M (evictions and reloads
+     must both happen; K7 masked_scatter carries the compactions'
+     degrees and writes the reloads') and killed halfway and rebuilt
+     on the same store at 2M (degrees recomputed through K6 and written
+     by K7), each MV equal to a vectorized oracle, the capped and
+     recovered MVs equal, and the one-device MV equal to the 8-shard
+     one (both at 20M); every probe of the one-device arms is K6's
+     degree branch (``join_probe_deg``);
    - join modes: all 8 join types on one device and over 8 shards on
      the per-chunk arm's script at 16 chunks a side, with a join-key
      watermark after epoch 1 (state expiry on both kinds of table), each
@@ -157,12 +164,34 @@ phases, any failure of which exits non-zero:
      K7's launches on the three arms must be the rehearsal's
      (``K7_PATH_LAUNCHES``), and no phase-4 path reads the degree array
      to the host (``read_degrees``);
+   - Nexmark q5-hot (``build_q5``: hop windows of 10 s sliding by 2 s,
+     COUNT(*) per (window_start, auction), the top auction per window
+     by GroupTopN) at 1M events with bench_q5's chunking (4096-row
+     chunks, 16 a barrier), unfused, fused (the agg absorbs the hop and
+     the projection: agg_prelude makes 5 copies of every uploaded row,
+     and K1 + K2 must take 5 rows for each) and under a tier cap on
+     both stateful stages (each must evict and reload), each MV equal
+     to a vectorized oracle (per window the auction with the most bids,
+     ties to the smallest id) and the agg's counts summing to 5 x the
+     bids;
+   - TPC-H q3 (``build_q3``: customer ⋈ orders ⋈ lineitem, the DECIMAL
+     revenue summed per order, the top 10) at SF1 (150,000 customers,
+     1,500,000 orders, 6,000,000 lineitems; bench_q3's 1024-row chunks,
+     64 a barrier a source), where the second join's right side grows
+     its key table to 2^21 slots and its rows to 2^22, and fused at SF0.1 (the
+     agg absorbs the revenue projection, OP_DECMUL; the orders and
+     lineitem sides their filters and row ids), each MV equal to a
+     vectorized oracle with exact DECIMAL revenue, every group of the
+     agg's state table (sum and counts) the oracle's, and every join
+     side's stored rows the oracle's;
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
    events, fused q7 and q8 at 2M, q7-mesh and q8-mesh at 2M unfused
    and fused, q8 FULL OUTER at 2M (its MV equal to the capped arm's)
    and under its cold-tier cap (the join's own host functions by
    cumulative time),
-   and maxbids (uncapped and capped) and distinct at 2M,
+   maxbids (uncapped and capped) and distinct at 2M, q5-hot at 1M (its
+   MV equal to the fused and capped arms') and q3 at SF0.1 (equal to the
+   fused arm's),
    under torch.profiler (the device's busy time and idle share) and
    cProfile (host self-time by module; the sharded path's own host
    functions by cumulative time), after the main paths' counts were
@@ -315,8 +344,9 @@ MAXBIDS_CAPPED_PATH = MAXBIDS_PATH + ("lookup", "live_mask", "remap",
 # degrees with K6 written by K7; recovery rebuilds (K1 + K5) and
 # recomputes degrees (K6, then K7); the mesh's probes carry degree rows
 # under the sharded K6's name
+# (at 20M, as q8 fused, the presized join table never grows: no remap)
 Q8_OUTER_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
-                 "join_apply", "join_probe_deg", "remap")
+                 "join_apply", "join_probe_deg")
 Q8_OUTER_MESH_PATH = ("route", "probe_insert", "agg_apply", "flush_gather",
                       "advance", "join_apply", "join_probe")
 Q8_OUTER_CAPPED_PATH = ("probe_insert", "agg_apply", "flush_gather",
@@ -701,17 +731,65 @@ def check_agg_cases(dev) -> float:
     return err
 
 
+def q3_agg_input(dev) -> dict:
+    """q3's agg at SF1: SUM over DECIMAL (a scaled int64) per
+    (l_orderkey, o_orderdate, o_shippriority), nine key lanes, on its
+    presized 2^20-slot table; one step of the second join's whole output
+    (30,135 rows at SF1, padded to 2^15 as the kernel pads a step), keys
+    and inputs encoded by the executor's own codec, placed by K1."""
+    from risingwave_tpu_torch.common.chunk import Column, StreamChunk
+    from risingwave_tpu_torch.models.tpch import build_q3
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+    from risingwave_tpu_torch.stream.executors.keys import LANES_PER_KEY
+    agg = build_q3(MemoryStateStore(), customers=10, orders=100,
+                   device=dev).actor.consumer.input.input
+    cols, _facts = q3_join_rows(*Q3_SF1)
+    n = len(cols["l_orderkey"])
+    assert n <= N
+    vals = {"l_orderkey": cols["l_orderkey"],
+            "o_orderdate": cols["o_orderdate"],
+            "o_shippriority": cols["o_shippriority"],
+            "revenue": cols["l_extendedprice"]
+            * (10_000 - cols["l_discount"]) // 10_000}
+    sch = agg.input.schema
+    cs = []
+    for f in sch:
+        v = np.zeros(N, f.data_type.np_dtype)
+        v[:n] = vals[f.name]
+        cs.append(Column(f.data_type, v))
+    vis = np.zeros(N, bool)
+    vis[:n] = True
+    chunk = StreamChunk(sch, cs, vis, np.ones(N, np.int8))
+    kw = LANES_PER_KEY * len(agg.group_indices)
+    packed = torch.from_numpy(H.pack_chunk(
+        kw, agg.specs, agg.key_codec.build(chunk, agg.group_indices),
+        chunk.signs(), chunk.visibility, agg._inputs(chunk))).to(dev)
+    st = H.make_agg_state(1 << 20, kw, agg.specs, dev)
+    _t, slots, stats = H.ht.probe_insert(st.table, packed[:, :kw],
+                                         packed[:, kw + 1])
+    assert int(stats[1]) == 0
+    return _k2_input(st, packed, slots, agg.specs, kw)
+
+
 def check_agg_apply(dev, cap: int, n: int) -> dict:
-    """K2 on the edge cases, then at each timed shape: exact against the
-    plain version, then timed. The row's own numbers are q7's step."""
+    """K2 on the edge cases, then at each timed shape (q3's DECIMAL SUM
+    step too): exact against the plain version, then timed. The row's
+    own numbers are q7's step."""
     assert (cap, n) == (CAP, N)
     err = check_agg_cases(dev)
     out = {}
-    for name, inp in k2_inputs(dev).items():
-        err = max(err, k2_check(inp))
+    inputs = k2_inputs(dev)
+    inputs["q3"] = q3_agg_input(dev)
+    for name, inp in inputs.items():
+        e = k2_check(inp)
+        if name == "q3":
+            assert e == 0, f"K2's DECIMAL SUM at q3's step differs: {e}"
+        err = max(err, e)
         out[name] = k2_timed(inp)
     return dict(out.pop("q7"), max_abs_err=err, mixed_shape=out["mixed"],
-                maxbids_shape=out["maxbids"], sharded=out["q7_mesh"])
+                maxbids_shape=out["maxbids"], sharded=out["q7_mesh"],
+                q3_shape=out["q3"])
 
 
 def _mixed_state(dev, cap, n):
@@ -1960,7 +2038,10 @@ def run_q8(dev, events: int, trace: bool = False,
 
 # -- phase 4: q8 FULL OUTER (the join's other modes) --------------------------
 
-Q8_OUTER_EVENTS = 100_000_000     # the q8 arm's size: its join state
+# cut from 100M (q8's size) to make room for q5-hot and q3 under the
+# phases' time limit (PERF.md §4); the 8-shard arm's size, so the two MVs
+# are held to each other
+Q8_OUTER_EVENTS = 20_000_000
 Q8_OUTER_MESH_EVENTS = 20_000_000
 Q8_OUTER_CAPPED_EVENTS = 2_000_000
 Q8_OUTER_RECOVERY_EVENTS = 2_000_000
@@ -2417,6 +2498,48 @@ def check_fused_paths(dev, err: dict) -> dict:
                      "q1 fused_chain"):
             results[name] = dict(max_abs_err=max(err[name], e), **t)
     return results
+
+
+def pipeline_programs(dev) -> dict:
+    """q5-hot's and q3's fused agg preludes at their path shapes: q5-hot's
+    (5 hop copies, then (window_start, auction)) over 7 bid chunks of
+    4,096 rows from the middle of the stream with separators, a 2^15-row
+    batch (163,840 expanded rows); q3's (the DECIMAL revenue, OP_DECMUL)
+    over its second join's whole SF1 output in 4,096-row chunks."""
+    from risingwave_tpu_torch.models import prelude_cases as PC
+    prog5, raw5, _fs = PC.q5_hot_agg_case(first=4_600_000)
+    assert prog5.units == Q5_UNITS
+    cols, _facts = q3_join_rows(*Q3_SF1)
+    prog3, raw3, _fs = PC.q3_revenue_agg_case(cols)
+    return {"q5-hot agg_prelude": (prog5, torch.from_numpy(raw5).to(dev)),
+            "q3 agg_prelude": (prog3, torch.from_numpy(raw3).to(dev))}
+
+
+def check_pipeline_preludes(dev) -> tuple:
+    """Each pipeline program of ``pipeline_programs``: agg_prelude bit for
+    bit against the plain program, stage counts exact, then timed beside
+    its byte bound. Returns (max error, timings by label)."""
+    from risingwave_tpu_torch.ops import fused as F
+    err, out = 0.0, {}
+    for label, (prog, raw) in pipeline_programs(dev).items():
+        ck = torch.zeros(prog.n_counts, dtype=torch.int64, device=dev)
+        cp = ck.clone()
+        got = F.agg_prelude(prog, raw, ck)
+        want = F.run_program_plain(prog, raw, None, cp)
+        e = max(abs_err(got.cpu().numpy(), want.cpu().numpy()),
+                abs_err(ck.cpu().numpy(), cp.cpu().numpy()))
+        assert e == 0 and got.shape[0] == prog.units * raw.shape[0], \
+            f"{label} differs from its plain version: {e}"
+        err = max(err, e)
+        out[label] = dict(raw_rows=int(raw.shape[0]),
+                          rows=int(got.shape[0]), **_fused_time(
+                              lambda: F.agg_prelude(prog, raw),
+                              lambda: F.run_program_plain(prog, raw), prog,
+                              int(raw.shape[0])))
+        log(f"{label}: {out[label]['raw_rows']} raw rows of width "
+            f"{int(raw.shape[1])} -> {out[label]['rows']} rows of "
+            f"{prog.out_width} lanes: exact; " + json.dumps(out[label]))
+    return err, out
 
 
 def check_prelude_segments(prog, raw) -> float:
@@ -4240,6 +4363,255 @@ def run_distinct(dev, events: int, trace: bool = False) -> dict:
                 oracle_s=time.perf_counter() - t0)
 
 
+# -- phase 4: Nexmark q5-hot and TPC-H q3 -------------------------------------
+
+Q5_EVENTS = 1_000_000         # every arm and the trace; bench_q5's chunking:
+                              # 4096-row chunks, 16 a barrier
+Q5_UNITS = 5                  # hop: slide 2 s, size 10 s
+# resident groups on both stateful stages: a barrier's bids touch ~8
+# windows, so a TopN cap of 8 (a sweep keeps 6) evicts windows still
+# open and the next barrier reloads them; at 64 the TopN evicts only
+# closed windows and never reloads (CPU rehearsal at 1M: agg 308,712
+# groups evicted and 5,271 reloaded, TopN 66 and 19)
+Q5_TIER_CAP = 8
+Q3_SF1 = (150_000, 1_500_000)       # TPC-H SF1: customers, orders
+Q3_SF01 = (15_000, 150_000)         # SF0.1: the fused arm and the trace
+Q3_CHUNKS = 64                # 1024-row chunks (bench_q3's), 64 a barrier
+                              # a source: 4x bench_q3's 16, for time
+# the agg's table grows from its 2^18 slots (~308K groups at 1M events)
+Q5_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+           "live_mask", "remap")
+Q5_FUSED_PATH = Q5_PATH + ("agg_prelude",)
+# the agg's tier: each sweep's eviction (K8, then K4's evict mode, K1 and
+# K4's remap) and each reload (K1 + K9)
+Q5_CAPPED_PATH = Q5_PATH + ("lookup", "scatter_rows")
+# two chained inner joins; join 2's right side grows its key table past
+# the presized 2^20 slots at SF1 (K1 rehashes the keys, K4's remap moves
+# the chain heads)
+Q3_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+           "join_apply", "join_probe", "remap")
+# SF0.1 stays inside the presized tables; the agg absorbs the revenue
+# projection, the orders and lineitem sides their filters and row ids
+Q3_FUSED_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+                 "join_apply", "join_probe", "agg_prelude", "join_prelude")
+
+
+def q5_hot_oracle(cfg, n_bids: int, block: int = 1 << 21) -> dict:
+    """window_start → (auction, bids) of the window's top auction (the
+    most bids, ties to the smallest id), vectorized: bids counted per
+    (2 s slide, auction), each slide's counts added to the 5 windows that
+    cover it; computed once per size."""
+    key = ("q5", cfg.event_num, n_bids)
+    if key in _ORACLES:
+        return _ORACLES[key]
+    from risingwave_tpu_torch.connectors.nexmark import gen_bids
+    slide = 2_000_000
+    codes = []
+    for lo in range(0, n_bids, block):
+        b = gen_bids(np.arange(lo, min(lo + block, n_bids), dtype=np.int64),
+                     cfg)
+        codes.append(((b["date_time"] // slide) << 32) | b["auction"])
+    u, c = np.unique(np.concatenate(codes), return_counts=True)
+    u5, inv = np.unique(np.concatenate([u - (i << 32)
+                                        for i in range(Q5_UNITS)]),
+                        return_inverse=True)
+    cnt = np.bincount(inv, weights=np.tile(c, Q5_UNITS)).astype(np.int64)
+    win, auc = u5 >> 32, u5 & 0xFFFFFFFF
+    o = np.lexsort((auc, -cnt, win))
+    first = o[np.flatnonzero(np.r_[True, win[o][1:] != win[o][:-1]])]
+    _ORACLES[key] = {w * slide: (a, n) for w, a, n in zip(
+        win[first].tolist(), auc[first].tolist(), cnt[first].tolist())}
+    return _ORACLES[key]
+
+
+def run_q5_hot(dev, events: int, trace: bool = False, fusion: bool = False,
+               tier_cap=None) -> dict:
+    """q5-hot through build_q5 + drive_to_completion at bench_q5's
+    chunking; the MV must equal the oracle, and the agg's state must
+    count 5 copies of every bid. With ``fusion`` the agg must have
+    absorbed the hop and the projection (agg_prelude in hop mode), and
+    every K1 + K2 step must take 5 rows for each uploaded row; with
+    ``tier_cap`` both stateful stages run under the cold tier, and each
+    must both evict and reload."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.models.nexmark import build_q5
+    from risingwave_tpu_torch.ops import fused as F
+    from risingwave_tpu_torch.ops import hash_agg as H
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=4096,
+                        generate_strings=False)
+    p = build_q5(MemoryStateStore(), cfg, rate_limit=16, min_chunks=16,
+                 tier_cap=tier_cap, fusion=fusion, device=dev)
+    topn = p.actor.consumer.input
+    agg = topn.input
+    assert (agg.fused_stages is not None) == fusion, "fusion did not fire"
+    n_bids = events * 46 // 50
+    steps = {"raw": 0, "applied": 0}
+    prelude, apply_batch = F.agg_prelude, H.apply_batch
+    if fusion:
+        assert agg.fused_stages.hop.units == Q5_UNITS
+
+        def counted_prelude(prog, raw, *a, **k):
+            steps["raw"] += int(raw.shape[0])
+            return prelude(prog, raw, *a, **k)
+
+        def counted_apply(state, packed, plan):
+            steps["applied"] += int(packed.shape[0])
+            return apply_batch(state, packed, plan)
+        F.agg_prelude, H.apply_batch = counted_prelude, counted_apply
+    try:
+        out = drive(p, {1: n_bids}, dev, trace)
+    finally:
+        F.agg_prelude, H.apply_batch = prelude, apply_batch
+    t0 = time.perf_counter()
+    got = {r[0]: (r[1], r[2]) for _pk, r in p.mv_table.iter_rows()}
+    want = q5_hot_oracle(cfg, n_bids)
+    assert got == want, "q5-hot MV differs from the oracle"
+    assert p.reader.offset == n_bids
+    # the agg's state table read on the host: ~308K rows at 1M
+    counted = sum(r[2] for _pk, r in agg.table.iter_rows())
+    assert counted == Q5_UNITS * n_bids, \
+        f"the agg counted {counted} rows, not {Q5_UNITS} x {n_bids}"
+    if fusion:
+        assert steps["raw"] and steps["applied"] == Q5_UNITS * steps["raw"], \
+            f"K1 + K2 took {steps['applied']} rows for {steps['raw']} raw"
+    extra = dict(windows=len(got), mv_digest=mv_digest(got.items()),
+                 agg_rows_counted=counted, capacity=agg.kernel.capacity,
+                 oracle_s=time.perf_counter() - t0, **(
+                     dict(raw_rows=steps["raw"], applied_rows=steps["applied"])
+                     if fusion else {}))
+    if tier_cap is not None:
+        parts = {"agg": agg._tier_part, "topn": topn._tier_part}
+        for k, t in parts.items():
+            assert t.evicted_total > 0 and t.reload_total > 0, \
+                f"q5-hot's {k} under the tier evicted {t.evicted_total} " \
+                f"and reloaded {t.reload_total} groups"
+        extra["tier"] = {k: dict(evicted=t.evicted_total,
+                                 reloaded=t.reload_total,
+                                 resident=len(t.keys))
+                         for k, t in parts.items()}
+    return dict(out, **extra)
+
+
+def q3_join_rows(customers: int, orders: int, block: int = 1 << 21) -> dict:
+    """q3's second join output, vectorized: the columns the agg reads
+    (l_orderkey, o_orderdate, o_shippriority, l_extendedprice,
+    l_discount) of every lineitem shipped after the cutoff whose order
+    was placed before it by a BUILDING customer, plus the stage counts;
+    computed once per size."""
+    key = ("q3", customers, orders)
+    if key in _ORACLES:
+        return _ORACLES[key]
+    from risingwave_tpu_torch.connectors import tpch as T
+    from risingwave_tpu_torch.models.tpch import CUTOFF
+    cfg = T.TpchConfig(customers=customers, orders=orders)
+    c = T.gen_customer(np.arange(customers, dtype=np.int64), cfg)
+    building = np.zeros(customers + 1, bool)
+    building[c["c_custkey"][c["c_mktsegment"] == "BUILDING"]] = True
+    o = T.gen_orders(np.arange(orders, dtype=np.int64), cfg)
+    early = o["o_orderdate"] < CUTOFF
+    valid = np.zeros(orders + 1, bool)
+    valid[o["o_orderkey"][early & building[o["o_custkey"]]]] = True
+    odate = np.zeros(orders + 1, np.int64)
+    odate[o["o_orderkey"]] = o["o_orderdate"]
+    prio = np.zeros(orders + 1, np.int64)
+    prio[o["o_orderkey"]] = o["o_shippriority"]
+    parts, late, late_keys = [], 0, []
+    n_line = orders * T.LINES_PER_ORDER
+    for lo in range(0, n_line, block):
+        li = T.gen_lineitem(np.arange(lo, min(lo + block, n_line),
+                                      dtype=np.int64), cfg)
+        shipped = li["l_shipdate"] > CUTOFF
+        late += int(shipped.sum())
+        late_keys.append(np.unique(li["l_orderkey"][shipped]))
+        m = shipped & valid[li["l_orderkey"]]
+        parts.append({k: li[k][m] for k in ("l_orderkey", "l_extendedprice",
+                                            "l_discount")})
+    cols = {k: np.concatenate([q[k] for q in parts]) for k in parts[0]}
+    cols["o_orderdate"] = odate[cols["l_orderkey"]]
+    cols["o_shippriority"] = prio[cols["l_orderkey"]]
+    facts = dict(building=int(building.sum()), orders_early=int(early.sum()),
+                 join1_rows=int(valid.sum()), lineitems_late=late,
+                 late_orderkeys=len(np.unique(np.concatenate(late_keys))),
+                 join2_rows=len(cols["l_orderkey"]))
+    _ORACLES[key] = (cols, facts)
+    return _ORACLES[key]
+
+
+def q3_oracle(customers: int, orders: int, top: int = 10) -> tuple:
+    """The top 10 (l_orderkey, o_orderdate, o_shippriority, revenue)
+    rows: revenue = SUM(l_extendedprice * (1 - l_discount)) as scaled
+    int64, exact (the product truncated toward zero), ordered by revenue
+    DESC, o_orderdate, then the pk; the stage counts; and every group's
+    row of the agg's state table, sorted (group keys, _group_rows, the
+    sum, its non-NULL count)."""
+    cols, facts = q3_join_rows(customers, orders)
+    rev = cols["l_extendedprice"] * (10_000 - cols["l_discount"]) // 10_000
+    keys, inv = np.unique(cols["l_orderkey"], return_inverse=True)
+    tot = np.zeros(len(keys), np.int64)
+    np.add.at(tot, inv, rev)
+    first = np.zeros(len(keys), np.int64)
+    first[inv] = np.arange(len(inv))
+    od, pr = cols["o_orderdate"][first], cols["o_shippriority"][first]
+    o = np.lexsort((pr, keys, od, -tot))[:top]
+    rows = sorted(zip(keys[o].tolist(), od[o].tolist(), pr[o].tolist(),
+                      tot[o].tolist()))
+    cnt = np.bincount(inv).tolist()
+    groups = list(zip(keys.tolist(), od.tolist(), pr.tolist(), cnt,
+                      tot.tolist(), cnt))
+    return rows, dict(facts, agg_groups=len(keys)), groups
+
+
+def run_q3(dev, customers: int, orders: int, trace: bool = False,
+           fusion: bool = False) -> dict:
+    """TPC-H q3 through build_q3 + drive_to_completion (1024-row chunks,
+    Q3_CHUNKS a barrier a source, two barriers in flight); the MV must
+    equal the oracle exactly, so must every group's row of the agg's
+    state table (its sum, its counts), and each join side must hold the
+    oracle's count of rows. With ``fusion`` the agg must
+    have absorbed the revenue projection and the orders and lineitem
+    sides their filters and row ids, the customer side staying on the
+    host (its VARCHAR predicate)."""
+    from risingwave_tpu_torch.connectors.tpch import LINES_PER_ORDER
+    from risingwave_tpu_torch.models.tpch import build_q3
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+
+    p = build_q3(MemoryStateStore(), customers=customers, orders=orders,
+                 rate_limit=Q3_CHUNKS, min_chunks=Q3_CHUNKS, fusion=fusion,
+                 device=dev)
+    agg = p.actor.consumer.input.input
+    j2 = agg.input if fusion else agg.input.input
+    j1 = j2.left_in
+    fired = [agg.fused_stages is not None] + [
+        s.fused_input is not None for s in j1.sides + j2.sides]
+    assert fired == [fusion, False, fusion, False, fusion], \
+        f"fusion fired as {fired}"
+    out = drive(p, {1: customers, 2: orders,
+                    3: orders * LINES_PER_ORDER}, dev, trace)
+    t0 = time.perf_counter()
+    rows = sorted(tuple(r) for _pk, r in p.mv_table.iter_rows())
+    want, facts, groups = q3_oracle(customers, orders)
+    assert rows == want, "q3 MV differs from the oracle"
+    agg_rows = sorted(tuple(r) for _pk, r in agg.table.iter_rows())
+    assert agg_rows == groups, \
+        f"q3's agg state differs from the oracle's {len(groups)} groups " \
+        f"({len(agg_rows)} rows)"
+    stored = [[s.next_ref - len(s.free) for s in j.sides] for j in (j1, j2)]
+    assert stored == [[facts["building"], facts["orders_early"]],
+                      [facts["join1_rows"], facts["lineitems_late"]]], \
+        f"join state {stored} differs from the oracle's {facts}"
+    return dict(out, mv_rows=len(rows), mv_digest=mv_digest(rows),
+                stored_rows=stored,
+                key_capacity=[[s.kernel.table.capacity for s in j.sides]
+                              for j in (j1, j2)],
+                row_capacity=[[s.kernel.row_capacity for s in j.sides]
+                              for j in (j1, j2)],
+                agg_capacity=agg.kernel.capacity, agg_rows=len(agg_rows),
+                agg_digest=mv_digest(agg_rows), oracle=facts,
+                oracle_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4324,6 +4696,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     fused_err = {k: max(v, edge_err) for k, v in fused_err.items()}
     results.update(check_fused_paths(dev, fused_err))
+    e, shapes = check_pipeline_preludes(dev)
+    results["agg_prelude"]["max_abs_err"] = max(
+        results["agg_prelude"]["max_abs_err"], e)
+    results["agg_prelude"]["pipeline_shapes"] = shapes
     for name in ("fused_chain", "agg_prelude", "join_prelude"):
         log(f"kernel {name}: " + json.dumps(results[name]))
     torch.cuda.empty_cache()
@@ -4436,7 +4812,15 @@ def main() -> int:
             ("q8 outer recovery", run_q8_outer_recovery,
              Q8_OUTER_RECOVERY_EVENTS, Q8_OUTER_RECOVERY_PATH),
             ("join modes", lambda d, e: run_join_modes(d), 0,
-             JOIN_MODES_PATH)):
+             JOIN_MODES_PATH),
+            ("q5 hot", run_q5_hot, Q5_EVENTS, Q5_PATH),
+            ("q5 hot fused", lambda d, e: run_q5_hot(d, e, fusion=True),
+             Q5_EVENTS, Q5_FUSED_PATH),
+            ("q5 hot capped", lambda d, e: run_q5_hot(
+                d, e, tier_cap=Q5_TIER_CAP), Q5_EVENTS, Q5_CAPPED_PATH),
+            ("q3", lambda d, e: run_q3(d, *Q3_SF1), 0, Q3_PATH),
+            ("q3 fused", lambda d, e: run_q3(d, *Q3_SF01, fusion=True), 0,
+             Q3_FUSED_PATH)):
         t_path = time.perf_counter()
         out = run(dev, events)
         out["path_s"] = time.perf_counter() - t_path
@@ -4478,12 +4862,16 @@ def main() -> int:
     assert paths["q8 outer capped"]["mv_digest"] == \
         paths["q8 outer recovery"]["mv_digest"], \
         "q8-outer under the tier differs from its recovered run"
+    assert Q8_OUTER_EVENTS == Q8_OUTER_MESH_EVENTS
+    assert paths["q8 outer"]["mv_digest"] == \
+        paths["q8 outer mesh"]["mv_digest"], \
+        "q8-outer over 8 shards differs from the one-device q8-outer"
     o, q = paths["q8 outer"], paths["q8"]
-    log(f"q8 outer vs q8 (one device, {Q8_OUTER_EVENTS} events): events/s "
-        f"{o['events_per_s']} vs {q['events_per_s']}, p99 barrier latency "
-        f"{o['p99_barrier_latency_s']} vs {q['p99_barrier_latency_s']}; "
-        f"MV rows {o['mv_rows']} ({o['padded_rows']} padded) vs "
-        f"{q['mv_rows']}")
+    log(f"q8 outer ({Q8_OUTER_EVENTS} events) vs q8 ({Q8_EVENTS} events), "
+        f"one device: events/s {o['events_per_s']} vs {q['events_per_s']}, "
+        f"p99 barrier latency {o['p99_barrier_latency_s']} vs "
+        f"{q['p99_barrier_latency_s']}; MV rows {o['mv_rows']} "
+        f"({o['padded_rows']} padded) vs {q['mv_rows']}")
     assert paths["q8 mesh"]["mv_digest"] == paths["q8"]["mv_digest"], \
         "q8 mesh: the MV differs from the single-device q8's"
     for label in ("q8 mesh", "q8 mesh fused"):
@@ -4553,6 +4941,17 @@ def main() -> int:
         log(f"{label} traced at {MAXBIDS_TRACE_EVENTS} events: "
             + json.dumps(traced()))
 
+    q5_traced = run_q5_hot(dev, Q5_EVENTS, trace=True)
+    log(f"q5 hot traced at {Q5_EVENTS} events: " + json.dumps(q5_traced))
+    for label in ("q5 hot fused", "q5 hot capped"):
+        assert paths[label]["mv_digest"] == q5_traced["mv_digest"] \
+            == paths["q5 hot"]["mv_digest"], \
+            f"{label}: the MV differs from the unfused q5-hot's"
+    q3_traced = run_q3(dev, *Q3_SF01, trace=True)
+    log(f"q3 traced at {Q3_SF01[0]} customers, {Q3_SF01[1]} orders: "
+        + json.dumps(q3_traced))
+    assert paths["q3 fused"]["mv_digest"] == q3_traced["mv_digest"], \
+        "q3 fused: the MV differs from the unfused q3's"
     log(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 
@@ -4563,6 +4962,9 @@ def main() -> int:
                "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(p["launches"].get(name, 0)
                                for p in paths.values()),
+               "launches_by_arm": {label: p["launches"][name]
+                                   for label, p in paths.items()
+                                   if p["launches"].get(name, 0)},
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"],
@@ -4571,7 +4973,8 @@ def main() -> int:
                       "launches_per_call", "mixed_shape", "maxbids_shape",
                       "q8_mesh_shape", "split", "n_dirty",
                       "launch_floor_ms", "hot_key_shape", "mesh_shape",
-                      "path_shapes", "path_loss_ms", "rebuild_payload"):
+                      "path_shapes", "path_loss_ms", "rebuild_payload",
+                      "q3_shape", "pipeline_shapes"):
             if extra in r:
                 row[extra] = r[extra]
         if name == "live_mask":

@@ -119,6 +119,9 @@ def derive_append_only(ex) -> bool:
     from risingwave_tpu_torch.stream.executors.hash_join import (
         HashJoinExecutor, JoinType,
     )
+    from risingwave_tpu_torch.stream.executors.hop_window import (
+        HopWindowExecutor,
+    )
     from risingwave_tpu_torch.stream.executors.row_id_gen import (
         RowIdGenExecutor,
     )
@@ -136,7 +139,8 @@ def derive_append_only(ex) -> bool:
                 and derive_append_only(ex.left_in)
                 and derive_append_only(ex.right_in))
     if isinstance(ex, (ProjectExecutor, FilterExecutor, RowIdGenExecutor,
-                       WatermarkFilterExecutor, FusedFragmentExecutor)):
+                       HopWindowExecutor, WatermarkFilterExecutor,
+                       FusedFragmentExecutor)):
         return derive_append_only(ex.input)
     return False
 

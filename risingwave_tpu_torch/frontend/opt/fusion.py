@@ -12,13 +12,18 @@ tree top-down and collapses maximal filter/project runs:
 - any other run of two or more stages becomes a standalone
   ``FusedFragmentExecutor`` (one ``fused_chain`` launch per chunk).
 
+An agg's run may start with a HopWindowExecutor: the hop must head the
+run (everything below the agg composes in its output space), and the
+prelude expands each uploaded row into its ``units`` copies on the card.
+Join sides take no hop (the expansion changes cardinality, which the
+side's per-row aux flags cannot follow).
+
 Eligibility is checked BEFORE anything changes, and the engine's checker
 re-derives every plan invariant after the rule fires. An agg with an
 injected sharded kernel (``build_q7(mesh=...)``) absorbs its run like any
 other, but for a hop expansion (the routing is sized for the uploaded
 rows). Distributed parallelism above 1 is the SQL planner's cut, which is
-not ported, and is refused; so is hop absorption in general: the port has
-no HopWindowExecutor yet.
+not ported, and is refused.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from typing import List, Optional, Tuple
 from risingwave_tpu_torch.stream.executor import executor_children
 
 # which executor kinds each absorption shape accepts (the reference's
-# sets; hop_window has no executor in the port yet)
+# sets): agg preludes take a head-of-run hop_window, join sides do not;
+# standalone blocks add watermark_filter and hop_window
 AGG_KINDS = frozenset({"filter", "project", "hop_window"})
 JOIN_KINDS = frozenset({"filter", "project", "row_id_gen"})
 BLOCK_KINDS = JOIN_KINDS | {"watermark_filter", "hop_window"}
@@ -38,6 +44,9 @@ BLOCK_KINDS = JOIN_KINDS | {"watermark_filter", "hop_window"}
 def _as_stage(ex, kinds=BLOCK_KINDS):
     """Fusable executor → FusedStage (kind-gated), else None."""
     from risingwave_tpu_torch.ops.fused import FusedStage
+    from risingwave_tpu_torch.stream.executors.hop_window import (
+        HopWindowExecutor,
+    )
     from risingwave_tpu_torch.stream.executors.row_id_gen import (
         RowIdGenExecutor,
     )
@@ -63,6 +72,10 @@ def _as_stage(ex, kinds=BLOCK_KINDS):
         return FusedStage("watermark_filter", "WatermarkFilterExecutor",
                           time_col=ex.time_col, delay_usecs=ex.delay,
                           runtime=ex)
+    if isinstance(ex, HopWindowExecutor) and "hop_window" in kinds:
+        return FusedStage("hop_window", "HopWindowExecutor",
+                          time_col=ex.time_col,
+                          slide_usecs=ex.slide, size_usecs=ex.size)
     return None
 
 
@@ -77,6 +90,10 @@ def _collect_run(top, kinds=BLOCK_KINDS) -> Tuple[list, object]:
             break
         rev.append(st)
         node = node.input
+        if st.kind == "hop_window":
+            # a hop must head the run: stop extending upstream so the run
+            # ends exactly at the expansion
+            break
     return list(reversed(rev)), node
 
 

@@ -1,9 +1,10 @@
 """Hand-built Nexmark pipelines: q1 (a stateless projection), q7-core
-(hash agg on the device) and q8 (windowed join on the device).
+(hash agg on the device), q8 (windowed join on the device) and q5-hot
+(hop windows, a device count, a per-window top 1).
 
 Port of ``build_q1`` (:109), ``build_q7`` (:134), ``build_q8`` (:208),
-``_finish``'s fusion (:87) and ``drive_to_completion`` (:283) of
-``risingwave_tpu/models/nexmark.py``:
+``build_q5`` (:348), ``_finish``'s fusion (:87) and
+``drive_to_completion`` (:283) of ``risingwave_tpu/models/nexmark.py``:
 
     q1  Nexmark bid source → RowIdGen → project(auction, bidder,
         0.908 * price as DECIMAL, date_time, _row_id) → materialize
@@ -15,6 +16,14 @@ Port of ``build_q1`` (:109), ``build_q7`` (:134), ``build_q8`` (:208),
         HashAggExecutor COUNT dedup → project(seller,     │  HashJoin
         starttime) ───────────────────────────────────────┘  → project
         → materialize
+    q5-hot  Nexmark bid source → HopWindow(date_time, slide 2 s, size
+        10 s) → project(window_start, auction) → HashAggExecutor(COUNT(*)
+        per (window_start, auction), append-only) → GroupTopNExecutor(top
+        1 per window_start by count DESC, auction) → materialize
+
+("q5-hot" is Nexmark q5's hot-items form; the MaxBids form of
+nexmark-flink's q5.sql is built from executors in chip_smoke.py and the
+tests.)
 
 driven by a ``BarrierLoop`` over ``MemoryStateStore``. With
 ``watermark_delay`` q7's agg retires closed windows on the device.
@@ -23,12 +32,16 @@ PyTorch versions. ``fusion=True`` rewrites the plan with the fragment
 fusion rule (``frontend/opt``), as the reference's ``_finish`` does:
 q1's row-id generation and projection become one FusedFragmentExecutor
 (``fused_chain``), q7's and q8's aggs absorb their tumble projections
-(``agg_prelude``), and q8's join sides absorb theirs (``join_prelude``).
+(``agg_prelude``), q8's join sides absorb theirs (``join_prelude``), and
+q5-hot's agg absorbs the hop and the projection (``agg_prelude`` in hop
+mode: 5 copies of each row on the card).
 ``build_q7(mesh=ShardMesh(n))`` runs q7's agg vnode-sharded over n
 logical shards of one card (``parallel/agg.ShardedAggKernel``), and
 ``build_q8(mesh=ShardMesh(n))`` q8's join (``parallel/join.
 ShardedJoinKernel``), each unfused or fused. ``build_q7(tier_cap=n)``
-puts q7's agg under the cold tier (``state/tier.py``) on one device. The
+puts q7's agg under the cold tier (``state/tier.py``) on one device, and
+``build_q5(tier_cap=n)`` both of q5-hot's stateful stages (a capped agg
+is not fused, as in the reference). The
 reference's coalescing option is not ported and raises
 NotImplementedError, as does a tier cap on a mesh.
 
@@ -65,6 +78,7 @@ from risingwave_tpu_torch.stream.executors.hash_agg import (
     AggCall, HashAggExecutor, agg_state_schema,
 )
 from risingwave_tpu_torch.stream.executors.hash_join import HashJoinExecutor
+from risingwave_tpu_torch.stream.executors.hop_window import HopWindowExecutor
 from risingwave_tpu_torch.stream.executors.keys import LANES_PER_KEY
 from risingwave_tpu_torch.stream.executors.materialize import (
     MaterializeExecutor,
@@ -72,6 +86,7 @@ from risingwave_tpu_torch.stream.executors.materialize import (
 from risingwave_tpu_torch.stream.executors.row_id_gen import RowIdGenExecutor
 from risingwave_tpu_torch.stream.executors.simple import ProjectExecutor
 from risingwave_tpu_torch.stream.executors.source import SourceExecutor
+from risingwave_tpu_torch.stream.executors.top_n import GroupTopNExecutor
 from risingwave_tpu_torch.stream.executors.watermark_filter import (
     WATERMARK_STATE_SCHEMA, WatermarkFilterExecutor,
 )
@@ -102,7 +117,15 @@ def _source(local: LocalBarrierManager, store, actor_id: int,
             cfg: NexmarkConfig, table_id: int,
             rate_limit: Optional[int],
             min_chunks: Optional[int] = None) -> SourceExecutor:
-    reader = NexmarkSplitReader(cfg)
+    return _reader_source(local, store, actor_id, NexmarkSplitReader(cfg),
+                          table_id, rate_limit, min_chunks)
+
+
+def _reader_source(local: LocalBarrierManager, store, actor_id: int,
+                   reader, table_id: int, rate_limit: Optional[int],
+                   min_chunks: Optional[int] = None) -> SourceExecutor:
+    """A source actor over any split reader, its split offset persisted in
+    state table `table_id`."""
     tx, rx = channel_for_test()
     split_state = StateTable(table_id, SPLIT_STATE_SCHEMA, [0], store)
     local.register_sender(actor_id, tx)
@@ -371,3 +394,52 @@ def drive_to_completion(pipeline: Pipeline, targets: Dict[int, int],
 
     return run()
 
+
+Q5_SLIDE = Interval(usecs=2_000_000)     # q5-hot's hop windows
+Q5_SIZE = Interval(usecs=10_000_000)
+Q5_TOP = 1                               # auctions kept per window
+
+
+def build_q5(store, cfg: NexmarkConfig,
+             rate_limit: Optional[int] = 8,
+             min_chunks: Optional[int] = None,
+             tier_cap: Optional[int] = None,
+             fusion: bool = False, device=None) -> Pipeline:
+    """q5-hot: the auction with the most bids per sliding window.
+
+    Source → hop-window expansion (``Q5_SIZE`` windows every
+    ``Q5_SLIDE``) → COUNT(*) per (window, auction) on the device → top
+    ``Q5_TOP`` per window (count DESC, ties to the smallest auction id)
+    → materialize (e2e_test/streaming/nexmark/q5 semantics).
+    ``tier_cap`` governs both stateful stages: resident agg groups and
+    resident TopN group caches (state/tier.py)."""
+    _check_store(store)
+    device = resolve_device(device)
+    local = LocalBarrierManager()
+    source = _source(local, store, 1, cfg, 1, rate_limit, min_chunks)
+    s = source.schema
+    hop = HopWindowExecutor(source, s.index_of("date_time"), Q5_SLIDE,
+                            Q5_SIZE)
+    hs = hop.schema
+    proj = ProjectExecutor(
+        hop,
+        exprs=[InputRef(hs.index_of("window_start"), DataType.TIMESTAMP),
+               InputRef(hs.index_of("auction"), DataType.INT64)],
+        names=["window_start", "auction"])
+    calls = [AggCall(AggKind.COUNT)]
+    agg_sch, agg_pk = agg_state_schema(proj.schema, [0, 1], calls)
+    agg = HashAggExecutor(
+        proj, [0, 1], calls,
+        StateTable(2, agg_sch, agg_pk, store, dist_key_indices=[0]),
+        append_only=True,
+        output_names=["window_start", "auction", "bid_count"],
+        tier_cap=tier_cap, device=device)
+    topn_state = StateTable(3, agg.schema, [0, 1], store)
+    topn = GroupTopNExecutor(
+        agg, order_by=[(2, True), (1, False)], offset=0,
+        limit=Q5_TOP, state=topn_state,
+        group_indices=[0], pk_indices=[0, 1], tier_cap=tier_cap)
+    mv = StateTable(4, topn.schema, [0, 1], store)
+    mat = MaterializeExecutor(topn, mv)
+    return _finish(local, store, mat, mv, 1, {1: source.reader},
+                   "nexmark-q5", fusion, device)

@@ -706,3 +706,4 @@ def nan_rows_of(fs, chunk, device=None):
         if c is not None and c.values.dtype.kind == "f":
             out[j] = np.isnan(c.values)
     return out
+

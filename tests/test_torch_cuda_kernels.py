@@ -34,7 +34,9 @@ plain versions on ``ops/kernel_cases.py``'s batches, the shapes at the
 edges of their designs: K1 by the table invariants and exact stats (with
 K8 exact on the tables it built), K6, K3 and K5 exactly (K5 in one launch
 a call, twice on one scratch);
-the fused kernel on ``ops/fused_cases.py``'s edge cases, bit for bit.
+the fused kernel on ``ops/fused_cases.py``'s edge cases, bit for bit,
+and agg_prelude on q5-hot's hop program and q3's DECIMAL revenue program
+at their path shapes.
 """
 
 import numpy as np
@@ -42,6 +44,7 @@ import pytest
 import torch
 
 from risingwave_tpu_torch.ops import fused as F
+from risingwave_tpu_torch.models import prelude_cases as PC
 from risingwave_tpu_torch.ops import fused_cases as FC
 from risingwave_tpu_torch.ops import hash_agg as H
 from risingwave_tpu_torch.ops import hash_join as J
@@ -955,6 +958,45 @@ def test_fused_edge_cases_match_plain(dev, name):
         if ck is not None:
             np.testing.assert_array_equal(ck.cpu().numpy(),
                                           cp.cpu().numpy())
+
+
+def _q3_tpch_cols(n):
+    from risingwave_tpu_torch.connectors import tpch
+    cfg = tpch.TpchConfig(customers=150_000, orders=1_500_000)
+    li = tpch.gen_lineitem(np.arange(n, dtype=np.int64) + 3_000_000, cfg)
+    od = tpch.gen_orders(li["l_orderkey"] - 1, cfg)
+    cols = {k: li[k] for k in ("l_orderkey", "l_extendedprice",
+                               "l_discount")}
+    cols.update(o_orderdate=od["o_orderdate"],
+                o_shippriority=od["o_shippriority"])
+    return cols
+
+
+@pytest.mark.parametrize("case", ["q5_hot", "q3_tpch", "q3_signed"])
+def test_pipeline_agg_preludes_match_plain(dev, case):
+    """agg_prelude on two pipelines' own programs at their path shapes,
+    bit for bit against the plain program, stage counts exact: q5-hot's
+    hop of 5 copies (7 bid chunks of 4,096 rows, separators, a 2^15-row
+    batch: 163,840 expanded rows) and q3's DECIMAL revenue (OP_DECMUL)
+    on TPC-H SF1 lineitems and on signed, wide DECIMALs (truncation
+    toward zero)."""
+    if case == "q5_hot":
+        prog, raw, _fs = PC.q5_hot_agg_case(first=4_600_000)
+        assert prog.units == 5
+    else:
+        cols = _q3_tpch_cols(30_000) if case == "q3_tpch" \
+            else PC.signed_revenue_cols(30_000, seed=5)
+        prog, raw, _fs = PC.q3_revenue_agg_case(cols)
+        assert F.OP_DECMUL in prog.opcodes()
+    raw = torch.from_numpy(raw)
+    ck = torch.zeros(prog.n_counts, dtype=torch.int64, device=dev)
+    cp = torch.zeros(prog.n_counts, dtype=torch.int64)
+    got = F.agg_prelude(prog, raw.to(dev), ck)
+    want = F.run_program_plain(prog, raw, None, cp)
+    assert got.shape == want.shape == (prog.units * raw.shape[0],
+                                       prog.out_width)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(ck.cpu().numpy(), cp.numpy())
 
 
 # -- the sharded path: route and the shard axis of K1-K4 -------------------------

@@ -497,10 +497,10 @@ def _hop_chunk():
 
 
 def test_hop_expansion_matches_reference():
-    """Mirror of test_fusion.py:1148 (a hop_window stage built directly:
-    the port has no HopWindowExecutor yet): the program's expansion and
-    window columns against the reference's traced chain step and the
-    port's numpy chain_body."""
+    """Mirror of test_fusion.py:1148 (a hop_window stage built directly;
+    tests/test_torch_hop_window.py holds it to the HopWindowExecutor):
+    the program's expansion and window columns against the reference's
+    traced chain step and the port's numpy chain_body."""
     S, chunk = _hop_chunk()
     hop = dict(time_col=0, slide_usecs=10_000_000, size_usecs=30_000_000)
     fs = F.FusedStages(S, [

@@ -35,6 +35,11 @@ import risingwave_tpu_torch.parallel.mesh
 import risingwave_tpu_torch.state.tier
 import risingwave_tpu_torch.utils.memory
 import risingwave_tpu_torch.stream.executors.hash_agg
+import risingwave_tpu_torch.connectors.tpch
+import risingwave_tpu_torch.models.tpch
+import risingwave_tpu_torch.models.prelude_cases
+import risingwave_tpu_torch.stream.executors.hop_window
+import risingwave_tpu_torch.stream.executors.top_n
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "risingwave_tpu" or m.startswith("risingwave_tpu."))
@@ -106,3 +111,25 @@ def test_tier_defaults_to_the_process_memory_context():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ex.kernel
+
+
+def test_q5_and_q3_entry_points_default_to_the_card():
+    """build_q5 and build_q3 without a device run on the card, and raise
+    without one."""
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.models.nexmark import build_q5
+    from risingwave_tpu_torch.models.tpch import build_q3
+    from risingwave_tpu_torch.state.store import MemoryStateStore
+
+    if torch.cuda.is_available():
+        p = build_q3(MemoryStateStore(), customers=10, orders=100)
+        agg = p.actor.consumer.input.input
+        assert torch.device(agg._kern_kw["device"]).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_q5(MemoryStateStore(), NexmarkConfig(event_num=100))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_q3(MemoryStateStore(), customers=10, orders=100)
+    p = build_q3(MemoryStateStore(), customers=10, orders=100, device="cpu")
+    agg = p.actor.consumer.input.input
+    assert torch.device(agg._kern_kw["device"]).type == "cpu"
