@@ -236,6 +236,13 @@ N = 1 << 15                   # GroupedAggKernel.BATCH_ROWS
 KW = 3                        # one int64 group column: (hi, lo, valid)
 Q7_EVENTS = 10_000_000
 Q7_TRACE_EVENTS = 2_000_000  # bench.py's q7 size
+# q7 coalesced: the connector's default chunk (NexmarkConfig.max_chunk_size),
+# 256 a barrier (q7's 32 x 8,192 rows), merged to q7's usual 8,192 rows
+Q7_COALESCE_CHUNK = 1024
+Q7_COALESCE_CHUNKS = 256
+Q7_COALESCE_ROWS = 8192
+Q7_COALESCED_EVENTS = Q7_TRACE_EVENTS
+Q7_2M_DIGEST = "ec6c64105f800241"   # q7's MV at 2M events (PERF.md)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 INT_OPS_PER_S = 67e12         # non-tensor 32-bit rate (fp32 data sheet)
 FLOAT_SUM_RTOL = 1e-6         # of Σ|terms| per group: atomic order varies
@@ -1919,29 +1926,61 @@ def mv_digest(rows) -> str:
 
 
 def run_q7(dev, events: int, trace: bool = False,
-           fusion: bool = False, tier_cap=None) -> dict:
+           fusion: bool = False, tier_cap=None,
+           coalesce: bool = False) -> dict:
     """q7-core through build_q7 + drive_to_completion; the MV must equal
     the oracle. With ``fusion`` the agg must have absorbed the tumble
-    projection; with ``tier_cap`` the agg runs under the cold tier."""
+    projection; with ``tier_cap`` the agg runs under the cold tier. With
+    ``coalesce`` the source cuts the connector's default 1,024-row chunks
+    (256 a barrier: q7's 32 x 8,192 rows) and a CoalesceExecutor merges
+    them into Q7_COALESCE_ROWS-row chunks in front of the agg; the
+    coalescer must merge at least 4:1 and the agg's device steps
+    (apply_batch: one K1 + K2 step each) be no more than its output
+    chunks."""
     from risingwave_tpu_torch.common.types import Interval
     from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
     from risingwave_tpu_torch.models.nexmark import build_q7
+    from risingwave_tpu_torch.ops import hash_agg as H
     from risingwave_tpu_torch.state.store import MemoryStateStore
+    from risingwave_tpu_torch.stream.coalesce import CoalesceExecutor
+    from risingwave_tpu_torch.utils.metrics import STREAMING
 
-    cfg = NexmarkConfig(event_num=events, max_chunk_size=8192,
+    chunk_rows, per_barrier = (Q7_COALESCE_CHUNK, Q7_COALESCE_CHUNKS) \
+        if coalesce else (8192, 32)
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=chunk_rows,
                         generate_strings=False)
-    p = build_q7(MemoryStateStore(), cfg, rate_limit=32, min_chunks=32,
+    p = build_q7(MemoryStateStore(), cfg, rate_limit=per_barrier,
+                 min_chunks=per_barrier,
                  watermark_delay=Interval(usecs=0), device=dev,
-                 fusion=fusion, tier_cap=tier_cap)
+                 fusion=fusion, tier_cap=tier_cap,
+                 coalesce_rows=Q7_COALESCE_ROWS if coalesce else None)
     agg = p.actor.consumer.input
     assert (agg.fused_stages is not None) == fusion, "fusion did not fire"
+    assert isinstance(agg.input, CoalesceExecutor) == coalesce
     n_bids = events * 46 // 50
-    out = drive(p, {1: n_bids}, dev, trace)
+    counters = (STREAMING.coalesce_chunks_in, STREAMING.coalesce_chunks_out,
+                STREAMING.device_dispatch)
+    before = [c.total() for c in counters]
+    steps = []
+    plain_apply = H.apply_batch
+    H.apply_batch = lambda *a: steps.append(1) or plain_apply(*a)
+    try:
+        out = drive(p, {1: n_bids}, dev, trace)
+    finally:
+        H.apply_batch = plain_apply
+    c_in, c_out, dispatch = (int(c.total() - b)
+                             for c, b in zip(counters, before))
     got = {r[0]: (r[1], r[2]) for _pk, r in p.mv_table.iter_rows()}
     want = q7_oracle(cfg, n_bids)
     assert got == want, "q7 MV differs from the oracle"
     assert p.reader.offset == n_bids
-    extra = {}
+    extra = dict(device_dispatch=dispatch, agg_steps=len(steps))
+    if coalesce:
+        assert c_in >= 4 * c_out > 0, \
+            f"the coalescer merged {c_in} chunks into {c_out}"
+        assert len(steps) <= c_out, \
+            f"{len(steps)} agg steps for {c_out} coalesced chunks"
+        extra.update(coalesce_chunks_in=c_in, coalesce_chunks_out=c_out)
     if tier_cap is not None:
         part = agg._tier_part
         assert part.evicted_total > 0 and part.reload_total > 0, \
@@ -4779,6 +4818,8 @@ def main() -> int:
             ("q8", run_q8, Q8_EVENTS, Q8_PATH),
             ("q7 fused", lambda d, e: run_q7(d, e, fusion=True), Q7_EVENTS,
              Q7_FUSED_PATH),
+            ("q7 coalesced", lambda d, e: run_q7(d, e, coalesce=True),
+             Q7_COALESCED_EVENTS, Q7_PATH),
             ("q8 fused", lambda d, e: run_q8(d, e, fusion=True),
              Q8_FUSED_EVENTS, Q8_FUSED_PATH),
             ("q1", lambda d, e: run_q1(d, e, fusion=False), Q1_EVENTS, ()),
@@ -4848,6 +4889,17 @@ def main() -> int:
         log(f"{q} fused vs unfused: events/s {b['events_per_s']} vs "
             f"{a['events_per_s']}, p99 barrier latency "
             f"{b['p99_barrier_latency_s']} vs {a['p99_barrier_latency_s']}")
+    c = paths["q7 coalesced"]
+    assert c["mv_digest"] == Q7_2M_DIGEST, \
+        f"q7 coalesced: MV digest {c['mv_digest']}, not {Q7_2M_DIGEST}"
+    log(f"q7 coalesced ({Q7_COALESCED_EVENTS} events, "
+        f"{Q7_COALESCE_CHUNK}-row chunks to {Q7_COALESCE_ROWS}): chunks in "
+        f"{c['coalesce_chunks_in']}, out {c['coalesce_chunks_out']}, agg "
+        f"steps {c['agg_steps']}, probe_insert "
+        f"{c['launches'].get('probe_insert', 0)}, agg_apply "
+        f"{c['launches'].get('agg_apply', 0)}, device_dispatch "
+        f"{c['device_dispatch']}, events/s {c['events_per_s']}, path_s "
+        f"{c['path_s']}")
     for label in ("q7 mesh", "q7 mesh fused"):
         m, one = paths[label], paths[label.replace(" mesh", "")]
         assert m["mv_digest"] == one["mv_digest"], \
@@ -4893,6 +4945,8 @@ def main() -> int:
     # the main paths' and are not reported)
     q7_traced = run_q7(dev, Q7_TRACE_EVENTS, trace=True)
     log("q7 traced: " + json.dumps(q7_traced))
+    assert q7_traced["mv_digest"] == paths["q7 coalesced"]["mv_digest"], \
+        "q7 coalesced differs from the uncoalesced q7 at its size"
     assert Q7_TRACE_EVENTS == Q7_TIER_EVENTS
     assert paths["q7 tier"]["mv_digest"] == q7_traced["mv_digest"], \
         "q7 under the tier differs from the uncapped q7"

@@ -153,6 +153,11 @@ class DataChunk:
         for c in self.columns:
             assert int(c.values.shape[0]) == cap, "column capacity mismatch"
         self._capacity = cap
+        # set by stream/coalesce.compact and merge_chunks on chunks whose
+        # visible rows are a known dense prefix: the visible-row count
+        # without a host sum (exchange credit charges it); None means not
+        # established
+        self.dense_rows: Optional[int] = None
 
     @staticmethod
     def from_pydict(schema: Schema, data: Dict[str, list],
@@ -172,6 +177,8 @@ class DataChunk:
 
     def cardinality(self) -> int:
         """Number of visible rows."""
+        if self.dense_rows is not None:
+            return self.dense_rows
         return int(np.sum(self.visibility))
 
     def column(self, name: str) -> Column:
@@ -224,6 +231,9 @@ class StreamChunk(DataChunk):
         if ops is not None:
             o[:n] = np.asarray([int(x) for x in ops], dtype=np.int8)
         return StreamChunk(schema, base.columns, base.visibility, o)
+
+    def with_visibility(self, vis: np.ndarray) -> "StreamChunk":
+        return StreamChunk(self.schema, self.columns, vis, self.ops)
 
     def signs(self) -> np.ndarray:
         """+1/-1 per row (masked rows included; gate with visibility)."""

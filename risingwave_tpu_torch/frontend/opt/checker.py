@@ -138,9 +138,16 @@ def derive_append_only(ex) -> bool:
         return (ex.join_type == JoinType.INNER
                 and derive_append_only(ex.left_in)
                 and derive_append_only(ex.right_in))
+    from risingwave_tpu_torch.stream.coalesce import CoalesceExecutor
+    from risingwave_tpu_torch.stream.executors.project_set import (
+        ProjectSetExecutor,
+    )
+    # a coalescer only re-batches; a set-returning expansion of inserts
+    # is inserts
     if isinstance(ex, (ProjectExecutor, FilterExecutor, RowIdGenExecutor,
                        HopWindowExecutor, WatermarkFilterExecutor,
-                       FusedFragmentExecutor)):
+                       FusedFragmentExecutor, CoalesceExecutor,
+                       ProjectSetExecutor)):
         return derive_append_only(ex.input)
     return False
 

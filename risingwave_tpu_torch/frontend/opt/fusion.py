@@ -163,6 +163,7 @@ def fuse_fragments(root, dist_parallelism: int = 1, device=None
             "planner's sharded cut, which is not ported")
     from risingwave_tpu_torch.frontend.opt.rules import _swap_child
     from risingwave_tpu_torch.ops.fused import FusedStages
+    from risingwave_tpu_torch.stream.coalesce import CoalesceExecutor
     from risingwave_tpu_torch.stream.executors.fused import (
         FusedFragmentExecutor,
     )
@@ -175,9 +176,14 @@ def fuse_fragments(root, dist_parallelism: int = 1, device=None
     details: List[str] = []
 
     def try_fuse_agg(agg):
+        """Eligible agg + the run below it (a coalescer directly under the
+        agg absorbed: the kernel's backlog is the batcher) -> fused copy."""
         if agg_fusable_reason(agg) is not None:
             return None
-        stages, base = _collect_run(agg.input, AGG_KINDS)
+        node = agg.input
+        if isinstance(node, CoalesceExecutor):
+            node = node.input
+        stages, base = _collect_run(node, AGG_KINDS)
         if not stages:
             return None
         fs = FusedStages(base.schema, stages)
@@ -219,6 +225,8 @@ def fuse_fragments(root, dist_parallelism: int = 1, device=None
                 continue
             node = getattr(new_join if new_join is not None else join,
                            attr)
+            if isinstance(node, CoalesceExecutor):
+                node = node.input     # the epoch buffer is the batcher
             stages, base = _collect_run(node, JOIN_KINDS)
             if not stages:
                 continue

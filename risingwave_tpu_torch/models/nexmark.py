@@ -41,9 +41,11 @@ logical shards of one card (``parallel/agg.ShardedAggKernel``), and
 ShardedJoinKernel``), each unfused or fused. ``build_q7(tier_cap=n)``
 puts q7's agg under the cold tier (``state/tier.py``) on one device, and
 ``build_q5(tier_cap=n)`` both of q5-hot's stateful stages (a capped agg
-is not fused, as in the reference). The
-reference's coalescing option is not ported and raises
-NotImplementedError, as does a tier cap on a mesh.
+is not fused, as in the reference). A tier cap on a mesh raises
+NotImplementedError. ``build_q7(coalesce_rows=n)`` puts a
+``CoalesceExecutor`` in front of q7's agg, as the reference does; under
+``fusion=True`` the agg absorbs it with the projection (the kernel's
+epoch backlog is the batcher).
 
 ``from_jax_state`` / ``to_numpy_state`` (from ``ops/hash_agg.py``) carry
 grouped-agg device state across the two packages as numpy arrays:
@@ -73,7 +75,9 @@ from risingwave_tpu_torch.parallel.mesh import ShardMesh
 from risingwave_tpu_torch.state.state_table import StateTable
 from risingwave_tpu_torch.state.store import MemoryStateStore
 from risingwave_tpu_torch.stream.actor import Actor, LocalBarrierManager
+from risingwave_tpu_torch.stream.coalesce import CoalesceExecutor
 from risingwave_tpu_torch.stream.exchange import channel_for_test
+from risingwave_tpu_torch.stream.executor import Executor
 from risingwave_tpu_torch.stream.executors.hash_agg import (
     AggCall, HashAggExecutor, agg_state_schema,
 )
@@ -207,9 +211,11 @@ def build_q7(store, cfg: NexmarkConfig,
 
     With ``tier_cap`` (one device only), the agg keeps at most about that
     many groups on the card after each checkpoint barrier: older groups
-    are evicted and reload when a later chunk touches them."""
-    if coalesce_rows:
-        raise NotImplementedError("build_q7 coalesce_rows is not ported")
+    are evicted and reload when a later chunk touches them.
+
+    With ``coalesce_rows``, a ``CoalesceExecutor`` merges the projection's
+    chunks up to that many rows between barriers before the agg sees them
+    (``stream/coalesce.py``)."""
     if tier_cap is not None and mesh is not None:
         raise NotImplementedError(
             "build_q7 tier_cap with a mesh: the sharded kernel has no "
@@ -250,8 +256,12 @@ def build_q7(store, cfg: NexmarkConfig,
             mesh, key_width=LANES_PER_KEY * 1,
             specs=[c.spec(project.schema) for c in calls],
             capacity=shard_capacity)
+    agg_in: Executor = project
+    if coalesce_rows:
+        # barrier-bounded chunk coalescing in front of the keyed executor
+        agg_in = CoalesceExecutor(project, coalesce_rows)
     # tier_cap: a resident-group cap on the agg (state/tier.py)
-    agg = HashAggExecutor(project, [0], calls, agg_state,
+    agg = HashAggExecutor(agg_in, [0], calls, agg_state,
                           append_only=True,
                           output_names=["max_price", "bid_count"],
                           kernel=kernel, tier_cap=tier_cap, device=device)

@@ -63,6 +63,7 @@ from risingwave_tpu_torch.ops import lanes
 from risingwave_tpu_torch.utils.device import (
     LAUNCHES, PendingCounters, fetch, resolve_device, upload,
 )
+from risingwave_tpu_torch.utils.metrics import STREAMING as _METRICS
 
 I32_MIN = -(1 << 31)
 I32_MAX = (1 << 31) - 1
@@ -1507,7 +1508,7 @@ class GroupedAggKernel:
     def __init__(self, key_width: int, specs: Sequence[AggSpec],
                  capacity: Optional[int] = None,
                  flush_capacity: int = 1 << 10, device=None,
-                 prelude=None):
+                 prelude=None, metrics_label: Optional[str] = None):
         self.device = resolve_device(device)
         if capacity is None:
             capacity = self.DEFAULT_CAPACITY
@@ -1534,6 +1535,8 @@ class GroupedAggKernel:
         self._patch: Optional[torch.Tensor] = None
         self._steps = 0
         self._prelude = prelude
+        # a fused (raw-mode) kernel counts its steps under this name
+        self.metrics_label = metrics_label
         self._stage_counts = None if prelude is None else torch.zeros(
             prelude.n_counts, dtype=torch.int64, device=self.device)
 
@@ -1629,6 +1632,10 @@ class GroupedAggKernel:
         if raw_mode:
             from risingwave_tpu_torch.ops.fused import agg_prelude
             dev = agg_prelude(self._prelude, dev, self._stage_counts)
+            if self.metrics_label is not None:
+                # the fused path's real steps: one per backlog dispatch
+                _METRICS.device_dispatch.inc(1,
+                                             executor=self.metrics_label)
         stats = apply_batch(self.state, dev, self._plan)
         self._counters.push(stats, n * units)
 

@@ -58,6 +58,7 @@ from risingwave_tpu_torch.parallel.mesh import ShardMesh
 from risingwave_tpu_torch.utils.device import (
     Fetch, ProbeOverflowError, fetch, start_fetch, upload,
 )
+from risingwave_tpu_torch.utils.metrics import STREAMING as _METRICS
 
 
 def _check_probe(stats: np.ndarray) -> None:
@@ -355,8 +356,14 @@ class ShardedAggKernel:
         slots, stats = ht.probe_insert_sharded(self.state.table,
                                                recv[:, :, :kw], rvalid)
         agg_apply_sharded(self.state, recv, slots, self._plan)
-        self.dispatches += 1
+        self._note_dispatch()
         self._counters.push(stats, overflow, n)
+
+    def _note_dispatch(self) -> None:
+        """One routed step or flush gather: the kernel counts its own
+        device steps (the executor does not count for it)."""
+        self.dispatches += 1
+        _METRICS.device_dispatch.inc(1, kernel="sharded_agg")
 
     def drain_stage_counts(self) -> Optional[np.ndarray]:
         """The prelude's cumulative mask counts since the last drain,
@@ -413,7 +420,7 @@ class ShardedAggKernel:
         while True:
             dev_mats = flush_gather_sharded(self.state, fc)
             mats = fetch(dev_mats)
-            self.dispatches += 1
+            self._note_dispatch()
             ps = mats[:, 0, 0]
             self._counters.reset(mats[:, 0, 1])
             worst = int(ps.max())

@@ -56,6 +56,7 @@ from risingwave_tpu_torch.parallel.mesh import ShardMesh
 from risingwave_tpu_torch.utils.device import (
     Fetch, ProbeOverflowError, fetch, start_fetch, upload,
 )
+from risingwave_tpu_torch.utils.metrics import STREAMING as _METRICS
 
 
 def _raise_overflow(route_ovf: Optional[Fetch], stats: Optional[Fetch],
@@ -322,6 +323,7 @@ class ShardedJoinKernel:
         """The exchange every step starts with: (recv [S, S * bucket, W],
         rvalid [S, S * bucket], per-sender overflow [S])."""
         self.dispatches += 1
+        _METRICS.device_dispatch.inc(1, kernel="sharded_join")
         return route(rows, valid, self.owner_map, self.n_dev, bucket,
                      self.key_width)
 

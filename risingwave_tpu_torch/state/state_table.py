@@ -31,7 +31,9 @@ from risingwave_tpu_torch.common.epoch import EpochPair
 from risingwave_tpu_torch.common.hash import (
     VNODE_COUNT, hash_strings_host, vnodes_of_host,
 )
-from risingwave_tpu_torch.common.types import DataType, Schema
+from risingwave_tpu_torch.common.types import (
+    DataType, Schema, scaled_to_decimal,
+)
 from risingwave_tpu_torch.state.keycodec import (
     decode_memcomparable, encode_memcomparable, encode_vnode_prefix,
 )
@@ -472,6 +474,13 @@ class StateTable:
         for key, row in self._iter_range_raw(start, end, reverse):
             yield decode_memcomparable(key[2:], self.pk_types), row
 
+    def iter_encoded_range(self, start: Optional[bytes] = None,
+                           end: Optional[bytes] = None
+                           ) -> Iterator[Tuple[bytes, tuple]]:
+        """(full encoded key incl. vnode prefix, row) in byte order:
+        vnode-major, then memcomparable pk."""
+        yield from self._iter_range_raw(start, end)
+
     def owned_vnodes(self) -> List[int]:
         return np.flatnonzero(self.vnodes).tolist()
 
@@ -484,6 +493,16 @@ def _key_lane(v, dt: DataType) -> np.ndarray:
     if dt.is_device:
         return np.asarray([0 if v is None else v], dtype=dt.np_dtype)
     return hash_strings_host(np.asarray([v], dtype=object), 1)
+
+
+def to_logical_row(row: Sequence, schema: Schema) -> tuple:
+    """Physical state-table row -> logical values (DECIMAL -> Decimal)."""
+    out = []
+    for v, f in zip(row, schema):
+        if v is not None and f.data_type == DataType.DECIMAL:
+            v = scaled_to_decimal(v)
+        out.append(v)
+    return tuple(out)
 
 
 def _next_prefix(b: bytes) -> Optional[bytes]:

@@ -3,8 +3,11 @@
 Port of ``risingwave_tpu/stream/exchange.py`` (reference parity:
 src/stream/src/executor/exchange/permit.rs:35,75,111,152): bounded
 channels with separate budgets for data chunks (cost = rows, capped) and
-barriers, so backpressure on data never blocks checkpoints for long. The
-port drops the reference's per-edge metrics and backpressure meters.
+barriers, so backpressure on data never blocks checkpoints for long. A
+chunk that knows its visible rows (``dense_rows``, stamped by
+``stream/coalesce.py``) pays that many permits, any other its capacity
+(``_chunk_cost``, :109 there). The port drops the reference's per-edge
+metrics and backpressure meters.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from risingwave_tpu_torch.stream.message import Barrier, Message
 
 
 class ChannelClosed(Exception):
-    """recv after the sender closed the channel and it drained."""
+    """Send on a channel whose receiver is gone, or recv after the sender
+    closed the channel and it drained."""
 
 
 class _Shared:
@@ -28,6 +32,17 @@ class _Shared:
         self.barrier_permits = barrier_permits
         self.max_chunk_cost = max_chunk_cost
         self.cond = asyncio.Condition()
+        self.closed = False
+
+
+def _chunk_cost(shared: _Shared, chunk: StreamChunk) -> int:
+    """A compacted or coalesced chunk knows its visible rows and pays
+    them, so a sliver does not burn its capacity's worth of credit and
+    stall its upstream early; any other chunk pays its capacity (a
+    visible-row count would be a host pass per send)."""
+    cost = chunk.dense_rows if chunk.dense_rows is not None \
+        else chunk.capacity
+    return max(1, min(cost, shared.max_chunk_cost))
 
 
 class Sender:
@@ -37,17 +52,25 @@ class Sender:
     async def send(self, msg: Message) -> None:
         s = self._s
         if isinstance(msg, StreamChunk):
-            cost = max(1, min(msg.capacity, s.max_chunk_cost))
+            cost = _chunk_cost(s, msg)
             async with s.cond:
-                await s.cond.wait_for(lambda: s.chunk_permits >= cost)
+                await s.cond.wait_for(
+                    lambda: s.closed or s.chunk_permits >= cost)
+                if s.closed:
+                    raise ChannelClosed
                 s.chunk_permits -= cost
             s.queue.put_nowait(("chunk", cost, msg))
         elif isinstance(msg, Barrier):
             async with s.cond:
-                await s.cond.wait_for(lambda: s.barrier_permits >= 1)
+                await s.cond.wait_for(
+                    lambda: s.closed or s.barrier_permits >= 1)
+                if s.closed:
+                    raise ChannelClosed
                 s.barrier_permits -= 1
             s.queue.put_nowait(("barrier", 1, msg))
         else:  # watermarks are control-plane: unmetered
+            if s.closed:
+                raise ChannelClosed
             s.queue.put_nowait(("watermark", 0, msg))
 
     def close(self) -> None:
@@ -96,6 +119,23 @@ class Receiver:
     async def _notify(self) -> None:
         async with self._s.cond:
             self._s.cond.notify_all()
+
+    def close(self) -> None:
+        """Receiver drop: a sender waiting for permits, or sending later,
+        gets ChannelClosed."""
+        s = self._s
+        s.closed = True
+
+        async def _wake():
+            async with s.cond:
+                s.cond.notify_all()
+
+        try:
+            task = asyncio.get_running_loop().create_task(_wake())
+        except RuntimeError:
+            return              # no loop: nobody can be waiting
+        self._notifies.add(task)
+        task.add_done_callback(self._notifies.discard)
 
 
 def channel(chunk_permits: int = 32768, barrier_permits: int = 4,

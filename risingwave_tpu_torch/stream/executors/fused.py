@@ -32,6 +32,7 @@ from risingwave_tpu_torch.stream.message import (
     Message, Watermark, is_barrier, is_chunk,
 )
 from risingwave_tpu_torch.utils.device import fetch, resolve_device, upload
+from risingwave_tpu_torch.utils.metrics import STREAMING as _METRICS
 
 
 class FusedFragmentExecutor(Executor):
@@ -66,6 +67,8 @@ class FusedFragmentExecutor(Executor):
         hs = fs.host_noop_eq(chunk)
         host_same = None if hs is None else upload(hs.astype(np.int8), dev)
         counts = torch.zeros(prog.n_counts, dtype=torch.int64, device=dev)
+        # one chain step per chunk is one device step
+        _METRICS.device_dispatch.inc(1, executor=self.identity)
         mat = fused_chain(prog, raw, host_same, counts)
         cols, vis, ops = decode_chain_output(prog, fs, fetch(mat))
         return cols, vis, ops, fs.stage_rows_of(fetch(counts))

@@ -77,6 +77,7 @@ from risingwave_tpu_torch.stream.executors.keys import (
 from risingwave_tpu_torch.stream.message import (
     Message, is_barrier, is_chunk, is_watermark,
 )
+from risingwave_tpu_torch.utils.metrics import STREAMING as _METRICS
 
 _SUM_OUT = {
     DataType.INT16: DataType.INT64, DataType.INT32: DataType.INT64,
@@ -393,6 +394,9 @@ class HashAggExecutor(Executor):
             kw = dict(self._kern_kw)
             if self.fused_stages is not None:
                 kw["prelude"] = self._compile_prelude()
+                # a fused kernel counts its real steps (one per backlog
+                # dispatch) under this executor's name
+                kw["metrics_label"] = self.identity
             self._kernel = GroupedAggKernel(
                 key_width=LANES_PER_KEY * len(self.group_indices),
                 specs=self.specs, **kw)
@@ -465,6 +469,11 @@ class HashAggExecutor(Executor):
         vis = np.asarray(chunk.visibility)
         if self._tier is not None:
             self._tier_touch(key_lanes, vis)
+        # one kernel.apply = one device step requested (the count the
+        # coalescing layer lowers); a sharded kernel counts its own
+        # routed steps instead
+        if not isinstance(self.kernel, ShardedAggKernel):
+            _METRICS.device_dispatch.inc(1, executor=self.identity)
         inputs = list(self._inputs(chunk))
         if self.minput:
             self._apply_minput(chunk, key_lanes, signs, vis)
@@ -849,6 +858,8 @@ class HashAggExecutor(Executor):
 
     # -- barrier path ----------------------------------------------------
     def _flush(self) -> Optional[StreamChunk]:
+        if not isinstance(self.kernel, ShardedAggKernel):
+            _METRICS.device_dispatch.inc(1, executor=self.identity)
         fr = self.kernel.flush()
         if self.fused_stages is not None:
             counts = self.kernel.drain_stage_counts()

@@ -84,6 +84,7 @@ from risingwave_tpu_torch.stream.executors.keys import LANES_PER_KEY, KeyCodec
 from risingwave_tpu_torch.stream.merge import barrier_align_2
 from risingwave_tpu_torch.stream.message import Message, Watermark, is_barrier
 from risingwave_tpu_torch.utils.device import resolve_device, upload
+from risingwave_tpu_torch.utils.metrics import STREAMING as _METRICS
 
 
 class JoinType(enum.Enum):
@@ -1052,6 +1053,10 @@ class HashJoinExecutor(Executor):
         # both applies land before either probe dispatches: a probe at
         # seq s must see the other side's same-epoch rows with seq < s
         for s, (ld, ad, total, max_ref, kw) in devs.items():
+            # apply + probe = two device steps a side-epoch; a sharded
+            # kernel counts its own routed steps
+            if self.sides[s].mesh is None:
+                _METRICS.device_dispatch.inc(2, executor=self.identity)
             self.sides[s].kernel.apply_epoch(ld, ad, total, max_ref, **kw)
         if self.join_type == JoinType.INNER:
             # inner: both probes dispatch before either collects, so the

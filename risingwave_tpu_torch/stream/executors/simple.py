@@ -1,8 +1,9 @@
-"""ProjectExecutor and FilterExecutor: stateless vectorized operators.
+"""ReceiverExecutor, ProjectExecutor and FilterExecutor: stateless
+single-input executors.
 
-Port of ``ProjectExecutor`` and ``FilterExecutor`` of
-``risingwave_tpu/stream/executors/simple.py`` (reference parity:
-src/stream/src/executor/project.rs, filter.rs): a projection evals
+Port of ``risingwave_tpu/stream/executors/simple.py`` (reference parity:
+src/stream/src/executor/receiver.rs, project.rs, filter.rs). A receiver
+adapts one exchange channel into an executor. A projection evals
 expressions over the chunk on the host and emits the new columns;
 watermarks pass through monotone derivations (e.g. tumble_start maps a
 date_time watermark to a window_start watermark); no-op U-/U+ pairs
@@ -19,8 +20,32 @@ import numpy as np
 from risingwave_tpu_torch.common.chunk import Op, StreamChunk
 from risingwave_tpu_torch.common.types import Field, Schema
 from risingwave_tpu_torch.expr.expr import Expression
+from risingwave_tpu_torch.stream.exchange import ChannelClosed, Receiver
 from risingwave_tpu_torch.stream.executor import Executor, ExecutorInfo
-from risingwave_tpu_torch.stream.message import Message, Watermark, is_chunk
+from risingwave_tpu_torch.stream.message import (
+    Message, Watermark, is_barrier, is_chunk,
+)
+
+
+class ReceiverExecutor(Executor):
+    """Adapts one exchange Receiver into an Executor (receiver.rs). It
+    does not close the receiver when it ends: the upstream may still be
+    attached to the channel."""
+
+    def __init__(self, info: ExecutorInfo, rx: Receiver, actor_id: int = 0):
+        super().__init__(info)
+        self.rx = rx
+        self.actor_id = actor_id
+
+    async def execute(self) -> AsyncIterator[Message]:
+        while True:
+            try:
+                msg = await self.rx.recv()
+            except ChannelClosed:
+                return
+            yield msg
+            if is_barrier(msg) and msg.is_stop(self.actor_id):
+                return
 
 
 class ProjectExecutor(Executor):

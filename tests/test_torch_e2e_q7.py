@@ -136,12 +136,48 @@ def test_q7_fused_matches_reference_and_unfused(scenario):
 
 def test_q7_port_refuses_unported_options():
     from risingwave_tpu_torch.parallel import ShardMesh
+    from risingwave_tpu_torch.stream.coalesce import CoalesceExecutor
     cfg = NexmarkConfig(event_num=1000)
+    # coalescing is ported: a CoalesceExecutor feeds the agg, and the MV
+    # equals the uncoalesced port's and the reference's coalesced MV
+    from risingwave_tpu_torch.utils.metrics import STREAMING
+    n_bids = 46 * 30
+    # 16-row source chunks, 8 a barrier: the coalescer merges them by 4
+    small = dict(SCENARIOS["watermark"]["cfg"], event_num=50 * 30,
+                 max_chunk_size=16)
+    kw = dict(SCENARIOS["watermark"]["kw"], rate_limit=8, min_chunks=8)
+    c_in = STREAMING.coalesce_chunks_in.total()
+    c_out = STREAMING.coalesce_chunks_out.total()
+    p, mv, state_rows, agg = _run(
+        build_q7, drive_to_completion, MemoryStateStore(),
+        NexmarkConfig(**small), n_bids, kw, Interval, device="cpu",
+        coalesce_rows=64)
+    assert isinstance(agg.input, CoalesceExecutor)
+    assert agg.input.target_rows == 64
+    c_in = STREAMING.coalesce_chunks_in.total() - c_in
+    c_out = STREAMING.coalesce_chunks_out.total() - c_out
+    assert 0 < 3 * c_out < c_in, (c_in, c_out)
+    _u, mv_off, state_off, _a = _run(
+        build_q7, drive_to_completion, MemoryStateStore(),
+        NexmarkConfig(**small), n_bids, kw, Interval, device="cpu")
+    from risingwave_tpu.utils.metrics import STREAMING as REF_STREAMING
+
+    def ref_counts():
+        return tuple(sum(v for _l, v in c.series()) for c in (
+            REF_STREAMING.coalesce_chunks_in,
+            REF_STREAMING.coalesce_chunks_out))
+    r0 = ref_counts()
+    _rp, ref_mv, ref_state_rows, _ra = _run(
+        ref_models.build_q7, ref_models.drive_to_completion, RefStore(),
+        RefConfig(**small), n_bids, kw, RefInterval, coalesce_rows=64)
+    assert (c_in, c_out) == tuple(b - a for a, b in zip(r0, ref_counts()))
+    assert mv == q7_oracle(NexmarkConfig(**small), n_bids)
+    assert mv == mv_off == ref_mv
+    assert state_rows == state_off == ref_state_rows
     # tier_cap is ported on one device; sharded eviction stays refused
-    for kw in (dict(coalesce_rows=64),
-               dict(tier_cap=8, mesh=ShardMesh(8, "cpu"))):
-        with pytest.raises(NotImplementedError):
-            build_q7(MemoryStateStore(), cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        build_q7(MemoryStateStore(), cfg, device="cpu", tier_cap=8,
+                 mesh=ShardMesh(8, "cpu"))
     with pytest.raises(NotImplementedError):
         build_q7(object(), cfg, device="cpu")
     # the mesh is ported: it must be the port's own ShardMesh

@@ -40,6 +40,19 @@ import risingwave_tpu_torch.models.tpch
 import risingwave_tpu_torch.models.prelude_cases
 import risingwave_tpu_torch.stream.executors.hop_window
 import risingwave_tpu_torch.stream.executors.top_n
+import risingwave_tpu_torch.utils.metrics
+import risingwave_tpu_torch.stream.coalesce
+import risingwave_tpu_torch.stream.exchange
+import risingwave_tpu_torch.stream.executors
+import risingwave_tpu_torch.stream.executors.union
+import risingwave_tpu_torch.stream.executors.expand
+import risingwave_tpu_torch.stream.executors.wrapper
+import risingwave_tpu_torch.stream.executors.dedup
+import risingwave_tpu_torch.stream.executors.simple_agg
+import risingwave_tpu_torch.stream.executors.dynamic_filter
+import risingwave_tpu_torch.stream.executors.project_set
+import risingwave_tpu_torch.stream.executors.eowc
+import risingwave_tpu_torch.state.state_table
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "risingwave_tpu" or m.startswith("risingwave_tpu."))
