@@ -173,7 +173,13 @@ phases, any failure of which exits non-zero:
      both stateful stages (each must evict and reload), each MV equal
      to a vectorized oracle (per window the auction with the most bids,
      ties to the smallest id) and the agg's counts summing to 5 x the
-     bids;
+     bids; after the unfused arm's check, outside its timed drive, the
+     ``q5 hot batch`` step reads the committed agg state (~308K groups)
+     and the MV through the batch engine (``batch/``: RowSeqScan,
+     BatchHashAgg, the staged BatchTaskManager at parallelism 4,
+     BatchOrderBy + BatchLimit, StorageTable.get_row), each read held to
+     its oracle, and logs the rows and seconds of each read beside the
+     card's name and power limit (``q5_hot_batch``);
    - TPC-H q3 (``build_q3``: customer ⋈ orders ⋈ lineitem, the DECIMAL
      revenue summed per order, the top 10) at SF1 (150,000 customers,
      1,500,000 orders, 6,000,000 lineitems; bench_q3's 1024-row chunks,
@@ -4463,15 +4469,92 @@ def q5_hot_oracle(cfg, n_bids: int, block: int = 1 << 21) -> dict:
     return _ORACLES[key]
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip()
+
+
+def q5_hot_batch(p, agg, n_bids: int) -> dict:
+    """The batch engine's reads of q5-hot's state at the committed epoch:
+    the agg's state table (one row per (window_start, auction) group:
+    window_start, auction, _group_rows, _acc0; ~308K rows at 1M events)
+    and the MV, each read held to its oracle:
+
+    (a) RowSeqScan → BatchHashAgg by window_start of MAX, SUM and
+        COUNT(*) of column 2 (the group's bid count): each window's MAX
+        is the MV's count for it, the SUMs total Q5_UNITS x n_bids, the
+        COUNT(*)s are the groups of each window in a plain scan;
+    (b) BatchTaskManager(parallelism=4).run_agg with the same calls: the
+        rows of (a) as a set;
+    (c) RowSeqScan → BatchOrderBy(count DESC, window, auction) →
+        BatchLimit(10): a numpy top 10 of the scanned rows;
+    (d) StorageTable.get_row of every MV row's (window, auction) pk: the
+        MV row.
+
+    Host code: nothing here launches a kernel. Returns the rows read and
+    the seconds of each read."""
+    from risingwave_tpu_torch import batch as BT
+    from risingwave_tpu_torch.batch.task import BatchTaskManager
+    from risingwave_tpu_torch.ops.hash_agg import AggKind
+    from risingwave_tpu_torch.stream.executors.hash_agg import AggCall
+    epoch = agg.table.store.committed_epoch()
+    table = BT.StorageTable.of(agg.table)
+    mv = BT.StorageTable.of(p.mv_table)
+    calls = [AggCall(AggKind.MAX, 2), AggCall(AggKind.SUM, 2),
+             AggCall(AggKind.COUNT)]
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    a = timed("a_hash_agg", lambda: BT.collect(BT.BatchHashAgg(
+        BT.RowSeqScan(table, epoch), [0], calls)))
+    b = timed("b_run_agg", lambda: asyncio.run(
+        BatchTaskManager(parallelism=4).run_agg(table, epoch, [0], calls)))
+    c = timed("c_top10", lambda: BT.collect(BT.BatchLimit(BT.BatchOrderBy(
+        BT.RowSeqScan(table, epoch), [(2, True), (0, False), (1, False)]),
+        10)))
+    mv_rows = {r[:2]: r for _pk, r in p.mv_table.iter_rows()}
+    d = timed("d_get_row", lambda: {pk: mv.get_row(pk, epoch)
+                                    for pk in mv_rows})
+    # the oracles, from a plain scan of the same snapshot
+    scanned = np.asarray([r for r in table.iter_rows(epoch)], dtype=np.int64)
+    windows, groups = np.unique(scanned[:, 0], return_counts=True)
+    want_a = {w: n for w, n in zip(windows.tolist(), groups.tolist())}
+    assert {w: mx for w, mx, _s, _n in a} == \
+        {w: r[2] for (w, _a), r in mv_rows.items()}, \
+        "q5 hot batch (a): a window's MAX differs from the MV's count"
+    assert sum(s for _w, _m, s, _n in a) == Q5_UNITS * n_bids, \
+        "q5 hot batch (a): the SUMs do not count 5 copies of every bid"
+    assert {w: n for w, _m, _s, n in a} == want_a, \
+        "q5 hot batch (a): COUNT(*) differs from the scan's groups"
+    assert sorted(b) == sorted(a), "q5 hot batch (b): run_agg differs"
+    top = np.lexsort((scanned[:, 1], scanned[:, 0], -scanned[:, 2]))[:10]
+    assert c == [tuple(r) for r in scanned[top].tolist()], \
+        "q5 hot batch (c): the top 10 differs from numpy's"
+    assert d == mv_rows, "q5 hot batch (d): a point get differs from the MV"
+    return dict(epoch=epoch, agg_rows=len(scanned), windows=len(a),
+                run_agg_rows=len(b), top10=len(c), mv_gets=len(d),
+                seconds=seconds, total_s=sum(seconds.values()))
+
+
 def run_q5_hot(dev, events: int, trace: bool = False, fusion: bool = False,
-               tier_cap=None) -> dict:
+               tier_cap=None, batch: bool = False) -> dict:
     """q5-hot through build_q5 + drive_to_completion at bench_q5's
     chunking; the MV must equal the oracle, and the agg's state must
     count 5 copies of every bid. With ``fusion`` the agg must have
     absorbed the hop and the projection (agg_prelude in hop mode), and
     every K1 + K2 step must take 5 rows for each uploaded row; with
     ``tier_cap`` both stateful stages run under the cold tier, and each
-    must both evict and reload."""
+    must both evict and reload; with ``batch``, the batch engine then
+    reads the committed state (``q5_hot_batch``, outside the timed
+    drive)."""
     from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
     from risingwave_tpu_torch.models.nexmark import build_q5
     from risingwave_tpu_torch.ops import fused as F
@@ -4530,6 +4613,10 @@ def run_q5_hot(dev, events: int, trace: bool = False, fusion: bool = False,
                                  reloaded=t.reload_total,
                                  resident=len(t.keys))
                          for k, t in parts.items()}
+    if batch:
+        extra["batch"] = q5_hot_batch(p, agg, n_bids)
+        log(f"q5 hot batch at {events} events: "
+            + json.dumps(extra["batch"]) + f"; card {card_line()}")
     return dict(out, **extra)
 
 
@@ -4668,10 +4755,7 @@ def main() -> int:
             log(f"  {name}: {line}")
 
     # 2. the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    card = smi.stdout.strip()
+    card = card_line()
     log(f"card: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", cuda {torch.version.cuda}")
 
@@ -4854,7 +4938,8 @@ def main() -> int:
              Q8_OUTER_RECOVERY_EVENTS, Q8_OUTER_RECOVERY_PATH),
             ("join modes", lambda d, e: run_join_modes(d), 0,
              JOIN_MODES_PATH),
-            ("q5 hot", run_q5_hot, Q5_EVENTS, Q5_PATH),
+            ("q5 hot", lambda d, e: run_q5_hot(d, e, batch=True),
+             Q5_EVENTS, Q5_PATH),
             ("q5 hot fused", lambda d, e: run_q5_hot(d, e, fusion=True),
              Q5_EVENTS, Q5_FUSED_PATH),
             ("q5 hot capped", lambda d, e: run_q5_hot(

@@ -140,6 +140,22 @@ def _make_column(dt: DataType, values, capacity: int,
     return Column(dt, arr, out_validity)
 
 
+def _column_pylist(c: Column, idx: np.ndarray) -> list:
+    """Column ``c``'s values at rows ``idx`` as Python values (None where
+    the validity is false). A device type's numpy scalars become Python
+    scalars; a host type's objects pass as they are."""
+    out = c.values[idx].tolist()
+    if c.validity is not None:
+        ok = c.validity[idx].tolist()
+        out = [v if o else None for v, o in zip(out, ok)]
+    if c.data_type == DataType.BOOLEAN:
+        out = [None if v is None else bool(v) for v in out]
+    elif c.data_type == DataType.DECIMAL:
+        out = [None if v is None else types_mod.scaled_to_decimal(v)
+               for v in out]
+    return out
+
+
 class DataChunk:
     """A batch of columns + visibility mask (data_chunk.rs:65 analog)."""
 
@@ -171,6 +187,16 @@ class DataChunk:
         vis[:n] = True
         return DataChunk(schema, cols, vis)
 
+    @classmethod
+    def empty(cls, schema: Schema, capacity: int = 8) -> "DataChunk":
+        return cls.from_pydict(schema, {f.name: [] for f in schema},
+                               capacity=capacity)
+
+    def mask(self, predicate: np.ndarray) -> "DataChunk":
+        """The chunk with the rows where ``predicate`` is false hidden."""
+        return DataChunk(self.schema, self.columns,
+                         self.visibility & predicate)
+
     @property
     def capacity(self) -> int:
         return self._capacity
@@ -185,27 +211,14 @@ class DataChunk:
         return self.columns[self.schema.index_of(name)]
 
     def to_pylist(self, compact: bool = True) -> List[tuple]:
-        rows = []
-        host_cols = [(c.values, c.validity, c.data_type)
-                     for c in self.columns]
-        for i in range(self._capacity):
-            if compact and not self.visibility[i]:
-                continue
-            row = []
-            for vals, val, dt in host_cols:
-                if val is not None and not val[i]:
-                    row.append(None)
-                    continue
-                v = vals[i]
-                if dt.is_device:
-                    v = v.item() if hasattr(v, "item") else v
-                    if dt == DataType.BOOLEAN:
-                        v = bool(v)
-                    elif dt == DataType.DECIMAL:
-                        v = types_mod.scaled_to_decimal(v)
-                row.append(v)
-            rows.append(tuple(row))
-        return rows
+        """The rows as tuples of Python values: None for a NULL, a
+        ``decimal.Decimal`` for a DECIMAL; the visible rows only unless
+        ``compact`` is False. Built column by column (one ``tolist`` a
+        column), then zipped."""
+        idx = np.flatnonzero(self.visibility) if compact \
+            else np.arange(self._capacity)
+        cols = [_column_pylist(c, idx) for c in self.columns]
+        return list(zip(*cols)) if cols else [()] * len(idx)
 
     def __repr__(self) -> str:
         return (f"DataChunk(cap={self._capacity}, "

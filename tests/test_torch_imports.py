@@ -53,6 +53,11 @@ import risingwave_tpu_torch.stream.executors.dynamic_filter
 import risingwave_tpu_torch.stream.executors.project_set
 import risingwave_tpu_torch.stream.executors.eowc
 import risingwave_tpu_torch.state.state_table
+import risingwave_tpu_torch.expr.window
+import risingwave_tpu_torch.stream.executors.over_window
+import risingwave_tpu_torch.stream.executors.temporal_join
+import risingwave_tpu_torch.batch
+import risingwave_tpu_torch.batch.task
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "risingwave_tpu" or m.startswith("risingwave_tpu."))
