@@ -190,14 +190,27 @@ phases, any failure of which exits non-zero:
      vectorized oracle with exact DECIMAL revenue, every group of the
      agg's state table (sum and counts) the oracle's, and every join
      side's stored rows the oracle's;
+   - the SQL front door (``Frontend(device="cuda")``, the session's
+     default rules and fusion): Nexmark q4 in bench_q4's SQL, session
+     and sources (4096-row chunks, 16 a barrier, no strings) at 2M
+     events (120,000 auctions and 1,840,000 bids, the join holding both
+     sides on the card; cut from 100M), its MV equal to a vectorized
+     oracle exactly (the MAX bid per auction within its window, then the
+     binder's AVG per category: the integer SUM and the COUNT as FLOAT64,
+     divided), its inner MAX planned append-only and its outer AVG
+     retractable; and TPC-H q3 in tests/test_tpch.py's SQL at SF0.1 with
+     build_q3's chunking, its MV equal to the oracle and to the
+     ``q3 fused`` arm's; each logs events/s, the p99 barrier latency,
+     CREATE's planning seconds, the rules and fusion that fired and
+     each kernel's launches;
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
    events, fused q7 and q8 at 2M, q7-mesh and q8-mesh at 2M unfused
    and fused, q8 FULL OUTER at 2M (its MV equal to the capped arm's)
    and under its cold-tier cap (the join's own host functions by
    cumulative time),
    maxbids (uncapped and capped) and distinct at 2M, q5-hot at 1M (its
-   MV equal to the fused and capped arms') and q3 at SF0.1 (equal to the
-   fused arm's),
+   MV equal to the fused and capped arms'), q3 at SF0.1 (equal to the
+   fused arm's) and the SQL q4 at 500K events,
    under torch.profiler (the device's busy time and idle share) and
    cProfile (host self-time by module; the sharded path's own host
    functions by cumulative time), after the main paths' counts were
@@ -1863,6 +1876,28 @@ def host_split(stats, top: int = 8) -> dict:
     return dict(ranked[:top])
 
 
+def traced_summary(prof, host, wall: float) -> dict:
+    """Device busy time and idle share of a torch.profiler run (the rule
+    of the profiler's own table: device events' self time), and the host
+    self-time by source of its cProfile run over ``wall`` seconds."""
+    import pstats
+    from torch.autograd import DeviceType
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    stats = pstats.Stats(host)
+    traced = dict(device_busy_ms=busy_us / 1e3 if busy_us else None,
+                  device_idle_share=(1 - busy_us / 1e6 / wall
+                                     if busy_us else None),
+                  host_self_s=host_split(stats))
+    parallel = mesh_host_fns(stats)
+    if parallel:
+        traced["parallel_cum_s"] = parallel
+    joined = join_host_fns(stats)
+    if joined:
+        traced["join_cum_s"] = joined
+    return traced
+
+
 def drive(p, targets: dict, dev, trace: bool) -> dict:
     """drive_to_completion with every launch count reset just before and
     read just after. With ``trace``, the drive runs under torch.profiler
@@ -1881,8 +1916,6 @@ def drive(p, targets: dict, dev, trace: bool) -> dict:
     LAUNCHES.reset()
     if trace:
         import cProfile
-        import pstats
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         host = cProfile.Profile()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1892,20 +1925,7 @@ def drive(p, targets: dict, dev, trace: bool) -> dict:
             elapsed, rows = run()
             host.disable()
             wall = time.perf_counter() - t0     # not the trace's teardown
-        # the rule of the profiler's own table: device events' self time
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA)
-        stats = pstats.Stats(host)
-        traced = dict(device_busy_ms=busy_us / 1e3 if busy_us else None,
-                      device_idle_share=(1 - busy_us / 1e6 / wall
-                                         if busy_us else None),
-                      host_self_s=host_split(stats))
-        parallel = mesh_host_fns(stats)
-        if parallel:
-            traced["parallel_cum_s"] = parallel
-        joined = join_host_fns(stats)
-        if joined:
-            traced["join_cum_s"] = joined
+        traced = traced_summary(prof, host, wall)
     else:
         t0 = time.perf_counter()
         elapsed, rows = run()
@@ -4738,6 +4758,239 @@ def run_q3(dev, customers: int, orders: int, trace: bool = False,
                 oracle_s=time.perf_counter() - t0)
 
 
+# -- phase 4: the SQL front door (Frontend) ------------------------------------
+
+SQL_Q4_EVENTS = 2_000_000     # 120,000 auctions, 1,840,000 bids (cut from 100M)
+SQL_Q4_TRACE_EVENTS = 500_000
+SQL_Q4_CHUNK = 4096           # bench_q4's sources and session
+SQL_Q4_RATE = 16
+# bench.py:374-380, letter for letter
+SQL_Q4 = ("CREATE MATERIALIZED VIEW q4 AS "
+          "SELECT category, AVG(final) AS avg_final FROM ("
+          "  SELECT a.category AS category, MAX(b.price) AS final"
+          "  FROM auction AS a JOIN bid AS b ON a.id = b.auction"
+          "  WHERE b.date_time BETWEEN a.date_time AND a.expires"
+          "  GROUP BY a.id, a.category) AS q "
+          "GROUP BY category")
+# tests/test_tpch.py:86-95's statement
+SQL_Q3 = ("CREATE MATERIALIZED VIEW q3 AS SELECT "
+          "o.o_orderkey, o.o_orderdate, o.o_shippriority, "
+          "sum(l.l_extendedprice * (1 - l.l_discount)) AS revenue "
+          "FROM customer AS c "
+          "JOIN orders AS o ON c.c_custkey = o.o_custkey "
+          "JOIN lineitem AS l ON o.o_orderkey = l.l_orderkey "
+          "WHERE c.c_mktsegment = 'BUILDING' "
+          "AND o.o_orderdate < {cutoff} AND l.l_shipdate > {cutoff} "
+          "GROUP BY o.o_orderkey, o.o_orderdate, o.o_shippriority "
+          "ORDER BY revenue DESC, o_orderdate ASC LIMIT 10")
+# the session's defaults fuse: the join sides absorb their projections
+# and row ids (join_prelude), the aggs their filters and projections
+# (agg_prelude)
+SQL_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+            "join_apply", "join_probe", "agg_prelude", "join_prelude")
+
+
+def q4_oracle(events: int, block: int = 1 << 21) -> list:
+    """(category, AVG(final)) of Nexmark q4, vectorized: final is the
+    MAX bid price per auction over its bids with a.date_time <=
+    b.date_time <= a.expires; the AVG is the binder's: the integer SUM
+    and the COUNT, each cast to FLOAT64, divided."""
+    key = ("q4", events)
+    if key in _ORACLES:
+        return _ORACLES[key]
+    from risingwave_tpu_torch.connectors.nexmark import (
+        NexmarkConfig, gen_auctions, gen_bids,
+    )
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=SQL_Q4_CHUNK,
+                        generate_strings=False)
+    n_auc, n_bid = events * 3 // 50, events * 46 // 50
+    a = gen_auctions(np.arange(n_auc, dtype=np.int64), cfg)
+    order = np.argsort(a["id"], kind="stable")
+    ids = a["id"][order]
+    final = np.full(n_auc, -1, np.int64)
+    for lo in range(0, n_bid, block):
+        b = gen_bids(np.arange(lo, min(lo + block, n_bid), dtype=np.int64),
+                     cfg)
+        pos = np.minimum(np.searchsorted(ids, b["auction"]), n_auc - 1)
+        k = order[pos]
+        ok = ((ids[pos] == b["auction"])
+              & (a["date_time"][k] <= b["date_time"])
+              & (b["date_time"] <= a["expires"][k]))
+        np.maximum.at(final, k[ok], b["price"][ok])
+    has = final >= 0
+    cats, inv = np.unique(a["category"][has], return_inverse=True)
+    tot = np.zeros(len(cats), np.int64)
+    np.add.at(tot, inv, final[has])
+    cnt = np.bincount(inv, minlength=len(cats))
+    avg = tot.astype(np.float64) / cnt.astype(np.float64)
+    _ORACLES[key] = (sorted(zip(cats.tolist(), avg.tolist())),
+                     dict(auctions_with_final=int(has.sum()),
+                          categories=len(cats)))
+    return _ORACLES[key]
+
+
+async def drive_frontend(fe, expected: int, dev, trace: bool,
+                         in_flight: int = 2, max_epochs: int = 2000) -> dict:
+    """bench.py's _drive_frontend on a port session: one warmup step,
+    then barriers pipelined ``in_flight`` deep until the sources have
+    read ``expected`` rows; events/s and the barrier latencies count
+    after the warmup. Every launch count is reset just before the warmup
+    and read just after the last collect. With ``trace``, the drive runs
+    under torch.profiler and cProfile, as ``drive``'s."""
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+
+    readers = [r for d in fe.readers.values() for r in d.values()]
+
+    def rows_seen() -> int:
+        return sum(r.offset for r in readers)
+
+    async def run():
+        await fe.step(1)
+        warm = rows_seen()
+        assert warm < expected, "warmup consumed every row"
+        loop = fe.loop
+        warm_epochs = len(loop.stats.latencies_s)
+        t0 = time.perf_counter()
+        injected = 0
+        while rows_seen() < expected:
+            assert injected < max_epochs, \
+                f"sources stalled at {rows_seen()}/{expected}"
+            while loop.in_flight_count < in_flight:
+                await loop.inject()
+                injected += 1
+            await loop.collect_next()
+        while loop.in_flight_count:
+            await loop.collect_next()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t0
+        loop.stats.latencies_s = loop.stats.latencies_s[warm_epochs:]
+        loop.profiler.drop_first(warm_epochs)
+        return elapsed, rows_seen() - warm
+
+    traced = {}
+    LAUNCHES.reset()
+    if trace:
+        import cProfile
+        from torch.profiler import ProfilerActivity, profile
+        host = cProfile.Profile()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            host.enable()
+            elapsed, rows = await run()
+            host.disable()
+            wall = time.perf_counter() - t0
+        traced = traced_summary(prof, host, wall)
+    else:
+        t0 = time.perf_counter()
+        elapsed, rows = await run()
+        wall = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    lat = np.asarray(fe.loop.stats.latencies_s)
+    return dict(events=rows, elapsed_s=elapsed, wall_s=wall,
+                events_per_s=rows / elapsed,
+                p99_barrier_latency_s=fe.loop.stats.p99_latency_s(),
+                barrier_latency_s={
+                    "p50": float(np.percentile(lat, 50)),
+                    "p90": float(np.percentile(lat, 90)),
+                    "max": float(lat.max())},
+                barrier_breakdown_p99=fe.loop.profiler.p99_breakdown(),
+                barriers=len(lat), launches=launches, **traced)
+
+
+def plan_facts(fe, name: str) -> dict:
+    """What CREATE did for one MV: planning + rewrite seconds, the rules
+    and fusion that fired, and the K2 mode of each agg, top down."""
+    report = fe.mv_reports[name]
+    modes = []
+
+    def walk(ex):
+        if type(ex).__name__ == "HashAggExecutor":
+            modes.append("append-only" if ex.append_only
+                         else "retractable")
+        for attr in ("input", "left_in", "right_in"):
+            c = getattr(ex, attr, None)
+            if c is not None and hasattr(c, "execute"):
+                walk(c)
+    walk(fe.actors[fe.catalog.mvs[name].actor_id].consumer)
+    return dict(plan_s=fe.mv_plan_seconds[name], rules=report.summary(),
+                rule_details=[f"{r}: {d}" for r, d in report.details],
+                fallbacks=report.fallbacks, agg_modes=modes)
+
+
+def run_sql_q4(dev, events: int, trace: bool = False) -> dict:
+    """Nexmark q4 through ``Frontend(device=dev)``: bench_q4's session
+    (rate_limit=16, min_chunks=16), sources (4096-row chunks, no strings)
+    and SQL, the session's default rules and fusion, driven two barriers
+    in flight to every event; the MV equal to the oracle exactly."""
+    from risingwave_tpu_torch.frontend import Frontend
+
+    async def main():
+        fe = Frontend(rate_limit=SQL_Q4_RATE, min_chunks=SQL_Q4_RATE,
+                      device=dev)
+        for t in ("auction", "bid"):
+            await fe.execute(
+                f"CREATE SOURCE {t} WITH (connector='nexmark', "
+                f"nexmark.table.type='{t}', "
+                f"nexmark.event.num={events}, "
+                f"nexmark.max.chunk.size={SQL_Q4_CHUNK}, "
+                f"nexmark.generate.strings='false')")
+        t0 = time.perf_counter()
+        await fe.execute(SQL_Q4)
+        create_s = time.perf_counter() - t0
+        facts = plan_facts(fe, "q4")
+        out = await drive_frontend(fe, events * 3 // 50 + events * 46 // 50,
+                                   dev, trace)
+        rows = await fe.execute("SELECT category, avg_final FROM q4")
+        await fe.close()
+        return out, facts, create_s, rows
+
+    out, facts, create_s, rows = asyncio.run(main())
+    rows = sorted((int(c), float(v)) for c, v in rows)
+    want, ofacts = q4_oracle(events)
+    assert rows == want, "sql q4: the MV differs from the oracle"
+    assert facts["agg_modes"] == ["retractable", "append-only"], \
+        f"sql q4 planned its aggs as {facts['agg_modes']}"
+    return dict(out, create_s=create_s, **facts, mv_rows=len(rows),
+                mv_digest=mv_digest(rows), oracle=ofacts)
+
+
+def run_sql_q3(dev, customers: int, orders: int) -> dict:
+    """TPC-H q3 in SQL through ``Frontend(device=dev)`` with build_q3's
+    chunking (1024-row chunks, Q3_CHUNKS a barrier a source), fused as
+    the session defaults; the MV's rows (physical: the revenue a scaled
+    int64) equal to the oracle, digested for the build_q3 arm's."""
+    from risingwave_tpu_torch.connectors.tpch import LINES_PER_ORDER
+    from risingwave_tpu_torch.frontend import Frontend
+    from risingwave_tpu_torch.models.tpch import CUTOFF
+
+    async def main():
+        fe = Frontend(rate_limit=Q3_CHUNKS, min_chunks=Q3_CHUNKS,
+                      device=dev)
+        for t in ("customer", "orders", "lineitem"):
+            await fe.execute(
+                f"CREATE SOURCE {t} WITH (connector='tpch', "
+                f"tpch.table='{t}', tpch.customers={customers}, "
+                f"tpch.orders={orders})")
+        t0 = time.perf_counter()
+        await fe.execute(SQL_Q3.format(cutoff=CUTOFF))
+        create_s = time.perf_counter() - t0
+        facts = plan_facts(fe, "q3")
+        out = await drive_frontend(
+            fe, customers + orders + orders * LINES_PER_ORDER, dev, False)
+        mat = fe.actors[fe.catalog.mvs["q3"].actor_id].consumer
+        phys = sorted(tuple(r) for _pk, r in mat.table.iter_rows())
+        await fe.close()
+        return out, facts, create_s, phys
+
+    out, facts, create_s, rows = asyncio.run(main())
+    want, _facts, _groups = q3_oracle(customers, orders)
+    assert rows == want, "sql q3: the MV differs from the oracle"
+    return dict(out, create_s=create_s, **facts, mv_rows=len(rows),
+                mv_digest=mv_digest(rows))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4946,7 +5199,9 @@ def main() -> int:
                 d, e, tier_cap=Q5_TIER_CAP), Q5_EVENTS, Q5_CAPPED_PATH),
             ("q3", lambda d, e: run_q3(d, *Q3_SF1), 0, Q3_PATH),
             ("q3 fused", lambda d, e: run_q3(d, *Q3_SF01, fusion=True), 0,
-             Q3_FUSED_PATH)):
+             Q3_FUSED_PATH),
+            ("sql q4", run_sql_q4, SQL_Q4_EVENTS, SQL_PATH),
+            ("sql q3", lambda d, e: run_sql_q3(d, *Q3_SF01), 0, SQL_PATH)):
         t_path = time.perf_counter()
         out = run(dev, events)
         out["path_s"] = time.perf_counter() - t_path
@@ -5020,6 +5275,16 @@ def main() -> int:
             f"{one['p99_barrier_latency_s']}; per barrier "
             + json.dumps(m["per_barrier"]))
 
+    assert paths["sql q3"]["mv_digest"] == paths["q3 fused"]["mv_digest"], \
+        "sql q3: the MV differs from build_q3's at the same size"
+    for label in ("sql q4", "sql q3"):
+        r = paths[label]
+        log(f"{label}: events/s {r['events_per_s']}, p99 barrier latency "
+            f"{r['p99_barrier_latency_s']} s, CREATE {r['create_s']} s "
+            f"(planning + rewrite {r['plan_s']} s), rules "
+            f"{r['rules']}, aggs {r['agg_modes']}, launches "
+            + json.dumps(r["launches"]) + f"; {card}")
+
     J.JoinSideKernel.read_degrees = host_read
     assert not degree_reads, \
         f"phase 4 read degrees to the host {len(degree_reads)} times"
@@ -5091,6 +5356,8 @@ def main() -> int:
         + json.dumps(q3_traced))
     assert paths["q3 fused"]["mv_digest"] == q3_traced["mv_digest"], \
         "q3 fused: the MV differs from the unfused q3's"
+    log(f"sql q4 traced at {SQL_Q4_TRACE_EVENTS} events: "
+        + json.dumps(run_sql_q4(dev, SQL_Q4_TRACE_EVENTS, trace=True)))
     log(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 

@@ -157,6 +157,10 @@ class DataType(enum.Enum):
         d = _PHYSICAL.get(self)
         return np.dtype(object) if d is None else np.dtype(d)
 
+    @staticmethod
+    def from_sql(name: str) -> "DataType":
+        return _SQL_NAMES[name.strip().lower()]
+
 
 _HOST_TYPES = frozenset({DataType.VARCHAR, DataType.BYTEA, DataType.JSONB,
                          DataType.INTERVAL, DataType.INT256, DataType.STRUCT,
@@ -175,6 +179,31 @@ _PHYSICAL = {
     DataType.TIMESTAMP: np.int64,
     DataType.TIMESTAMPTZ: np.int64,
     DataType.SERIAL: np.int64,
+}
+
+_SQL_NAMES = {
+    "boolean": DataType.BOOLEAN, "bool": DataType.BOOLEAN,
+    "smallint": DataType.INT16, "int2": DataType.INT16,
+    "int": DataType.INT32, "integer": DataType.INT32, "int4": DataType.INT32,
+    "bigint": DataType.INT64, "int8": DataType.INT64,
+    "real": DataType.FLOAT32, "float4": DataType.FLOAT32,
+    "double precision": DataType.FLOAT64, "double": DataType.FLOAT64,
+    "float8": DataType.FLOAT64, "float": DataType.FLOAT64,
+    "numeric": DataType.DECIMAL, "decimal": DataType.DECIMAL,
+    "date": DataType.DATE,
+    "time": DataType.TIME,
+    "timestamp": DataType.TIMESTAMP,
+    "timestamptz": DataType.TIMESTAMPTZ,
+    "timestamp with time zone": DataType.TIMESTAMPTZ,
+    "interval": DataType.INTERVAL,
+    "varchar": DataType.VARCHAR, "text": DataType.VARCHAR,
+    "string": DataType.VARCHAR, "character varying": DataType.VARCHAR,
+    "bytea": DataType.BYTEA,
+    "jsonb": DataType.JSONB,
+    "serial": DataType.SERIAL,
+    "rw_int256": DataType.INT256, "int256": DataType.INT256,
+    "struct": DataType.STRUCT,
+    "list": DataType.LIST,
 }
 
 

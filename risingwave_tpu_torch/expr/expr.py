@@ -17,7 +17,10 @@ compute values that are never read.
 
 The same trees also run on the card: ``ops/fused.py`` compiles them into
 an expression program that ``csrc/fused.cu`` interprets per row. The
-string functions of the reference are not ported yet.
+host-typed half (VARCHAR casts and the string and date functions
+``lower`` ... ``date_trunc``, ref :684-828) runs on the host only, as
+the reference's does: those are projection-side functions over object
+arrays, and the fusion rule refuses programs that hold them.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import numpy as np
 from risingwave_tpu_torch.common.chunk import Column, DataChunk
 from risingwave_tpu_torch.common.types import (
     DECIMAL_SCALE, DataType, DecimalOverflowError, Interval, _SCALED_MAX,
-    decimal_to_scaled,
+    decimal_to_scaled, scaled_to_decimal,
 )
 
 # -- type inference ---------------------------------------------------------
@@ -76,15 +79,84 @@ def _promote_comparison(lt: DataType, rt: DataType) -> DataType:
     return promote_numeric(lt, rt)
 
 
+def _parse_timestamp_us(s: str) -> int:
+    import datetime
+    s = s.strip().replace("T", " ")
+    dt = datetime.datetime.fromisoformat(s)
+    if dt.tzinfo is not None:
+        dt = dt.astimezone(datetime.timezone.utc).replace(tzinfo=None)
+    epoch = datetime.datetime(1970, 1, 1)
+    return int((dt - epoch).total_seconds() * 1_000_000)
+
+
+def _cast_one_string(v, dst: DataType):
+    if v is None:
+        return 0
+    if dst in (DataType.INT16, DataType.INT32, DataType.INT64,
+               DataType.SERIAL):
+        return int(v)
+    if dst in (DataType.FLOAT32, DataType.FLOAT64):
+        return float(v)
+    if dst == DataType.DECIMAL:
+        return decimal_to_scaled(decimal.Decimal(v))
+    if dst == DataType.BOOLEAN:
+        return v.strip().lower() in ("t", "true", "1", "yes", "on")
+    if dst in (DataType.TIMESTAMP, DataType.TIMESTAMPTZ):
+        return _parse_timestamp_us(v)
+    if dst == DataType.DATE:
+        import datetime
+        return (datetime.date.fromisoformat(v.strip())
+                - datetime.date(1970, 1, 1)).days
+    if dst == DataType.TIME:
+        import datetime
+        t = datetime.time.fromisoformat(v.strip())
+        return ((t.hour * 60 + t.minute) * 60 + t.second) * 1_000_000 \
+            + t.microsecond
+    raise TypeError(f"cannot cast string to {dst}")
+
+
+def _format_to_string(v, src: DataType) -> str:
+    """pg text-out for physical values (round-trips _cast_one_string)."""
+    import datetime
+    if src == DataType.DECIMAL:
+        return str(scaled_to_decimal(v))
+    if src == DataType.BOOLEAN:
+        return "true" if v else "false"
+    if src in (DataType.TIMESTAMP, DataType.TIMESTAMPTZ):
+        us = int(v)
+        base = datetime.datetime(1970, 1, 1) + \
+            datetime.timedelta(microseconds=us)
+        out = base.isoformat(sep=" ")
+        return out + "+00:00" if src == DataType.TIMESTAMPTZ else out
+    if src == DataType.DATE:
+        return (datetime.date(1970, 1, 1)
+                + datetime.timedelta(days=int(v))).isoformat()
+    if src == DataType.TIME:
+        us = int(v)
+        s_, rem = divmod(us, 1_000_000)
+        h, r2 = divmod(s_, 3600)
+        m, sec = divmod(r2, 60)
+        out = f"{h:02d}:{m:02d}:{sec:02d}"
+        return out + (f".{rem:06d}" if rem else "")
+    return str(v)
+
+
 def _cast_values(vals, src: DataType, dst: DataType):
-    """Device-typed cast of a value array (host-typed casts are not
-    ported). Casts to DECIMAL detect overflow of the scaled int64
-    domain and raise, as the reference's host path does."""
+    """Cast of a value array. VARCHAR casts parse or format per element
+    (pg text-in / text-out); casts to DECIMAL detect overflow of the
+    scaled int64 domain and raise."""
     if src == dst:
         return vals
+    if src == DataType.VARCHAR:
+        out = [_cast_one_string(v, dst) for v in vals.tolist()]
+        return np.asarray(out, dtype=dst.np_dtype)
+    if dst == DataType.VARCHAR:
+        lst = [_format_to_string(v, src) for v in vals.tolist()]
+        out = np.empty(len(lst), dtype=object)
+        out[:] = lst
+        return out
     if not (src.is_device and dst.is_device):
-        raise NotImplementedError(
-            f"cast {src.value} -> {dst.value} is not ported")
+        raise TypeError(f"cannot cast {src.value} to {dst.value}")
     if dst == DataType.DECIMAL:
         lim = _SCALED_MAX // DECIMAL_SCALE
         if src in (DataType.FLOAT32, DataType.FLOAT64):
@@ -408,9 +480,20 @@ class Cast(Expression):
         c = self.child.eval(chunk)
         if c.data_type == self.return_type:
             return c
+        validity = c.validity
+        if not c.data_type.is_device:
+            # host columns carry NULL as the None object: derive the mask
+            # here or NULL would cast to 0 / false / the epoch
+            vals_l = np.asarray(c.values).tolist()
+            nulls = np.fromiter((v is None for v in vals_l), dtype=bool,
+                                count=len(vals_l))
+            if nulls.any():
+                ok = ~nulls
+                validity = ok if validity is None \
+                    else np.asarray(validity) & ok
         with np.errstate(invalid="ignore", over="ignore"):
             vals = _cast_values(c.values, c.data_type, self.return_type)
-        return Column(self.return_type, vals, c.validity)
+        return Column(self.return_type, vals, validity)
 
     def __repr__(self):
         return f"cast({self.child!r} as {self.return_type.value})"
@@ -529,3 +612,188 @@ class Case(Expression):
 
     def __repr__(self):
         return f"case({self.whens!r}, else={self.else_!r})"
+
+
+# -- scalar function library (vector_op/ analog, host-typed) -----------------
+# VARCHAR columns are host object arrays; these run vectorized python
+# passes (they are projection-side, not kernel-side). TIMESTAMP is µs
+# since epoch (int64, device). NULL in → NULL out, elementwise.
+
+def _host_unary(rt, col, fn):
+    vals = np.asarray(col.values)
+    ok = np.ones(len(vals), dtype=bool) if col.validity is None \
+        else np.asarray(col.validity).copy()
+    out = np.empty(len(vals), dtype=object)
+    for i in np.flatnonzero(ok):
+        v = vals[i]
+        if v is None:
+            ok[i] = False
+            continue
+        out[i] = fn(v)
+    return Column(rt, out, None if ok.all() else ok)
+
+
+def _scalar_of(col: Column):
+    """First non-null value of a (literal) column, or None."""
+    vals = np.asarray(col.values)
+    if col.validity is not None:
+        idx = np.flatnonzero(np.asarray(col.validity))
+        return vals[idx[0]] if len(idx) else None
+    return vals[0] if len(vals) else None
+
+
+@register_function("lower")
+def _fn_lower(rt, s: Column) -> Column:
+    return _host_unary(rt, s, lambda v: str(v).lower())
+
+
+@register_function("upper")
+def _fn_upper(rt, s: Column) -> Column:
+    return _host_unary(rt, s, lambda v: str(v).upper())
+
+
+@register_function("char_length")
+def _fn_char_length(rt, s: Column) -> Column:
+    vals = np.asarray(s.values)
+    ok = np.ones(len(vals), dtype=bool) if s.validity is None \
+        else np.asarray(s.validity).copy()
+    out = np.zeros(len(vals), dtype=np.int64)
+    for i in np.flatnonzero(ok):
+        if vals[i] is None:
+            ok[i] = False
+        else:
+            out[i] = len(str(vals[i]))
+    return Column(rt, out, None if ok.all() else ok)
+
+
+_FUNCTIONS["length"] = _FUNCTIONS["char_length"]   # pg alias
+
+
+@register_function("substr")
+def _fn_substr(rt, s: Column, start: Column, *ln: Column) -> Column:
+    st = _scalar_of(start)
+    n = _scalar_of(ln[0]) if ln else None
+    if st is None:
+        return _host_unary(rt, s, lambda v: None)
+    # pg window semantics: the window is [start, start+len) in 1-based
+    # positions BEFORE clamping — substr('hello', 0, 3) = 'he'
+    raw_lo = int(st) - 1
+    hi = None if n is None else raw_lo + max(int(n), 0)
+    lo = max(raw_lo, 0)
+    if hi is not None and hi <= lo:
+        return _host_unary(rt, s, lambda v: "")
+    return _host_unary(rt, s, lambda v: str(v)[lo:hi])
+
+
+@register_function("split_part")
+def _fn_split_part(rt, s: Column, delim: Column, idx: Column) -> Column:
+    d, k = _scalar_of(delim), _scalar_of(idx)
+    if d is None or k is None or str(d) == "":
+        return _host_unary(rt, s, lambda v: None)
+    k = int(k)
+    if k == 0:
+        raise ValueError("split_part position must not be zero")
+
+    def part(v):
+        parts = str(v).split(str(d))
+        i = k - 1 if k > 0 else len(parts) + k   # negative: from end
+        return parts[i] if 0 <= i < len(parts) else ""
+    return _host_unary(rt, s, part)
+
+
+@register_function("replace")
+def _fn_replace(rt, s: Column, old: Column, new: Column) -> Column:
+    o, n = _scalar_of(old), _scalar_of(new)
+    if o is None or n is None:
+        return _host_unary(rt, s, lambda v: None)
+    return _host_unary(rt, s, lambda v: str(v).replace(str(o), str(n)))
+
+
+@register_function("concat")
+def _fn_concat(rt, *cols: Column) -> Column:
+    n = max(len(np.asarray(c.values)) for c in cols)
+    out = np.empty(n, dtype=object)
+    for i in range(n):
+        parts = []
+        for c in cols:
+            vals = np.asarray(c.values)
+            okc = c.validity
+            if okc is not None and not np.asarray(okc)[i]:
+                continue                 # pg concat skips NULLs
+            v = vals[i]
+            if v is not None:
+                parts.append(str(v))
+        out[i] = "".join(parts)
+    return Column(rt, out, None)
+
+
+# to_char format → strftime (the subset the nexmark corpus uses; the
+# reference's to_char lives in expr/src/vector_op/to_char.rs)
+_TO_CHAR_MAP = [("YYYY", "%Y"), ("MM", "%m"), ("DD", "%d"),
+                ("HH24", "%H"), ("MI", "%M"), ("SS", "%S")]
+
+
+@register_function("to_char")
+def _fn_to_char(rt, ts: Column, fmt: Column) -> Column:
+    import datetime
+    f = _scalar_of(fmt)
+    if f is None:
+        return _host_unary(rt, ts, lambda v: None)
+    sf = str(f)
+    for a, b in _TO_CHAR_MAP:
+        sf = sf.replace(a, b)
+    epoch = datetime.datetime(1970, 1, 1,
+                              tzinfo=datetime.timezone.utc)
+
+    def conv(v):
+        return (epoch + datetime.timedelta(
+            microseconds=int(v))).strftime(sf)
+    return _host_unary(rt, ts, conv)
+
+
+_DATE_PART_DIV = {
+    "second": (1_000_000, 60), "minute": (60_000_000, 60),
+    "hour": (3_600_000_000, 24),
+}
+
+
+@register_function("date_part")
+def _fn_date_part(rt, field: Column, ts: Column) -> Column:
+    import datetime
+    f = _scalar_of(field)
+    f = str(f).lower() if f is not None else ""
+    vals = np.asarray(ts.values)
+    ok = np.ones(len(vals), dtype=bool) if ts.validity is None \
+        else np.asarray(ts.validity)
+    if f in _DATE_PART_DIV:
+        div, mod = _DATE_PART_DIV[f]
+        out = (vals.astype(np.int64) // div) % mod
+        return Column(rt, out.astype(np.int64),
+                      None if ok.all() else np.asarray(ok))
+    epoch = datetime.datetime(1970, 1, 1,
+                              tzinfo=datetime.timezone.utc)
+    attr = {"year": "year", "month": "month", "day": "day"}.get(f)
+    if attr is None:
+        raise ValueError(f"date_part field {f!r} unsupported")
+    out = np.zeros(len(vals), dtype=np.int64)
+    for i in np.flatnonzero(ok):
+        out[i] = getattr(epoch + datetime.timedelta(
+            microseconds=int(vals[i])), attr)
+    return Column(rt, out, None if ok.all() else np.asarray(ok))
+
+
+_TRUNC_US = {"second": 1_000_000, "minute": 60_000_000,
+             "hour": 3_600_000_000, "day": 86_400_000_000}
+
+
+@register_function("date_trunc")
+def _fn_date_trunc(rt, field: Column, ts: Column) -> Column:
+    f = _scalar_of(field)
+    f = str(f).lower() if f is not None else ""
+    unit = _TRUNC_US.get(f)
+    if unit is None:
+        raise ValueError(f"date_trunc field {f!r} unsupported")
+    vals = np.asarray(ts.values).astype(np.int64)
+    out = vals - vals % unit
+    ok = ts.validity
+    return Column(rt, out, None if ok is None else np.asarray(ok))

@@ -6,8 +6,10 @@ barrier_manager.rs:103,119): an actor is one asyncio task driving an
 executor chain; the LocalBarrierManager sends injected barriers to source
 actors through registered senders and collects per-actor completion per
 epoch. The port covers one alignment domain and actors with no
-dispatchers (the q7 pipeline is one actor); the reference's monitoring,
-metrics and domain scoping are not ported.
+dispatchers (an MV's pipeline is one actor); the reference's monitoring,
+metrics and domain scoping are not ported. ``close_receivers`` (:37)
+and ``LocalBarrierManager.drop_actor`` (:273) are what a SQL session's
+DROP needs.
 
 Barrier collection is the device sync point: an actor reports a barrier
 collected after its executors flushed device state for the epoch.
@@ -16,11 +18,24 @@ collected after its executors flushed device state for the epoch.
 from __future__ import annotations
 
 import asyncio
+import time
 from typing import Dict, List, Optional, Sequence, Set
 
-from risingwave_tpu_torch.stream.exchange import Sender
-from risingwave_tpu_torch.stream.executor import Executor
+from risingwave_tpu_torch.stream.exchange import Receiver, Sender
+from risingwave_tpu_torch.stream.executor import Executor, executor_children
 from risingwave_tpu_torch.stream.message import Barrier, is_barrier
+
+
+def close_receivers(ex, attrs=("rx", "barrier_rx")) -> None:
+    """Release the exchange Receivers an executor tree owns, at once
+    (deterministic teardown: the generators' own finally blocks run only
+    when the abandoned chain is finalized)."""
+    for attr in attrs:
+        r = getattr(ex, attr, None)
+        if isinstance(r, Receiver):
+            r.close()
+    for _attr, _i, child in executor_children(ex):
+        close_receivers(child, attrs)
 
 
 class Actor:
@@ -76,6 +91,7 @@ class LocalBarrierManager:
         self._collected: Dict[int, Set[int]] = {}   # epoch -> actor ids
         self._complete: Dict[int, asyncio.Event] = {}
         self._barriers: Dict[int, Barrier] = {}
+        self._collect_times: Dict[int, Dict[int, float]] = {}
         self._failed: Optional[BaseException] = None
 
     def register_sender(self, actor_id: int, sender: Sender) -> None:
@@ -101,9 +117,25 @@ class LocalBarrierManager:
         epoch = barrier.epoch.curr.value
         got = self._collected.setdefault(epoch, set())
         got.add(actor_id)
+        self._collect_times.setdefault(epoch, {})[actor_id] = \
+            time.monotonic()
         ev = self._complete.setdefault(epoch, asyncio.Event())
         if self._expected_actors and got >= self._expected_actors:
             ev.set()
+
+    def take_collect_times(self, epoch: int) -> Dict[int, float]:
+        """Pop the per-actor collect timestamps of one epoch."""
+        return self._collect_times.pop(epoch, {})
+
+    def drop_actor(self, actor_id: int) -> None:
+        """Forget an actor: no more barriers to it, none expected from it
+        (an epoch it held open completes if every other actor
+        collected it)."""
+        self._expected_actors.discard(actor_id)
+        self._barrier_senders.pop(actor_id, None)
+        for epoch, got in self._collected.items():
+            if self._expected_actors and got >= self._expected_actors:
+                self._complete.setdefault(epoch, asyncio.Event()).set()
 
     def notify_failure(self, actor_id: int, err: BaseException) -> None:
         self._failed = err

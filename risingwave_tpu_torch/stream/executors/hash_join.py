@@ -716,6 +716,14 @@ class HashJoinExecutor(Executor):
                              f"{device}")
         self.left_in, self.right_in = left, right
         self.join_type = join_type
+        # rebuild recipe for plan rewrites (frontend/opt): column pruning
+        # reconstructs the join over narrowed inputs with this exact
+        # configuration, on the same device
+        self.rebuild_opts = {"actor_id": actor_id, "mesh": mesh,
+                             "shard_opts": shard_opts,
+                             "state_cap": state_cap,
+                             "device_payload": device_payload,
+                             "epoch_batch": epoch_batch, "device": device}
         key_codec = KeyCodec([left.schema[i].data_type for i in left_keys])
         self.sides = (
             _JoinSide(left.schema, left_keys, left_table.pk_indices,

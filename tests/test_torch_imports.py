@@ -58,6 +58,18 @@ import risingwave_tpu_torch.stream.executors.over_window
 import risingwave_tpu_torch.stream.executors.temporal_join
 import risingwave_tpu_torch.batch
 import risingwave_tpu_torch.batch.task
+import risingwave_tpu_torch.frontend
+import risingwave_tpu_torch.frontend.ast
+import risingwave_tpu_torch.frontend.parser
+import risingwave_tpu_torch.frontend.catalog
+import risingwave_tpu_torch.frontend.session_vars
+import risingwave_tpu_torch.frontend.binder
+import risingwave_tpu_torch.frontend.opt.rules
+import risingwave_tpu_torch.frontend.opt.engine
+import risingwave_tpu_torch.frontend.planner
+import risingwave_tpu_torch.frontend.session
+import risingwave_tpu_torch.meta.barrier
+import risingwave_tpu_torch.stream.actor
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "risingwave_tpu" or m.startswith("risingwave_tpu."))
@@ -151,3 +163,21 @@ def test_q5_and_q3_entry_points_default_to_the_card():
     p = build_q3(MemoryStateStore(), customers=10, orders=100, device="cpu")
     agg = p.actor.consumer.input.input
     assert torch.device(agg._kern_kw["device"]).type == "cpu"
+
+
+def test_sql_frontend_defaults_to_the_card():
+    """Frontend() without a device runs its MVs on the card, and raises
+    without one; the planner and the rewrite's fused blocks take the
+    session's device."""
+    from risingwave_tpu_torch.frontend import Frontend
+    from risingwave_tpu_torch.frontend.planner import StreamPlanner
+
+    if torch.cuda.is_available():
+        assert Frontend().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Frontend()
+    fe = Frontend(device="cpu")
+    assert fe.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamPlanner(fe.catalog, fe.store, fe.local, definition="")

@@ -1,0 +1,117 @@
+"""SQL through the port's Frontend on the card, against the same SQL on
+the port's CPU path.
+
+Marked ``cuda``: without a card every test here skips. On a CUDA host
+run ``python -m pytest --noconftest -m cuda tests/test_torch_sql_cuda.py``
+(``--noconftest``: tests/conftest.py imports JAX, which this file does
+not). A handful of the query corpus's shapes (``tests/test_corpus.py``,
+``tests/test_frontend.py``) run on ``Frontend(device="cuda")`` and on
+``Frontend(device="cpu")``: a join, a hop window, an over-window, a TopN
+and a DECIMAL agg. Their MV rows must be equal as multisets (on the card
+K1's slot order moves only the order in which groups flush, ``ROADMAP.md``
+queue C), and the card's run must have launched the kernels of its plan.
+"""
+
+import asyncio
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _nexmark(t, n, chunk=256):
+    return (f"CREATE SOURCE {t} WITH (connector='nexmark', "
+            f"nexmark.table.type='{t}', nexmark.event.num={n}, "
+            f"nexmark.max.chunk.size={chunk}, "
+            f"nexmark.min.event.gap.in.ns=100000000)")
+
+
+def _tpch(t):
+    return (f"CREATE SOURCE {t} WITH (connector='tpch', tpch.table='{t}', "
+            f"tpch.customers=300, tpch.orders=2000)")
+
+
+# name -> (sources, CREATE MATERIALIZED VIEW, SELECT, kernels it launches)
+CASES = {
+    "q20_join": (
+        [_nexmark("bid", 8000), _nexmark("auction", 8000)],
+        "CREATE MATERIALIZED VIEW v AS SELECT b.auction, b.bidder, "
+        "b.price, a.item_name, a.category FROM bid AS b "
+        "JOIN auction AS a ON b.auction = a.id WHERE a.category = 12",
+        "SELECT * FROM v", ("probe_insert", "join_apply", "join_probe")),
+    "hop_window": (
+        [_nexmark("bid", 8000)],
+        "CREATE MATERIALIZED VIEW v AS SELECT auction, window_start, "
+        "count(*) AS c FROM HOP(bid, date_time, INTERVAL '2' SECOND, "
+        "INTERVAL '10' SECOND) GROUP BY auction, window_start",
+        "SELECT * FROM v", ("probe_insert", "agg_apply", "agg_prelude")),
+    "q18_over_window": (
+        [_nexmark("bid", 8000)],
+        "CREATE MATERIALIZED VIEW v AS SELECT auction, bidder, price, "
+        "date_time FROM (SELECT auction, bidder, price, date_time, "
+        "row_number() OVER (PARTITION BY bidder, auction ORDER BY "
+        "date_time DESC) AS rn FROM bid) AS t WHERE rn = 1",
+        "SELECT * FROM v", ()),
+    "q105_topn": (
+        [_nexmark("bid", 8000)],
+        "CREATE MATERIALIZED VIEW v AS SELECT auction, count(*) AS num "
+        "FROM bid GROUP BY auction ORDER BY num DESC, auction LIMIT 10",
+        "SELECT * FROM v", ("probe_insert", "agg_apply", "flush_gather")),
+    "tpch_q1_decimal": (
+        [_tpch("lineitem")],
+        "CREATE MATERIALIZED VIEW v AS SELECT l_returnflag, "
+        "l_linestatus, sum(l_quantity) AS sum_qty, "
+        "sum(l_extendedprice) AS sum_base, "
+        "sum(l_extendedprice * (1 - l_discount)) AS sum_disc, "
+        "count(*) AS cnt FROM lineitem GROUP BY l_returnflag, "
+        "l_linestatus",
+        "SELECT * FROM v", ("probe_insert", "agg_apply", "flush_gather")),
+}
+
+
+def _run(device, sources, mv, select):
+    from risingwave_tpu_torch.frontend import Frontend
+    from risingwave_tpu_torch.frontend.opt import set_strict_checker
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+
+    async def main():
+        fe = Frontend(rate_limit=8, min_chunks=8, device=device)
+        for s in sources:
+            await fe.execute(s)
+        await fe.execute(mv)
+        LAUNCHES.reset()
+        await fe.step(16)
+        launches = LAUNCHES.snapshot()
+        rows = await fe.execute(select)
+        await fe.close()
+        return rows, launches
+
+    set_strict_checker(True)
+    try:
+        rows, launches = asyncio.run(main())
+    finally:
+        set_strict_checker(False)
+    norm = [tuple(v.item() if isinstance(v, np.generic) else v for v in r)
+            for r in rows]
+    return Counter(norm), launches
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sql_on_the_card_matches_the_cpu(dev, name):
+    sources, mv, select, kernels = CASES[name]
+    got, launches = _run(dev, sources, mv, select)
+    want, cpu_launches = _run(torch.device("cpu"), sources, mv, select)
+    assert got == want and sum(want.values()) > 0, name
+    assert not cpu_launches
+    missing = [k for k in kernels if not launches.get(k)]
+    assert not missing, f"{name} never launched {missing}"
