@@ -202,7 +202,19 @@ phases, any failure of which exits non-zero:
      build_q3's chunking, its MV equal to the oracle and to the
      ``q3 fused`` arm's; each logs events/s, the p99 barrier latency,
      CREATE's planning seconds, the rules and fusion that fired and
-     each kernel's launches;
+     each kernel's launches; the same q4 with its MV's empty broadcast
+     dispatcher removed (the dispatch's cost, same MV and launches);
+   - tables, DML, MV on MV and the filelog source in SQL: ad-ctr
+     (bench.py's bench_adctr DDL and producer: two filelog topics of
+     JSON records, HOP windows, a join, a temporal join against the
+     ad_dim MV, a sliding-window agg) at 200,000 impressions and
+     parallelism 1, its MV equal to a vectorized oracle and ad_dim
+     counting every impression; and an MV chain over 2M events' bids:
+     m1 counts bids per auction, m2 (its histogram with MIN) backfills
+     m1's committed snapshot mid-stream, then a table filled by INSERT
+     ... SELECT from m1, an agg MV over it, a DELETE and an UPDATE, each
+     MV equal to its oracle after each statement, with the backfill's
+     rows and seconds and each agg's K2 mode;
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
    events, fused q7 and q8 at 2M, q7-mesh and q8-mesh at 2M unfused
    and fused, q8 FULL OUTER at 2M (its MV equal to the capped arm's)
@@ -210,7 +222,8 @@ phases, any failure of which exits non-zero:
    cumulative time),
    maxbids (uncapped and capped) and distinct at 2M, q5-hot at 1M (its
    MV equal to the fused and capped arms'), q3 at SF0.1 (equal to the
-   fused arm's) and the SQL q4 at 500K events,
+   fused arm's), the SQL q4 at 500K events and ad-ctr at 100,000
+   impressions (the sources' read and parse by cumulative time),
    under torch.profiler (the device's busy time and idle share) and
    cProfile (host self-time by module; the sharded path's own host
    functions by cumulative time), after the main paths' counts were
@@ -241,6 +254,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -1889,6 +1903,11 @@ def traced_summary(prof, host, wall: float) -> dict:
                   device_idle_share=(1 - busy_us / 1e6 / wall
                                      if busy_us else None),
                   host_self_s=host_split(stats))
+    ingest = ingest_host_fns(stats)
+    if ingest:
+        traced["ingest_cum_s"] = ingest
+        traced["ingest_share_of_wall"] = sum(
+            v for k, v in ingest.items() if k.endswith(":next_chunk")) / wall
     parallel = mesh_host_fns(stats)
     if parallel:
         traced["parallel_cum_s"] = parallel
@@ -3763,6 +3782,21 @@ def join_host_fns(stats) -> dict:
     return out
 
 
+def ingest_host_fns(stats) -> dict:
+    """Cumulative host time (s) of the sources: each reader's
+    ``next_chunk`` (generation, or for filelog the file read and the
+    parse) and, within it, the parser's ``build_chunk`` (the JSON decode
+    and the columns' coercion)."""
+    out: dict = {}
+    for (path, _line, fn), (_cc, _nc, _tt, ct, _callers) in \
+            stats.stats.items():
+        if "risingwave_tpu_torch/connectors/" in path and fn in (
+                "next_chunk", "build_chunk"):
+            key = path.split("risingwave_tpu_torch/")[-1] + ":" + fn
+            out[key] = out.get(key, 0.0) + ct
+    return out
+
+
 def mesh_host_fns(stats) -> dict:
     """Cumulative host time (s) of the sharded paths' own host work: the
     routing's host twin and bucket sizing, the agg's step and flush, the
@@ -4842,7 +4876,7 @@ async def drive_frontend(fe, expected: int, dev, trace: bool,
     readers = [r for d in fe.readers.values() for r in d.values()]
 
     def rows_seen() -> int:
-        return sum(r.offset for r in readers)
+        return sum(_reader_rows(r) for r in readers)
 
     async def run():
         await fe.step(1)
@@ -4919,11 +4953,15 @@ def plan_facts(fe, name: str) -> dict:
                 fallbacks=report.fallbacks, agg_modes=modes)
 
 
-def run_sql_q4(dev, events: int, trace: bool = False) -> dict:
+def run_sql_q4(dev, events: int, trace: bool = False,
+               bare: bool = False) -> dict:
     """Nexmark q4 through ``Frontend(device=dev)``: bench_q4's session
     (rate_limit=16, min_chunks=16), sources (4096-row chunks, no strings)
     and SQL, the session's default rules and fusion, driven two barriers
-    in flight to every event; the MV equal to the oracle exactly."""
+    in flight to every event; the MV equal to the oracle exactly. With
+    ``bare`` the MV's actor ends without its (empty) broadcast
+    dispatcher, as before MV on MV: the dispatch's own cost is the
+    difference."""
     from risingwave_tpu_torch.frontend import Frontend
 
     async def main():
@@ -4939,6 +4977,8 @@ def run_sql_q4(dev, events: int, trace: bool = False) -> dict:
         t0 = time.perf_counter()
         await fe.execute(SQL_Q4)
         create_s = time.perf_counter() - t0
+        if bare:
+            fe.actors[fe.catalog.mvs["q4"].actor_id].dispatchers.clear()
         facts = plan_facts(fe, "q4")
         out = await drive_frontend(fe, events * 3 // 50 + events * 46 // 50,
                                    dev, trace)
@@ -4989,6 +5029,327 @@ def run_sql_q3(dev, customers: int, orders: int) -> dict:
     assert rows == want, "sql q3: the MV differs from the oracle"
     return dict(out, create_s=create_s, **facts, mv_rows=len(rows),
                 mv_digest=mv_digest(rows))
+
+
+
+# -- phase 4: tables, DML, MV on MV, the temporal join and filelog in SQL ----
+
+ADCTR_IMPRESSIONS = 200_000   # bench_adctr's: 66,667 clicks, 466,667 rows read
+ADCTR_TRACE_IMPRESSIONS = 100_000   # the CREATEs and the warmup read ~70%
+ADCTR_ADS = 100
+ADCTR_RATE = 8                # bench_adctr's session: rate_limit = min_chunks
+ADCTR_BASE_US = 1_700_000_000_000_000
+ADCTR_SLIDE_US = 2_000_000
+ADCTR_SIZE_US = 10_000_000
+ADCTR_DIR = os.path.join("build", "adctr")   # the topics, under build/
+# both aggs and the join on the card; the fusion rule absorbs the join
+# sides' row ids and the aggs' projections
+ADCTR_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+              "join_apply", "join_probe", "agg_prelude", "join_prelude")
+CHAIN_EVENTS = 2_000_000      # sql q4's bid source: 1,840,000 bids
+CHAIN_M1 = ("CREATE MATERIALIZED VIEW m1 AS SELECT auction, count(*) AS c "
+            "FROM bid GROUP BY auction")
+# tests/test_frontend.py:504's m2
+CHAIN_M2 = ("CREATE MATERIALIZED VIEW m2 AS SELECT c, count(*) AS n, "
+            "min(auction) AS ma FROM m1 GROUP BY c")
+CHAIN_TM = ("CREATE MATERIALIZED VIEW tm AS SELECT k, sum(v) AS s, "
+            "count(*) AS n FROM t GROUP BY k")
+CHAIN_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
+              "agg_prelude")
+
+
+def adctr_produce(path: str, n_impressions: int, n_ads: int = 100):
+    """bench.py's _adctr_produce, letter for letter: filelog topics
+    standing in for the ad-ctr demo's Kafka topics."""
+    import json as _json
+    import os
+
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(42)
+    ads = rng.integers(0, n_ads, n_impressions)
+    base = 1_700_000_000_000_000
+    with open(os.path.join(path, "impressions-0.log"), "wb") as f:
+        for i in range(n_impressions):
+            f.write(_json.dumps({
+                "bid_id": i, "ad_id": int(ads[i]),
+                "its": base + i * 10_000}).encode() + b"\n")
+    with open(os.path.join(path, "clicks-0.log"), "wb") as f:
+        for i in range(0, n_impressions, 3):
+            f.write(_json.dumps({
+                "cbid": i, "cts": base + i * 10_000 + 500}).encode()
+                + b"\n")
+
+
+def adctr_ddl(path: str) -> list:
+    """bench.py's _adctr_ddl, letter for letter."""
+    return [
+        f"CREATE SOURCE impression (bid_id BIGINT, ad_id BIGINT, "
+        f"its TIMESTAMP) WITH (connector='filelog', "
+        f"path='{path}', topic='impressions', "
+        f"max.chunk.size=4096)",
+        f"CREATE SOURCE click (cbid BIGINT, cts TIMESTAMP) WITH "
+        f"(connector='filelog', path='{path}', topic='clicks', "
+        f"max.chunk.size=4096)",
+        "CREATE MATERIALIZED VIEW ad_dim AS SELECT ad_id, "
+        "count(*) AS seen FROM impression GROUP BY ad_id",
+        "CREATE MATERIALIZED VIEW ad_ctr AS SELECT i.ad_id, "
+        "i.window_start, count(*) AS clicked "
+        "FROM HOP(impression, its, INTERVAL '2' SECOND, "
+        "INTERVAL '10' SECOND) AS i "
+        "JOIN click AS c ON i.bid_id = c.cbid "
+        "JOIN ad_dim AS d FOR SYSTEM_TIME AS OF PROCTIME() "
+        "ON i.ad_id = d.ad_id "
+        "GROUP BY i.ad_id, i.window_start",
+    ]
+
+
+def adctr_oracle(n_impressions: int, n_ads: int = ADCTR_ADS) -> dict:
+    """tests/test_adctr.py's _oracle without its Python loop: per (ad,
+    window_start) the clicked impressions (every third), each in the
+    size/slide HOP windows that hold its timestamp."""
+    ads = np.random.default_rng(42).integers(0, n_ads, n_impressions)
+    i = np.arange(0, n_impressions, 3, dtype=np.int64)
+    base = (ADCTR_BASE_US + i * 10_000) // ADCTR_SLIDE_US * ADCTR_SLIDE_US
+    k = np.arange(ADCTR_SIZE_US // ADCTR_SLIDE_US, dtype=np.int64)
+    w = (base[:, None] - k[None, :] * ADCTR_SLIDE_US).ravel()
+    a = np.repeat(ads[i], len(k))
+    keys, cnt = np.unique(np.stack([a, w], 1), axis=0, return_counts=True)
+    return {(int(x), int(y)): int(c) for (x, y), c in zip(keys, cnt)}
+
+
+def _reader_rows(r) -> int:
+    """Rows a source reader has read: a filelog reader counts them, a
+    generator's offset is its row offset (bench.py's rows_seen)."""
+    return r.rows_read if hasattr(r, "rows_read") else r.offset
+
+
+def run_sql_adctr(dev, n_impressions: int, trace: bool = False) -> dict:
+    """ad-ctr (BASELINE.md's named configuration) through
+    ``Frontend(device=dev, rate_limit=8, min_chunks=8)`` at parallelism 1:
+    bench_adctr's DDL and producer, two filelog sources (JSON parsed on
+    the host), HOP windows, the impression-click join, the temporal join
+    against the ad_dim MV and the sliding-window agg, driven two barriers
+    in flight to every row of the three readers. ad_ctr equals the
+    vectorized oracle exactly and ad_dim's ``seen`` sums to the
+    impressions."""
+    from risingwave_tpu_torch.frontend import Frontend
+
+    path = os.path.abspath(ADCTR_DIR)
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    adctr_produce(path, n_impressions, ADCTR_ADS)
+    produce_s = time.perf_counter() - t0
+
+    async def main():
+        fe = Frontend(rate_limit=ADCTR_RATE, min_chunks=ADCTR_RATE,
+                      device=dev)
+        t0 = time.perf_counter()
+        for sql in adctr_ddl(path):
+            await fe.execute(sql)
+        create_s = time.perf_counter() - t0
+        facts = {n: plan_facts(fe, n) for n in ("ad_dim", "ad_ctr")}
+        expected = 2 * n_impressions + (n_impressions + 2) // 3
+        out = await drive_frontend(fe, expected, dev, trace)
+        rows = await fe.execute("SELECT * FROM ad_ctr")
+        dim = await fe.execute("SELECT ad_id, seen FROM ad_dim")
+        await fe.close()
+        return out, facts, create_s, rows, dim
+
+    try:
+        out, facts, create_s, rows, dim = asyncio.run(main())
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    got = {(int(a), int(w)): int(c) for a, w, c in rows}
+    want = adctr_oracle(n_impressions)
+    assert got == want, (f"sql adctr: {len(got)} (ad, window) rows, the "
+                         f"oracle has {len(want)}")
+    seen = sum(int(s) for _a, s in dim)
+    assert seen == n_impressions, f"sql adctr: ad_dim saw {seen}"
+    modes = [m for n in ("ad_dim", "ad_ctr") for m in facts[n]["agg_modes"]]
+    assert modes == ["append-only", "append-only"], \
+        f"sql adctr planned its aggs as {modes}"
+    return dict(out, produce_s=produce_s, create_s=create_s,
+                plan_s={n: f["plan_s"] for n, f in facts.items()},
+                rules={n: f["rules"] for n, f in facts.items()},
+                rule_details={n: f["rule_details"]
+                              for n, f in facts.items()},
+                fallbacks={n: f["fallbacks"] for n, f in facts.items()},
+                agg_modes={n: f["agg_modes"] for n, f in facts.items()},
+                mv_rows=len(got), ad_dim_seen=seen,
+                mv_digest=mv_digest(sorted(
+                    (a, w, c) for (a, w), c in got.items())))
+
+
+def chain_oracle(events: int) -> dict:
+    """m1 (count per auction over every bid), m2 (m1's histogram: per
+    count the auctions and the smallest one) and the table MV over
+    (k = c, v = auction) rows: as inserted, after DELETE WHERE k = 1,
+    after UPDATE SET v = v + 1 WHERE k > 1."""
+    from risingwave_tpu_torch.connectors.nexmark import (
+        NexmarkConfig, gen_bids,
+    )
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=SQL_Q4_CHUNK,
+                        generate_strings=False)
+    b = gen_bids(np.arange(events * 46 // 50, dtype=np.int64), cfg)
+    auc, c = np.unique(b["auction"], return_counts=True)
+    m1 = sorted(zip(auc.tolist(), c.tolist()))
+    cs, inv, n = np.unique(c, return_inverse=True, return_counts=True)
+    ma = np.full(len(cs), np.iinfo(np.int64).max)
+    np.minimum.at(ma, inv, auc)
+    s = np.zeros(len(cs), np.int64)
+    np.add.at(s, inv, auc)
+    m2 = sorted(zip(cs.tolist(), n.tolist(), ma.tolist()))
+    tm = sorted(zip(cs.tolist(), s.tolist(), n.tolist()))
+    deleted = [r for r in tm if r[0] != 1]
+    updated = [(k, sv + nv, nv) for k, sv, nv in deleted]
+    return dict(m1=m1, m2=m2, tm=tm, tm_deleted=deleted,
+                tm_updated=updated)
+
+
+def _backfill_of(fe, name: str):
+    """The BackfillExecutor of one MV's chain."""
+    ex = fe.actors[fe.catalog.mvs[name].actor_id].consumer
+    while type(ex).__name__ != "BackfillExecutor":
+        ex = next(getattr(ex, a) for a in ("input", "upstream")
+                  if hasattr(ex, a))
+    return ex
+
+
+def _count_backfill(bf) -> dict:
+    """Count the snapshot rows a backfill emits and stamp when it is
+    done (the executor's own slice reader, wrapped on the instance)."""
+    got = dict(rows=0, slices=0, done_at=None)
+    read = bf._read_snapshot_slice
+
+    def counted():
+        rows = read()
+        got["rows"] += len(rows)
+        got["slices"] += 1
+        if bf.done and got["done_at"] is None:
+            got["done_at"] = time.perf_counter()
+        return rows
+    bf._read_snapshot_slice = counted
+    return got
+
+
+def run_sql_mv_chain(dev, events: int) -> dict:
+    """MV on MV and a table through ``Frontend(device=dev)``: sql q4's
+    bid source (4096-row chunks, 16 a barrier, no strings); m1 counts
+    bids per auction over half the bids, then m2 (m1's histogram)
+    backfills m1's committed snapshot while m1 keeps running, and both
+    run to the end; then a table t filled by INSERT ... SELECT from m1,
+    an agg MV over t (backfilled), DELETE and UPDATE. Every MV equals its
+    oracle after each statement commits. Launch counts are reset before
+    each drive and before the steps that follow them (the backfill's
+    tail, then the table step), and summed."""
+    from risingwave_tpu_torch.frontend import Frontend
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+
+    n_bids = events * 46 // 50
+    oracle = chain_oracle(events)
+
+    def norm(rows):
+        return sorted(tuple(int(x) for x in r) for r in rows)
+
+    async def main():
+        fe = Frontend(rate_limit=SQL_Q4_RATE, min_chunks=SQL_Q4_RATE,
+                      device=dev)
+        await fe.execute(
+            f"CREATE SOURCE bid WITH (connector='nexmark', "
+            f"nexmark.table.type='bid', nexmark.event.num={events}, "
+            f"nexmark.max.chunk.size={SQL_Q4_CHUNK}, "
+            f"nexmark.generate.strings='false')")
+        await fe.execute(CHAIN_M1)
+        first = await drive_frontend(fe, n_bids // 2, dev, False)
+        t_m2 = time.perf_counter()
+        await fe.execute(CHAIN_M2)
+        m2_create_s = time.perf_counter() - t_m2
+        m2_bf = _count_backfill(_backfill_of(fe, "m2"))
+        m2_bf["t_create"] = t_m2
+        second = await drive_frontend(fe, n_bids, dev, False)
+        # the source is spent; the backfill reads 8,192 snapshot rows a
+        # barrier until it has covered m1 (counted from here on)
+        LAUNCHES.reset()
+        while m2_bf["done_at"] is None:
+            await fe.step(1)
+        await fe.step(1)
+        checks = dict(m1=norm(await fe.execute("SELECT * FROM m1"))
+                      == oracle["m1"],
+                      m2=norm(await fe.execute("SELECT * FROM m2"))
+                      == oracle["m2"])
+        # the table step
+        t0 = time.perf_counter()
+        await fe.execute("CREATE TABLE t (k BIGINT, v BIGINT)")
+        inserted = await fe.execute("INSERT INTO t SELECT c, auction "
+                                    "FROM m1")
+        insert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        await fe.execute(CHAIN_TM)
+        tm_bf = _count_backfill(_backfill_of(fe, "tm"))
+        while tm_bf["done_at"] is None:
+            await fe.step(1)
+        await fe.step(1)
+        tm_backfill_s = time.perf_counter() - t0
+        checks["tm"] = norm(await fe.execute("SELECT * FROM tm")) \
+            == oracle["tm"]
+        t0 = time.perf_counter()
+        deleted = await fe.execute("DELETE FROM t WHERE k = 1")
+        delete_s = time.perf_counter() - t0
+        checks["tm_deleted"] = norm(await fe.execute(
+            "SELECT * FROM tm")) == oracle["tm_deleted"]
+        t0 = time.perf_counter()
+        updated = await fe.execute("UPDATE t SET v = v + 1 WHERE k > 1")
+        update_s = time.perf_counter() - t0
+        checks["tm_updated"] = norm(await fe.execute(
+            "SELECT * FROM tm")) == oracle["tm_updated"]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        table_launches = LAUNCHES.snapshot()
+        facts = {n: plan_facts(fe, n) for n in ("m1", "m2", "tm")}
+        await fe.close()
+        return (first, second, m2_create_s, m2_bf, checks, table_launches,
+                facts, dict(insert=inserted, insert_s=insert_s,
+                            tm_backfill_s=tm_backfill_s,
+                            tm_backfill_rows=tm_bf["rows"],
+                            delete=deleted, delete_s=delete_s,
+                            update=updated, update_s=update_s))
+
+    (first, second, m2_create_s, m2_bf, checks, table_launches, facts,
+     table) = asyncio.run(main())
+    bad = [k for k, ok in checks.items() if not ok]
+    assert not bad, f"sql mv chain: {bad} differ from the oracle"
+    modes = {n: f["agg_modes"] for n, f in facts.items()}
+    assert modes == {"m1": ["append-only"], "m2": ["retractable"],
+                     "tm": ["retractable"]}, \
+        f"sql mv chain planned its aggs as {modes}"
+    launches = {}
+    for part in (first["launches"], second["launches"], table_launches):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    events_total = first["events"] + second["events"]
+    elapsed = first["elapsed_s"] + second["elapsed_s"]
+    return dict(events=events_total, elapsed_s=elapsed,
+                wall_s=first["wall_s"] + second["wall_s"],
+                events_per_s=events_total / elapsed,
+                events_per_s_m1_alone=first["events_per_s"],
+                events_per_s_with_m2=second["events_per_s"],
+                p99_barrier_latency_s=max(first["p99_barrier_latency_s"],
+                                          second["p99_barrier_latency_s"]),
+                p99_barrier_latency_s_m1_alone=first[
+                    "p99_barrier_latency_s"],
+                p99_barrier_latency_s_with_m2=second[
+                    "p99_barrier_latency_s"],
+                m2_create_s=m2_create_s,
+                m2_backfill_rows=m2_bf["rows"],
+                m2_backfill_slices=m2_bf["slices"],
+                m2_backfill_s=(m2_bf["done_at"] - m2_bf["t_create"])
+                if m2_bf["done_at"] is not None else None,
+                table=table, agg_modes=modes,
+                plan_s={n: f["plan_s"] for n, f in facts.items()},
+                rules={n: f["rules"] for n, f in facts.items()},
+                launches=launches, mv_rows=len(oracle["m1"]),
+                mv_digest=mv_digest(oracle["m2"]))
 
 
 def main() -> int:
@@ -5201,7 +5562,11 @@ def main() -> int:
             ("q3 fused", lambda d, e: run_q3(d, *Q3_SF01, fusion=True), 0,
              Q3_FUSED_PATH),
             ("sql q4", run_sql_q4, SQL_Q4_EVENTS, SQL_PATH),
-            ("sql q3", lambda d, e: run_sql_q3(d, *Q3_SF01), 0, SQL_PATH)):
+            ("sql q4 bare", lambda d, e: run_sql_q4(d, e, bare=True),
+             SQL_Q4_EVENTS, SQL_PATH),
+            ("sql q3", lambda d, e: run_sql_q3(d, *Q3_SF01), 0, SQL_PATH),
+            ("sql adctr", run_sql_adctr, ADCTR_IMPRESSIONS, ADCTR_PATH),
+            ("sql mv chain", run_sql_mv_chain, CHAIN_EVENTS, CHAIN_PATH)):
         t_path = time.perf_counter()
         out = run(dev, events)
         out["path_s"] = time.perf_counter() - t_path
@@ -5277,13 +5642,35 @@ def main() -> int:
 
     assert paths["sql q3"]["mv_digest"] == paths["q3 fused"]["mv_digest"], \
         "sql q3: the MV differs from build_q3's at the same size"
-    for label in ("sql q4", "sql q3"):
+    for label in ("sql q4", "sql q3", "sql adctr"):
         r = paths[label]
         log(f"{label}: events/s {r['events_per_s']}, p99 barrier latency "
             f"{r['p99_barrier_latency_s']} s, CREATE {r['create_s']} s "
             f"(planning + rewrite {r['plan_s']} s), rules "
             f"{r['rules']}, aggs {r['agg_modes']}, launches "
             + json.dumps(r["launches"]) + f"; {card}")
+    a, b = paths["sql q4"], paths["sql q4 bare"]
+    assert a["mv_digest"] == b["mv_digest"] and \
+        a["launches"] == b["launches"], \
+        "sql q4: the MV or its launches differ without the dispatcher"
+    log(f"sql q4 with its empty broadcast dispatcher vs without: events/s "
+        f"{a['events_per_s']} vs {b['events_per_s']}, p99 barrier latency "
+        f"{a['p99_barrier_latency_s']} vs {b['p99_barrier_latency_s']}")
+    r = paths["sql adctr"]
+    log(f"sql adctr ({ADCTR_IMPRESSIONS} impressions, {ADCTR_ADS} ads, "
+        f"parallelism 1): {r['mv_rows']} (ad, window) rows equal the "
+        f"oracle, ad_dim saw {r['ad_dim_seen']}; produce {r['produce_s']} "
+        f"s; {card}")
+    r = paths["sql mv chain"]
+    log(f"sql mv chain ({CHAIN_EVENTS} events): m1 alone events/s "
+        f"{r['events_per_s_m1_alone']} (p99 "
+        f"{r['p99_barrier_latency_s_m1_alone']} s), with m2 backfilling "
+        f"and following {r['events_per_s_with_m2']} (p99 "
+        f"{r['p99_barrier_latency_s_with_m2']} s); m2's backfill "
+        f"{r['m2_backfill_rows']} rows in {r['m2_backfill_slices']} slices, "
+        f"{r['m2_backfill_s']} s from CREATE; the table step "
+        + json.dumps(r["table"]) + f"; aggs {r['agg_modes']}, launches "
+        + json.dumps(r["launches"]) + f"; {card}")
 
     J.JoinSideKernel.read_degrees = host_read
     assert not degree_reads, \
@@ -5358,6 +5745,9 @@ def main() -> int:
         "q3 fused: the MV differs from the unfused q3's"
     log(f"sql q4 traced at {SQL_Q4_TRACE_EVENTS} events: "
         + json.dumps(run_sql_q4(dev, SQL_Q4_TRACE_EVENTS, trace=True)))
+    log(f"sql adctr traced at {ADCTR_TRACE_IMPRESSIONS} impressions: "
+        + json.dumps(run_sql_adctr(dev, ADCTR_TRACE_IMPRESSIONS,
+                                   trace=True)))
     log(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
     assert "jax" not in sys.modules, "the smoke run imported JAX"
 

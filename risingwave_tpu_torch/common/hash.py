@@ -167,3 +167,67 @@ def hash_columns(cols: Sequence[torch.Tensor],
 def vnodes_of(cols: Sequence[torch.Tensor]) -> torch.Tensor:
     """Row → vnode in [0, 256) (``common/hash.py:75``)."""
     return (hash_columns(cols) & (VNODE_COUNT - 1)).to(torch.int32)
+
+
+class VnodeMapping:
+    """vnode → owner (actor or worker) mapping with rebalance support.
+
+    Port of ``risingwave_tpu/common/hash.py``'s (:164) without its
+    ``to_device`` (the hash dispatcher routes on the host). Reference
+    parity: src/common/src/hash/consistent_hash/mapping.rs and the
+    bitmap math in src/meta/src/stream/scale.rs:174. Stored dense:
+    int32[256].
+    """
+
+    def __init__(self, owners: np.ndarray):
+        owners = np.asarray(owners, dtype=np.int32)
+        assert owners.shape == (VNODE_COUNT,)
+        self.owners = owners
+
+    @staticmethod
+    def new_uniform(num_owners: int) -> "VnodeMapping":
+        """Contiguous even split of 256 vnodes over `num_owners`."""
+        assert num_owners >= 1
+        base = VNODE_COUNT // num_owners
+        rem = VNODE_COUNT % num_owners
+        owners = np.repeat(np.arange(num_owners, dtype=np.int32),
+                           np.asarray([base + (i < rem)
+                                       for i in range(num_owners)]))
+        return VnodeMapping(owners)
+
+    def owner_of(self, vnode: int) -> int:
+        return int(self.owners[vnode])
+
+    def bitmap_of(self, owner: int) -> np.ndarray:
+        """bool[256] ownership bitmap for one owner (state-table vnodes)."""
+        return self.owners == owner
+
+    def num_owners(self) -> int:
+        return int(self.owners.max()) + 1 if len(self.owners) else 0
+
+    def rebalance(self, new_num_owners: int) -> "VnodeMapping":
+        """Minimal-movement rebalance to a new owner count.
+
+        Mirrors rebalance_actor_vnode (scale.rs:174): move just enough
+        vnodes from over-loaded owners to under-loaded ones.
+        """
+        target = [VNODE_COUNT // new_num_owners +
+                  (i < VNODE_COUNT % new_num_owners)
+                  for i in range(new_num_owners)]
+        owners = self.owners.copy()
+        # Clamp removed owners to -1 (to be redistributed).
+        owners[owners >= new_num_owners] = -1
+        counts = [int((owners == i).sum()) for i in range(new_num_owners)]
+        surplus: List[int] = []  # vnode indices to reassign
+        for i in range(new_num_owners):
+            if counts[i] > target[i]:
+                idxs = np.flatnonzero(owners == i)[: counts[i] - target[i]]
+                surplus.extend(idxs.tolist())
+        surplus.extend(np.flatnonzero(owners == -1).tolist())
+        k = 0
+        for i in range(new_num_owners):
+            while counts[i] < target[i]:
+                owners[surplus[k]] = i
+                counts[i] += 1
+                k += 1
+        return VnodeMapping(owners)

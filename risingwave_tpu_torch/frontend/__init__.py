@@ -3,9 +3,10 @@
 Port of ``risingwave_tpu/frontend`` for one device (reference parity:
 src/sqlparser/, src/frontend/src/{binder,planner,optimizer,handler}/):
 CREATE SOURCE / CREATE MATERIALIZED VIEW deployed as live streaming
-pipelines on the card's kernels, batch SELECT over committed MV
-snapshots, EXPLAIN, SET / SHOW, DROP, one process, one session. The
-fragmenter and pgwire come with ``ROADMAP.md`` item 10b.
+pipelines on the card's kernels (over sources, tables or other MVs),
+CREATE TABLE and DML, batch SELECT over committed MV snapshots, EXPLAIN,
+SET / SHOW, DROP, one process, one session. The fragmenter and pgwire
+come with ``ROADMAP.md`` item 10c.
 """
 
 from risingwave_tpu_torch.frontend.session import Frontend

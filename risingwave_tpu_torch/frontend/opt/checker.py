@@ -110,46 +110,13 @@ def _same_types(a, b) -> bool:
 
 
 def derive_append_only(ex) -> bool:
-    """Conservative append-only derivation over the executor chain (the
-    reference planner's ``_derive_append_only``): unknown executors are
-    assumed to retract."""
-    from risingwave_tpu_torch.stream.executors.fused import (
-        FusedFragmentExecutor,
-    )
-    from risingwave_tpu_torch.stream.executors.hash_join import (
-        HashJoinExecutor, JoinType,
-    )
-    from risingwave_tpu_torch.stream.executors.hop_window import (
-        HopWindowExecutor,
-    )
-    from risingwave_tpu_torch.stream.executors.row_id_gen import (
-        RowIdGenExecutor,
-    )
-    from risingwave_tpu_torch.stream.executors.simple import (
-        FilterExecutor, ProjectExecutor,
-    )
-    from risingwave_tpu_torch.stream.executors.source import SourceExecutor
-    from risingwave_tpu_torch.stream.executors.watermark_filter import (
-        WatermarkFilterExecutor,
-    )
-    if isinstance(ex, SourceExecutor):
-        return True
-    if isinstance(ex, HashJoinExecutor):
-        return (ex.join_type == JoinType.INNER
-                and derive_append_only(ex.left_in)
-                and derive_append_only(ex.right_in))
-    from risingwave_tpu_torch.stream.coalesce import CoalesceExecutor
-    from risingwave_tpu_torch.stream.executors.project_set import (
-        ProjectSetExecutor,
-    )
-    # a coalescer only re-batches; a set-returning expansion of inserts
-    # is inserts
-    if isinstance(ex, (ProjectExecutor, FilterExecutor, RowIdGenExecutor,
-                       HopWindowExecutor, WatermarkFilterExecutor,
-                       FusedFragmentExecutor, CoalesceExecutor,
-                       ProjectSetExecutor)):
-        return derive_append_only(ex.input)
-    return False
+    """Conservative append-only derivation over the executor chain: the
+    planner's own ``_derive_append_only`` (as the reference's checker
+    calls it), so a chained MV's hint and the temporal join count here
+    exactly as they do at planning. Unknown executors are assumed to
+    retract."""
+    from risingwave_tpu_torch.frontend.planner import StreamPlanner
+    return StreamPlanner._derive_append_only(ex)
 
 
 def snapshot(root) -> dict:

@@ -35,7 +35,7 @@ EXECUTOR_RULES = {
     "column_pruning": _rules.prune_columns,
 }
 EXECUTOR_RULE_NAMES = tuple(EXECUTOR_RULES)
-# the fragment rules run on the fragmenter's graph (ROADMAP.md item 10b);
+# the fragment rules run on the fragmenter's graph (ROADMAP.md item 10c);
 # the name is accepted in a spec, as the reference accepts it
 FRAGMENT_RULE_NAMES = ("exchange_elision",)
 RULE_NAMES = EXECUTOR_RULE_NAMES + FRAGMENT_RULE_NAMES

@@ -22,16 +22,19 @@ plans, executor for executor and state table for state table, with the
 catalog ids handed out in the reference's order (the id-base contract:
 state tables are compared by id). Every keyed executor the planner
 builds, and every fused block the rewrite makes, runs on the planner's
-``device`` (None: the card). Left to later items, each refused with
-``NotImplementedError`` naming it: MV on MV, the temporal join in SQL,
-``parallelism > 1`` and the ``datagen`` and ``filelog`` connectors
-(``ROADMAP.md`` item 10b), sinks (item 13), and the system tables of
-unported subsystems (items 11-13).
+``device`` (None: the card). MV on MV attaches a chain edge to the
+upstream MV's actor (``_chain_upstream_mv``) that the session wires in
+only after the whole plan validated; the temporal join probes such a
+chain as of process time. Left to later items, each refused with
+``NotImplementedError`` naming it: ``parallelism > 1`` and the inlined
+view expansion of the distributed session (``ROADMAP.md`` item 10c),
+the segmented filelog reader and sinks (item 13), and the system tables
+of unported subsystems (items 11-13).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from risingwave_tpu_torch.common.types import DataType, Field, Interval, Schema
@@ -78,6 +81,9 @@ class StreamPlan:
     consumer: MaterializeExecutor
     mv: MvCatalog
     readers: Dict[int, object]          # actor_id → split reader
+    # MV-on-MV chain edges: (upstream actor id, Output) to attach at
+    # deploy (NOT at plan time — a failed plan must leak nothing)
+    attaches: List[tuple] = field(default_factory=list)
 
 
 def _source_reader(src: SourceCatalog):
@@ -99,8 +105,52 @@ def _source_reader(src: SourceCatalog):
             not in ("false", "0"),
         )
         return NexmarkSplitReader(cfg)
-    if connector in ("datagen", "filelog"):
-        raise not_ported(f"connector={connector!r}", "10b")
+    if connector == "datagen":
+        from risingwave_tpu_torch.connectors.datagen import (
+            DatagenConfig, DatagenSplitReader,
+        )
+        return DatagenSplitReader(DatagenConfig.from_options(opts))
+    if connector == "filelog":
+        from risingwave_tpu_torch.connectors.filelog import (
+            FileLogEnumerator, FileLogSplitReader,
+        )
+        path = opts.get("path")
+        topic = opts.get("topic", src.name)
+        if not path:
+            raise PlanError("filelog source needs path='...'")
+        part = int(opts.get("partition", 0))
+        if opts.get("segmented", "").lower() in ("true", "1"):
+            # a filelog SINK's output: sinks are item 13
+            raise not_ported("segmented='true' (the filelog sink's "
+                             "segmented reader)", "13")
+        if "partitions" in opts:
+            # explicit split subset (the scheduler stamps each source
+            # actor's assignment here — the split-rebalancing
+            # contract); "" is a legal EMPTY assignment: scale-out
+            # past the partition count leaves idle source actors
+            from risingwave_tpu_torch.connectors.filelog import (
+                FileLogMultiReader,
+            )
+            spec = str(opts["partitions"]).strip()
+            parts = [int(p) for p in spec.split(",") if p != ""]
+            return FileLogMultiReader(
+                path, topic, parts, src.schema,
+                fmt=opts.get("format", "json"),
+                max_chunk_size=int(opts.get("max.chunk.size", 1024)),
+                options=opts)
+        splits = FileLogEnumerator(path, topic).list_splits()
+        # bare single-pipeline sources: one reader drives partition 0
+        # (the distributed scheduler assigns explicit partition sets)
+        if splits and not any(
+                int(s.split_id.rsplit("-", 1)[1]) == part
+                for s in splits):
+            raise PlanError(
+                f"filelog partition {part} not found in {path!r}")
+        return FileLogSplitReader(
+            path, topic, part, src.schema,
+            fmt=opts.get("format", "json"),
+            max_chunk_size=int(opts.get("max.chunk.size", 1024)),
+            options=opts)
     if connector == "tpch":
         from risingwave_tpu_torch.connectors.tpch import (
             TpchConfig, TpchSplitReader,
@@ -117,8 +167,6 @@ def _source_reader(src: SourceCatalog):
 def source_schema(options: Dict[str, str],
                   columns=None) -> Schema:
     connector = options.get("connector", "").lower()
-    if connector in ("datagen", "filelog"):
-        raise not_ported(f"connector={connector!r}", "10b")
     if columns is not None:
         fields = []
         for name, type_name in columns:
@@ -130,9 +178,16 @@ def source_schema(options: Dict[str, str],
     if connector == "nexmark":
         from risingwave_tpu_torch.connectors.nexmark import TABLE_SCHEMAS
         return TABLE_SCHEMAS[options.get("nexmark.table.type", "bid")]
+    if connector == "datagen":
+        from risingwave_tpu_torch.connectors.datagen import DatagenConfig
+        return DatagenConfig.from_options(options).schema
     if connector == "tpch":
         from risingwave_tpu_torch.connectors.tpch import TABLE_SCHEMAS
         return TABLE_SCHEMAS[options.get("tpch.table", "lineitem")]
+    if connector == "filelog":
+        raise PlanError(
+            "filelog sources need an explicit column list: "
+            "CREATE SOURCE t (a INT, ...) WITH (...)")
     raise PlanError(f"unknown connector {connector!r}")
 
 
@@ -143,7 +198,8 @@ class StreamPlanner:
                  join_state_cap=None,
                  chunk_target_rows: Optional[int] = None,
                  coalesce_linger_chunks: Optional[int] = None,
-                 state_tier_cap: Optional[int] = None, device=None):
+                 state_tier_cap: Optional[int] = None, device=None,
+                 actors=None):
         from risingwave_tpu_torch.stream.coalesce import (
             DEFAULT_MAX_CHUNKS, DEFAULT_TARGET_ROWS,
         )
@@ -169,9 +225,13 @@ class StreamPlanner:
         # hash-agg groups AND join sides (where it takes precedence
         # over the legacy join_state_cap)
         self.state_tier_cap = state_tier_cap
+        self.actors = actors or {}   # actor_id → Actor (MV-on-MV attach)
         self.readers: Dict[int, object] = {}
+        # chain edges produced by _chain_upstream_mv, attached by the
+        # session once the WHOLE plan has validated
+        self.pending_attaches: List[tuple] = []
         self.registered_senders: List[int] = []   # cleanup on failure
-        self._actor_id = 0           # the MV's actor id
+        self._actor_id = 0           # the MV's actor id (Output tag)
 
     def _coalesced(self, ex: Executor) -> Executor:
         """Adaptive coalescing in front of a keyed executor's input:
@@ -205,7 +265,8 @@ class StreamPlanner:
             if isinstance(item, (ast.Tumble, ast.Hop)):
                 raise PlanError(
                     "TUMBLE/HOP over an MV not supported yet")
-            raise not_ported("MV on MV (FROM a materialized view)", "10b")
+            ex, scope = self._chain_upstream_mv(obj, alias)
+            return ex, scope, [obj.name]
         assert isinstance(obj, SourceCatalog)
         reader = _source_reader(obj)
         tx, rx = channel_for_test()
@@ -302,6 +363,52 @@ class StreamPlanner:
         vis = Schema(list(ex.schema)[:n_vis])
         return ex, Scope(vis, [alias] * n_vis), deps
 
+    def _chain_upstream_mv(self, mv: MvCatalog, alias: str):
+        """FROM <mv>: attach a new output to the upstream MV's actor
+        (chain.rs:28) and backfill its committed snapshot
+        (no_shuffle_backfill.rs:68). The attach happens under the
+        session's barrier lock — the pipeline is quiescent between
+        barrier rounds, so mutating the dispatcher's output set is the
+        Mutation::Add analog without the RPC hop."""
+        from risingwave_tpu_torch.stream.dispatch import Output
+        from risingwave_tpu_torch.stream.exchange import channel_for_test
+        from risingwave_tpu_torch.stream.executor import ExecutorInfo
+        from risingwave_tpu_torch.stream.executors.backfill import (
+            PROGRESS_SCHEMA, BackfillExecutor,
+        )
+        from risingwave_tpu_torch.stream.executors.simple import (
+            ReceiverExecutor,
+        )
+
+        upstream = self.actors.get(mv.actor_id)
+        if upstream is None or not upstream.dispatchers:
+            raise PlanError(
+                f"upstream MV {mv.name!r} has no attachable actor")
+        tx, rx = channel_for_test()
+        # deferred: the session attaches AFTER the whole plan validates
+        # (a failed CREATE must not leave an orphan output that blocks
+        # the upstream on exhausted permits), tagged with the DOWNSTREAM
+        # actor id so drops can detach exactly this edge
+        self.pending_attaches.append(
+            (mv.actor_id, Output(self._actor_id, tx)))
+        recv = ReceiverExecutor(
+            ExecutorInfo(mv.schema, list(mv.pk_indices),
+                         f"Chain({mv.name})"), rx)
+        mv_read = StateTable(mv.table_id, mv.schema, mv.pk_indices,
+                             self.store)
+        progress = StateTable(self.catalog.next_id(), PROGRESS_SCHEMA,
+                              [0], self.store)
+        ex = BackfillExecutor(recv, mv_read, progress,
+                              identity=f"Backfill({mv.name})")
+        # the backfill snapshot replays the MV's TABLE as inserts and
+        # the live tail is the MV's changelog — the chain is
+        # append-only exactly when the MV's own changelog is
+        # (_derive_append_only reads this hint at the chain boundary)
+        ex.append_only_hint = mv.append_only
+        # expose only the MV's user-facing columns (hidden _row_id /
+        # group-key plumbing stays out of downstream scopes)
+        return ex, Scope.of(mv.visible_schema, alias)
+
     # -- the main plan ---------------------------------------------------
     def plan(self, name: str, sel: ast.Select, actor_id: int,
              rate_limit: Optional[int] = 8,
@@ -335,7 +442,7 @@ class StreamPlanner:
                        self.definition, actor_id, deps,
                        n_visible=nvis if nvis < len(ex.schema) else None,
                        append_only=self._derive_append_only(ex))
-        return StreamPlan(mat, mv, self.readers)
+        return StreamPlan(mat, mv, self.readers, self.pending_attaches)
 
     def _plan_query(self, sel: ast.Select, actor_id: int,
                     rate_limit: Optional[int],
@@ -358,15 +465,45 @@ class StreamPlanner:
             left, lscope = self._joinable(ex, scope)
             rights = []
             for jn in sel.joins:
-                if getattr(jn, "temporal", False):
-                    # its right side is an MV: MV on MV is item 10b
-                    raise not_ported("the temporal join in SQL", "10b")
                 rex, rscope, rdeps = self._base_chain(
                     jn.item, rate_limit, min_chunks)
                 deps += rdeps
+                if getattr(jn, "temporal", False):
+                    # temporal join: the right side IS a versioned
+                    # table (MV chain with a pk) probed as-of process
+                    # time — no row-id wrapping, no join state
+                    if not rex.pk_indices:
+                        raise PlanError(
+                            "temporal join (FOR SYSTEM_TIME AS OF "
+                            "PROCTIME()) needs a materialized view "
+                            "on the right side")
+                    if jn.kind not in ("inner", "left"):
+                        raise PlanError(
+                            "temporal join supports INNER and LEFT "
+                            "only")
+                    rights.append((jn, rex, rscope))
+                    continue
                 right, rscope = self._joinable(rex, rscope)
                 rights.append((jn, right, rscope))
             for jn, right, rscope in rights:
+                if getattr(jn, "temporal", False):
+                    from risingwave_tpu_torch.stream.executors.temporal_join \
+                        import TemporalJoinExecutor
+                    lkeys, rkeys = _equi_keys(jn.on, lscope, rscope)
+                    if sorted(rkeys) != sorted(right.pk_indices):
+                        raise PlanError(
+                            "temporal join ON keys must equal the "
+                            "right table's primary key")
+                    if not self._derive_append_only(left):
+                        raise PlanError(
+                            "temporal join left input must be "
+                            "append-only")
+                    left = TemporalJoinExecutor(
+                        left, right, lkeys, rkeys,
+                        outer=(jn.kind == "left"),
+                        actor_id=actor_id)
+                    lscope = lscope.concat(rscope)
+                    continue
                 lkeys, rkeys = _equi_keys(jn.on, lscope, rscope)
                 jt = {"inner": JoinType.INNER,
                       "left": JoinType.LEFT_OUTER,
@@ -578,6 +715,13 @@ class StreamPlanner:
         possibility of retraction ⇢ the minput path. Unknown executors
         default to False — silent wrongness is the only unacceptable
         outcome."""
+        # chained-MV edges carry the upstream MV's own proof (stamped
+        # in _chain_upstream_mv from MvCatalog.append_only) — the
+        # chain boundary would otherwise hit the Backfill default and
+        # lose provably-append-only upstreams
+        hint = getattr(ex, "append_only_hint", None)
+        if hint is not None:
+            return bool(hint)
         from risingwave_tpu_torch.stream.executors.source import SourceExecutor
         from risingwave_tpu_torch.stream.executors.simple import (
             FilterExecutor, ProjectExecutor,

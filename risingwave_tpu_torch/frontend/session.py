@@ -4,12 +4,18 @@ Port of ``risingwave_tpu/frontend/session.py``'s ``Frontend`` for one
 device and one barrier domain (reference parity: pgwire's
 ``Session::run_one_query``, the per-statement handlers and the meta
 DdlController collapsed into one in-process object). It takes SQL text
-and runs it: ``CREATE SOURCE`` over the ``nexmark`` and ``tpch``
-connectors, ``CREATE MATERIALIZED VIEW`` deployed as the port's
-executors on the card's kernels, ``FLUSH``, ``SELECT`` through the batch
-engine, ``EXPLAIN``, ``SET`` / ``SHOW``, ``DROP MATERIALIZED VIEW`` /
-``DROP SOURCE``, and ``step`` / ``close``. The entry point is the
-reference's: ``Frontend(...)`` then ``await fe.execute(sql)``.
+and runs it: ``CREATE SOURCE`` over the ``nexmark``, ``tpch``,
+``datagen`` and ``filelog`` connectors, ``CREATE MATERIALIZED VIEW``
+deployed as the port's executors on the card's kernels (over a source,
+a table or another MV, which it backfills from the upstream's committed
+snapshot before following its changelog; ``JOIN <mv> FOR SYSTEM_TIME AS
+OF PROCTIME()``), ``CREATE TABLE`` / ``DROP TABLE`` and ``INSERT`` /
+``UPDATE`` / ``DELETE`` through each table's DML channel, ``FLUSH``,
+``SELECT`` through the batch engine, ``EXPLAIN``, ``SET`` / ``SHOW``,
+``DROP MATERIALIZED VIEW`` / ``DROP SOURCE``, and ``step`` / ``close``.
+The entry point is the reference's: ``Frontend(...)`` then ``await
+fe.execute(sql)``. Every MV's actor ends in a broadcast dispatcher,
+empty until a downstream MV attaches its chain edge.
 
 Every MV's keyed executors run on the session's ``device``: the card
 unless the caller passes ``device="cpu"`` (``utils/device.py``
@@ -17,9 +23,8 @@ unless the caller passes ``device="cpu"`` (``utils/device.py``
 raises.
 
 What this session leaves to later items, each refused with
-``NotImplementedError`` naming its ``ROADMAP.md`` item: tables and DML,
-MV on MV, the temporal join in SQL, ``parallelism > 1``, ``ALTER ... SET
-PARALLELISM`` and the ``datagen`` / ``filelog`` connectors (10b); any
+``NotImplementedError`` naming its ``ROADMAP.md`` item: ``parallelism >
+1`` and ``ALTER ... SET PARALLELISM`` (10c); any
 store but ``MemoryStateStore``, ``recover`` and the DDL log (11); barrier
 domains (``epoch_pipeline``), the span tracer, the epoch ledger, the
 tricolor monitor and the cost ledger (12); sinks (13). Their session
@@ -60,12 +65,7 @@ _UNPORTED_KNOBS = {
 
 # statements a later item ports, by AST class name
 _UNPORTED_STATEMENTS = {
-    "CreateTable": ("CREATE TABLE", "10b"),
-    "DropTable": ("DROP TABLE", "10b"),
-    "Insert": ("INSERT", "10b"),
-    "Delete": ("DELETE", "10b"),
-    "Update": ("UPDATE", "10b"),
-    "AlterParallelism": ("ALTER ... SET PARALLELISM", "10b"),
+    "AlterParallelism": ("ALTER ... SET PARALLELISM", "10c"),
     "CreateSink": ("CREATE SINK", "13"),
     "DropSink": ("DROP SINK", "13"),
 }
@@ -108,7 +108,7 @@ class Frontend:
             raise not_ported("a state store other than MemoryStateStore",
                              "11")
         if parallelism > 1:
-            raise not_ported("parallelism > 1", "10b")
+            raise not_ported("parallelism > 1", "10c")
         if epoch_pipeline:
             raise not_ported("barrier domains (epoch_pipeline=True)", "12")
         self.catalog = Catalog()
@@ -163,7 +163,7 @@ class Frontend:
                         **{n: _knob_validator(n)
                            for n in _UNPORTED_KNOBS}})
         # rules spec and fusion setting each MV was created under: they
-        # shape its state tables, so a reschedule (item 10b) and a DDL
+        # shape its state tables, so a reschedule (item 10c) and a DDL
         # replay (item 11) must re-plan under the same ones
         self._mv_rules: Dict[str, str] = {}
         self._mv_fusion: Dict[str, bool] = {}
@@ -172,6 +172,10 @@ class Frontend:
         self.mv_plan_seconds: Dict[str, float] = {}
         self.mv_reports: Dict[str, object] = {}
         self._next_actor = 1000
+        self.chain_edges: Dict[str, list] = {}   # job → [(uid, Output)]
+        # table name → (DmlReader, schema, pk, RowIdSeq|None, tid):
+        # the DML write path into each CREATE TABLE job
+        self._tables: Dict[str, tuple] = {}
         # serializes barrier rounds between DDL handlers and step()
         self._barrier_lock = asyncio.Lock()
 
@@ -250,8 +254,6 @@ class Frontend:
             self.catalog.add_source(stmt.name, schema, stmt.options)
             return "CREATE_SOURCE"
         if isinstance(stmt, ast.CreateMaterializedView):
-            if getattr(stmt, "from_mv", None):
-                raise not_ported("MV on MV", "10b")
             return await self._create_mv(stmt)
         if isinstance(stmt, ast.Explain):
             return self._explain(stmt.select)
@@ -268,6 +270,16 @@ class Frontend:
                         f"source {stmt.name!r} is used by {job.name!r}")
             del self.catalog.sources[stmt.name]
             return "DROP_SOURCE"
+        if isinstance(stmt, ast.CreateTable):
+            return await self._create_table(stmt)
+        if isinstance(stmt, ast.DropTable):
+            return await self._drop_table(stmt)
+        if isinstance(stmt, ast.Insert):
+            return await self._insert(stmt)
+        if isinstance(stmt, ast.Delete):
+            return await self._delete(stmt)
+        if isinstance(stmt, ast.Update):
+            return await self._update(stmt)
         if isinstance(stmt, ast.SetVar):
             self.session_vars.set(stmt.name, stmt.value)
             return "SET"
@@ -283,9 +295,12 @@ class Frontend:
                 return [(self.session_vars.get(name),)]
             if stmt.what == "sources":
                 return [(n,) for n in sorted(self.catalog.sources)]
-            if stmt.what in ("sinks", "tables"):
+            if stmt.what == "sinks":
                 return []
-            return [(n,) for n in sorted(self.catalog.mvs)]
+            if stmt.what == "tables":
+                return [(n,) for n in sorted(self._tables)]
+            return [(n,) for n in sorted(self.catalog.mvs)
+                    if n not in self._tables]
         if isinstance(stmt, ast.Flush):
             await self._barrier(force_checkpoint=True)
             return "FLUSH"
@@ -302,19 +317,32 @@ class Frontend:
                              chunk_target_rows=self.chunk_target_rows,
                              coalesce_linger_chunks=self
                              .coalesce_linger_chunks,
-                             device=self.device)
+                             device=self.device, actors=self.actors)
 
     async def _deploy_job(self, name: str, actor_id: int, consumer,
-                          readers, register) -> Actor:
+                          readers, register, attaches=()) -> Actor:
         """Deployment tail, run under the barrier lock the caller holds:
-        register, spawn the actor, then the activation barrier."""
+        register, spawn the actor, attach its chain edges, then the
+        activation barrier."""
+        from risingwave_tpu_torch.stream.dispatch import BroadcastDispatcher
         register()                    # catalog entry (duplicate check)
-        actor = Actor(actor_id, consumer, barrier_manager=self.local,
-                      fragment=name)
+        # every MV actor carries an (initially empty) broadcast
+        # dispatcher so later MV-on-MV chains can attach outputs at a
+        # barrier boundary (Mutation::Add analog)
+        actor = Actor(actor_id, consumer,
+                      dispatchers=[BroadcastDispatcher([])],
+                      barrier_manager=self.local, fragment=name)
         self.actors[actor_id] = actor
         self.readers[name] = readers
         self.local.set_expected_actors(list(self.actors))
         self.tasks[actor_id] = actor.spawn()
+        # attach MV-on-MV chain edges now that the plan validated and
+        # the downstream actor exists — the activation barrier below
+        # must flow through these channels
+        self.chain_edges[name] = list(attaches)
+        for uid, out in attaches:
+            d = self.actors[uid].dispatchers[0]
+            d.update_outputs(d.outputs() + [out])
         await self._loop.inject_and_collect(force_checkpoint=True)
         return actor
 
@@ -366,12 +394,321 @@ class Frontend:
             self.mv_reports[stmt.name] = report
             actor = await self._deploy_job(
                 stmt.name, actor_id, plan.consumer, plan.readers,
-                lambda: self.catalog.add_mv(plan.mv))
+                lambda: self.catalog.add_mv(plan.mv),
+                attaches=plan.attaches)
         self._mv_rules[stmt.name] = rules
         self._mv_fusion[stmt.name] = fusion
         if actor.failure is not None:
             raise actor.failure
         return "CREATE_MATERIALIZED_VIEW"
+
+    async def _create_table(self, stmt: ast.CreateTable) -> str:
+        """CREATE TABLE: a DML-fed streaming job (DmlReader source →
+        materialize) so table writes ride the barrier pipeline and MV
+        chains over tables work like MV-on-MV (handler/create_table.rs
+        + dml_manager.rs analog). No PRIMARY KEY → hidden _row_id."""
+        from risingwave_tpu_torch.common.types import DataType, Field, Schema
+        from risingwave_tpu_torch.connectors.dml import DmlReader, RowIdSeq
+        from risingwave_tpu_torch.frontend.catalog import MvCatalog
+        from risingwave_tpu_torch.state.state_table import StateTable
+        from risingwave_tpu_torch.stream.exchange import channel_for_test
+        from risingwave_tpu_torch.stream.executors.materialize import (
+            MaterializeExecutor,
+        )
+        from risingwave_tpu_torch.stream.executors.source import SourceExecutor
+
+        self.catalog._check_free(stmt.name)
+        fields = []
+        for cname, tname in stmt.columns:
+            if any(f.name == cname for f in fields):
+                raise PlanError(f"duplicate column {cname!r}")
+            try:
+                fields.append(Field(cname, DataType.from_sql(tname)))
+            except KeyError:
+                raise PlanError(f"unknown type {tname!r}")
+        names = [f.name for f in fields]
+        for c in stmt.pk_cols:
+            if c not in names:
+                raise PlanError(f"PRIMARY KEY column {c!r} not found")
+        if stmt.pk_cols:
+            schema = Schema(fields)
+            pk = [names.index(c) for c in stmt.pk_cols]
+            rowid = None
+        else:
+            schema = Schema(fields + [Field("_row_id",
+                                            DataType.SERIAL)])
+            pk = [len(fields)]
+            rowid = RowIdSeq()
+        async with self._barrier_lock:
+            actor_id = self._next_actor
+            self._next_actor += 1
+            id_base = self.catalog._next_id
+            sid = self.catalog.next_id()
+            table_id = self.catalog.next_id()
+            reader = DmlReader(schema)
+            tx, rx = channel_for_test()
+            self.local.register_sender(sid, tx)
+            try:
+                src = SourceExecutor(reader, rx, None, actor_id=sid)
+                table = StateTable(table_id, schema, pk, self.store)
+                mat = MaterializeExecutor(src, table)
+                mv = MvCatalog(stmt.name, table_id, schema, pk,
+                               definition="", actor_id=actor_id,
+                               id_base=id_base,
+                               n_visible=len(fields) if rowid is not None
+                               else None, is_table=True)
+                actor = await self._deploy_job(
+                    stmt.name, actor_id, mat, {sid: reader},
+                    lambda: self.catalog.add_mv(mv))
+            except BaseException:
+                self.local.drop_actor(sid)
+                raise
+        self._tables[stmt.name] = (reader, schema, pk, rowid,
+                                   table_id)
+        if actor.failure is not None:
+            raise actor.failure
+        return "CREATE_TABLE"
+
+    async def _drop_table(self, stmt: ast.DropTable) -> str:
+        if stmt.name not in self._tables:
+            if stmt.if_exists and stmt.name not in self.catalog.mvs:
+                return "DROP_TABLE"
+            if stmt.name not in self.catalog.mvs:
+                raise PlanError(f"unknown table {stmt.name!r}")
+            raise PlanError(f"{stmt.name!r} is not a table")
+        dependents = self._dependents(stmt.name)
+        if dependents:
+            raise PlanError(f"cannot drop table {stmt.name!r}: "
+                            f"depended on by {dependents}")
+        status = await self._drop_job(stmt.name, stmt.if_exists,
+                                      "DROP_TABLE")
+        self._tables.pop(stmt.name, None)
+        return status
+
+    def _table_job(self, name: str):
+        job = self._tables.get(name)
+        if job is None:
+            raise PlanError(f"{name!r} is not a table")
+        return job
+
+    async def _insert(self, stmt: ast.Insert) -> str:
+        """INSERT ... VALUES: evaluate rows, push one chunk through
+        the table's DML channel, and return only after the checkpoint
+        that makes it durable+visible commits (batch insert.rs)."""
+        from risingwave_tpu_torch.common.chunk import DataChunk, StreamChunk
+        from risingwave_tpu_torch.common.types import Schema
+        from risingwave_tpu_torch.expr.expr import Cast
+        from risingwave_tpu_torch.frontend.binder import Binder, Scope
+
+        reader, schema, _pk, rowid, _tid = self._table_job(stmt.table)
+        data_fields = list(schema)[:-1] if rowid is not None \
+            else list(schema)
+        if stmt.select is not None:
+            # INSERT INTO t SELECT …: batch-evaluate over the latest
+            # committed snapshot, then coerce column-wise
+            from risingwave_tpu_torch.batch import collect
+            ex = plan_batch(stmt.select, self.catalog, self.store,
+                            self.store.committed_epoch(),
+                            profiler=self._loop.profiler)
+            if len(ex.schema) != len(data_fields):
+                raise PlanError(
+                    f"INSERT SELECT has {len(ex.schema)} columns, "
+                    f"table has {len(data_fields)}")
+            rows = self._coerce_rows(collect(ex), ex.schema,
+                                     data_fields)
+        else:
+            from risingwave_tpu_torch.common.types import Field
+            binder = Binder(Scope.of(Schema([]), None))
+            one = DataChunk.empty(Schema([]), capacity=8)
+            one.visibility[0] = True
+            tmp_sch = Schema([Field(f"_c{i}", f.data_type)
+                              for i, f in enumerate(data_fields)])
+            rows = []
+            for r in stmt.rows:
+                if len(r) != len(data_fields):
+                    raise PlanError(
+                        f"INSERT row has {len(r)} values, table has "
+                        f"{len(data_fields)} columns")
+                cols = []
+                for e_ast, f in zip(r, data_fields):
+                    b = binder.bind(e_ast)
+                    if b.return_type != f.data_type:
+                        b = Cast(b, f.data_type)
+                    cols.append(b.eval(one))
+                # to_pylist converts physical->LOGICAL (DECIMAL
+                # unscales, bools); from_pydict at the push site
+                # expects logical values
+                rows.append(DataChunk(tmp_sch, cols,
+                                      one.visibility).to_pylist()[0])
+        if not rows:
+            return "INSERT 0 0"
+        if rowid is not None:
+            ids = rowid.take(self.store.committed_epoch(), len(rows))
+            rows = [r + (i,) for r, i in zip(rows, ids)]
+        data = {f.name: [r[i] for r in rows]
+                for i, f in enumerate(schema)}
+        reader.push(StreamChunk.from_pydict(schema, data))
+        await self._dml_flush()
+        return f"INSERT 0 {len(rows)}"
+
+    async def _dml_flush(self) -> None:
+        """Make a just-pushed DML chunk durable AND visible before the
+        statement returns. Two barrier rounds: the table's source is
+        parked on its barrier channel, so the first barrier always
+        precedes the chunk (it re-arms generation for the next epoch)
+        and the second seals + checkpoints the epoch that carried
+        it."""
+        await self._barrier(force_checkpoint=True)
+        await self._barrier(force_checkpoint=True)
+
+    @staticmethod
+    def _coerce_rows(rows, src_schema, dst_fields) -> List[tuple]:
+        """Column-wise cast of batch-select output (LOGICAL rows)
+        onto table types; returns logical rows for the DML channel.
+        Positional temp names, NOT the real ones: a SELECT output may
+        carry duplicate column names (aliases, join sides) and a
+        name-keyed build would silently collapse them. The chunk
+        round trip keeps the value domain honest — from_pydict takes
+        logical values physical, to_pylist brings the cast results
+        back logical (DECIMAL scale, bools)."""
+        from risingwave_tpu_torch.common.chunk import DataChunk
+        from risingwave_tpu_torch.common.types import Field, Schema
+        from risingwave_tpu_torch.expr.expr import Cast, InputRef
+
+        if not rows:
+            return []
+        if all(s.data_type == d.data_type
+               for s, d in zip(src_schema, dst_fields)):
+            return [tuple(r) for r in rows]
+        tmp_src = Schema([Field(f"_c{i}", f.data_type)
+                          for i, f in enumerate(src_schema)])
+        chunk = DataChunk.from_pydict(
+            tmp_src, {f"_c{i}": [r[i] for r in rows]
+                      for i in range(len(src_schema))})
+        cols = [Cast(InputRef(i, s.data_type),
+                     d.data_type).eval(chunk)
+                for i, (s, d) in enumerate(zip(src_schema,
+                                               dst_fields))]
+        tmp_dst = Schema([Field(f"_c{i}", d.data_type)
+                          for i, d in enumerate(dst_fields)])
+        return DataChunk(tmp_dst, cols, chunk.visibility).to_pylist()
+
+    def _snapshot_rows(self, table_id: int, schema, pk) -> List[tuple]:
+        from risingwave_tpu_torch.common.epoch import Epoch, EpochPair
+        from risingwave_tpu_torch.state.state_table import StateTable
+
+        from risingwave_tpu_torch.batch.storage_table import rows_to_chunk
+
+        t = StateTable(table_id, schema, pk, self.store,
+                       sanity_check=False)
+        ce = self.store.committed_epoch()
+        t.init_epoch(EpochPair(Epoch(ce + 1), Epoch(ce)))
+        phys = [tuple(row) for _pk, row in t.iter_rows()]
+        if not phys:
+            return []
+        # state rows are PHYSICAL (DECIMAL = scaled int64); everything
+        # the DML channel re-ingests via from_pydict must be LOGICAL,
+        # so convert through a chunk round trip
+        return rows_to_chunk(schema, phys).to_pylist()
+
+    def _match_rows(self, stmt_where, schema, rows):
+        """The subset of rows a DML WHERE clause selects."""
+        import numpy as np
+
+        from risingwave_tpu_torch.common.chunk import DataChunk
+        from risingwave_tpu_torch.frontend.binder import Binder, Scope
+
+        if not rows:
+            return []
+        if stmt_where is None:
+            return rows
+        chunk = DataChunk.from_pydict(
+            schema, {f.name: [r[i] for r in rows]
+                     for i, f in enumerate(schema)})
+        pred = Binder(Scope.of(schema, None)).bind(stmt_where)
+        col = pred.eval(chunk)
+        keep = np.asarray(col.values)[:len(rows)].astype(bool)
+        if col.validity is not None:
+            keep &= np.asarray(col.validity)[:len(rows)]
+        return [r for r, k in zip(rows, keep) if k]
+
+    async def _delete(self, stmt: ast.Delete) -> str:
+        """DELETE: snapshot-scan the committed rows, push their
+        retractions through the DML channel (batch delete.rs)."""
+        from risingwave_tpu_torch.common.chunk import Op, StreamChunk
+
+        reader, schema, pk, _rowid, tid = self._table_job(stmt.table)
+        rows = self._match_rows(
+            stmt.where, schema, self._snapshot_rows(tid, schema, pk))
+        if rows:
+            data = {f.name: [r[i] for r in rows]
+                    for i, f in enumerate(schema)}
+            reader.push(StreamChunk.from_pydict(
+                schema, data, ops=[Op.DELETE] * len(rows)))
+            await self._dml_flush()
+        return f"DELETE {len(rows)}"
+
+    async def _update(self, stmt: ast.Update) -> str:
+        """UPDATE: snapshot-scan, re-evaluate SET expressions over the
+        matching rows, push UpdateDelete/UpdateInsert pairs."""
+        from risingwave_tpu_torch.common.chunk import (
+            DataChunk, Op, StreamChunk,
+        )
+        from risingwave_tpu_torch.expr.expr import Cast
+        from risingwave_tpu_torch.frontend.binder import Binder, Scope
+
+        reader, schema, pk, rowid, tid = self._table_job(stmt.table)
+        names = [f.name for f in schema]
+        settable = names[:-1] if rowid is not None else names
+        sets = []
+        binder = Binder(Scope.of(schema, None))
+        for col, e_ast in stmt.sets:
+            if col not in settable:
+                raise PlanError(f"column {col!r} not found")
+            b = binder.bind(e_ast)
+            dt = schema[names.index(col)].data_type
+            if b.return_type != dt:
+                b = Cast(b, dt)
+            sets.append((names.index(col), b))
+        rows = self._match_rows(
+            stmt.where, schema, self._snapshot_rows(tid, schema, pk))
+        if rows:
+            chunk = DataChunk.from_pydict(
+                schema, {f.name: [r[i] for r in rows]
+                         for i, f in enumerate(schema)})
+            from risingwave_tpu_torch.common.types import Field, Schema
+            new_cols = {}
+            for idx, b in sets:
+                col = b.eval(chunk)
+                one_sch = Schema([Field("_v",
+                                        schema[idx].data_type)])
+                new_cols[idx] = [r[0] for r in DataChunk(
+                    one_sch, [col], chunk.visibility).to_pylist()]
+            out_rows, ops = [], []
+            new_pks = set()
+            pk_touched = any(idx in pk for idx, _b in sets)
+            for i, old in enumerate(rows):
+                new = list(old)
+                for idx, _b in sets:
+                    new[idx] = new_cols[idx][i]
+                if pk_touched:
+                    kp = tuple(new[j] for j in pk)
+                    if kp in new_pks:
+                        # two updated rows landing on one key would
+                        # collide inside a single chunk and kill the
+                        # table's actor — fail the STATEMENT instead
+                        raise PlanError(
+                            "UPDATE would assign the primary key "
+                            f"{kp!r} to more than one row")
+                    new_pks.add(kp)
+                out_rows += [old, tuple(new)]
+                ops += [Op.UPDATE_DELETE, Op.UPDATE_INSERT]
+            data = {f.name: [r[i] for r in out_rows]
+                    for i, f in enumerate(schema)}
+            reader.push(StreamChunk.from_pydict(schema, data,
+                                                ops=ops))
+            await self._dml_flush()
+        return f"UPDATE {len(rows)}"
 
     async def _stop_job(self, name: str, actor_id: int):
         """Stop one job's actors at a barrier and remove its topology
@@ -387,25 +724,57 @@ class Frontend:
         for sid in self.readers.pop(name, {}):
             self.local.drop_actor(sid)
         self.local.drop_actor(actor_id)
+        # detach this job's chain edges from upstream dispatchers: an
+        # orphan output would block the upstream on exhausted channel
+        # permits a few barriers later
+        for uid, out in self.chain_edges.pop(name, []):
+            up = self.actors.get(uid)
+            if up is not None and up.dispatchers:
+                d = up.dispatchers[0]
+                d.update_outputs(
+                    [o for o in d.outputs() if o is not out])
+        # with the edges detached, release the stopped chain's input
+        # receivers
         if actor is not None:
             close_receivers(actor.consumer)
         self.local.set_expected_actors(list(self.actors))
         return actor
 
-    async def _drop_mv(self, stmt: ast.DropMaterializedView) -> str:
-        entry = self.catalog.mvs.get(stmt.name)
+    def _dependents(self, name: str) -> List[str]:
+        return [m.name for m in self.catalog.mvs.values()
+                if name in m.dependent_sources]
+
+    async def _drop_job(self, name: str, if_exists: bool,
+                        status: str) -> str:
+        """Shared drop path for MVs and tables: stop barrier + topology
+        removal as ONE locked unit."""
+        entry = self.catalog.mvs.get(name)
         if entry is None:
-            if stmt.if_exists:
-                return "DROP_MATERIALIZED_VIEW"
-            raise PlanError(f"unknown object {stmt.name!r}")
+            if if_exists:
+                return status
+            raise PlanError(f"unknown object {name!r}")
         async with self._barrier_lock:
-            actor = await self._stop_job(stmt.name, entry.actor_id)
-        del self.catalog.mvs[stmt.name]
-        self._mv_rules.pop(stmt.name, None)
-        self._mv_fusion.pop(stmt.name, None)
+            actor = await self._stop_job(name, entry.actor_id)
+        del self.catalog.mvs[name]
+        self._mv_rules.pop(name, None)
+        self._mv_fusion.pop(name, None)
         if actor is not None and actor.failure is not None:
             raise actor.failure
-        return "DROP_MATERIALIZED_VIEW"
+        return status
+
+    async def _drop_mv(self, stmt: ast.DropMaterializedView) -> str:
+        if stmt.name in self._tables:
+            # tables share catalog.mvs; dropping one here would orphan
+            # its DML channel (writes then vanish into a dead reader)
+            raise PlanError(
+                f"{stmt.name!r} is a table — use DROP TABLE")
+        dependents = self._dependents(stmt.name)
+        if dependents:
+            raise PlanError(
+                f"cannot drop MV {stmt.name!r}: depended on by "
+                f"{dependents}")
+        return await self._drop_job(stmt.name, stmt.if_exists,
+                                    "DROP_MATERIALIZED_VIEW")
 
     async def _select(self, sel: ast.Select) -> Rows:
         from risingwave_tpu_torch.batch import collect

@@ -20,6 +20,7 @@ Barrier domains (``meta/domains.py``) are item 12 as well.
 
 from __future__ import annotations
 
+import asyncio
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -121,16 +122,22 @@ class EpochProfiler:
 class BarrierLoop:
     """Explicitly stepped barrier manager over one LocalBarrierManager:
     ``inject`` / ``collect_next`` for pipelined drivers,
-    ``inject_and_collect`` for tests and the SQL session. Every
+    ``inject_and_collect`` for tests and the SQL session, ``run`` for a
+    wall-clock heartbeat. Every
     ``checkpoint_frequency``-th barrier after the initial one is a
     checkpoint (default 1: every one); ``force_checkpoint`` makes one
     now."""
 
+    # run()'s in-flight window (the reference's default)
+    IN_FLIGHT_BARRIERS = 10
+
     def __init__(self, local: LocalBarrierManager, store: StateStore,
-                 checkpoint_frequency: int = 1):
+                 checkpoint_frequency: int = 1, interval_ms: int = 250):
         self.local = local
         self.store = store
         self.checkpoint_frequency = max(1, checkpoint_frequency)
+        self.interval_ms = interval_ms          # run()'s wall-clock tick
+        self._stopped = False
         self.stats = BarrierStats()
         self.profiler = EpochProfiler()
         self._epoch: Optional[Epoch] = None
@@ -217,3 +224,48 @@ class BarrierLoop:
         while self._in_flight:
             barrier = await self.collect_next()
         return barrier
+
+    async def run(self, stop_after: Optional[int] = None) -> None:
+        """Tick-inject-collect until ``stop()`` (or ``stop_after``
+        barriers): a barrier is injected every ``interval_ms`` while the
+        in-flight window has room, and collections overlap the ticks
+        (the reference's ``run``, :737, on the wall clock)."""
+        n = 0
+        collector = None
+        interval = self.interval_ms / 1000
+        next_tick = time.monotonic()      # first barrier fires at once
+        try:
+            while not self._stopped and (stop_after is None
+                                         or n < stop_after):
+                if time.monotonic() >= next_tick:
+                    if len(self._in_flight) < self.IN_FLIGHT_BARRIERS:
+                        await self.inject()
+                        n += 1
+                    next_tick = max(next_tick + interval, time.monotonic())
+                if collector is None and self._in_flight:
+                    collector = asyncio.ensure_future(self.collect_next())
+                delay = max(0.0, next_tick - time.monotonic())
+                sleeper = asyncio.ensure_future(asyncio.sleep(delay))
+                waits = {sleeper} | ({collector} if collector else set())
+                done, _ = await asyncio.wait(
+                    waits, return_when=asyncio.FIRST_COMPLETED)
+                if collector in done:
+                    collector.result()
+                    collector = None
+                if sleeper not in done:
+                    sleeper.cancel()
+            # drain: a running collector holds an epoch already popped from
+            # the in-flight list; await it too, or the last epoch never
+            # commits
+            while collector is not None or self._in_flight:
+                if collector is not None:
+                    await collector
+                    collector = None
+                else:
+                    await self.collect_next()
+        finally:
+            if collector is not None:
+                collector.cancel()
+
+    def stop(self) -> None:
+        self._stopped = True

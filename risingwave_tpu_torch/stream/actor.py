@@ -5,11 +5,14 @@ src/stream/src/executor/actor.rs:36 and src/stream/src/task/
 barrier_manager.rs:103,119): an actor is one asyncio task driving an
 executor chain; the LocalBarrierManager sends injected barriers to source
 actors through registered senders and collects per-actor completion per
-epoch. The port covers one alignment domain and actors with no
-dispatchers (an MV's pipeline is one actor); the reference's monitoring,
-metrics and domain scoping are not ported. ``close_receivers`` (:37)
-and ``LocalBarrierManager.drop_actor`` (:273) are what a SQL session's
-DROP needs.
+epoch. An actor's chain ends in its dispatchers (``stream/dispatch.py``):
+chunks, barriers and watermarks go to every dispatcher, and a barrier is
+reported collected once it left them all. An MV-on-MV chain attaches an
+output to the upstream MV's broadcast dispatcher between barrier rounds
+(``update_outputs``). The port covers one alignment domain; the
+reference's monitoring, metrics and domain scoping are not ported.
+``close_receivers`` (:37) and ``LocalBarrierManager.drop_actor`` (:273)
+are what a SQL session's DROP needs.
 
 Barrier collection is the device sync point: an actor reports a barrier
 collected after its executors flushed device state for the epoch.
@@ -23,7 +26,7 @@ from typing import Dict, List, Optional, Sequence, Set
 
 from risingwave_tpu_torch.stream.exchange import Receiver, Sender
 from risingwave_tpu_torch.stream.executor import Executor, executor_children
-from risingwave_tpu_torch.stream.message import Barrier, is_barrier
+from risingwave_tpu_torch.stream.message import Barrier, is_barrier, is_chunk
 
 
 def close_receivers(ex, attrs=("rx", "barrier_rx")) -> None:
@@ -39,17 +42,15 @@ def close_receivers(ex, attrs=("rx", "barrier_rx")) -> None:
 
 
 class Actor:
-    """One dataflow task: an executor chain and its barrier reports."""
+    """One dataflow task: executor chain → dispatchers (actor.rs:36)."""
 
     def __init__(self, actor_id: int, consumer: Executor,
                  dispatchers: Sequence = (),
                  barrier_manager: Optional["LocalBarrierManager"] = None,
                  fragment: str = ""):
-        if dispatchers:
-            raise NotImplementedError(
-                "dispatchers are not ported: an actor here ends its chain")
         self.actor_id = actor_id
         self.consumer = consumer
+        self.dispatchers = list(dispatchers)
         self.barrier_manager = barrier_manager
         self.fragment = fragment
         self.failure: Optional[BaseException] = None
@@ -66,10 +67,21 @@ class Actor:
             self.barrier_manager.notify_failure(self.actor_id, e)
 
     async def _run_consumer(self) -> None:
+        dispatchers = self.dispatchers
         async for msg in self.consumer.execute():
+            if is_chunk(msg):
+                for d in dispatchers:
+                    await d.dispatch_data(msg)
+                continue
             if not is_barrier(msg):
+                for d in dispatchers:
+                    await d.dispatch_watermark(msg)
                 continue
             barrier = msg.with_passed(self.actor_id)
+            # collected := the barrier left every dispatcher (the
+            # executors flushed their device state before yielding it)
+            for d in dispatchers:
+                await d.dispatch_barrier(barrier)
             if self.barrier_manager is not None:
                 self.barrier_manager.collect(self.actor_id, barrier)
             if barrier.is_stop(self.actor_id):
@@ -77,6 +89,8 @@ class Actor:
             # let the barrier loop observe the collect before this task
             # runs into the next epoch's first chunk
             await asyncio.sleep(0)
+        for d in dispatchers:
+            d.close()
 
     def spawn(self) -> asyncio.Task:
         return asyncio.ensure_future(self.run())

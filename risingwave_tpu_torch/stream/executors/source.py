@@ -6,34 +6,28 @@ loop :358-428): between two barriers the executor pulls chunks from its
 reader; an arriving barrier wins the select (after the epoch's first
 chunk, and after ``min_chunks`` when set). The split offset persists in a
 split-state table at every barrier so recovery resumes where the
-committed epoch left off. Single-split readers only; the reference's
-freshness and metrics hooks are not ported.
+committed epoch left off, one row per split for a reader that consumes
+several (``splits()`` / ``seek_split``, the filelog multi-reader). A
+log-style reader (``unbounded``: filelog, the DML channel) that has no
+complete record parks the source on its barrier channel until the next
+epoch instead of ending the stream. The reference's freshness and
+metrics hooks are not ported. Readers are typed by
+``connectors/base.py``'s ``SplitReader``.
 """
 
 from __future__ import annotations
 
 import asyncio
-from typing import AsyncIterator, Optional, Protocol
+from typing import AsyncIterator, Optional
 
 from risingwave_tpu_torch.common.chunk import StreamChunk
+from risingwave_tpu_torch.connectors.base import SplitReader
 from risingwave_tpu_torch.state.state_table import StateTable
 from risingwave_tpu_torch.stream.exchange import ChannelClosed, Receiver
 from risingwave_tpu_torch.stream.executor import Executor, ExecutorInfo
 from risingwave_tpu_torch.stream.message import (
     Barrier, Message, is_barrier,
 )
-
-
-class SplitReader(Protocol):
-    """What a source executor needs from a connector reader."""
-
-    split_id: str
-    offset: int
-    schema: object
-
-    def seek(self, offset: int) -> None: ...
-
-    def next_chunk(self) -> Optional[StreamChunk]: ...
 
 
 class SourceExecutor(Executor):
@@ -61,19 +55,35 @@ class SourceExecutor(Executor):
     def _recover_offset(self) -> None:
         if self.split_state is None:
             return
+        splits = getattr(self.reader, "splits", None)
+        if splits is not None:
+            # multi-split reader: one durable row per split
+            for split_id, _off in splits():
+                row = self.split_state.get_row((split_id,))
+                if row is not None:
+                    self.reader.seek_split(split_id, row[1])
+            return
         row = self.split_state.get_row((self.reader.split_id,))
         if row is not None:
             self.reader.seek(row[1])
 
-    def _persist_offset(self) -> None:
-        if self.split_state is None:
-            return
-        row = (self.reader.split_id, self.reader.offset)
-        old = self.split_state.get_row((self.reader.split_id,))
+    def _persist_one(self, split_id: str, offset: int) -> None:
+        row = (split_id, offset)
+        old = self.split_state.get_row((split_id,))
         if old is None:
             self.split_state.insert(row)
         elif tuple(old) != row:
             self.split_state.update(old, row)
+
+    def _persist_offset(self) -> None:
+        if self.split_state is None:
+            return
+        splits = getattr(self.reader, "splits", None)
+        if splits is not None:
+            for split_id, off in splits():
+                self._persist_one(split_id, off)
+            return
+        self._persist_one(self.reader.split_id, self.reader.offset)
 
     def _handle_barrier(self, barrier: Barrier) -> None:
         if barrier.is_pause():
@@ -97,13 +107,14 @@ class SourceExecutor(Executor):
             return
 
         exhausted = False
+        idle = False
         chunks_this_epoch = 0
         while True:
             # the barrier wins the select — except for the FIRST chunk of
             # an epoch, generated before looking at the channel, so
             # back-to-back injection cannot starve the stream
             barrier: Optional[Barrier] = None
-            can_generate = not (self.paused or exhausted or (
+            can_generate = not (self.paused or exhausted or idle or (
                 self.rate_limit is not None
                 and chunks_this_epoch >= self.rate_limit))
             if not can_generate:
@@ -122,13 +133,19 @@ class SourceExecutor(Executor):
                 assert is_barrier(barrier)
                 self._handle_barrier(barrier)
                 chunks_this_epoch = 0
+                idle = False            # log sources re-poll per epoch
                 yield barrier
                 if barrier.is_stop(self.actor_id):
                     return
                 continue
             chunk = self.reader.next_chunk()
             if chunk is None:
-                exhausted = True
+                if getattr(self.reader, "unbounded", False):
+                    # log-style source with no complete records yet:
+                    # park on the barrier channel (not a busy-poll)
+                    idle = True
+                else:
+                    exhausted = True
                 continue
             chunks_this_epoch += 1
             yield chunk

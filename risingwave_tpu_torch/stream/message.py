@@ -16,8 +16,8 @@ global synchronization token; everything between two barriers is one
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
-from typing import FrozenSet, Optional, Union
+from dataclasses import dataclass, field
+from typing import Dict, FrozenSet, Optional, Union
 
 from risingwave_tpu_torch.common.chunk import StreamChunk
 from risingwave_tpu_torch.common.epoch import EpochPair
@@ -38,7 +38,16 @@ class BarrierKind(enum.Enum):
 
 # ---------------------------------------------------------------------------
 # Mutations: control-plane commands piggybacked on barriers
-# (src/stream/src/executor/mod.rs:223; the port carries Stop/Pause/Resume)
+# (src/stream/src/executor/mod.rs:223; the port carries Update (a hash
+# dispatcher's output swap), Stop, Pause and Resume)
+
+
+@dataclass(frozen=True)
+class UpdateMutation:
+    """Dispatcher output swaps at a barrier (reschedule): dispatcher id
+    -> its replacement output list."""
+
+    dispatcher_updates: Dict[int, list] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -59,7 +68,8 @@ class ResumeMutation:
     """Resume paused sources."""
 
 
-Mutation = Union[StopMutation, PauseMutation, ResumeMutation]
+Mutation = Union[UpdateMutation, StopMutation, PauseMutation,
+                 ResumeMutation]
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ Twins here: the 18 cases of ``tests/test_frontend.py`` that need no
 module of ``ROADMAP.md`` items 10b, 11 or 13 (:16, :51, :72, :100, :153,
 :174, :215, :302, :345, :380, :406, :440, :539, :580, :629, :720, :766,
 :781; the two project-set cases :720 and :781 read their counts through
-a derived table, as MV on MV is item 10b) and every case of
+a derived table here, and their MV-on-MV forms are twinned in
+``tests/test_torch_table_dml.py``) and every case of
 ``tests/test_subquery_having.py``. ``run_both`` is the shared harness of
 ``tests/test_torch_{corpus_nexmark,corpus_tpch,sql_session,
 plan_rewrite}.py``.
@@ -407,7 +408,7 @@ def test_eowc_without_watermark_rejected_twin():
 
 
 # the counts the project-set cases expand: the reference's MV g as a
-# derived table (MV on MV is ROADMAP.md item 10b)
+# derived table (the MV-on-MV forms are tests/test_torch_table_dml.py's)
 G = ("(SELECT auction AS a, count(*) AS c FROM bid GROUP BY auction) "
      "AS g")
 

@@ -70,6 +70,15 @@ import risingwave_tpu_torch.frontend.planner
 import risingwave_tpu_torch.frontend.session
 import risingwave_tpu_torch.meta.barrier
 import risingwave_tpu_torch.stream.actor
+import risingwave_tpu_torch.connectors.base
+import risingwave_tpu_torch.connectors.parser
+import risingwave_tpu_torch.connectors.filelog
+import risingwave_tpu_torch.connectors.datagen
+import risingwave_tpu_torch.connectors.dml
+import risingwave_tpu_torch.stream.dispatch
+import risingwave_tpu_torch.stream.executors.backfill
+import risingwave_tpu_torch.stream.executors.source
+import risingwave_tpu_torch.common.hash
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "risingwave_tpu" or m.startswith("risingwave_tpu."))
@@ -181,3 +190,38 @@ def test_sql_frontend_defaults_to_the_card():
     assert fe.device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StreamPlanner(fe.catalog, fe.store, fe.local, definition="")
+
+
+def test_tables_and_chains_take_the_session_device():
+    """With no card, Frontend() raises before any table or chain exists;
+    on the CPU (asked for), an agg MV over a table and an MV over that
+    MV both run their keyed executors on the session's device."""
+    import asyncio
+
+    from risingwave_tpu_torch.frontend import Frontend
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Frontend(rate_limit=2)
+
+    async def run():
+        fe = Frontend(device="cpu")
+        await fe.execute("CREATE TABLE t (k BIGINT, v BIGINT)")
+        await fe.execute("INSERT INTO t VALUES (1, 2), (1, 3)")
+        await fe.execute("CREATE MATERIALIZED VIEW m AS SELECT k, "
+                         "sum(v) AS s FROM t GROUP BY k")
+        await fe.execute("CREATE MATERIALIZED VIEW m2 AS SELECT s, "
+                         "count(*) AS n FROM m GROUP BY s")
+        await fe.step(2)
+        devs = []
+        for name in ("m", "m2"):
+            ex = fe.actors[fe.catalog.mvs[name].actor_id].consumer
+            while type(ex).__name__ != "HashAggExecutor":
+                ex = ex.input
+            devs.append(torch.device(ex._kern_kw["device"]).type)
+        rows = await fe.execute("SELECT * FROM m2")
+        await fe.close()
+        return devs, rows
+    devs, rows = asyncio.run(run())
+    assert devs == ["cpu", "cpu"] and rows == [(5, 1)]
+

@@ -10,6 +10,12 @@ not). A handful of the query corpus's shapes (``tests/test_corpus.py``,
 and a DECIMAL agg. Their MV rows must be equal as multisets (on the card
 K1's slot order moves only the order in which groups flush, ``ROADMAP.md``
 queue C), and the card's run must have launched the kernels of its plan.
+
+The scripts of the tables-and-DML slice run the same way, each a list of
+statements and steps: a table with INSERT, UPDATE and DELETE under an agg
+MV, an MV over an MV (backfilled mid-stream), a temporal join against an
+MV, a datagen source and a filelog source. Every SELECT's rows must be
+equal between the card and the CPU.
 """
 
 import asyncio
@@ -112,6 +118,112 @@ def test_sql_on_the_card_matches_the_cpu(dev, name):
     got, launches = _run(dev, sources, mv, select)
     want, cpu_launches = _run(torch.device("cpu"), sources, mv, select)
     assert got == want and sum(want.values()) > 0, name
+    assert not cpu_launches
+    missing = [k for k in kernels if not launches.get(k)]
+    assert not missing, f"{name} never launched {missing}"
+
+
+def _filelog_topic(path, n=3000):
+    import json
+    import os
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "trades-0.log"), "wb") as f:
+        for i in range(n):
+            f.write(json.dumps({"k": i, "name": f"sym{i % 7}",
+                                "price": float(i % 113)}).encode() + b"\n")
+
+
+# name -> (script: statements and step counts, kernels it launches)
+SCRIPTS = {
+    "table_dml": (
+        ["CREATE TABLE t (k BIGINT, v BIGINT)",
+         "INSERT INTO t VALUES (1, 10), (1, 11), (2, 20), (3, 30), (4, 5)",
+         "CREATE MATERIALIZED VIEW s AS SELECT k, sum(v) AS s, "
+         "min(v) AS lo, count(*) AS n FROM t GROUP BY k", 2,
+         "SELECT * FROM s", "UPDATE t SET v = v + 1 WHERE k > 1",
+         "DELETE FROM t WHERE k = 1", "SELECT * FROM s",
+         "INSERT INTO t SELECT k + 10, v FROM t", "SELECT * FROM s",
+         "SELECT k, v FROM t"],
+        ("probe_insert", "agg_apply", "flush_gather", "advance")),
+    "mv_on_mv": (
+        [_nexmark("bid", 8000),
+         "CREATE MATERIALIZED VIEW m1 AS SELECT auction, count(*) AS c "
+         "FROM bid GROUP BY auction", 4,
+         "CREATE MATERIALIZED VIEW m2 AS SELECT c, count(*) AS n, "
+         "min(auction) AS ma FROM m1 GROUP BY c", 24,
+         "SELECT * FROM m1", "SELECT * FROM m2"],
+        ("probe_insert", "agg_apply", "flush_gather", "advance")),
+    "temporal_join": (
+        [_nexmark("bid", 8000),
+         "CREATE MATERIALIZED VIEW dim AS SELECT auction, count(*) AS c "
+         "FROM bid GROUP BY auction",
+         "CREATE MATERIALIZED VIEW e AS SELECT b.price, d.c, b.auction "
+         "FROM bid AS b LEFT JOIN dim AS d FOR SYSTEM_TIME AS OF "
+         "PROCTIME() ON b.auction = d.auction", 16, "SELECT * FROM e"],
+        ("probe_insert", "agg_apply", "flush_gather")),
+    "datagen": (
+        ["CREATE SOURCE g WITH (connector='datagen', "
+         "fields.id.type='bigint', fields.id.kind='sequence', "
+         "fields.id.start=0, fields.id.end=100000, "
+         "fields.v.type='bigint', fields.v.kind='random', "
+         "fields.v.min=0, fields.v.max=50, "
+         "datagen.rows.per.chunk=1000, datagen.event.num=20000)",
+         "CREATE MATERIALIZED VIEW dg AS SELECT v, count(*) AS c, "
+         "max(id) AS top FROM g GROUP BY v", 8, "SELECT * FROM dg"],
+        ("probe_insert", "agg_apply", "flush_gather")),
+    "filelog": (
+        ["CREATE SOURCE trades (k BIGINT, name VARCHAR, price DOUBLE "
+         "PRECISION) WITH (connector='filelog', path='{path}', "
+         "topic='trades', format='json', max.chunk.size=256)",
+         "CREATE MATERIALIZED VIEW v AS SELECT name, count(*) AS c, "
+         "sum(k) AS s, max(price) AS hi FROM trades GROUP BY name", 8,
+         "SELECT * FROM v"],
+        ("probe_insert", "agg_apply", "flush_gather")),
+}
+
+
+def _run_script(device, script):
+    from risingwave_tpu_torch.frontend import Frontend
+    from risingwave_tpu_torch.frontend.opt import set_strict_checker
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+
+    async def main():
+        fe = Frontend(rate_limit=8, min_chunks=8, device=device)
+        LAUNCHES.reset()
+        out = []
+        for item in script:
+            if isinstance(item, int):
+                await fe.step(item)
+                continue
+            r = await fe.execute(item)
+            if isinstance(r, list):
+                out.append(Counter(
+                    tuple(v.item() if isinstance(v, np.generic) else v
+                          for v in row) for row in r))
+            else:
+                out.append(r)
+        launches = LAUNCHES.snapshot()
+        await fe.close()
+        return out, launches
+
+    set_strict_checker(True)
+    try:
+        return asyncio.run(main())
+    finally:
+        set_strict_checker(False)
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_sql_scripts_on_the_card_match_the_cpu(dev, name, tmp_path):
+    script, kernels = SCRIPTS[name]
+    path = str(tmp_path / "topic")
+    _filelog_topic(path)
+    script = [s.format(path=path) if isinstance(s, str) else s
+              for s in script]
+    got, launches = _run_script(dev, script)
+    want, cpu_launches = _run_script(torch.device("cpu"), script)
+    assert got == want, name
+    assert any(isinstance(r, Counter) and sum(r.values()) for r in want)
     assert not cpu_launches
     missing = [k for k in kernels if not launches.get(k)]
     assert not missing, f"{name} never launched {missing}"
