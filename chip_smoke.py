@@ -215,6 +215,18 @@ phases, any failure of which exits non-zero:
      ... SELECT from m1, an agg MV over it, a DELETE and an UPDATE, each
      MV equal to its oracle after each statement, with the backfill's
      rows and seconds and each agg's K2 mode;
+   - the session at parallelism > 1 (``Frontend(parallelism=n)``: n
+     logical shards of the card): ad-ctr as above at bench_adctr's
+     parallelism 4, both aggs on ShardedAggKernel(4) and the
+     impression-click join on the sharded join kernel, its MV equal to
+     the oracle and to parallelism 1's digest; ``ALTER MATERIALIZED VIEW
+     ... SET PARALLELISM`` on an agg MV over 2M events' bids, 1 -> 8 at
+     half and 8 -> 1 at three quarters, its MV equal to the oracle and to
+     an uninterrupted run's, each ALTER's seconds and K9 reload logged;
+     and the SQL q4 at 200,000 events on a ``PgServer`` over a
+     parallelism-4 session, its DDL and SELECT sent with the extended
+     protocol over a loopback socket, the wire's rows equal to the
+     session's and to the oracle;
 5. where the time goes: q7-core at 2M events and q8 at 2M and 20M
    events, fused q7 and q8 at 2M, q7-mesh and q8-mesh at 2M unfused
    and fused, q8 FULL OUTER at 2M (its MV equal to the capped arm's)
@@ -4935,14 +4947,22 @@ async def drive_frontend(fe, expected: int, dev, trace: bool,
 
 def plan_facts(fe, name: str) -> dict:
     """What CREATE did for one MV: planning + rewrite seconds, the rules
-    and fusion that fired, and the K2 mode of each agg, top down."""
+    and fusion that fired, the K2 mode of each agg, and each keyed
+    executor's kernel class and shard count, top down."""
     report = fe.mv_reports[name]
     modes = []
+    kernels = []
 
     def walk(ex):
         if type(ex).__name__ == "HashAggExecutor":
             modes.append("append-only" if ex.append_only
                          else "retractable")
+            k = ex.kernel
+            kernels.append(("agg", type(k).__name__, getattr(k, "n_dev", 1)))
+        if type(ex).__name__ == "HashJoinExecutor":
+            k = ex.sides[0].kernel
+            kernels.append(("join", type(k).__name__,
+                            getattr(k, "n_dev", 1)))
         for attr in ("input", "left_in", "right_in"):
             c = getattr(ex, attr, None)
             if c is not None and hasattr(c, "execute"):
@@ -4950,7 +4970,18 @@ def plan_facts(fe, name: str) -> dict:
     walk(fe.actors[fe.catalog.mvs[name].actor_id].consumer)
     return dict(plan_s=fe.mv_plan_seconds[name], rules=report.summary(),
                 rule_details=[f"{r}: {d}" for r, d in report.details],
-                fallbacks=report.fallbacks, agg_modes=modes)
+                fallbacks=report.fallbacks, agg_modes=modes,
+                kernels=kernels)
+
+
+def sharded_kernels(parallelism: int, aggs: int = 0, joins: int = 0) -> list:
+    """The kernels a plan of ``aggs`` aggs and ``joins`` joins gets at one
+    parallelism, sorted as ``plan_facts`` lists them."""
+    if parallelism > 1:
+        return sorted([("agg", "ShardedAggKernel", parallelism)] * aggs
+                      + [("join", "ShardedJoinKernel", parallelism)] * joins)
+    return sorted([("agg", "GroupedAggKernel", 1)] * aggs
+                  + [("join", "JoinSideKernel", 1)] * joins)
 
 
 def run_sql_q4(dev, events: int, trace: bool = False,
@@ -5056,6 +5087,24 @@ CHAIN_TM = ("CREATE MATERIALIZED VIEW tm AS SELECT k, sum(v) AS s, "
             "count(*) AS n FROM t GROUP BY k")
 CHAIN_PATH = ("probe_insert", "agg_apply", "flush_gather", "advance",
               "agg_prelude")
+# ad-ctr at bench_adctr's parallelism 4: both aggs and the join on the
+# shard axis of K1-K6 behind route
+ADCTR_P4 = 4
+ADCTR_P4_PATH = ("route", "probe_insert", "agg_apply", "flush_gather",
+                 "advance", "join_apply", "join_probe")
+# ALTER ... SET PARALLELISM on tests/test_reschedule.py's MV over sql q4's
+# bid source: 1 -> 8 at half the bids, 8 -> 1 at three quarters; each
+# redeploy reloads the kept agg table through K1 + K9
+ALTER_EVENTS = 2_000_000
+ALTER_SHARDS = 8
+ALTER_MV = ("CREATE MATERIALIZED VIEW v AS SELECT auction, count(*) AS c, "
+            "max(price) AS m FROM bid GROUP BY auction")
+ALTER_PATH = ("route", "probe_insert", "agg_apply", "flush_gather",
+              "advance", "scatter_rows")
+# sql q4 over the PostgreSQL wire on a Frontend(parallelism=4)
+PGWIRE_EVENTS = 200_000
+PGWIRE_P = 4
+PGWIRE_PATH = ADCTR_P4_PATH
 
 
 def adctr_produce(path: str, n_impressions: int, n_ads: int = 100):
@@ -5124,15 +5173,18 @@ def _reader_rows(r) -> int:
     return r.rows_read if hasattr(r, "rows_read") else r.offset
 
 
-def run_sql_adctr(dev, n_impressions: int, trace: bool = False) -> dict:
+def run_sql_adctr(dev, n_impressions: int, trace: bool = False,
+                  parallelism: int = 1) -> dict:
     """ad-ctr (BASELINE.md's named configuration) through
-    ``Frontend(device=dev, rate_limit=8, min_chunks=8)`` at parallelism 1:
+    ``Frontend(device=dev, rate_limit=8, min_chunks=8, parallelism=...)``:
     bench_adctr's DDL and producer, two filelog sources (JSON parsed on
     the host), HOP windows, the impression-click join, the temporal join
     against the ad_dim MV and the sliding-window agg, driven two barriers
     in flight to every row of the three readers. ad_ctr equals the
     vectorized oracle exactly and ad_dim's ``seen`` sums to the
-    impressions."""
+    impressions. At parallelism n > 1 (bench_adctr's own is 4) both aggs
+    run on ShardedAggKernel(n) and the impression-click join on the
+    sharded join kernel."""
     from risingwave_tpu_torch.frontend import Frontend
 
     path = os.path.abspath(ADCTR_DIR)
@@ -5143,7 +5195,7 @@ def run_sql_adctr(dev, n_impressions: int, trace: bool = False) -> dict:
 
     async def main():
         fe = Frontend(rate_limit=ADCTR_RATE, min_chunks=ADCTR_RATE,
-                      device=dev)
+                      device=dev, parallelism=parallelism)
         t0 = time.perf_counter()
         for sql in adctr_ddl(path):
             await fe.execute(sql)
@@ -5169,7 +5221,13 @@ def run_sql_adctr(dev, n_impressions: int, trace: bool = False) -> dict:
     modes = [m for n in ("ad_dim", "ad_ctr") for m in facts[n]["agg_modes"]]
     assert modes == ["append-only", "append-only"], \
         f"sql adctr planned its aggs as {modes}"
+    kernels = sorted(k for n in ("ad_dim", "ad_ctr")
+                     for k in facts[n]["kernels"])
+    want_k = sharded_kernels(parallelism, aggs=2, joins=1)
+    assert kernels == want_k, \
+        f"sql adctr at parallelism {parallelism} planned {kernels}"
     return dict(out, produce_s=produce_s, create_s=create_s,
+                parallelism=parallelism, kernels=kernels,
                 plan_s={n: f["plan_s"] for n, f in facts.items()},
                 rules={n: f["rules"] for n, f in facts.items()},
                 rule_details={n: f["rule_details"]
@@ -5350,6 +5408,235 @@ def run_sql_mv_chain(dev, events: int) -> dict:
                 rules={n: f["rules"] for n, f in facts.items()},
                 launches=launches, mv_rows=len(oracle["m1"]),
                 mv_digest=mv_digest(oracle["m2"]))
+
+
+def alter_oracle(events: int) -> list:
+    """(auction, count, max price) over every bid of ``events``."""
+    from risingwave_tpu_torch.connectors.nexmark import (
+        NexmarkConfig, gen_bids,
+    )
+    cfg = NexmarkConfig(event_num=events, max_chunk_size=SQL_Q4_CHUNK,
+                        generate_strings=False)
+    b = gen_bids(np.arange(events * 46 // 50, dtype=np.int64), cfg)
+    auc, inv, cnt = np.unique(b["auction"], return_inverse=True,
+                              return_counts=True)
+    mx = np.full(len(auc), np.iinfo(np.int64).min)
+    np.maximum.at(mx, inv, b["price"])
+    return sorted(zip(auc.tolist(), cnt.tolist(), mx.tolist()))
+
+
+def run_sql_alter(dev, events: int) -> dict:
+    """ALTER MATERIALIZED VIEW ... SET PARALLELISM through
+    ``Frontend(device=dev)``: sql q4's bid source and session,
+    ``ALTER_MV`` created at parallelism 1, driven to half the bids, altered
+    to 8 shards, driven to three quarters, altered back to 1, driven to
+    the end. The MV equals the oracle and an uninterrupted parallelism-1
+    run's digest from the same call. Each ALTER's seconds (what a user
+    waits for a reschedule: the stop barrier, the replan, the reload of
+    the kept tables and the activation barrier) and its launches (K1 + K9
+    for the reload) are kept; the path's launches are the drives' and the
+    ALTERs' summed."""
+    from risingwave_tpu_torch.frontend import Frontend
+    from risingwave_tpu_torch.utils.device import LAUNCHES
+
+    n_bids = events * 46 // 50
+    want = alter_oracle(events)
+
+    async def one(alters):
+        fe = Frontend(rate_limit=SQL_Q4_RATE, min_chunks=SQL_Q4_RATE,
+                      device=dev)
+        await fe.execute(
+            f"CREATE SOURCE bid WITH (connector='nexmark', "
+            f"nexmark.table.type='bid', nexmark.event.num={events}, "
+            f"nexmark.max.chunk.size={SQL_Q4_CHUNK}, "
+            f"nexmark.generate.strings='false')")
+        await fe.execute(ALTER_MV)
+        drives, steps = [], []
+        for upto, n in alters:
+            drives.append(await drive_frontend(fe, int(n_bids * upto), dev,
+                                               False))
+            LAUNCHES.reset()
+            t0 = time.perf_counter()
+            await fe.execute(
+                f"ALTER MATERIALIZED VIEW v SET PARALLELISM = {n}")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            steps.append(dict(to=n, seconds=time.perf_counter() - t0,
+                              launches=LAUNCHES.snapshot(),
+                              kernels=plan_facts(fe, "v")["kernels"]))
+        drives.append(await drive_frontend(fe, n_bids, dev, False))
+        rows = await fe.execute("SELECT * FROM v")
+        await fe.close()
+        return drives, steps, sorted(tuple(int(x) for x in r)
+                                     for r in rows)
+
+    straight, _none, rows0 = asyncio.run(one([]))
+    drives, steps, rows = asyncio.run(one([(0.5, ALTER_SHARDS),
+                                           (0.75, 1)]))
+    assert rows0 == want, "sql alter: the uninterrupted MV differs"
+    assert rows == want, "sql alter: the altered MV differs from the oracle"
+    assert mv_digest(rows) == mv_digest(rows0)
+    assert [s["kernels"] for s in steps] == [
+        sharded_kernels(ALTER_SHARDS, aggs=1), sharded_kernels(1, aggs=1)], \
+        f"sql alter: the ALTERs planned {[s['kernels'] for s in steps]}"
+    for s in steps:
+        # (a CPU rehearsal launches nothing: the plain versions run)
+        assert dev.type != "cuda" or s["launches"].get("scatter_rows", 0), \
+            f"sql alter: the ALTER to {s['to']} reloaded no state (K9)"
+    launches = {}
+    for part in [d["launches"] for d in drives] + \
+            [s["launches"] for s in steps]:
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    events_total = sum(d["events"] for d in drives)
+    elapsed = sum(d["elapsed_s"] for d in drives)
+    return dict(events=events_total, elapsed_s=elapsed,
+                wall_s=sum(d["wall_s"] for d in drives),
+                events_per_s=events_total / elapsed,
+                events_per_s_by_drive=[d["events_per_s"] for d in drives],
+                p99_barrier_latency_s=max(d["p99_barrier_latency_s"]
+                                          for d in drives),
+                p99_by_drive=[d["p99_barrier_latency_s"] for d in drives],
+                alters=[{k: s[k] for k in ("to", "seconds", "launches")}
+                        for s in steps],
+                uninterrupted_events_per_s=straight[0]["events_per_s"],
+                uninterrupted_p99_s=straight[0]["p99_barrier_latency_s"],
+                launches=launches, mv_rows=len(rows),
+                mv_digest=mv_digest(rows))
+
+
+class PgClient:
+    """A PostgreSQL v3 client over one loopback connection: the startup
+    handshake (the SSL probe first), simple queries and the extended
+    protocol, every value read in text format."""
+
+    def __init__(self, reader, writer):
+        self.r, self.w = reader, writer
+
+    @classmethod
+    async def connect(cls, port: int) -> "PgClient":
+        import struct
+        r, w = await asyncio.open_connection("127.0.0.1", port)
+        c = cls(r, w)
+        w.write(struct.pack(">II", 8, 80877103))
+        await w.drain()
+        assert await r.readexactly(1) == b"N", "pgwire: SSL not declined"
+        params = b"user\x00smoke\x00database\x00dev\x00\x00"
+        w.write(struct.pack(">II", 8 + len(params), 196608) + params)
+        await w.drain()
+        msgs = await c.read_until(b"Z")
+        assert msgs[0] == (b"R", struct.pack(">I", 0)), msgs[0]
+        return c
+
+    async def read_until(self, tag: bytes) -> list:
+        import struct
+        out = []
+        while True:
+            hdr = await self.r.readexactly(5)
+            n = struct.unpack(">I", hdr[1:5])[0]
+            out.append((hdr[0:1], await self.r.readexactly(n - 4)))
+            if out[-1][0] == tag:
+                return out
+
+    def _send(self, tag: bytes, body: bytes) -> None:
+        import struct
+        self.w.write(tag + struct.pack(">I", len(body) + 4) + body)
+
+    async def extended(self, sql: str) -> list:
+        """Parse, Bind, Describe (portal), Execute and Sync of one
+        unnamed statement; the messages up to ReadyForQuery."""
+        import struct
+        self._send(b"P", b"\x00" + sql.encode() + b"\x00"
+                   + struct.pack(">H", 0))
+        self._send(b"B", b"\x00\x00" + struct.pack(">HHH", 0, 0, 0))
+        self._send(b"D", b"P\x00")
+        self._send(b"E", b"\x00" + struct.pack(">I", 0))
+        self._send(b"S", b"")
+        await self.w.drain()
+        msgs = await self.read_until(b"Z")
+        errs = [p for t, p in msgs if t == b"E"]
+        assert not errs, f"pgwire: {sql[:60]!r} answered {errs[0]!r}"
+        return msgs
+
+    @staticmethod
+    def rows(msgs) -> list:
+        import struct
+        out = []
+        for t, p in msgs:
+            if t != b"D":
+                continue
+            n, at, row = struct.unpack(">H", p[:2])[0], 2, []
+            for _ in range(n):
+                ln = struct.unpack(">i", p[at:at + 4])[0]
+                at += 4
+                row.append(None if ln < 0 else p[at:at + ln].decode())
+                at += max(ln, 0)
+            out.append(tuple(row))
+        return out
+
+    async def close(self) -> None:
+        self._send(b"X", b"")
+        await self.w.drain()
+        self.w.close()
+        await self.w.wait_closed()
+
+
+def run_pgwire(dev, events: int) -> dict:
+    """sql q4 over the PostgreSQL wire: a ``PgServer`` on
+    ``Frontend(device=dev, parallelism=4)`` (sql q4's session) at a
+    loopback port; its sources and MV created with the extended protocol,
+    the session driven two barriers in flight to every event, the MV read
+    back with the extended protocol. The wire's rows equal the session's
+    direct ``execute`` of the same SELECT and sql q4's oracle."""
+    from risingwave_tpu_torch.frontend import Frontend
+    from risingwave_tpu_torch.frontend.pgwire import PgServer
+
+    async def main():
+        fe = Frontend(rate_limit=SQL_Q4_RATE, min_chunks=SQL_Q4_RATE,
+                      device=dev, parallelism=PGWIRE_P)
+        srv = PgServer(fe)
+        await srv.serve(port=0)
+        try:
+            c = await PgClient.connect(srv.port)
+            t0 = time.perf_counter()
+            done = []
+            for t in ("auction", "bid"):
+                done += await c.extended(
+                    f"CREATE SOURCE {t} WITH (connector='nexmark', "
+                    f"nexmark.table.type='{t}', "
+                    f"nexmark.event.num={events}, "
+                    f"nexmark.max.chunk.size={SQL_Q4_CHUNK}, "
+                    f"nexmark.generate.strings='false')")
+            done += await c.extended(SQL_Q4)
+            create_s = time.perf_counter() - t0
+            tags = [p for t, p in done if t == b"C"]
+            assert tags == [b"CREATE SOURCE\x00"] * 2 + [
+                b"CREATE MATERIALIZED VIEW\x00"], tags
+            facts = plan_facts(fe, "q4")
+            out = await drive_frontend(
+                fe, events * 3 // 50 + events * 46 // 50, dev, False)
+            t0 = time.perf_counter()
+            msgs = await c.extended("SELECT category, avg_final FROM q4")
+            select_s = time.perf_counter() - t0
+            direct = await fe.execute("SELECT category, avg_final FROM q4")
+            await c.close()
+        finally:
+            await srv.close()
+            await fe.close()
+        return out, facts, create_s, select_s, PgClient.rows(msgs), direct
+
+    out, facts, create_s, select_s, wire_rows, direct = asyncio.run(main())
+    rows = sorted((int(c), float(v)) for c, v in wire_rows)
+    assert rows == sorted((int(c), float(v)) for c, v in direct), \
+        "pgwire: the wire's rows differ from the session's"
+    want, _facts = q4_oracle(events)
+    assert rows == want, "pgwire: the MV differs from sql q4's oracle"
+    assert facts["kernels"] == sharded_kernels(PGWIRE_P, aggs=2, joins=1), \
+        f"pgwire: sql q4 at parallelism {PGWIRE_P} planned {facts['kernels']}"
+    return dict(out, create_s=create_s, select_s=select_s,
+                kernels=facts["kernels"], agg_modes=facts["agg_modes"],
+                rules=facts["rules"], mv_rows=len(rows),
+                mv_digest=mv_digest(rows))
 
 
 def main() -> int:
@@ -5566,7 +5853,12 @@ def main() -> int:
              SQL_Q4_EVENTS, SQL_PATH),
             ("sql q3", lambda d, e: run_sql_q3(d, *Q3_SF01), 0, SQL_PATH),
             ("sql adctr", run_sql_adctr, ADCTR_IMPRESSIONS, ADCTR_PATH),
-            ("sql mv chain", run_sql_mv_chain, CHAIN_EVENTS, CHAIN_PATH)):
+            ("sql mv chain", run_sql_mv_chain, CHAIN_EVENTS, CHAIN_PATH),
+            ("sql adctr p4", lambda d, e: run_sql_adctr(
+                d, e, parallelism=ADCTR_P4), ADCTR_IMPRESSIONS,
+             ADCTR_P4_PATH),
+            ("sql alter", run_sql_alter, ALTER_EVENTS, ALTER_PATH),
+            ("pgwire", run_pgwire, PGWIRE_EVENTS, PGWIRE_PATH)):
         t_path = time.perf_counter()
         out = run(dev, events)
         out["path_s"] = time.perf_counter() - t_path
@@ -5671,6 +5963,29 @@ def main() -> int:
         f"{r['m2_backfill_s']} s from CREATE; the table step "
         + json.dumps(r["table"]) + f"; aggs {r['agg_modes']}, launches "
         + json.dumps(r["launches"]) + f"; {card}")
+
+    a, p4 = paths["sql adctr"], paths["sql adctr p4"]
+    assert p4["mv_digest"] == a["mv_digest"], \
+        "sql adctr p4: the MV differs from parallelism 1's"
+    log(f"sql adctr at parallelism {ADCTR_P4} vs 1 ({ADCTR_IMPRESSIONS} "
+        f"impressions): events/s {p4['events_per_s']} vs "
+        f"{a['events_per_s']}, p99 barrier latency "
+        f"{p4['p99_barrier_latency_s']} vs {a['p99_barrier_latency_s']} s; "
+        f"kernels {p4['kernels']}; launches " + json.dumps(p4["launches"])
+        + f"; {card}")
+    r = paths["sql alter"]
+    log(f"sql alter ({ALTER_EVENTS} events, 1 -> {ALTER_SHARDS} -> 1): "
+        f"ALTERs " + json.dumps(r["alters"]) + f"; events/s by drive "
+        f"{r['events_per_s_by_drive']} (p99 {r['p99_by_drive']}) against "
+        f"the uninterrupted run's {r['uninterrupted_events_per_s']} (p99 "
+        f"{r['uninterrupted_p99_s']}); digest {r['mv_digest']}; {card}")
+    r = paths["pgwire"]
+    log(f"pgwire (sql q4 at {PGWIRE_EVENTS} events, parallelism "
+        f"{PGWIRE_P}, the extended protocol on a loopback socket): "
+        f"events/s {r['events_per_s']}, p99 barrier latency "
+        f"{r['p99_barrier_latency_s']} s, CREATE {r['create_s']} s, the "
+        f"SELECT over the wire {r['select_s']} s; {r['mv_rows']} rows equal "
+        f"the session's and the oracle; kernels {r['kernels']}; {card}")
 
     J.JoinSideKernel.read_degrees = host_read
     assert not degree_reads, \

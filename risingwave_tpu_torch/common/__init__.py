@@ -1,1 +1,7 @@
-"""Foundation: types, chunks, epochs, hashing."""
+"""Foundation: types, chunks, epochs, hashing, config."""
+
+from risingwave_tpu_torch.common.config import (
+    RwConfig, StorageConfig, StreamingConfig,
+)
+
+__all__ = ["RwConfig", "StreamingConfig", "StorageConfig"]

@@ -6,7 +6,7 @@ column pruning), the fusion rule (``fusion.py``), the plan-property
 checker that re-derives invariants after every rule (``checker.py``) and
 the engine (``engine.py``). The fragment-graph rules
 (``fragment_rules.py``) come with the fragmenter (``ROADMAP.md`` item
-10c).
+10d).
 """
 
 from risingwave_tpu_torch.frontend.opt.checker import (    # noqa: F401

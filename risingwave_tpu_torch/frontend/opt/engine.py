@@ -35,7 +35,7 @@ EXECUTOR_RULES = {
     "column_pruning": _rules.prune_columns,
 }
 EXECUTOR_RULE_NAMES = tuple(EXECUTOR_RULES)
-# the fragment rules run on the fragmenter's graph (ROADMAP.md item 10c);
+# the fragment rules run on the fragmenter's graph (ROADMAP.md item 10d);
 # the name is accepted in a spec, as the reference accepts it
 FRAGMENT_RULE_NAMES = ("exchange_elision",)
 RULE_NAMES = EXECUTOR_RULE_NAMES + FRAGMENT_RULE_NAMES
@@ -126,7 +126,11 @@ def rewrite_stream_plan(root, spec: Optional[str] = "all",
     enables the fragment-fusion rule (frontend/opt/fusion.py) on top of
     whatever ``spec`` enables, whose standalone blocks run on
     ``device`` (None: the card); ``extra_rules`` adds rules by name (the
-    checker's tests)."""
+    checker's tests). ``dist_parallelism`` other than 1 (the fragmenter's
+    distributed plan, ``ROADMAP.md`` item 10d) raises."""
+    if dist_parallelism != 1:
+        from risingwave_tpu_torch.frontend.planner import not_ported
+        raise not_ported("a rewrite at dist_parallelism > 1", "10d")
     report = RewriteReport(label)
     enabled = parse_rules(spec) & set(EXECUTOR_RULE_NAMES)
     registry: Dict[str, object] = dict(EXECUTOR_RULES)

@@ -20,10 +20,11 @@ side's per-row aux flags cannot follow).
 
 Eligibility is checked BEFORE anything changes, and the engine's checker
 re-derives every plan invariant after the rule fires. An agg with an
-injected sharded kernel (``build_q7(mesh=...)``) absorbs its run like any
-other, but for a hop expansion (the routing is sized for the uploaded
-rows). Distributed parallelism above 1 is the SQL planner's cut, which is
-not ported, and is refused.
+injected sharded kernel (``build_q7(mesh=...)``, or a SQL session at
+parallelism > 1) absorbs its run like any other, but for a hop expansion
+(the routing is sized for the uploaded rows). Distributed parallelism
+above 1 is the fragmenter's cut (``ROADMAP.md`` item 10d), and is
+refused.
 """
 
 from __future__ import annotations
@@ -158,9 +159,9 @@ def fuse_fragments(root, dist_parallelism: int = 1, device=None
     blocks run on ``device`` (None: the card); absorbed runs run on
     their agg's or join's device."""
     if dist_parallelism != 1:
-        raise NotImplementedError(
-            "fusion at distributed parallelism > 1 needs the SQL "
-            "planner's sharded cut, which is not ported")
+        from risingwave_tpu_torch.frontend.planner import not_ported
+        raise not_ported("fusion at dist_parallelism > 1 (the "
+                         "fragmenter's cut)", "10d")
     from risingwave_tpu_torch.frontend.opt.rules import _swap_child
     from risingwave_tpu_torch.ops.fused import FusedStages
     from risingwave_tpu_torch.stream.coalesce import CoalesceExecutor

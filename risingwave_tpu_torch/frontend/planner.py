@@ -22,14 +22,19 @@ plans, executor for executor and state table for state table, with the
 catalog ids handed out in the reference's order (the id-base contract:
 state tables are compared by id). Every keyed executor the planner
 builds, and every fused block the rewrite makes, runs on the planner's
-``device`` (None: the card). MV on MV attaches a chain edge to the
+``device`` (None: the card). With a ``mesh`` (a ``ShardMesh`` of logical
+shards on that device) every GROUP BY runs on a ``ShardedAggKernel`` and
+every stream join on the ``ShardedJoinKernel`` (the reference's device
+mesh); the mesh branches allocate no catalog id, so a plan's ids do not
+depend on its parallelism. MV on MV attaches a chain edge to the
 upstream MV's actor (``_chain_upstream_mv``) that the session wires in
 only after the whole plan validated; the temporal join probes such a
 chain as of process time. Left to later items, each refused with
-``NotImplementedError`` naming it: ``parallelism > 1`` and the inlined
-view expansion of the distributed session (``ROADMAP.md`` item 10c),
-the segmented filelog reader and sinks (item 13), and the system tables
-of unported subsystems (items 11-13).
+``NotImplementedError`` naming it: the distributed plan
+(``dist_parallelism``, ``ROADMAP.md`` item 10d), the inlined view
+expansion of the distributed session (``inline_mvs``), the segmented
+filelog reader and sinks (item 13), and the system tables of unported
+subsystems (items 11-13).
 """
 
 from __future__ import annotations
@@ -195,14 +200,21 @@ class StreamPlanner:
     """Plans one CREATE MATERIALIZED VIEW into an executor chain."""
 
     def __init__(self, catalog: Catalog, store, local, definition: str,
-                 join_state_cap=None,
+                 mesh=None, actors=None, dist_parallelism: int = 1,
+                 join_state_cap=None, inline_mvs=None,
                  chunk_target_rows: Optional[int] = None,
                  coalesce_linger_chunks: Optional[int] = None,
-                 state_tier_cap: Optional[int] = None, device=None,
-                 actors=None):
+                 state_tier_cap: Optional[int] = None, device=None):
         from risingwave_tpu_torch.stream.coalesce import (
             DEFAULT_MAX_CHUNKS, DEFAULT_TARGET_ROWS,
         )
+        if max(1, dist_parallelism) != 1:
+            # the local/global agg split and the fragmenter's cut
+            raise not_ported("dist_parallelism > 1 (the distributed "
+                             "plan)", "10d")
+        if inline_mvs:
+            # the distributed session's view expansion
+            raise not_ported("inline_mvs (MV on MV inlined)", "13")
         self.catalog = catalog
         self.store = store
         # adaptive coalescing in front of keyed executors (session var
@@ -216,6 +228,11 @@ class StreamPlanner:
         self.definition = definition
         # every keyed executor of the plan runs here (None: the card)
         self.device = resolve_device(device)
+        # non-None ⇒ sharded GROUP BY and join plans over its shards
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh is on {mesh.device}, the plan on "
+                             f"{self.device}")
+        self.mesh = mesh
         # resident-row cap per join side: INNER joins get the
         # cold-state tier (evict to the state table, reload on probe
         # miss — managed_state/join/mod.rs:379-420)
@@ -520,6 +537,7 @@ class StreamPlanner:
                 tierable = (jt in (JoinType.INNER, JoinType.LEFT_OUTER,
                                    JoinType.RIGHT_OUTER,
                                    JoinType.FULL_OUTER)
+                            and self.mesh is None
                             and self._derive_append_only(left)
                             and self._derive_append_only(right))
                 cap = (self.state_tier_cap or self.join_state_cap) \
@@ -543,11 +561,15 @@ class StreamPlanner:
                                     dist_key_indices=None)
                     rt = StateTable(self.catalog.next_id(), right.schema,
                                     list(right.pk_indices), self.store)
+                # parallel plan: the hash exchange feeding N parallel
+                # join actors (dispatch.rs:582) is the sharded kernel's
+                # routing — same wiring as the agg path
                 left = HashJoinExecutor(self._coalesced(left),
                                         self._coalesced(right),
                                         lkeys, rkeys, lt,
                                         rt, actor_id=actor_id,
-                                        join_type=jt, state_cap=cap,
+                                        join_type=jt, mesh=self.mesh,
+                                        state_cap=cap,
                                         device=self.device)
                 lscope = lscope.concat(rscope)
             ex = left
@@ -949,12 +971,32 @@ class StreamPlanner:
             pre.schema, list(range(g)), calls, append_only, self.store,
             dedup_table_id=lambda _col: self.catalog.next_id(),
             minput_table_id=lambda _j: self.catalog.next_id())
+        kernel = None
+        if self.mesh is not None:
+            # parallel plan: the hash exchange the reference's
+            # fragmenter inserts before a parallel agg
+            # (stream_fragmenter/mod.rs:199) is the sharded kernel's
+            # routing. Retracting upstreams shard too (signed scatters
+            # and the sharded patch of MIN/MAX recomputes); host aggs
+            # keep their executor-side path under any kernel. This
+            # block allocates no catalog id (the id-base contract).
+            from risingwave_tpu_torch.parallel.agg import ShardedAggKernel
+            from risingwave_tpu_torch.stream.executors.keys import (
+                LANES_PER_KEY,
+            )
+            kernel = ShardedAggKernel(
+                self.mesh, key_width=LANES_PER_KEY * g,
+                specs=[c.spec(pre.schema) for c in calls])
         agg = HashAggExecutor(self._coalesced(pre), list(range(g)),
                               calls, table,
-                              append_only=append_only,
+                              append_only=append_only, kernel=kernel,
                               minput_tables=minput_tables,
                               distinct_tables=distinct_tables,
-                              tier_cap=self.state_tier_cap,
+                              # the cold tier: the one-device lazy
+                              # kernel only (the sharded one has no
+                              # targeted evict)
+                              tier_cap=self.state_tier_cap
+                              if kernel is None else None,
                               device=self.device)
         # bound items are already typed refs over the agg output row
         return agg, bound, having_pred

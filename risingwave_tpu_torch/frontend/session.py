@@ -12,10 +12,19 @@ snapshot before following its changelog; ``JOIN <mv> FOR SYSTEM_TIME AS
 OF PROCTIME()``), ``CREATE TABLE`` / ``DROP TABLE`` and ``INSERT`` /
 ``UPDATE`` / ``DELETE`` through each table's DML channel, ``FLUSH``,
 ``SELECT`` through the batch engine, ``EXPLAIN``, ``SET`` / ``SHOW``,
-``DROP MATERIALIZED VIEW`` / ``DROP SOURCE``, and ``step`` / ``close``.
-The entry point is the reference's: ``Frontend(...)`` then ``await
-fe.execute(sql)``. Every MV's actor ends in a broadcast dispatcher,
-empty until a downstream MV attaches its chain edge.
+``ALTER MATERIALIZED VIEW ... SET PARALLELISM``, ``DROP MATERIALIZED
+VIEW`` / ``DROP SOURCE``, and ``step`` / ``close``. The entry point is
+the reference's: ``Frontend(...)`` then ``await fe.execute(sql)``
+(``frontend/pgwire.py`` serves it to PostgreSQL clients). Every MV's
+actor ends in a broadcast dispatcher, empty until a downstream MV
+attaches its chain edge.
+
+``parallelism`` n > 1 plans every GROUP BY and stream join over a
+``ShardMesh(n)``: n logical shards on the session's device, where the
+reference needs n devices (so 2 to 256, the vnode count). ``ALTER ...
+SET PARALLELISM`` stops the job at a barrier with its state kept,
+replans it from the same table-id base over the new mesh, and the
+redeployed executors recover from the kept state tables.
 
 Every MV's keyed executors run on the session's ``device``: the card
 unless the caller passes ``device="cpu"`` (``utils/device.py``
@@ -23,8 +32,7 @@ unless the caller passes ``device="cpu"`` (``utils/device.py``
 raises.
 
 What this session leaves to later items, each refused with
-``NotImplementedError`` naming its ``ROADMAP.md`` item: ``parallelism >
-1`` and ``ALTER ... SET PARALLELISM`` (10c); any
+``NotImplementedError`` naming its ``ROADMAP.md`` item: any
 store but ``MemoryStateStore``, ``recover`` and the DDL log (11); barrier
 domains (``epoch_pipeline``), the span tracer, the epoch ledger, the
 tricolor monitor and the cost ledger (12); sinks (13). Their session
@@ -65,7 +73,6 @@ _UNPORTED_KNOBS = {
 
 # statements a later item ports, by AST class name
 _UNPORTED_STATEMENTS = {
-    "AlterParallelism": ("ALTER ... SET PARALLELISM", "10c"),
     "CreateSink": ("CREATE SINK", "13"),
     "DropSink": ("DROP SINK", "13"),
 }
@@ -107,8 +114,9 @@ class Frontend:
         if not isinstance(self.store, MemoryStateStore):
             raise not_ported("a state store other than MemoryStateStore",
                              "11")
-        if parallelism > 1:
-            raise not_ported("parallelism > 1", "10c")
+        # parallelism > 1: GROUP BY and join plans run on the
+        # vnode-sharded kernels over logical shards of the device
+        self.mesh = self._mesh_for(parallelism)
         if epoch_pipeline:
             raise not_ported("barrier domains (epoch_pipeline=True)", "12")
         self.catalog = Catalog()
@@ -124,8 +132,11 @@ class Frontend:
         self.min_chunks = min_chunks
         # resident join-state cap (cold-tier eviction; None = unbounded)
         self.join_state_cap = join_state_cap
-        # unified state-tiering cap (state/tier.py); None/0 = unbounded
+        # unified state-tiering cap (state/tier.py); None/0 = unbounded.
+        # Recorded per MV at CREATE (it shapes join state-table pks) and
+        # replayed at reschedule, like _mv_rules
         self.state_tier_cap: Optional[int] = None
+        self._mv_tier_caps: Dict[str, Optional[int]] = {}
         from risingwave_tpu_torch.stream.coalesce import (
             DEFAULT_MAX_CHUNKS, DEFAULT_TARGET_ROWS,
         )
@@ -163,10 +174,13 @@ class Frontend:
                         **{n: _knob_validator(n)
                            for n in _UNPORTED_KNOBS}})
         # rules spec and fusion setting each MV was created under: they
-        # shape its state tables, so a reschedule (item 10c) and a DDL
-        # replay (item 11) must re-plan under the same ones
+        # shape its state tables, so a reschedule and a DDL replay
+        # (item 11) must re-plan under the same ones
         self._mv_rules: Dict[str, str] = {}
         self._mv_fusion: Dict[str, bool] = {}
+        # name → (CREATE MV select AST, EOWC flag): reschedule replans
+        # from this
+        self._mv_selects: Dict[str, tuple] = {}
         # what each CREATE cost and did: planning + rewrite seconds and
         # the rewrite report (rules fired, fusion groups, fallbacks)
         self.mv_plan_seconds: Dict[str, float] = {}
@@ -255,6 +269,8 @@ class Frontend:
             return "CREATE_SOURCE"
         if isinstance(stmt, ast.CreateMaterializedView):
             return await self._create_mv(stmt)
+        if isinstance(stmt, ast.AlterParallelism):
+            return await self._alter_parallelism(stmt)
         if isinstance(stmt, ast.Explain):
             return self._explain(stmt.select)
         if isinstance(stmt, ast.DropMaterializedView):
@@ -309,15 +325,24 @@ class Frontend:
         raise PlanError(f"unhandled statement {stmt!r}")
 
     # -- handlers ---------------------------------------------------------
-    def _planner(self, local) -> StreamPlanner:
+    def _planner(self, local, mesh, state_tier_cap) -> StreamPlanner:
         return StreamPlanner(self.catalog, self.store, local,
-                             definition="",
+                             definition="", mesh=mesh, actors=self.actors,
                              join_state_cap=self.join_state_cap,
-                             state_tier_cap=self.state_tier_cap or None,
+                             state_tier_cap=state_tier_cap,
                              chunk_target_rows=self.chunk_target_rows,
                              coalesce_linger_chunks=self
                              .coalesce_linger_chunks,
-                             device=self.device, actors=self.actors)
+                             device=self.device)
+
+    def _mesh_for(self, parallelism: int):
+        """n logical shards on the session's device for a parallel plan
+        (None: one device). Past the 256 vnodes ShardMesh raises
+        ValueError."""
+        if parallelism <= 1:
+            return None
+        from risingwave_tpu_torch.parallel.mesh import ShardMesh
+        return ShardMesh(parallelism, device=self.device)
 
     async def _deploy_job(self, name: str, actor_id: int, consumer,
                           readers, register, attaches=()) -> Actor:
@@ -353,7 +378,8 @@ class Frontend:
         from risingwave_tpu_torch.frontend.opt import (
             explain_with_rewrite, parse_fusion,
         )
-        plan = self._planner(LocalBarrierManager()).plan(
+        plan = self._planner(LocalBarrierManager(), self.mesh,
+                             self.state_tier_cap or None).plan(
             "__explain__", sel, actor_id=0, rate_limit=self.rate_limit,
             min_chunks=self.min_chunks)
         return explain_with_rewrite(
@@ -368,7 +394,8 @@ class Frontend:
         self.catalog._check_free(stmt.name)    # validate BEFORE planning
         async with self._barrier_lock:
             t0 = time.perf_counter()
-            planner = self._planner(self.local)
+            planner = self._planner(self.local, self.mesh,
+                                    self.state_tier_cap or None)
             actor_id = self._next_actor
             self._next_actor += 1
             id_base = self.catalog._next_id
@@ -396,8 +423,13 @@ class Frontend:
                 stmt.name, actor_id, plan.consumer, plan.readers,
                 lambda: self.catalog.add_mv(plan.mv),
                 attaches=plan.attaches)
+        self._mv_selects[stmt.name] = (
+            stmt.select, getattr(stmt, "emit_on_window_close", False))
         self._mv_rules[stmt.name] = rules
         self._mv_fusion[stmt.name] = fusion
+        # CREATE-time tier cap: reschedule replans under it (the cap
+        # shapes join state-table pk layouts — id-base contract)
+        self._mv_tier_caps[stmt.name] = self.state_tier_cap or None
         if actor.failure is not None:
             raise actor.failure
         return "CREATE_MATERIALIZED_VIEW"
@@ -756,11 +788,100 @@ class Frontend:
         async with self._barrier_lock:
             actor = await self._stop_job(name, entry.actor_id)
         del self.catalog.mvs[name]
-        self._mv_rules.pop(name, None)
-        self._mv_fusion.pop(name, None)
+        self._forget_mv(name)
         if actor is not None and actor.failure is not None:
             raise actor.failure
         return status
+
+    def _forget_mv(self, name: str) -> None:
+        """Drop what CREATE recorded for the replay of one MV."""
+        for m in (self._mv_selects, self._mv_rules, self._mv_fusion,
+                  self._mv_tier_caps):
+            m.pop(name, None)
+
+    async def _alter_parallelism(self, stmt: ast.AlterParallelism) -> str:
+        """Runtime reschedule (meta/stream/scale.rs:717
+        reschedule_actors analog): stop the job at a barrier with its
+        state kept, replan the SAME definition over the new mesh FROM
+        THE SAME TABLE-ID BASE (state tables keep their ids, so the
+        redeployed executors recover every group and row from them),
+        then redeploy. The sharded kernels' vnode routing lands the
+        reloaded state on its new owner shard."""
+        from risingwave_tpu_torch.frontend.opt import apply_rewrites
+
+        name, n = stmt.name, stmt.parallelism
+        mv = self.catalog.mvs.get(name)
+        if mv is None:
+            raise PlanError(f"unknown materialized view {name!r}")
+        if self._dependents(name) or any(
+                d in self.catalog.mvs for d in mv.dependent_sources):
+            raise PlanError(
+                "ALTER ... SET PARALLELISM on chained MVs is not "
+                "supported yet")
+        if mv.id_base < 0:
+            raise PlanError(f"{name!r} predates reschedule support")
+        stored = self._mv_selects.get(name)
+        if stored is None:
+            raise PlanError(f"no CREATE statement on record for "
+                            f"{name!r}")
+        sel, eowc = stored
+        mesh = self._mesh_for(n)
+        async with self._barrier_lock:
+            # 1) stop this job's actors at a barrier (state and catalog
+            # kept: a pause, not a drop)
+            old_actor = await self._stop_job(name, mv.actor_id)
+            try:
+                if old_actor is not None and \
+                        old_actor.failure is not None:
+                    raise old_actor.failure
+                # 2) replan from the recorded id base → the same state
+                # tables (the mesh branches allocate no ids)
+                saved = self.catalog._next_id
+                self.catalog._next_id = mv.id_base
+                planner = self._planner(self.local, mesh,
+                                        self._mv_tier_caps.get(name))
+                actor_id = self._next_actor
+                self._next_actor += 1
+                try:
+                    # the CREATE's flags: an EOWC gate allocates an id
+                    plan = planner.plan(name, sel, actor_id,
+                                        rate_limit=self.rate_limit,
+                                        min_chunks=self.min_chunks,
+                                        emit_on_window_close=eowc)
+                    # the CREATE-time rules: the kept state tables carry
+                    # the schemas that rewrite produced (pruned sides)
+                    report = apply_rewrites(
+                        plan, self._mv_rules.get(name, "all"),
+                        label=name,
+                        fusion=self._mv_fusion.get(name, False)
+                        and mesh is None, device=self.device)
+                except BaseException:
+                    for sid in planner.registered_senders:
+                        self.local.drop_actor(sid)
+                    self.catalog._next_id = saved
+                    raise
+                self.catalog._next_id = max(saved,
+                                            self.catalog._next_id)
+                plan.mv.id_base = mv.id_base
+                self.mv_reports[name] = report
+                del self.catalog.mvs[name]
+                # 3) redeploy; the executors recover from the kept tables
+                actor = await self._deploy_job(
+                    name, actor_id, plan.consumer, plan.readers,
+                    lambda: self.catalog.add_mv(plan.mv),
+                    attaches=plan.attaches)
+            except BaseException as e:
+                # the old pipeline is gone and cannot be restored:
+                # degrade to DROPPED (state tables kept) rather than
+                # leave a catalog entry that serves frozen results
+                self.catalog.mvs.pop(name, None)
+                self._forget_mv(name)
+                raise PlanError(
+                    f"reschedule of {name!r} failed after teardown — "
+                    f"the MV was dropped (state retained): {e}") from e
+        if actor.failure is not None:
+            raise actor.failure
+        return "ALTER_MATERIALIZED_VIEW"
 
     async def _drop_mv(self, stmt: ast.DropMaterializedView) -> str:
         if stmt.name in self._tables:

@@ -78,6 +78,8 @@ import risingwave_tpu_torch.connectors.dml
 import risingwave_tpu_torch.stream.dispatch
 import risingwave_tpu_torch.stream.executors.backfill
 import risingwave_tpu_torch.stream.executors.source
+import risingwave_tpu_torch.frontend.pgwire
+import risingwave_tpu_torch.common.config
 import risingwave_tpu_torch.common.hash
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -11,7 +11,7 @@ is rewritten by both packages and held equal: the same ``EXPLAIN`` lines
 and the same report (fire counts, details, fallbacks). Left to later
 items: the DDL-log replay of the rule spec (``ROADMAP.md`` item 11),
 the rule counters (item 12) and the fragment rules with the distributed
-session (item 10c).
+plan (item 10d).
 """
 
 import asyncio

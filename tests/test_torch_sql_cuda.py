@@ -16,6 +16,10 @@ statements and steps: a table with INSERT, UPDATE and DELETE under an agg
 MV, an MV over an MV (backfilled mid-stream), a temporal join against an
 MV, a datagen source and a filelog source. Every SELECT's rows must be
 equal between the card and the CPU.
+
+At parallelism 4 (``PARALLEL_SCRIPTS``) a GROUP BY over a join runs on the
+sharded kernels and is rescheduled by ``ALTER ... SET PARALLELISM`` to 1
+and to 8, each SELECT equal between the card and the CPU.
 """
 
 import asyncio
@@ -182,13 +186,14 @@ SCRIPTS = {
 }
 
 
-def _run_script(device, script):
+def _run_script(device, script, parallelism=1):
     from risingwave_tpu_torch.frontend import Frontend
     from risingwave_tpu_torch.frontend.opt import set_strict_checker
     from risingwave_tpu_torch.utils.device import LAUNCHES
 
     async def main():
-        fe = Frontend(rate_limit=8, min_chunks=8, device=device)
+        fe = Frontend(rate_limit=8, min_chunks=8, device=device,
+                      parallelism=parallelism)
         LAUNCHES.reset()
         out = []
         for item in script:
@@ -224,6 +229,35 @@ def test_sql_scripts_on_the_card_match_the_cpu(dev, name, tmp_path):
     want, cpu_launches = _run_script(torch.device("cpu"), script)
     assert got == want, name
     assert any(isinstance(r, Counter) and sum(r.values()) for r in want)
+    assert not cpu_launches
+    missing = [k for k in kernels if not launches.get(k)]
+    assert not missing, f"{name} never launched {missing}"
+
+
+# name -> (script, kernels it launches, the session's parallelism)
+PARALLEL_SCRIPTS = {
+    "join_agg_alter": (
+        [_nexmark("person", 80000, chunk=64),
+         _nexmark("auction", 80000, chunk=64),
+         "CREATE MATERIALIZED VIEW j AS SELECT p.id, count(*) AS n, "
+         "max(a.reserve) AS r FROM person AS p JOIN auction AS a "
+         "ON p.id = a.seller GROUP BY p.id", 4, "SELECT * FROM j",
+         "ALTER MATERIALIZED VIEW j SET PARALLELISM = 1", 4,
+         "SELECT * FROM j", "ALTER MATERIALIZED VIEW j SET PARALLELISM = 8",
+         16, "SELECT * FROM j"],
+        ("route", "probe_insert", "agg_apply", "flush_gather", "advance",
+         "join_apply", "join_probe", "scatter_rows"), 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARALLEL_SCRIPTS))
+def test_sql_at_parallelism_on_the_card_matches_the_cpu(dev, name):
+    script, kernels, parallelism = PARALLEL_SCRIPTS[name]
+    got, launches = _run_script(dev, script, parallelism)
+    want, cpu_launches = _run_script(torch.device("cpu"), script,
+                                     parallelism)
+    assert got == want, name
+    assert all(sum(r.values()) for r in want if isinstance(r, Counter))
     assert not cpu_launches
     missing = [k for k in kernels if not launches.get(k)]
     assert not missing, f"{name} never launched {missing}"

@@ -15,9 +15,9 @@ state tables by id, the barrier loop's session half, and the refusals.
   MAX plans K2's append-only path, its outer AVG the retractable one.
 - ``checkpoint_frequency``, ``schedule_mutation`` and the profiler's
   ``drop_first`` behave as the reference's one-loop arm.
-- Each statement and knob of a later item raises ``NotImplementedError``
-  naming it, and with no card the session raises instead of running on
-  the CPU.
+- Each statement, knob and planner keyword of a later item raises
+  ``NotImplementedError`` naming it, and with no card the session raises
+  instead of running on the CPU.
 """
 
 import asyncio
@@ -28,7 +28,11 @@ import torch
 import risingwave_tpu.common.epoch as r_epoch
 import risingwave_tpu_torch.common.epoch as p_epoch
 from risingwave_tpu.frontend.planner import PlanError as RefPlanError
-from risingwave_tpu_torch.frontend.planner import PlanError
+from risingwave_tpu_torch.frontend.opt import apply_rewrites
+from risingwave_tpu_torch.frontend.opt.fusion import fuse_fragments
+from risingwave_tpu_torch.frontend.parser import parse
+from risingwave_tpu_torch.frontend.planner import PlanError, StreamPlanner
+from risingwave_tpu_torch.stream.actor import LocalBarrierManager
 from risingwave_tpu_torch.frontend.session import Frontend
 from tests.test_torch_frontend import (  # noqa: F401 — fixture
     Q4, Raises, _port_strict_checker, frontend, nexmark_source, run_both,
@@ -327,7 +331,6 @@ SEGMENTED = ("CREATE SOURCE f (a BIGINT) WITH (connector='filelog', "
 
 
 @pytest.mark.parametrize("sql,item", [
-    ("ALTER MATERIALIZED VIEW m SET PARALLELISM = 4", "10c"),
     ("CREATE SINK s FROM m WITH (connector='blackhole')", "13"),
     ("DROP SINK s", "13"),
     (SEGMENTED, "13"),
@@ -388,12 +391,36 @@ def test_left_out_plans_raise_naming_their_item():
         # a refused plan leaked no sender: barriers still flow
         await asyncio.wait_for(fe.step(3), timeout=30)
         assert (await fe.execute("SELECT count(*) FROM m"))[0][0] > 0
+        # the reference's distributed-plan keywords: any value but the
+        # default names its item (the defaults plan as before)
+        for kw, item in (({"dist_parallelism": 2}, "10d"),
+                         ({"inline_mvs": {"m": None}}, "13")):
+            with pytest.raises(NotImplementedError,
+                               match=rf"ROADMAP\.md queue A item {item}\)"):
+                StreamPlanner(fe.catalog, fe.store, fe.local,
+                              definition="", device="cpu", **kw)
+        plan = StreamPlanner(fe.catalog, fe.store, LocalBarrierManager(),
+                             definition="", device="cpu",
+                             dist_parallelism=1, inline_mvs={}).plan(
+            "x", parse("SELECT auction, count(*) AS c FROM bid GROUP BY "
+                       "auction"), actor_id=0)
+        # so do the rewrite's and the fusion rule's
+        for call in (lambda: apply_rewrites(plan, "all", fusion=True,
+                                            dist_parallelism=2,
+                                            device="cpu"),
+                     lambda: fuse_fragments(plan.consumer,
+                                            dist_parallelism=4,
+                                            device="cpu")):
+            with pytest.raises(NotImplementedError,
+                               match=r"ROADMAP\.md queue A item 10d\)"):
+                call()
         await fe.close()
     asyncio.run(run())
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"parallelism": 4}, "10c"), ({"epoch_pipeline": True}, "12"),
+    ({"parallelism": 4, "epoch_pipeline": True}, "12"),
+    ({"epoch_pipeline": True}, "12"),
 ])
 def test_left_out_session_options_raise(kw, item):
     with pytest.raises(NotImplementedError,
